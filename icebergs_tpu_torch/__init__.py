@@ -1,0 +1,31 @@
+"""icebergs_tpu_torch: the iceberg model on PyTorch and CUDA.
+
+A port of ``icebergs_tpu`` (the JAX package beside it, which stays the
+reference) to PyTorch, with the TPU's Pallas kernels rewritten as CUDA
+kernels for NVIDIA Hopper (``csrc/``, built by :mod:`.cuda_build` at
+first use).  This first slice is the production fast lane: the
+persistent-sorted coupling step with contacts, thermodynamics and
+spreading (:func:`make_multi_step`).  Module names mirror the JAX
+package; each module names its counterpart.
+
+Importing this package imports torch and never jax.  On CPU tensors
+every kernel runs as its plain PyTorch version; on CUDA tensors the
+kernels launch.
+"""
+
+from .config import IcebergsConfig, check_ported
+from .convert import (config_from_dict, forcing_from_numpy,
+                      grid_from_numpy, state_from_numpy, to_numpy)
+from .forcing import Forcing, swirl_forcing, uniform_forcing
+from .grid import Grid, make_uniform_grid, pos_to_cell
+from .model import StepDiags, make_multi_step, make_persistent_multi_step
+from .state import BergState, create_bergs, empty_state
+
+__all__ = [
+    "IcebergsConfig", "check_ported", "config_from_dict",
+    "forcing_from_numpy", "grid_from_numpy", "state_from_numpy",
+    "to_numpy", "Forcing", "swirl_forcing", "uniform_forcing", "Grid",
+    "make_uniform_grid", "pos_to_cell", "StepDiags", "make_multi_step",
+    "make_persistent_multi_step", "BergState", "create_bergs",
+    "empty_state",
+]

@@ -1,0 +1,56 @@
+"""Carry state, grid, forcing and config across from the JAX package.
+
+The JAX side hands over plain data — ``{name: np.asarray(leaf)}`` for a
+state, grid or forcing, and ``dataclasses.asdict(cfg)`` for a config — so
+neither package imports the other.  Field names are shared with
+``icebergs_tpu``; arrays keep their dtype (float32, int32, bool).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .config import IcebergsConfig
+from .forcing import Forcing
+from .grid import Grid
+from .state import BergState
+
+
+def _tensors(cls, d, device):
+    return cls(**{f.name: (v if isinstance(v, int)
+                           else torch.as_tensor(np.array(v)).to(device))
+                  for f in dataclasses.fields(cls)
+                  for v in [d[f.name]]})
+
+
+def state_from_numpy(d, *, device) -> BergState:
+    """A BergState from ``{field: array}`` (extra keys are ignored)."""
+    return _tensors(BergState, d, device)
+
+
+def grid_from_numpy(d, *, device) -> Grid:
+    """A Grid from ``{field: array}`` plus the ints ``nx``/``ny`` (the JAX
+    grid's tile metadata keys are ignored)."""
+    return _tensors(Grid, {**d, "nx": int(d["nx"]), "ny": int(d["ny"])},
+                    device)
+
+
+def forcing_from_numpy(d, *, device) -> Forcing:
+    return _tensors(Forcing, d, device)
+
+
+def config_from_dict(d) -> IcebergsConfig:
+    """An IcebergsConfig from ``dataclasses.asdict`` of the JAX config."""
+    names = {f.name for f in dataclasses.fields(IcebergsConfig)}
+    return IcebergsConfig(**{k: v for k, v in d.items() if k in names})
+
+
+def to_numpy(obj):
+    """``{field: np.ndarray}`` of a BergState, Grid or Forcing (ints stay
+    ints) — the inverse of the ``*_from_numpy`` functions."""
+    return {f.name: (v.detach().cpu().numpy() if torch.is_tensor(v) else v)
+            for f in dataclasses.fields(obj)
+            for v in [getattr(obj, f.name)]}

@@ -1,0 +1,104 @@
+"""Build and load the package's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into one shared library with a plain C interface, at first use, from the
+sources in this checkout only.  The library goes to ``_build/`` under a
+name keyed by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one is reused.  ``-fmad=false`` keeps every
+multiply and add separately rounded, as the reference's arithmetic is.
+
+Nothing here runs at import time; :func:`library` builds and loads on
+its first call and is cached for the life of the process.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+_PKG = pathlib.Path(__file__).resolve().parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-fmad=false", "-Xptxas", "-v")
+
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
+# C entry points: name -> argtypes (each returns cudaGetLastError())
+_SIGNATURES = {
+    "ib_permute_cols_u32": (_P, _P, _P, _I, _L, _L, _P),
+    "ib_extract_sorted": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                          _P),
+    "ib_segment_spread_sums": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
+    "ib_max_spread_extra": (),
+}
+
+
+def _sources():
+    return sorted(p for p in SRC_DIR.iterdir()
+                  if p.suffix in (".cu", ".cuh", ".h"))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (on PATH or under /usr/local/cuda)")
+
+
+def library_path() -> pathlib.Path:
+    """Path of the built library for the current sources (may not exist)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libicebergs_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels unless the current sources are already built;
+    the compiler's resource report goes to ``<library>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus],
+                          capture_output=True, text=True)
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error (a refused launch
+    never runs and a later synchronize would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

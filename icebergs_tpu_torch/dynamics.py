@@ -1,0 +1,290 @@
+"""Time stepping: Verlet evolution and position bookkeeping.
+
+Counterpart of ``icebergs_tpu/dynamics.py`` on the fast lane's path:
+``verlet_step``, ``evolve_icebergs``, ``_advance_position``,
+``adjust_index_and_ground`` with the gather-free 9x9-anchor walk
+(``_walk4``, ``_walk4_compact``), ``_msk25_table`` and ``_msk81_rows``.
+Regular Cartesian grids only; RK4, lat-lon and curvilinear grids are
+later slices (ROADMAP.md Queue 1 items 11 and 15).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import IcebergsConfig
+from .grid import Grid, cell_to_pos
+from .ops.accel import accel
+from .ops.interp import Env
+
+POSN_EPS = 0.05  # pushback after a coast bounce (icebergs.F90:7836)
+
+# mover compaction of the walk, off by default as in the JAX package
+# (dynamics.py:242-257: the compacted walk measured slower than the
+# dense one); kept bitwise identical to the dense walk
+WALK_COMPACT_MIN_N = 1 << 60
+WALK_COMPACT_FRAC = 4
+WALK_COMPACT_CAP_FLOOR = 4096
+
+
+def _frac_coords(grid: Grid, lon, lat):
+    """Global fractional cell coordinates on a regular Cartesian grid."""
+    return (lon - grid.lon0) / grid.dlon, (lat - grid.lat0) / grid.dlat
+
+
+def _msk25_table(msk):
+    """(nx+6, ny+6) int32: bit (dy+2)*5+(dx+2) of cell (p, q) is
+    ``msk2[p+dx, q+dy] > 0`` on a 2-ring zero-padded mask."""
+    msk2 = F.pad(msk, (2, 2, 2, 2))
+    m25 = torch.zeros(msk2.shape, dtype=torch.int32, device=msk.device)
+    kbit = 0
+    for dy in (-2, -1, 0, 1, 2):
+        for dx in (-2, -1, 0, 1, 2):
+            nb = torch.roll(msk2, (-dx, -dy), (0, 1)) > 0.
+            m25 = m25 | (nb.to(torch.int32) << kbit)
+            kbit += 1
+    return m25
+
+
+def _msk81_rows(msk):
+    """(9, nx+10, ny+10) int32: row k, bit (dx+4) of cell (p, q) is
+    ``msk4[p+dx, q+(k-4)] > 0`` on a 4-ring zero-padded mask — the 9x9
+    neighbourhood every 4-iteration walk stays inside."""
+    msk4 = F.pad(msk, (4, 4, 4, 4))
+    rows = []
+    for dy in range(-4, 5):
+        r = torch.zeros(msk4.shape, dtype=torch.int32, device=msk.device)
+        for dx in range(-4, 5):
+            nb = torch.roll(msk4, (-dx, -dy), (0, 1)) > 0.
+            r = r | (nb.to(torch.int32) << (dx + 4))
+        rows.append(r)
+    return torch.stack(rows)
+
+
+def _walk4(grid: Grid, lon, lat, i, j, fx, fy, m81_pre):
+    """The 4-iteration masked land-bounce walk of
+    ``adjust_index_and_ground`` (icebergs.F90:7941-8057) reading the land
+    mask from the berg's 9x9 anchor rows ``m81_pre`` (9, N).  Returns
+    ``(lon, lat, i, j, fx, fy, bounced)``."""
+    dtype = lon.dtype
+    bounced = torch.zeros(lon.shape, dtype=torch.bool, device=lon.device)
+
+    def ocean(oi_off, oj_off):
+        # offsets stay within +-4 over 4 iterations, so the row index is
+        # always in [0, 8]
+        row = m81_pre.gather(0, (oj_off + 4).long()[None])[0]
+        return ((row >> (oi_off + 4)) & 1) > 0
+
+    oi = torch.zeros_like(i)               # offset from the anchor cell
+    oj = torch.zeros_like(j)
+    for _ in range(4):
+        xi = fx - i.to(dtype)
+        yj = fy - j.to(dtype)
+        in_cell = (xi >= 0.) & (xi < 1.) & (yj >= 0.) & (yj < 1.)
+
+        move_w = xi < 0.
+        move_e = xi >= 1.
+        ti = (i - move_w.to(torch.int32) + move_e.to(torch.int32)).clamp(
+            0, grid.nx - 1)
+        dix = ti - i
+        ocean_x = ocean(oi + dix, oj)
+        stepped_x = (~in_cell) & (move_w | move_e)
+        b_x = stepped_x & ((~ocean_x) | (ti == i))
+        moved_x = stepped_x & ocean_x
+        i = torch.where(moved_x, ti, i)
+        oi = torch.where(moved_x, oi + dix, oi)
+
+        move_s = yj < 0.
+        move_n = yj >= 1.
+        tj = (j - move_s.to(torch.int32) + move_n.to(torch.int32)).clamp(
+            0, grid.ny - 1)
+        djy = tj - j
+        ocean_y = ocean(oi, oj + djy)
+        stepped_y = (~in_cell) & (move_s | move_n)
+        b_y = stepped_y & ((~ocean_y) | (tj == j))
+        moved_y = stepped_y & ocean_y
+        j = torch.where(moved_y, tj, j)
+        oj = torch.where(moved_y, oj + djy, oj)
+
+        newly_bounced = b_x | b_y
+        bounced = bounced | newly_bounced
+
+        xi = fx - i.to(dtype)
+        yj = fy - j.to(dtype)
+        xi_c = xi.clamp(POSN_EPS, 1. - POSN_EPS)
+        yj_c = yj.clamp(POSN_EPS, 1. - POSN_EPS)
+        blon, blat = cell_to_pos(grid, i, j, xi_c, yj_c)
+        lon = torch.where(newly_bounced, blon, lon)
+        lat = torch.where(newly_bounced, blat, lat)
+        fx = torch.where(newly_bounced, i.to(dtype) + xi_c, fx)
+        fy = torch.where(newly_bounced, j.to(dtype) + yj_c, fy)
+    return lon, lat, i, j, fx, fy, bounced
+
+
+def _walk4_compact(grid: Grid, lon, lat, i, j, fx, fy, m81_pre):
+    """:func:`_walk4` on the rows that left their cell only, folded back
+    through a rank table; the dense walk when the movers exceed the cap.
+    Bitwise identical to the dense walk.  The branch reads the mover
+    count on the host (one sync)."""
+    N = lon.shape[0]
+    cap = max(WALK_COMPACT_CAP_FLOOR, N // WALK_COMPACT_FRAC)
+    dtype = lon.dtype
+    xi = fx - i.to(dtype)
+    yj = fy - j.to(dtype)
+    mover = ~((xi >= 0.) & (xi < 1.) & (yj >= 0.) & (yj < 1.))
+    if int(mover.sum()) > cap:
+        return _walk4(grid, lon, lat, i, j, fx, fy, m81_pre)
+    rank = torch.cumsum(mover.to(torch.int32), 0, dtype=torch.int32) - 1
+    granted = mover & (rank < cap)
+    code = torch.where(granted, rank, cap).long()
+    sel = torch.zeros(cap + 1, dtype=torch.int64, device=lon.device)
+    sel.index_copy_(0, code, torch.arange(N, device=lon.device))
+    sel = sel[:cap]
+    sub = _walk4(grid, lon[sel], lat[sel], i[sel], j[sel], fx[sel],
+                 fy[sel], m81_pre[:, sel])
+
+    def fold(orig, s):
+        tab = torch.cat([s, s.new_zeros(1)])
+        return torch.where(granted, tab[code], orig)
+
+    return tuple(fold(o, s) for o, s in zip(
+        (lon, lat, i, j, fx, fy, torch.zeros_like(mover)), sub))
+
+
+def adjust_index_and_ground(grid: Grid, cfg: IcebergsConfig, lon, lat,
+                            i, j, m25_pre):
+    """Re-localize bergs after motion, bouncing off land cells
+    (icebergs.F90:7819-8100, regular grid): walk at most 4 cells toward
+    the new position, clamping just inside the current cell where the
+    walk would enter land.  ``m25_pre`` is the table interpolation's
+    ``(m25, m81)`` anchor pair; the walk reads ``m81``.  Without it (the
+    ``with_interp=False`` probe) the 9x9 rows are gathered from the grid:
+    the same mask bits the JAX package's 5x5-anchor walk reads.
+
+    Returns ``(lon, lat, i, j, xi, yj, bounced)``."""
+    if isinstance(m25_pre, tuple) and m25_pre[1] is not None:
+        m81_pre = m25_pre[1]
+    else:
+        m81_pre = _msk81_rows(grid.msk)[:, (i + 5).long(), (j + 5).long()]
+    dtype = lon.dtype
+    fx, fy = _frac_coords(grid, lon, lat)
+    walk = _walk4_compact if lon.shape[0] >= WALK_COMPACT_MIN_N else _walk4
+    lon, lat, i, j, fx, fy, bounced = walk(grid, lon, lat, i, j, fx, fy,
+                                           m81_pre)
+    # final safety clamp (icebergs.F90:8058-8066)
+    xi = fx - i.to(dtype)
+    yj = fy - j.to(dtype)
+    bad = (xi < 0.) | (xi >= 1.) | (yj <= 0.) | (yj > 1.)
+    xi_c = xi.clamp(POSN_EPS, 1. - POSN_EPS)
+    yj_c = yj.clamp(POSN_EPS, 1. - POSN_EPS)
+    clon, clat = cell_to_pos(grid, i, j, xi_c, yj_c)
+    lon = torch.where(bad, clon, lon)
+    lat = torch.where(bad, clat, lat)
+    xi = torch.where(bad, xi_c, xi)
+    yj = torch.where(bad, yj_c, yj)
+    return lon, lat, i, j, xi, yj, bounced
+
+
+def _advance_position(cfg: IcebergsConfig, lon, lat, u, v, dt):
+    """Position update on a Cartesian grid (the metric factors are 1)."""
+    if cfg.grid_is_latlon:
+        raise NotImplementedError("lat-lon grids (ROADMAP.md Queue 1 "
+                                  "item 11)")
+    ones = torch.ones_like(lat)
+    return lon + dt * u * ones, lat + dt * v * ones
+
+
+class EvolveOut(NamedTuple):
+    state: object
+    tickets: torch.Tensor   # speeding tickets this step (0-dim int32)
+    bounced: torch.Tensor   # coast bounces this step (0-dim int32)
+
+
+def _loc_dx(grid: Grid, i, j):
+    """min(dx, dy) around the berg cell (icebergs.F90:2313)."""
+    I, J = (i + 1).long(), (j + 1).long()
+    return torch.minimum(0.5 * (grid.dx[I, J] + grid.dx[I, J - 1]),
+                         0.5 * (grid.dy[I, J] + grid.dy[I - 1, J]))
+
+
+def _cached_env(st) -> Env:
+    return Env(uo=st.uo, vo=st.vo, ui=st.ui, vi=st.vi, ua=st.ua, va=st.va,
+               ssh_x=st.ssh_x, ssh_y=st.ssh_y, sst=st.sst, sss=st.sss,
+               cn=st.cn, hi=st.hi, od=st.od)
+
+
+def verlet_step(st, grid: Grid, frc, cfg: IcebergsConfig, ia_fn=None,
+                m25_pre=None):
+    """Velocity-Verlet step (verlet_stepping + update_verlet_position,
+    icebergs.F90:7203-7330 and 7684-7766)."""
+    dt = cfg.dt
+    dt_2 = 0.5 * dt
+    uvel1, vvel1 = st.uvel, st.vvel
+    axn_p, ayn_p = st.axn, st.ayn
+    uvel_prev = uvel1 - dt_2 * st.bxn
+    vvel_prev = vvel1 - dt_2 * st.byn
+
+    out = accel(cfg, grid, lat=st.lat, mass=st.mass,
+                thickness=st.thickness, width=st.width, length=st.length,
+                n_bonds=st.n_bonds, env=_cached_env(st),
+                uvel=uvel1, vvel=vvel1, uvel0=uvel1, vvel0=vvel1, dt=dt,
+                axn_in=axn_p, ayn_in=ayn_p,
+                loc_dx=_loc_dx(grid, st.ine, st.jne), ia_fn=ia_fn)
+
+    uveln = (uvel1 + dt_2 * axn_p) + dt * out.ax
+    vveln = (vvel1 + dt_2 * ayn_p) + dt * out.ay
+    if cfg.override_iceberg_velocities:
+        uveln = torch.full_like(uveln, cfg.u_override)
+        vveln = torch.full_like(vveln, cfg.v_override)
+
+    moving = st.alive & (st.static_berg < 0.5)
+
+    def sel(new, old):
+        return torch.where(moving, new, old)
+
+    st = st.replace(
+        axn=sel(out.axn, st.axn), ayn=sel(out.ayn, st.ayn),
+        bxn=sel(out.bxn, st.bxn), byn=sel(out.byn, st.byn),
+        uvel=sel(uveln, st.uvel), vvel=sel(vveln, st.vvel),
+        uvel_prev=sel(uvel_prev, st.uvel_prev),
+        vvel_prev=sel(vvel_prev, st.vvel_prev))
+
+    uvel2 = st.uvel + dt_2 * (st.axn + st.bxn)
+    vvel2 = st.vvel + dt_2 * (st.ayn + st.byn)
+    lonn, latn = _advance_position(cfg, st.lon, st.lat, uvel2, vvel2, dt)
+    lonn, latn, i, j, xi, yj, bounced = adjust_index_and_ground(
+        grid, cfg, lonn, latn, st.ine, st.jne, m25_pre)
+
+    st = st.replace(
+        lon=sel(lonn, st.lon), lat=sel(latn, st.lat),
+        ine=torch.where(moving, i, st.ine),
+        jne=torch.where(moving, j, st.jne),
+        xi=sel(xi, st.xi), yj=sel(yj, st.yj))
+    tickets = (out.tickets & moving).sum(dtype=torch.int32)
+    nbounce = (bounced & moving).sum(dtype=torch.int32)
+    return EvolveOut(st, tickets, nbounce)
+
+
+def evolve_icebergs(st, grid: Grid, frc, cfg: IcebergsConfig, ia_fn=None,
+                    m25_pre=None):
+    """One dynamics step for all bergs (evolve_icebergs, icebergs.F90:7081),
+    then the order-invariance copies (7185-7198)."""
+    if cfg.Runge_not_Verlet:
+        raise NotImplementedError("RK4 stepping (ROADMAP.md Queue 1 "
+                                  "item 15)")
+    out = verlet_step(st, grid, frc, cfg, ia_fn=ia_fn, m25_pre=m25_pre)
+    st = out.state
+    if cfg.interactive_icebergs_on:
+        moving = st.alive & (st.static_berg < 0.5)
+
+        def sel(new, old):
+            return torch.where(moving, new, old)
+
+        st = st.replace(uvel_old=sel(st.uvel, st.uvel_old),
+                        vvel_old=sel(st.vvel, st.vvel_old),
+                        lon_old=sel(st.lon, st.lon_old),
+                        lat_old=sel(st.lat, st.lat_old))
+    return EvolveOut(st, out.tickets, out.bounced)

@@ -1,0 +1,189 @@
+"""The coupling step: the production fast lane on a persistent sorted slab.
+
+Counterpart of ``icebergs_tpu/model.py``'s ``StepDiags``,
+``make_persistent_multi_step`` (``model.py:413-612``) and
+``make_multi_step``'s routing (``model.py:615-667``).  One step:
+
+1. table interpolation of the forcing (one K1 read per berg);
+2. the fused3 contact search over the presorted slab (K2) and the
+   Verlet step with the gather-free 9x9-anchor walk;
+3. one (cell, id) re-sort of the whole state (K1), which serves the
+   thermodynamics, the spreading and the next step's search;
+4. thermodynamics with its melt columns deferred;
+5. the spreading segment sums (K3) and the coupler fields.
+
+The JAX ``lax.scan`` becomes a Python loop over ``n_inner`` steps that
+keeps the same coupler-field accumulator.  A step makes no host syncs
+(branch decisions depend on the config only).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .config import IcebergsConfig, check_ported
+from .dynamics import evolve_icebergs
+from .grid import Grid
+from .ops import spread as _spread
+from .ops import thermo as _thermo
+from .ops.fused_contact import FusedContactStats, make_ia_fn_fused3
+from .ops.interp_table import interp_to_bergs_table
+from .ops.sorted import sort_state_by_cell, uniform_state_fields
+
+
+class StepDiags(NamedTuple):
+    nbergs: torch.Tensor
+    tickets: torch.Tensor
+    bounced: torch.Tensor
+    total_mass: torch.Tensor          # sum alive mass*mass_scaling (kg)
+    contact_overflow: torch.Tensor    # fused-search cap drops
+    contact_fallback: torch.Tensor    # bergs on the exact fallback
+    floating_melt: Optional[torch.Tensor] = None   # (nx+2, ny+2) kg/m2/s
+    berg_melt: Optional[torch.Tensor] = None
+    spread_mass: Optional[torch.Tensor] = None
+    spread_area: Optional[torch.Tensor] = None
+    spread_uvel: Optional[torch.Tensor] = None
+    spread_vvel: Optional[torch.Tensor] = None
+    ustar_iceberg: Optional[torch.Tensor] = None
+    mass_on_ocean: Optional[torch.Tensor] = None
+
+
+def make_persistent_multi_step(grid: Grid, cfg: IcebergsConfig,
+                               n_inner: int, with_stats: bool = False, *,
+                               with_thermo: bool = True,
+                               with_interp: bool = True,
+                               with_ia: bool = True,
+                               with_spread: bool = True,
+                               neighbor_mode: Optional[str] = None,
+                               contact_cap: int = 65536,
+                               fused_block_n: int = 128,
+                               fused_window: Optional[int] = None,
+                               fused_fallback_cap: Optional[int] = None,
+                               fused_fallback_strip_width: int = 64):
+    """Persistent-sorted-layout coupling step run ``n_inner`` times.
+
+    Returns ``multi(st, frc)`` giving the cell-sorted final state, or with
+    ``with_stats`` ``(state, max_contact_overflow, max_contact_fallback,
+    coupler_accumulator)``.  ``with_interp`` / ``with_ia`` /
+    ``with_spread`` / ``with_thermo`` = False are measurement probes that
+    drop a phase (``contact_cap`` is accepted for API parity; the fused
+    search is cap-free)."""
+    if not cfg.interactive_icebergs_on or cfg.mts:
+        raise ValueError("the persistent step needs interactive_icebergs_on "
+                         "and no MTS")
+    check_ported(cfg)
+    if neighbor_mode not in (None, "fused3"):
+        raise NotImplementedError(f"neighbor_mode={neighbor_mode!r} "
+                                  "(ROADMAP.md Queue 1 item 14)")
+    window = cfg.fused_window if fused_window is None else fused_window
+    cap = (cfg.fused_fallback_cap if fused_fallback_cap is None
+           else fused_fallback_cap)
+    uniform = uniform_state_fields(cfg)
+    nx, ny = grid.nx, grid.ny
+
+    def step(st, cell_starts, frc):
+        m25_pre = None
+        if with_interp:
+            st, m25_pre = interp_to_bergs_table(st, grid, frc, cfg)
+        if with_ia:
+            ia_fn, fstats = make_ia_fn_fused3(
+                st, grid, cfg, block_n=fused_block_n, window=window,
+                fallback_cap=cap,
+                fallback_strip_width=fused_fallback_strip_width,
+                presorted=True, cell_starts=cell_starts)
+        else:
+            zero = torch.zeros((), dtype=torch.int32, device=st.device)
+            ia_fn, fstats = None, FusedContactStats(zero, zero)
+        out = evolve_icebergs(st, grid, frc, cfg, ia_fn=ia_fn,
+                              m25_pre=m25_pre)
+        st, cell_starts = sort_state_by_cell(out.state, grid,
+                                             static_fields=uniform)
+        key_alive = st.alive           # pre-thermodynamics, for K3
+
+        melt = None
+        if with_thermo:
+            st, melt = _thermo.thermodynamics(st, grid, frc, cfg,
+                                              defer_cell_cols=True)
+        melt_fields = [None] * 3
+        if with_spread:
+            # only floating_melt, calving_hflx and berg_melt of the 14
+            # deferred melt columns are consumed by this step
+            extra = melt.deferred_cols[:3] if melt is not None else None
+            sp = _spread.create_gridded_icebergs_fields(
+                st, grid, frc, cfg, key_alive=key_alive,
+                cell_starts=cell_starts, extra_cell_cols=extra)
+            if extra is not None:
+                sp, melt_fields = sp
+        else:
+            z = torch.zeros(nx + 2, ny + 2, dtype=st.dtype,
+                            device=st.device)
+            sp = _spread.SpreadDiags(*([z] * 6 + [None] * 7))
+        diags = StepDiags(
+            nbergs=st.count(), tickets=out.tickets, bounced=out.bounced,
+            total_mass=torch.where(st.alive, st.mass * st.mass_scaling,
+                                   0.).sum(),
+            contact_overflow=fstats.overflow,
+            contact_fallback=fstats.n_fallback,
+            floating_melt=melt_fields[0], berg_melt=melt_fields[2],
+            spread_mass=sp.spread_mass, spread_area=sp.spread_area,
+            spread_uvel=sp.spread_uvel, spread_vvel=sp.spread_vvel,
+            ustar_iceberg=sp.ustar_iceberg, mass_on_ocean=sp.mass_on_ocean)
+        return st, cell_starts, diags
+
+    def multi(st, frc):
+        if st.capacity >= 1 << 23:
+            raise ValueError("capacity >= 2^23: sorted slots no longer "
+                             "round-trip through float32")
+        zero = torch.zeros((), dtype=torch.int32, device=st.device)
+        ov, fb = zero, zero
+        acc = torch.zeros(nx + 2, ny + 2, dtype=st.dtype, device=st.device)
+        st, cs = sort_state_by_cell(st, grid)
+        for _ in range(n_inner):
+            st, cs, d = step(st, cs, frc)
+            ov = torch.maximum(ov, d.contact_overflow)
+            fb = torch.maximum(fb, d.contact_fallback)
+            # keep the coupler outputs, as the JAX scan carries them
+            for f in (d.spread_mass, d.spread_area, d.ustar_iceberg,
+                      d.mass_on_ocean, d.floating_melt):
+                if f is not None:
+                    acc = acc + f
+        return (st, ov, fb, acc) if with_stats else st
+
+    return multi
+
+
+_PERSISTENT_KW = ("with_thermo", "with_spread", "neighbor_mode",
+                  "contact_cap", "fused_block_n", "fused_window",
+                  "fused_fallback_cap", "fused_fallback_strip_width")
+
+
+def make_multi_step(grid: Grid, cfg: IcebergsConfig, n_inner: int,
+                    with_stats: bool = False,
+                    persistent: Optional[bool] = None, **kw):
+    """``n_inner`` coupling steps with fixed forcing.  Routes eligible
+    configurations (interactive, non-MTS, non-footloose, fused search,
+    full thermodynamics and spreading, no calving) to
+    :func:`make_persistent_multi_step` exactly as the JAX package does;
+    the per-step path is not ported yet."""
+    if persistent is None:
+        nm = kw.get("neighbor_mode")
+        nm = nm if nm is not None else (
+            cfg.resolved_contact_mode()
+            if cfg.interactive_icebergs_on else "buckets")
+        persistent = (
+            cfg.interactive_icebergs_on and not cfg.mts
+            and not cfg.footloose
+            and nm in ("fused", "fused3")
+            and kw.get("with_thermo", True)
+            and kw.get("with_spread", True)
+            and not kw.get("with_calving", False)
+            and kw.get("with_interactions") in (None, True)
+            and all(k in _PERSISTENT_KW for k in kw))
+    if persistent:
+        return make_persistent_multi_step(
+            grid, cfg, n_inner, with_stats,
+            **{k: v for k, v in kw.items() if k in _PERSISTENT_KW})
+    raise NotImplementedError("the per-step coupling path (make_step; "
+                              "ROADMAP.md Queue 1 item 9)")

@@ -1,0 +1,167 @@
+"""K2: contact search + partner-feature extraction over the sorted slab.
+
+Counterpart of ``icebergs_tpu/ops/pallas_prepass.py::contact_extract_sorted_g``
+(``pallas_prepass.py:625-854``) and its bitwise twins.  The layout at this
+function is the JAX one: ``PT`` (16, N) feature rows (``PT_*``), output
+(24, N) rows (``EX_*``) and a per-row bad-block flag.
+
+The bad flags (a block's cell span wider than ``nx - (2r+1)``, or a strip
+that would not fit the TPU kernel's 128-aligned window) are computed here
+exactly as the TPU wrapper computes them (``pallas_prepass.py:663-675``),
+so the set of bergs sent to the exact fallback — and ``n_fallback`` —
+stay the reference's.  Rows of bad blocks carry the "no partner" result
+(count 0, min slot 2N, max slot -1, zero features); the caller discards
+them as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import cuda_build
+
+# PT feature rows (pallas_prepass.py:258-261)
+PT_LON, PT_LAT, PT_U, PT_V, PT_AREA, PT_MASS = range(6)
+PT_RAD, PT_ALIVE, PT_KEY, PT_GRP, PT_FLK = 8, 9, 10, 11, 12
+PT_NF = 16
+PT_NEVAL = 6
+# output rows (pallas_prepass.py:264-267)
+EX_CNT, EX_VMIN, EX_VMAX = 0, 1, 2
+EX_F1 = 4
+EX_F2 = 12
+EX_NOUT = 24
+_NFEAT = 8                    # PT rows 0..7 copied per partner
+_SLACK = float(np.float32(1. + 1e-6))
+
+
+def window_lanes(window: int) -> int:
+    """The TPU kernel's window width WL (128-aligned, with 128 slop)."""
+    return -(-(window + 128) // 128) * 128
+
+
+def block_tables(key_s, cell_starts, nx: int, ny: int, block_n: int,
+                 window: int, radius: int = 1):
+    """Per block of ``block_n`` sorted rows: the strip cell ranges
+    ``(c_lo, c_hi)`` (nblocks, 2r+1) int32 and the bad flag (nblocks,)."""
+    N = key_s.shape[0]
+    ncells = nx * ny
+    nstrips = 2 * radius + 1
+    nblocks = -(-N // block_n)
+    key = torch.cat([key_s.to(torch.int32),
+                     key_s.new_full((nblocks * block_n - N,), ncells,
+                                    dtype=torch.int32)])
+    c0 = key[::block_n]
+    c1c = key[block_n - 1::block_n].clamp(max=ncells - 1)
+    span_bad = (c1c - c0) > (nx - nstrips)
+    offs = torch.arange(-radius, radius + 1, dtype=torch.int32,
+                        device=key.device) * nx
+    c_lo = (c0[:, None] - radius + offs[None, :]).clamp(0, ncells - 1)
+    c_hi = (c1c[:, None] + radius + offs[None, :]).clamp(-1, ncells - 1)
+    cs = cell_starts.long()
+    ws128 = cs[c_lo.long()] // 128
+    win_need = cs[(c_hi + 1).long()] - ws128 * 128
+    win_bad = (win_need > window_lanes(window)).any(dim=1)
+    return c_lo.contiguous(), c_hi.contiguous(), span_bad | win_bad
+
+
+def extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad, block_n: int,
+                         contact_distance: float, chunk_rows: int = 65536):
+    """Plain version: each row's candidates as a (rows, 2r+1, W) slab of
+    strip slots ``cell_starts[c_lo] + k`` (W = the longest strip of a
+    good block), engagement elementwise, count / min / max reductions,
+    features gathered by slot.  Processed in row chunks."""
+    N = PT.shape[1]
+    dev = PT.device
+    nstrips = c_lo.shape[1]
+    big = 2 * N
+    cs = cell_starts.long()
+    start = cs[c_lo.long()]                             # (nb, ns)
+    length = (cs[(c_hi + 1).long()] - start).clamp(min=0)
+    length = torch.where(bad[:, None], 0, length)
+    W = max(int(length.max()) if length.numel() else 0, 1)
+    k = torch.arange(W, device=dev)
+    out = torch.zeros(EX_NOUT, N, dtype=PT.dtype, device=dev)
+    for r0 in range(0, N, chunk_rows):
+        rows = torch.arange(r0, min(N, r0 + chunk_rows), device=dev)
+        blk = rows // block_n
+        cand = start[blk][:, :, None] + k                # (n, ns, W)
+        inrange = k < length[blk][:, :, None]
+        ci = cand.clamp(0, N - 1)
+        clo = c_lo[blk].to(PT.dtype)[:, :, None]
+        chi = c_hi[blk].to(PT.dtype)[:, :, None]
+
+        def own(r):
+            return PT[r, rows][:, None, None]
+
+        def cnd(r):
+            return PT[r][ci]
+
+        valid = (inrange & (cnd(PT_KEY) >= clo) & (cnd(PT_KEY) <= chi)
+                 & (cnd(PT_ALIVE) > 0.5) & (own(PT_ALIVE) > 0.5)
+                 & (cand != rows[:, None, None])
+                 & (own(PT_FLK) != -1.) & (cnd(PT_FLK) != -1.))
+        rx = own(PT_LON) - cnd(PT_LON)
+        ry = own(PT_LAT) - cnd(PT_LAT)
+        r2 = rx * rx + ry * ry
+        crit = (own(PT_RAD) + cnd(PT_RAD)).clamp(min=contact_distance)
+        engaged = valid & (r2 > 0.) & (r2 <= crit * crit * _SLACK)
+        cnt = engaged.sum(dim=(1, 2))
+        vmin = torch.where(engaged, cand, big).amin(dim=(1, 2))
+        vmax = torch.where(engaged, cand, -1).amax(dim=(1, 2))
+        out[EX_CNT, rows] = cnt.to(PT.dtype)
+        out[EX_VMIN, rows] = vmin.to(PT.dtype)
+        out[EX_VMAX, rows] = vmax.to(PT.dtype)
+        has = (cnt > 0)[None, :]
+        out[EX_F1:EX_F1 + _NFEAT, rows] = torch.where(
+            has, PT[:_NFEAT][:, vmin.clamp(max=N - 1)], 0.)
+        out[EX_F2:EX_F2 + _NFEAT, rows] = torch.where(
+            has, PT[:_NFEAT][:, vmax.clamp(min=0)], 0.)
+    return out
+
+
+def extract_sorted(PT, key_s, cell_starts, grid, cfg, *, block_n: int = 128,
+                   window: int = 160, radius: int = 1):
+    """Contact search + extraction.  Returns ``(out (24, N) f32,
+    bad_block (N,) bool)``.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (counted in ``extract_sorted.launches``)."""
+    if PT.dim() != 2 or PT.shape[0] != PT_NF or PT.dtype != torch.float32:
+        raise ValueError(f"PT {tuple(PT.shape)} {PT.dtype}: need "
+                         f"({PT_NF}, N) float32")
+    N = PT.shape[1]
+    ncells = grid.nx * grid.ny
+    if key_s.shape != (N,) or cell_starts.shape != (ncells + 1,):
+        raise ValueError(f"key_s {tuple(key_s.shape)}, cell_starts "
+                         f"{tuple(cell_starts.shape)}")
+    if not (PT.device == key_s.device == cell_starts.device):
+        raise ValueError("PT, key_s and cell_starts on different devices")
+    c_lo, c_hi, bad = block_tables(key_s, cell_starts, grid.nx, grid.ny,
+                                   block_n, window, radius)
+    # expand, not repeat_interleave: the latter reads its size on the host
+    bad_block = bad[:, None].expand(-1, block_n).reshape(-1)[:N]
+    cd = float(cfg.contact_distance)
+    if PT.device.type == "cpu":
+        return (extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad,
+                                     block_n, cd), bad_block)
+    if PT.device.type != "cuda":
+        raise NotImplementedError(f"no K2 kernel for {PT.device}")
+    if not 32 <= block_n <= 1024 or block_n % 32:
+        raise ValueError(f"block_n={block_n}: need a multiple of 32 "
+                         f"in [32, 1024]")
+    if not PT.is_contiguous() or cell_starts.dtype != torch.int32:
+        raise ValueError("PT must be contiguous, cell_starts int32")
+    out = torch.empty(EX_NOUT, N, dtype=torch.float32, device=PT.device)
+    lib = cuda_build.library()
+    badu8 = bad.to(torch.uint8)
+    cuda_build.check(lib.ib_extract_sorted(
+        PT.data_ptr(), N, cell_starts.data_ptr(), c_lo.data_ptr(),
+        c_hi.data_ptr(), badu8.data_ptr(), out.data_ptr(), bad.shape[0],
+        block_n, c_lo.shape[1], cd, _SLACK,
+        cuda_build.stream_ptr(PT.device)), "extract_sorted")
+    extract_sorted.launches += 1
+    return out, bad_block
+
+
+extract_sorted.launches = 0

@@ -1,0 +1,208 @@
+"""Fused interactive-force closure over the presorted slab (fused3).
+
+Counterpart of the presorted path of ``icebergs_tpu/ops/fused_contact.py``
+(``FusedContactStats``, ``_compact``, ``_subset_strip_tables``,
+``_fallback_group``, ``_scatter_fold``, ``_take_rows``, the presorted
+branch of ``_origin_frame_groups_extract`` and
+``make_ia_fn_fused3(presorted=True)``):
+
+1. K2 (:func:`.extract.extract_sorted`) searches each berg's strips and
+   returns the count, min/max partner slots and both partners' features;
+2. bergs with 1-2 partners outside bad blocks are evaluated on a (2, N)
+   partner table built from those features — no partner gathers;
+3. bergs with >= 3 partners or in bad blocks go through the exact
+   fallback over their 3x3-cell strips, compacted to ``fallback_cap``
+   rows and folded back with one small scatter per field.
+
+Overflow (fallback rows beyond the cap, strips wider than the strip
+width) is counted in ``FusedContactStats.overflow``; a nonzero count
+means the result is not exact and the caller must grow the cap.
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+from typing import NamedTuple
+
+import torch
+
+from ..config import IcebergsConfig
+from . import forces as _forces
+from .accel import IA
+from .extract import (EX_CNT, EX_F1, EX_F2, PT_ALIVE, PT_AREA, PT_FLK,
+                      PT_KEY, PT_LAT, PT_LON, PT_MASS, PT_NEVAL, PT_NF,
+                      PT_RAD, PT_U, PT_V, extract_sorted)
+from .sorted import starts_from_sorted_key
+
+
+class FusedContactStats(NamedTuple):
+    overflow: torch.Tensor      # engaged bergs dropped by cap overflow
+    n_fallback: torch.Tensor    # bergs routed through the exact fallback
+
+
+def _compact(flag, cap: int):
+    """Rank-compact the True rows of ``flag`` into ``[0, cap)``: returns
+    ``(sel, valid_row, n_dropped)``, ``sel`` ascending."""
+    N = flag.shape[0]
+    rank = torch.cumsum(flag.to(torch.int32), 0, dtype=torch.int32) - 1
+    granted = flag & (rank < cap)
+    buf = torch.zeros(cap + 1, dtype=torch.int32, device=flag.device)
+    buf.index_copy_(0, torch.where(granted, rank, cap).long(),
+                    torch.arange(N, dtype=torch.int32, device=flag.device))
+    nact = granted.sum(dtype=torch.int32)
+    valid_row = torch.arange(cap, device=flag.device) < nact
+    dropped = (flag & ~granted).sum(dtype=torch.int32)
+    return buf[:cap], valid_row, dropped
+
+
+def _subset_strip_tables(sub, self_ids, full_alive, capacity, cell_starts,
+                         grid, strip_width: int, radius: int = 1):
+    """(2r+1) row strips of candidate sorted slots for a compacted subset:
+    ``(cand_idx, valid, truncated)``."""
+    nx, ny = grid.nx, grid.ny
+    ncells = nx * ny
+    cs = cell_starts.long()
+    offs = torch.arange(strip_width, device=cs.device)
+    cands, valids = [], []
+    truncated = torch.zeros((), dtype=torch.int64, device=cs.device)
+    for dj in range(-radius, radius + 1):
+        jrow = sub.jne + dj
+        ilo = (sub.ine - radius).clamp(0, nx - 1)
+        ihi = (sub.ine + radius).clamp(0, nx - 1)
+        ok_row = (jrow >= 0) & (jrow < ny) & sub.alive
+        jrow_c = jrow.clamp(0, ny - 1)
+        s = cs[torch.where(ok_row, jrow_c * nx + ilo, ncells).long()]
+        e = cs[torch.where(ok_row, jrow_c * nx + ihi + 1, ncells).long()]
+        idx = s[:, None] + offs[None, :]
+        valid = ok_row[:, None] & (idx < e[:, None])
+        truncated = truncated + torch.where(
+            ok_row, (e - s - strip_width).clamp(min=0), 0).sum()
+        cands.append(torch.where(valid, idx, 0))
+        valids.append(valid)
+    cand_idx = torch.cat(cands, dim=1)
+    valid = torch.cat(valids, dim=1)
+    valid = valid & (cand_idx != self_ids[:, None])
+    valid = valid & full_alive[cand_idx.clamp(max=capacity - 1)]
+    return cand_idx, valid, truncated.to(torch.int32)
+
+
+_TAKE_FIELDS = ("lon_old", "lat_old", "fl_k", "uvel_old", "vvel_old",
+                "thickness", "length", "width", "mass")
+
+
+def _take_rows(st, sel):
+    """Compact primary-row view for :func:`forces.precompute_pair_data`."""
+    s = sel.long()
+    return SimpleNamespace(**{f: getattr(st, f)[s] for f in _TAKE_FIELDS})
+
+
+def _fallback_group(st, bad, key_s, cell_starts, grid, cfg, *,
+                    fallback_cap, fallback_strip_width, radius=1):
+    """Exact fallback for >= 3-partner / bad-block rows of the sorted
+    slab: ``(pd_f, sel_f, vrow_f, stats)``."""
+    N = st.capacity
+    sel_f, vrow_f, drop_f = _compact(bad, fallback_cap)
+    s = sel_f.long()
+    sub_f = SimpleNamespace(ine=st.ine[s], jne=st.jne[s],
+                            alive=st.alive[s] & vrow_f)
+    cand_s, valid_f, trunc_f = _subset_strip_tables(
+        sub_f, torch.full_like(sel_f, -1), key_s < grid.nx * grid.ny, N,
+        cell_starts, grid, fallback_strip_width, radius=radius)
+    cand_f = cand_s.clamp(max=N - 1)
+    valid_f = valid_f & (cand_f != sel_f[:, None])
+    pd_f = _forces.precompute_pair_data(
+        _take_rows(st, sel_f), cfg, cand_f, valid_f & vrow_f[:, None],
+        partner_st=st)
+    stats = FusedContactStats(overflow=drop_f + trunc_f,
+                              n_fallback=bad.sum(dtype=torch.int32))
+    return pd_f, sel_f, vrow_f, stats
+
+
+def _scatter_fold(sel_f, vrow_f, capacity):
+    """Fold a compact fallback result back into full-length fields: a
+    scatter into a zero delta (one extra dump row) and an add."""
+    tgt = torch.where(vrow_f, sel_f, capacity).long()
+
+    def fold(x, f):
+        delta = x.new_zeros(capacity + 1).index_add_(
+            0, tgt, torch.where(vrow_f, f, 0.))
+        return x + delta[:capacity]
+    return fold
+
+
+def contact_features(st, grid, cfg: IcebergsConfig):
+    """K2's inputs on the presorted slab: the (PT_NF, N) feature rows and
+    the sorted cell keys (dead rows = ncells)."""
+    N = st.capacity
+    ncells = grid.nx * grid.ny
+    dtype = st.lon.dtype
+    key_s = torch.where(st.alive, st.jne * grid.nx + st.ine,
+                        ncells).to(torch.int32)
+    A = st.length * st.width
+    rows = [torch.zeros(N, dtype=dtype, device=st.device)] * PT_NF
+    for r, f in ((PT_LON, st.lon_old), (PT_LAT, st.lat_old),
+                 (PT_U, st.uvel_old), (PT_V, st.vvel_old), (PT_AREA, A),
+                 (PT_MASS, st.mass),
+                 (PT_RAD, _forces._interaction_radius(cfg, A)),
+                 (PT_ALIVE, st.alive.to(dtype)), (PT_KEY, key_s.to(dtype)),
+                 (PT_FLK, st.fl_k)):
+        rows[r] = f
+    return torch.stack(rows), key_s
+
+
+def _presorted_groups(st, grid, cfg: IcebergsConfig, *, block_n, window,
+                      fallback_cap, fallback_strip_width, cell_starts,
+                      radius=1):
+    """Search + pair data on the presorted slab (the presorted branch of
+    ``_origin_frame_groups_extract``): ``(pd_n, pd_f, sel_f, vrow_f,
+    stats)``."""
+    ncells = grid.nx * grid.ny
+    PT, key_s = contact_features(st, grid, cfg)
+    if cell_starts is None:
+        cell_starts = starts_from_sorted_key(key_s, ncells)
+    out, bad_block = extract_sorted(PT, key_s, cell_starts, grid, cfg,
+                                    block_n=block_n, window=window,
+                                    radius=radius)
+    cnt = out[EX_CNT].to(torch.int32)
+    bad = (bad_block | (cnt > 2)) & (key_s < ncells)
+    normal = (cnt > 0) & ~bad & st.alive
+    m_n = torch.stack([normal, normal & (cnt >= 2)])
+    names = ("lon2", "lat2", "u2", "v2", "A2g", "M2g")
+    partner_fields = {nm: torch.stack([out[EX_F1 + k], out[EX_F2 + k]])
+                      for k, nm in enumerate(names[:PT_NEVAL])}
+    pd_n = _forces.precompute_pair_data_T(st, cfg, m_n,
+                                          partner_fields=partner_fields)
+    pd_f, sel_f, vrow_f, stats = _fallback_group(
+        st, bad, key_s, cell_starts, grid, cfg, fallback_cap=fallback_cap,
+        fallback_strip_width=fallback_strip_width, radius=radius)
+    return pd_n, pd_f, sel_f, vrow_f, stats
+
+
+def make_ia_fn_fused3(st, grid, cfg: IcebergsConfig, *, block_n: int = 128,
+                      window: int = 160, fallback_cap: int = 1024,
+                      fallback_strip_width: int = 64,
+                      presorted: bool = True, cell_starts=None):
+    """Interactive-force closure ``ia_fn(u1, v1) -> IA`` over a slab that
+    is physically (cell, id) sorted, plus its ``FusedContactStats``.
+    Legacy contact dispatch only (no MTS, contact_distance or separate
+    contact spring; no bonds)."""
+    if not presorted:
+        raise NotImplementedError("fused3 on an unsorted slab (ROADMAP.md "
+                                  "Queue 1 item 9)")
+    if not cfg.legacy_contact_dispatch or cfg.iceberg_bonds_on:
+        raise NotImplementedError("modern contact dispatch / bonds "
+                                  "(ROADMAP.md Queue 1 item 10)")
+    pd_n, pd_f, sel_f, vrow_f, stats = _presorted_groups(
+        st, grid, cfg, block_n=block_n, window=window,
+        fallback_cap=fallback_cap,
+        fallback_strip_width=fallback_strip_width, cell_starts=cell_starts)
+    u0, v0 = st.uvel, st.vvel
+    s = sel_f.long()
+    fold = _scatter_fold(sel_f, vrow_f, st.capacity)
+
+    def ia_fn(u1, v1):
+        bn = _forces.eval_pair_ia_T(pd_n, cfg, u0, v0, u1, v1)
+        bf = _forces.eval_pair_ia(pd_f, cfg, u0[s], v0[s], u1[s], v1[s])
+        return IA(*(fold(x, f) for x, f in zip(bn, bf)))
+
+    return ia_fn, stats

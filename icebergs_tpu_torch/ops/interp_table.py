@@ -1,0 +1,203 @@
+"""Single-gather table interpolation of the forcing to the bergs.
+
+Counterpart of the table path of ``icebergs_tpu/ops/pallas_interp.py``
+(``interp_cell_table``, ``_env_rows_from_slots``,
+``interp_to_bergs_table``; ``pallas_interp.py:69-273, 437-496``): every
+per-cell quantity the interpolation reads is precomputed into a
+(64, ncells) slot table, each berg reads its cell's column through K1
+(:func:`..ops.pack.permute_cols_u32`, idx = cell key), and the per-berg
+bilinear / stencil arithmetic follows term for term.  The walk's 5x5 and
+9x9 land-mask anchors ride the same read.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import IcebergsConfig
+from ..grid import Grid
+from .pack import permute_cols_u32
+
+# slot-row layout (pallas_interp.py:48-66)
+S_CORN = 0            # field k, corner (io, jo) -> row 4k + 2io + jo
+S_DDX = 32            # ddx at ((0,1),(0,0),(0,-1),(-1,1),(-1,0),(-1,-1))
+S_DDY = 38            # ddy at ((1,0),(0,0),(-1,0),(1,-1),(0,-1),(-1,-1))
+S_SST, S_SSS, S_CN, S_HI, S_OD = 44, 45, 46, 47, 48
+S_NANX, S_NANY = 49, 50
+S_M25L, S_M25H = 51, 52
+S_M81 = 53            # rows 53..61
+S_NROWS = 64
+
+
+def interp_cell_table(grid: Grid, frc, cfg: IcebergsConfig):
+    """(S_NROWS, ncells) float32 per-cell slot table in cell-key order
+    (key = j*nx + i): the corner values, SSH-stencil slopes with their
+    nonfinite-indicator bits, the A-grid scalars, ocean depth + ssh and
+    the walk anchors — elementwise the values the JAX table holds."""
+    from ..dynamics import _msk25_table, _msk81_rows
+
+    nx, ny = grid.nx, grid.ny
+    dev = grid.msk.device
+    rows = [None] * S_NROWS
+
+    def key_order(a):                    # (nx, ny) -> (ncells,)
+        return a.T.reshape(-1)
+
+    for k, f in enumerate([grid.cosc, grid.sinc, frc.uo, frc.vo, frc.ui,
+                           frc.vi, frc.ua, frc.va]):
+        for io in (0, 1):
+            for jo in (0, 1):
+                rows[S_CORN + 4 * k + 2 * io + jo] = key_order(
+                    f[io:io + nx, jo:jo + ny])
+
+    ii = torch.arange(nx, device=dev) + 1
+    jj = torch.arange(ny, device=dev) + 1
+
+    def center(f, di, dj):
+        # interior read of a halo-padded field at (i+1+di, j+1+dj),
+        # edge-clamped like the reference's edge padding
+        return f[(ii + di).clamp(0, nx + 1)][:, (jj + dj).clamp(0, ny + 1)]
+
+    ssh, msk, dx, dy = frc.ssh, grid.msk, grid.dx, grid.dy
+
+    def ddx(o0, o1):
+        dxp = 0.5 * (center(dx, o0 + 1, o1) + center(dx, o0 + 1, o1 - 1))
+        dx0 = 0.5 * (center(dx, o0, o1) + center(dx, o0, o1 - 1))
+        den = dx0 + dxp
+        v = 2. * (center(ssh, o0 + 1, o1) - center(ssh, o0, o1)) \
+            / den.clamp(min=1e-30) \
+            * center(msk, o0 + 1, o1) * center(msk, o0, o1)
+        return v, den == 0.
+
+    def ddy(o0, o1):
+        dyp = 0.5 * (center(dy, o0, o1 + 1) + center(dy, o0 - 1, o1 + 1))
+        dy0 = 0.5 * (center(dy, o0, o1) + center(dy, o0 - 1, o1))
+        den = dy0 + dyp
+        v = 2. * (center(ssh, o0, o1 + 1) - center(ssh, o0, o1)) \
+            / den.clamp(min=1e-30) \
+            * center(msk, o0, o1 + 1) * center(msk, o0, o1)
+        return v, den == 0.
+
+    # nonfinite stencil slots (den == 0) are stored as 0 with their bit
+    # set; _env_rows_from_slots re-applies the reference NaN scrub
+    for base, nan_row, fn, offs in (
+            (S_DDX, S_NANX, ddx, ((0, 1), (0, 0), (0, -1),
+                                  (-1, 1), (-1, 0), (-1, -1))),
+            (S_DDY, S_NANY, ddy, ((1, 0), (0, 0), (-1, 0),
+                                  (1, -1), (0, -1), (-1, -1)))):
+        bits = torch.zeros(nx * ny, dtype=torch.float32, device=dev)
+        for s, o in enumerate(offs):
+            v, bad = fn(*o)
+            v, bad = key_order(v), key_order(bad)
+            bits = bits + torch.where(bad, float(1 << s), 0.)
+            rows[base + s] = torch.where(bad, 0., v)
+        rows[nan_row] = bits
+
+    def interior(f):
+        return key_order(f[1:nx + 1, 1:ny + 1])
+
+    rows[S_SST] = interior(frc.sst)
+    rows[S_SSS] = interior(frc.sss)
+    rows[S_CN] = interior(frc.cn)
+    rows[S_HI] = interior(frc.hi)
+    rows[S_OD] = interior(grid.ocean_depth + frc.ssh)
+
+    # walk anchors: the 25 packed bits split 13 + 12 so each row is
+    # f32-exact
+    m25 = key_order(_msk25_table(grid.msk)[3:nx + 3, 3:ny + 3])
+    rows[S_M25L] = (m25 & 0x1FFF).to(torch.float32)
+    rows[S_M25H] = (m25 >> 13).to(torch.float32)
+    m81 = _msk81_rows(grid.msk)
+    for k in range(9):
+        rows[S_M81 + k] = key_order(
+            m81[k, 5:nx + 5, 5:ny + 5]).to(torch.float32)
+
+    z = torch.zeros(nx * ny, dtype=torch.float32, device=dev)
+    return torch.stack([z if r is None else r.to(torch.float32)
+                        for r in rows])
+
+
+def _env_rows_from_slots(read, xi, yj, cfg: IcebergsConfig):
+    """Per-berg interpolation arithmetic on slot rows (``read(s)`` gives
+    slot row ``s`` for every berg), term for term as the JAX function."""
+    ob = cfg.old_bug_bilin
+    vals = []
+    for k in range(8):
+        f00 = read(S_CORN + 4 * k + 0)
+        f01 = read(S_CORN + 4 * k + 1)
+        f10 = read(S_CORN + 4 * k + 2)
+        f11 = read(S_CORN + 4 * k + 3)
+        if ob:
+            vals.append((f11 * (1. - xi) + f01 * xi) * (1. - yj)
+                        + (f10 * (1. - xi) + f00 * xi) * yj)
+        else:
+            vals.append((f11 * xi + f01 * (1. - xi)) * yj
+                        + (f10 * xi + f00 * (1. - xi)) * (1. - yj))
+    cos_rot, sin_rot = vals[0], vals[1]
+    uo, vo, ui, vi, ua, va = vals[2:8]
+
+    dX = [read(S_DDX + s) for s in range(6)]
+    dY = [read(S_DDY + s) for s in range(6)]
+    hxp = torch.where(yj >= 0.5, (yj - 0.5) * dX[0] + (1.5 - yj) * dX[1],
+                      (yj + 0.5) * dX[1] + (0.5 - yj) * dX[2])
+    hxm = torch.where(yj >= 0.5, (yj - 0.5) * dX[3] + (1.5 - yj) * dX[4],
+                      (yj + 0.5) * dX[4] + (0.5 - yj) * dX[5])
+    ssh_x = xi * hxp + (1. - xi) * hxm
+    hyp = torch.where(xi >= 0.5, (xi - 0.5) * dY[0] + (1.5 - xi) * dY[1],
+                      (xi + 0.5) * dY[1] + (0.5 - xi) * dY[2])
+    hym = torch.where(xi >= 0.5, (xi - 0.5) * dY[3] + (1.5 - xi) * dY[4],
+                      (xi + 0.5) * dY[4] + (0.5 - xi) * dY[5])
+    ssh_y = yj * hyp + (1. - yj) * hym
+
+    def rot(u, v):
+        return cos_rot * u + sin_rot * v, cos_rot * v - sin_rot * u
+
+    uo, vo = rot(uo, vo)
+    ui, vi = rot(ui, vi)
+    ua, va = rot(ua, va)
+    ssh_x, ssh_y = rot(ssh_x, ssh_y)
+
+    # the reference NaN scrub (icebergs.F90:4893-4894) from the table's
+    # nonfinite-indicator bits: slots (0,1,3,4) feed the yj >= 0.5 /
+    # xi >= 0.5 branch, slots (1,2,4,5) the other
+    bx = read(S_NANX).to(torch.int32)
+    by = read(S_NANY).to(torch.int32)
+    mlo, mhi = 0b011011, 0b110110
+    px = bx & torch.where(yj >= 0.5, mlo, mhi).to(torch.int32)
+    py = by & torch.where(xi >= 0.5, mlo, mhi).to(torch.int32)
+    poison = (px | py) != 0
+    ssh_x = torch.where(poison, 0., ssh_x)
+    ssh_y = torch.where(poison, 0., ssh_y)
+    return [uo, vo, ui, vi, ua, va, ssh_x, ssh_y,
+            read(S_SST), read(S_SSS), read(S_CN), read(S_HI),
+            read(S_OD), read(S_M25L), read(S_M25H)]
+
+
+def interp_to_bergs_table(st, grid: Grid, frc, cfg: IcebergsConfig):
+    """Cache the interpolated environment on every berg.
+
+    Returns ``(state_with_env, (m25_pre, m81_pre))``: the walk's packed
+    5x5 anchor (N,) and 9x9 anchor rows (9, N), int32."""
+    if cfg.coastal_drift != 0. or cfg.tidal_drift != 0. or cfg.mts:
+        raise NotImplementedError(
+            "table interpolation with coastal/tidal drift or MTS "
+            "(ROADMAP.md Queue 1 items 10-11)")
+    ncells = grid.nx * grid.ny
+    key = torch.where(st.alive, st.jne * grid.nx + st.ine,
+                      ncells).to(torch.int32)
+    tbl = interp_cell_table(grid, frc, cfg)
+    tbl = torch.cat([tbl, tbl.new_zeros(S_NROWS, 1)], dim=1)
+    rows = permute_cols_u32(tbl.view(torch.int32), key).view(torch.float32)
+
+    def read(s):
+        return rows[s]
+
+    out = _env_rows_from_slots(read, st.xi, st.yj, cfg)
+    m25_pre = out[13].to(torch.int32) + out[14].to(torch.int32) * 8192
+    m81_pre = torch.stack([read(S_M81 + k).to(torch.int32)
+                           for k in range(9)])
+    st = st.replace(uo=out[0], vo=out[1], ui=out[2], vi=out[3],
+                    ua=out[4], va=out[5], ssh_x=out[6], ssh_y=out[7],
+                    sst=out[8], sss=out[9], cn=out[10], hi=out[11],
+                    od=out[12])
+    return st, (m25_pre, m81_pre)

@@ -1,0 +1,148 @@
+"""PyTorch port: state, grid, forcing, config and checksum against the JAX
+package (bitwise), and the port's independence from jax."""
+
+import dataclasses
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import icebergs_tpu as ibt
+from icebergs_tpu.diag import berg_chksum as jax_chksum
+from icebergs_tpu.grid import pos_to_cell as jax_pos_to_cell
+from icebergs_tpu.state import pack_id as jax_pack_id
+
+import icebergs_tpu_torch as ibp
+from icebergs_tpu_torch.diag import berg_chksum
+from icebergs_tpu_torch.grid import cell_to_pos
+from icebergs_tpu_torch.state import pack_id
+
+torch.set_num_threads(1)
+CPU = torch.device("cpu")
+
+
+def leaves(obj):
+    """{field: numpy} of a JAX pytree dataclass (ints stay ints)."""
+    return {f.name: (v if isinstance(v, int) or v is None else np.asarray(v))
+            for f in dataclasses.fields(obj)
+            for v in [getattr(obj, f.name)]}
+
+
+def _bergs(n=40, cap=64, seed=0):
+    rng = np.random.RandomState(seed)
+    kw = dict(lon=rng.uniform(2e3, 30e3, n), lat=rng.uniform(2e3, 30e3, n),
+              uvel=rng.uniform(-.3, .3, n), vvel=rng.uniform(-.3, .3, n),
+              mass=rng.uniform(1e8, 1e10, n), thickness=40., width=150.,
+              length=rng.uniform(100., 300., n), mass_scaling=2.,
+              id_cnt=rng.permutation(n) + 1)
+    return (ibt.create_bergs(cap, **kw),
+            ibp.create_bergs(cap, device=CPU, **kw))
+
+
+def assert_same(jax_obj, torch_obj):
+    J, T = leaves(jax_obj), ibp.to_numpy(torch_obj)
+    for name, t in T.items():
+        j = J[name]
+        if isinstance(t, int):
+            assert t == j, name
+        else:
+            assert t.dtype == j.dtype, name
+            np.testing.assert_array_equal(t, j, err_msg=name)
+
+
+def test_create_bergs_grid_forcing_match_jax():
+    js, ts = _bergs()
+    assert_same(js, ts)
+    assert_same(ibt.make_uniform_grid(20, 12, 0., 0., 2000., 2000.,
+                                      grid_is_latlon=False),
+                ibp.make_uniform_grid(20, 12, 0., 0., 2000., 2000.,
+                                      grid_is_latlon=False, device=CPU))
+    assert_same(ibt.swirl_forcing(20, 12, 2000., uo=0.3, ua=5., sst=4.,
+                                  sss=33.),
+                ibp.swirl_forcing(20, 12, 2000., uo=0.3, ua=5., sst=4.,
+                                  sss=33., device=CPU))
+    assert_same(ibt.uniform_forcing(5, 7, uo=0.1, sst=2.),
+                ibp.uniform_forcing(5, 7, uo=0.1, sst=2., device=CPU))
+
+
+def test_converters_round_trip():
+    js, _ = _bergs()
+    grid = ibt.make_uniform_grid(20, 12, 0., 0., 2000., 2000.,
+                                 grid_is_latlon=False)
+    frc = ibt.swirl_forcing(20, 12, 2000.)
+    ts = ibp.state_from_numpy(leaves(js), device=CPU)
+    tg = ibp.grid_from_numpy(leaves(grid), device=CPU)
+    tf = ibp.forcing_from_numpy(leaves(frc), device=CPU)
+    for j, t in ((js, ts), (grid, tg), (frc, tf)):
+        assert_same(j, t)
+    # and back: to_numpy feeds the *_from_numpy functions unchanged
+    assert_same(js, ibp.state_from_numpy(ibp.to_numpy(ts), device=CPU))
+    cfg = ibt.IcebergsConfig(dt=600., interactive_icebergs_on=True,
+                             fused_fallback_cap=4096)
+    tcfg = ibp.config_from_dict(dataclasses.asdict(cfg))
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(cfg)
+    assert tcfg.resolved_contact_mode() == cfg.resolved_contact_mode()
+
+
+def test_pos_to_cell_and_pack_id_match_jax():
+    js, ts = _bergs(n=64)
+    grid = ibt.make_uniform_grid(20, 12, 0., 0., 2000., 2000.,
+                                 grid_is_latlon=False)
+    tg = ibp.grid_from_numpy(leaves(grid), device=CPU)
+    for j, t in zip(jax_pos_to_cell(grid, js.lon, js.lat, -1.),
+                    ibp.pos_to_cell(tg, ts.lon, ts.lat, -1.)):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    i, j, xi, yj = ibp.pos_to_cell(tg, ts.lon, ts.lat, -1.)
+    lon, lat = cell_to_pos(tg, i, j, xi, yj)
+    np.testing.assert_allclose(lon.numpy(), ts.lon.numpy(), rtol=1e-6)
+    np.testing.assert_array_equal(pack_id(ts.id_cnt, ts.id_ij).numpy(),
+                                  np.asarray(jax_pack_id(js.id_cnt,
+                                                         js.id_ij)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_berg_chksum_matches_jax(seed):
+    js, _ = _bergs(seed=seed)
+    rng = np.random.RandomState(seed + 10)
+    # scramble every hashed field (negative floats, large bit patterns)
+    # and kill a few slots so the live mask matters
+    d = leaves(js)
+    for f in ("axn", "ayn", "bxn", "byn", "start_day", "heat_density",
+              "mass_of_bits"):
+        d[f] = rng.standard_normal(d[f].shape).astype(np.float32) * 1e3
+    d["alive"] = d["alive"] & (rng.uniform(size=d["alive"].shape) > 0.2)
+    js = js.replace(**{k: v for k, v in d.items() if k != "alive"},
+                    alive=d["alive"])
+    total, n = jax_chksum(js)
+    ttotal, tn = berg_chksum(ibp.state_from_numpy(d, device=CPU))
+    assert int(ttotal) == int(total)
+    assert int(tn) == int(n)
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, icebergs_tpu_torch, icebergs_tpu_torch.model, "
+            "icebergs_tpu_torch.cuda_build\n"
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m.startswith('icebergs_tpu.') "
+            "or m == 'icebergs_tpu']\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+def test_unported_settings_raise():
+    cfg = ibp.IcebergsConfig(grid_is_latlon=False, Runge_not_Verlet=False,
+                             interactive_icebergs_on=True)
+    ibp.check_ported(cfg)
+    for kw in (dict(interp_mode="kernel"), dict(interp_mode="xla"),
+               dict(contact_epilogue=True), dict(Runge_not_Verlet=True),
+               dict(slot_sum_method="scatter"), dict(mts=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ibp.check_ported(cfg.replace(**kw))
+    for impl in ("gathered", "manual", "pipelined"):
+        ibp.check_ported(cfg.replace(extract_impl=impl, spread_impl=impl))
+    grid = ibp.make_uniform_grid(4, 4, 0., 0., 1., 1., grid_is_latlon=False,
+                                 device=CPU)
+    with pytest.raises(NotImplementedError, match="per-step"):
+        ibp.make_multi_step(grid, cfg, 1, persistent=False)
