@@ -9,17 +9,31 @@ Phases, one line each:
 
 1. environment: a CUDA device must be present (exit 1 otherwise); prints
    the card's name and power limit as nvidia-smi reports them;
-2. build: compiles the CUDA kernels from ``icebergs_tpu_torch/csrc``;
+2. build: compiles the CUDA kernels from ``icebergs_tpu_torch/csrc``
+   and prints each kernel's registers and spills;
 3. kernels: K1 (column permute), K2 (contact extraction) and K3 (spread
-   segment sums) against their plain PyTorch versions on the card, at the
-   shapes the headline world gives them, with both times;
+   segment sums) at the shapes the headline world gives them, and K2
+   with the conglomerate filter (radius 2, block 256, window 512) and K4
+   (the DEM substep loop, 60 substeps) at the shapes of the 1M-element
+   DEM world, each against its plain PyTorch version on the card, with
+   both times, a library call's time where one computes the same
+   function, and the bound computed from the inputs;
 4. cross-check: a 50k-berg world runs 2 steps on the card and, with the
    plain versions, on a CPU copy; integer outputs must match exactly,
    floats within a stated tolerance;
+4b. DEM cross-check: 20 conglomerates of 22x22 elements, 2.5-3.5 km
+   apart, run one MTS outer step on the card and on a CPU copy; ids,
+   cells, bond tables and the MTS counters must match exactly, floats
+   within a stated tolerance;
 5. the slice: the headline world of ``bench.py`` (1M bergs, 512x512 grid
    of 2 km cells, contacts, melt, rolling, reproducible spreading, swirl
    forcing) through ``make_multi_step`` for 8 steps after a warm-up,
-   timed over 3 windows, with every kernel's launch count.
+   timed over 3 windows, with every kernel's launch count;
+6. the DEM slice: the world of ``tools/bench_dem_1m.py`` (2066
+   conglomerates of 22x22 bonded elements, 999,944 in all, 512x512 grid
+   of 7 km cells, dt 600 s, 60 substeps) packed one conglomerate per
+   512-slot block, through ``make_multi_step`` with the substep kernel,
+   2 outer steps per window after a warm-up, timed over 3 windows.
 
 The last two lines are a JSON object with each kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -47,6 +61,51 @@ INNER = 8
 # differently (~1 ulp), amplified at most ~100x over 2 steps by the
 # contact springs
 CROSS_RTOL, CROSS_ATOL_SCALE = 1e-5, 2e-5
+
+# the DEM world of tools/bench_dem_1m.py:50-112
+DEM_UNITS, DEM_SIDE, DEM_R, NX_DEM, DXY_DEM = 2066, 22, 1500.0, 512, 7000.0
+DEM_BLOCK = 512             # one 484-element conglomerate per block
+DEM_INNER = 2               # outer steps per timed window
+DEM_CAP0 = 65536            # Part-1 fallback cap (bench_dem_1m.py:172-181)
+DEM_CROSS_UNITS, NX_DEM_CROSS = 20, 128
+# K4 against its plain version on the card: both round every operation
+# separately (-fmad=false, IEEE sqrtf / sinf / division), so they are
+# expected bitwise; the bound allows for one ulp in a library sin grown
+# by the stiff bonds (k = 5e6) over 60 substeps, as tests/test_torch_dem.py
+# measured for a one-ulp bond length (<= 1.5e-3 of scale)
+K4_ATOL_SCALE = 2e-3
+# the DEM cross-check, card against CPU, after one outer step: integers
+# exact.  Floats cannot be held to a fixed bound: the 60 stiff substeps
+# (dtf 10 s against the 11.7 s stability limit) turn one ulp in the
+# initial velocities into percents of the velocities' and accelerations'
+# scale, and the card and the CPU differ by a few ulps where their sin
+# and their reduction orders differ.  So the same
+# run measures that one-ulp response on the CPU and each float field of
+# the card must lie within DEM_CROSS_ULP_FACTOR times it, or within
+# DEM_CROSS_FLOOR of scale where the response is smaller
+DEM_CROSS_ULP_FACTOR, DEM_CROSS_FLOOR = 10.0, 2e-5
+
+# the card's published peaks (NVIDIA H100 SXM data sheet) for the bounds
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+# K4's float operations, counted from csrc/dem_substeps.cu's loop body
+# (sqrt, division and sin as one each): per bond slot per substep, and per
+# element per substep (drift, assembly, kick, angular update)
+K4_FLOPS_PER_SLOT, K4_FLOPS_PER_ELEMENT = 185, 40
+# K2: per candidate pair test (separation, crit, compares); K3: per row
+K2_FLOPS_PER_PAIR, K3_FLOPS_PER_ROW_BASE = 12, 110
+
+
+def bound(nbytes: float, flops: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the fp32 peak."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / FP32_FLOPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def fail(msg: str):
@@ -80,6 +139,104 @@ def headline_world(ibp, torch, n, nx, device, seed=0):
                           device=device)
     i, j, xi, yj = ibp.pos_to_cell(grid, st.lon, st.lat, -1.0)
     return cfg, grid, frc, st.replace(ine=i, jne=j, xi=xi, yj=yj)
+
+
+def dem_config(ibp, **kw):
+    """The iKID flag set of tools/bench_dem_1m.py:27-47."""
+    base = dict(
+        grid_is_latlon=False, Lx=-1.0, use_f_plane=True, lat_ref=-55.0,
+        dt=600.0, Runge_not_Verlet=False, mts=True, mts_sub_steps=60,
+        explicit_inner_mts=True, dem=True, dem_spring_coef=5.e6,
+        dem_damping_coef=1.0, poisson=0.3, interactive_icebergs_on=True,
+        iceberg_bonds_on=True, spring_coef=0.00065359477124183,
+        contact_spring_coef=1.e-7, contact_distance=4.e3,
+        force_convergence=True, convergence_tolerance=1e-4,
+        use_broken_bonds_for_substep_contact=True,
+        break_bonds_on_sub_steps=True, fracture_criterion="stress",
+        frac_thres_scaling=1., frac_thres_n=18.e3, frac_thres_t=100.e3,
+        constant_interaction_LW=True, constant_length=3000.,
+        constant_width=3000., manually_initialize_bonds=True,
+        manually_initialize_bonds_from_radii=True,
+        allow_bergs_to_roll=False, max_bonds=6, hexagonal_icebergs=False,
+        fused_fallback_cap=DEM_CAP0)
+    base.update(kw)
+    return ibp.IcebergsConfig(**base).normalized(warn=False)
+
+
+def dem_world(ibp, torch, cfg, n_units, nx, device, *, gaps=None,
+              cols=None, jitter=0.0, vel_spread=0.0, seed=0):
+    """tools/bench_dem_1m.py:50-112 made with the port's numpy functions:
+    square 22x22 conglomerates at 2r spacing, bonded once as a prototype
+    and replicated with slot offsets, then packed one conglomerate per
+    ``DEM_BLOCK`` slots.  ``gaps=(gx, gy)`` packs the units edge to edge
+    at those gaps, ``cols`` to a row, instead of spreading them over the
+    grid in a square array; ``jitter``
+    (m) moves each element and ``vel_spread`` (m/s) gives each unit its
+    own velocity, from ``seed``.  Returns (grid, frc, state, deltas, n)."""
+    import numpy as np
+    from icebergs_tpu_torch.ops import forces
+    from icebergs_tpu_torch.ops.dem_substeps import (
+        analyze_bond_deltas, pack_conglomerates_blocked)
+
+    side, r = DEM_SIDE, DEM_R
+    per = side * side
+    n = n_units * per
+    cap = 1 << int(np.ceil(np.log2(n + 1)))
+    px, py = np.meshgrid(np.arange(side) * 2 * r, np.arange(side) * 2 * r,
+                         indexing="ij")
+    px, py = px.ravel(), py.ravel()
+    uside = cols or int(np.ceil(np.sqrt(n_units)))
+    if gaps is None:
+        pitch_x = pitch_y = (nx * DXY_DEM - 4 * DXY_DEM - side * 2 * r) / uside
+    else:
+        ext = 2 * r * (side - 1)
+        pitch_x, pitch_y = ext + gaps[0], ext + gaps[1]
+    u = np.arange(n_units)
+    lon = (px[None] + 2 * DXY_DEM + (u % uside)[:, None] * pitch_x).ravel()
+    lat = (py[None] + 2 * DXY_DEM + (u // uside)[:, None] * pitch_y).ravel()
+    rng = np.random.RandomState(seed)
+    lon = lon + rng.uniform(-jitter, jitter, n)
+    lat = lat + rng.uniform(-jitter, jitter, n)
+    uvel = np.repeat(0.22 + rng.uniform(-vel_spread, vel_spread, n_units),
+                     per)
+    vvel = np.repeat(rng.uniform(-vel_spread, vel_spread, n_units), per)
+
+    grid = ibp.make_uniform_grid(nx, nx, 0., 0., DXY_DEM, DXY_DEM,
+                                 grid_is_latlon=False, device=device)
+    frc = ibp.uniform_forcing(nx, nx, uo=0.25, vo=0.05, ua=5.0, sst=-2.0,
+                              sss=34.0, device=device)
+    st = ibp.create_bergs(cap, lon=lon, lat=lat, uvel=uvel, vvel=vvel,
+                          mass=850. * 200. * (2 * r) ** 2, thickness=200.,
+                          width=2 * r, length=2 * r, mass_scaling=1.0,
+                          id_cnt=np.arange(n) + 1, max_bonds=6,
+                          device=device)
+    i, j, xi, yj = ibp.pos_to_cell(grid, st.lon, st.lat, -1.0)
+    st = st.replace(ine=i, jne=j, xi=xi, yj=yj)
+
+    proto = ibp.create_bergs(1 << int(np.ceil(np.log2(per + 1))), lon=px,
+                             lat=py, mass=1., thickness=200., width=2 * r,
+                             length=2 * r, mass_scaling=1., max_bonds=6,
+                             device=torch.device("cpu"))
+    proto = forces.initialize_bonds_host(proto, cfg)
+    pbond = proto.bond_idx.numpy()[:per]
+    pblen = proto.bond_length.numpy()[:per]
+    bond_idx = np.full((cap, 6), -1, np.int32)
+    bond_len = np.zeros((cap, 6), np.float32)
+    cong = np.zeros(cap, np.int32)
+    offs = (u * per)[:, None, None]
+    bond_idx[:n] = np.where(pbond[None] >= 0, pbond[None] + offs,
+                            -1).reshape(n, 6)
+    bond_len[:n] = np.broadcast_to(pblen[None], (n_units, per, 6)
+                                   ).reshape(n, 6)
+    cong[:n] = np.repeat(u + 1, per)
+    st = forces.count_bonds(st.replace(
+        bond_idx=torch.as_tensor(bond_idx, device=device),
+        bond_length=torch.as_tensor(bond_len, device=device),
+        conglom_id=torch.as_tensor(cong, device=device)))
+    st = pack_conglomerates_blocked(st, DEM_BLOCK)
+    deltas = analyze_bond_deltas(st.bond_idx, DEM_BLOCK)
+    require(deltas, "the DEM world is not block-closed")
+    return grid, frc, st, deltas, n
 
 
 def cuda_ms(torch, fn, reps=20):
@@ -133,11 +290,14 @@ def phase_kernels(ibp, torch, device):
     require(torch.equal(pack.permute_cols_u32(tbits, key),
                         pack.permute_cols_u32_plain(tbits, key)),
             "K1 differs from R[:, idx] (table)")
+    order_l = order.long()
     res = {"permute_cols_u32": dict(
         err=max_abs_err(torch, k1, k1p),
         ms=cuda_ms(torch, lambda: pack.permute_cols_u32(R, order)),
         plain_ms=cuda_ms(torch, lambda: pack.permute_cols_u32_plain(
             R, order), reps=5),
+        library_ms=cuda_ms(torch, lambda: torch.index_select(R, 1, order_l)),
+        bound=bound(nbytes(R, order, k1), 0.),
         note=(f"C={R.shape[0]} N={R.shape[1]}; table C=64: "
               f"{cuda_ms(torch, lambda: pack.permute_cols_u32(tbits, key)):.3f}"
               f" ms"))}
@@ -163,7 +323,12 @@ def phase_kernels(ibp, torch, device):
             PT, key_s, cs, grid, cfg, block_n=128,
             window=cfg.fused_window)),
         plain_ms=cuda_ms(torch, lambda: extract.extract_sorted_plain(
-            PT, cs, c_lo, c_hi, bad, 128, 0.0), reps=2),
+            PT, cs, c_lo, c_hi, bad, 128, float(cfg.contact_distance)),
+            reps=2),
+        library_ms=None,
+        bound=bound(nbytes(PT, cs, c_lo, c_hi, bad, out),
+                    K2_FLOPS_PER_PAIR * k2_pair_tests(torch, PT, cs, c_lo,
+                                                      c_hi, bad, 128)),
         note=(f"N={N_HEAD} bad_blocks={int(bad.sum())}/{bad.numel()} "
               f"engaged_rows={int((outp[extract.EX_CNT] > 0).sum())}"))
 
@@ -182,9 +347,127 @@ def phase_kernels(ibp, torch, device):
             rows_s, cs, tblc, cfg, 3)),
         plain_ms=cuda_ms(torch, lambda: ss.segment_spread_sums_plain(
             rows_s, cs, tblc, cfg), reps=5),
+        library_ms=None,
+        bound=bound(nbytes(rows_s, cs, tblc, S),
+                    (K3_FLOPS_PER_ROW_BASE + 3) * int(st.alive.sum())),
         note=(f"ncells={ncells} R={rows_s.shape[0]} window_bad="
               f"{int(sbad.sum())} max_occupancy="
               f"{int((cs[1:] - cs[:-1]).max())}"))
+    return res
+
+
+def k2_pair_tests(torch, PT, cs, c_lo, c_hi, bad, block_n):
+    """Candidate pair tests K2 makes on these inputs: for each good block,
+    its live rows times the slots of its strips."""
+    from icebergs_tpu_torch.ops.extract import PT_ALIVE
+    csl = cs.long()
+    cand = (csl[(c_hi + 1).long()] - csl[c_lo.long()]).clamp(min=0).sum(1)
+    nb = bad.numel()
+    live = torch.zeros(nb * block_n, device=PT.device)
+    live[:PT.shape[1]] = (PT[PT_ALIVE] > 0.5).float()
+    rows = live.view(nb, block_n).sum(1)
+    return float((torch.where(bad, 0, cand).double() * rows).sum())
+
+
+def k4_flops(torch, st, cfg):
+    """K4's operations on these inputs: every bonded slot (intact or
+    broken) of a moving element and every moving element, per substep."""
+    mv = st.alive & (st.static_berg < 0.5)
+    slots = int(((st.bond_idx >= 0) & mv[:, None]).sum())
+    return cfg.n_sub_steps * (K4_FLOPS_PER_SLOT * slots
+                              + K4_FLOPS_PER_ELEMENT * int(mv.sum()))
+
+
+def phase_kernels_dem(ibp, torch, device, cfg, world):
+    """K2 with the conglomerate filter and K4 at the DEM world's shapes,
+    each against its plain version."""
+    import numpy as np
+    from icebergs_tpu_torch.ops import dem_substeps as k4, extract
+    from icebergs_tpu_torch.ops import sorted as srt
+    from icebergs_tpu_torch.ops.fused_contact import contact_features
+    from icebergs_tpu_torch.ops.pack import (from_bits, permute_cols_u32,
+                                             to_bits)
+
+    grid, frc, st, deltas, n = world
+    ncells = grid.nx * grid.ny
+    # K2 as Part 1 runs it: the unsorted slab's feature rows moved into
+    # (cell, id) order, radius 2, block 256, window 512
+    PT0, key = contact_features(st, grid, cfg, exclude_same_group=True)
+    order = srt.lex_cell_id_order(key, st.id_cnt, st.id_ij)
+    PT = from_bits(permute_cols_u32(to_bits(PT0), order), PT0.dtype)
+    key_s = key[order.long()]
+    cs = srt.starts_from_sorted_key(key_s, ncells)
+    bn, win, rad = 256, 512, 2
+    cd = float(cfg.contact_distance)
+
+    def k2():
+        return extract.extract_sorted(PT, key_s, cs, grid, cfg, block_n=bn,
+                                      window=win, radius=rad,
+                                      exclude_same_group=True)
+    out, bad_block = k2()
+    c_lo, c_hi, bad = extract.block_tables(key_s, cs, grid.nx, grid.ny, bn,
+                                           win, radius=rad)
+
+    def k2p():
+        return extract.extract_sorted_plain(PT, cs, c_lo, c_hi, bad, bn, cd,
+                                            exclude_same_group=True)
+    outp = k2p()
+    ints = [extract.EX_CNT, extract.EX_VMIN, extract.EX_VMAX]
+    require(torch.equal(out[ints], outp[ints]),
+            "grouped K2 count / min / max slot differ from the plain version")
+    require(torch.equal(out[:, ~bad_block], outp[:, ~bad_block]),
+            "grouped K2 features differ from the plain version")
+    cnt = outp[extract.EX_CNT]
+    res = {"extract_sorted/grouped": dict(
+        err=max_abs_err(torch, out, outp), ms=cuda_ms(torch, k2),
+        plain_ms=cuda_ms(torch, k2p, reps=2), library_ms=None,
+        bound=bound(nbytes(PT, cs, c_lo, c_hi, bad, out),
+                    K2_FLOPS_PER_PAIR * k2_pair_tests(torch, PT, cs, c_lo,
+                                                      c_hi, bad, bn)),
+        note=(f"N={PT.shape[1]} radius {rad} BN {bn} window {win} "
+              f"bad_blocks={int(bad.sum())}/{bad.numel()} engaged_rows="
+              f"{int((cnt > 0).sum())} rows_3plus={int((cnt > 2).sum())}"))}
+
+    # K4 on the packed world, each element moved by up to 8 m so that
+    # some bonds fracture and broken-bond contact engages
+    rng = np.random.RandomState(5)
+    jit = [torch.as_tensor(rng.uniform(-8., 8., st.capacity)).to(
+        device, st.dtype) * st.alive for _ in range(2)]
+    s4 = st.replace(lon=st.lon + jit[0], lat=st.lat + jit[1],
+                    lon_old=st.lon + jit[0], lat_old=st.lat + jit[1])
+    out4, nb4 = k4.part3_substeps_vmem(s4, cfg, deltas, DEM_BLOCK)
+    outp4, nbp4 = k4.part3_substeps_plain(s4, cfg, deltas, DEM_BLOCK)
+    require(int(nb4) == int(nbp4), f"K4 nbroken {int(nb4)} != plain "
+            f"{int(nbp4)}")
+    for name in ("bond_broken", "n_bonds"):
+        require(torch.equal(getattr(out4, name), getattr(outp4, name)),
+                f"K4 {name} differs from the plain version")
+    worst, err, bitwise = 0.0, 0.0, True
+    for name in k4._CAR_FIELDS + k4._BOND_FIELDS:
+        a, b = getattr(out4, name), getattr(outp4, name)
+        bitwise = bitwise and torch.equal(a, b)
+        e = max_abs_err(torch, a, b)
+        err = max(err, e)
+        worst = max(worst, e / max(float(b.abs().max()), 1e-30))
+    require(worst <= K4_ATOL_SCALE, f"K4 floats differ by {worst} of scale")
+    mv = s4.alive & (s4.static_berg < 0.5)
+    res["dem_substeps"] = dict(
+        err=err, ms=cuda_ms(torch, lambda: k4.part3_substeps_vmem(
+            s4, cfg, deltas, DEM_BLOCK), reps=5),
+        plain_ms=cuda_ms(torch, lambda: k4.part3_substeps_plain(
+            s4, cfg, deltas, DEM_BLOCK), reps=1),
+        library_ms=None,
+        bound=bound(nbytes(*(getattr(s4, f) for f in (
+            "alive", "static_berg", "thickness", "mass", "od", "fl_k",
+            "length", "width", "bond_idx", "bond_broken")
+            + k4._CAR_FIELDS + k4._BOND_FIELDS))
+            + nbytes(*(getattr(out4, f) for f in ("bond_broken",)
+                       + k4._CAR_FIELDS + k4._BOND_FIELDS)),
+            k4_flops(torch, s4, cfg)),
+        note=(f"N={s4.capacity} block {DEM_BLOCK} deltas {deltas} "
+              f"substeps {cfg.n_sub_steps} moving={int(mv.sum())} "
+              f"nbroken={int(nb4)} bitwise={bitwise} worst_scaled_err="
+              f"{worst:.3e}"))
     return res
 
 
@@ -230,6 +513,182 @@ def phase_cross(ibp, torch, device):
     require(acc_err <= CROSS_ATOL_SCALE, f"coupler fields rel {acc_err}")
     return dict(n=N_CROSS, overflow=gov, fallback=gfb,
                 worst_scaled_err=worst, coupler_rel_err=acc_err)
+
+
+def dem_multi(ibp, grid, cfg, n_inner, deltas):
+    return ibp.make_multi_step(grid, cfg, n_inner, with_stats=True,
+                               mts_substep_kernel="vmem",
+                               mts_vmem_deltas=deltas,
+                               mts_vmem_block_n=DEM_BLOCK)
+
+
+def phase_dem_cross(ibp, torch, device):
+    """One MTS outer step of a 20-conglomerate world on the card and on a
+    CPU copy (every kernel's plain version)."""
+    import numpy as np
+
+    # two rows of ten: a grid row then holds enough elements that some
+    # 256-row search blocks stay inside it (good blocks, the normal
+    # group); blocks across grid rows take the exact fallback, which the
+    # cap covers whole.  A 3 m jitter keeps the bonds elastic: once bonds
+    # fracture, one ulp of a library sin decides which break first and
+    # the two runs part (fracture is held bitwise in phase 3 instead)
+    cfg = dem_config(ibp, fused_fallback_cap=16384)
+    grid, frc, st, deltas, n = dem_world(
+        ibp, torch, cfg, DEM_CROSS_UNITS, NX_DEM_CROSS, device,
+        gaps=(2.5e3, 3.5e3), cols=10, jitter=3.0, vel_spread=0.05, seed=1)
+    cpu = torch.device("cpu")
+    up = torch.nextafter(st.uvel, torch.full_like(st.uvel, float("inf")))
+    nudged = st.replace(uvel=up, uvel_old=up)     # one ulp faster
+    outs = {}
+    for key, dev, s0 in (("cuda", device, st), ("cpu", cpu, st),
+                         ("ulp", cpu, nudged)):
+        multi = dem_multi(ibp, grid.to(dev), cfg, 1, deltas)
+        s, ov, fb, acc = multi(s0.to(dev), frc.to(dev))
+        d = multi.step_diags[0]
+        outs[key] = (ibp.to_numpy(s), acc.cpu().numpy(), dict(
+            p1_overflow=int(ov), contact_fallback=int(fb),
+            p1_fallback=int(d.p1_fallback),
+            broken_bonds=int(d.broken_bonds), conv_iters=d.conv_iters))
+    (g, gacc, gc), (c, cacc, cc), (p, pacc, _) = (outs["cuda"], outs["cpu"],
+                                                  outs["ulp"])
+    alive = g["alive"]
+
+    def scaled(x, y):
+        return float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30))
+    ints = ("alive", "id_cnt", "id_ij", "ine", "jne", "bond_idx",
+            "bond_broken", "n_bonds", "conglom_id")
+    differ = {k: int((g[k] != c[k]).sum()) for k in ints}
+    errs = {k: (scaled(v[alive], c[k][alive]), scaled(p[k][alive],
+                                                      c[k][alive]))
+            for k, v in g.items() if v.dtype.kind == "f" and alive.any()}
+    errs["coupler"] = (scaled(gacc, cacc), scaled(pacc, cacc))
+    beyond = {k: e for k, e in errs.items()
+              if e[0] > max(DEM_CROSS_ULP_FACTOR * e[1], DEM_CROSS_FLOOR)}
+    if gc != cc or any(differ.values()) or beyond:
+        print(f"[4b dem cross-check] card {gc} cpu {cc} differing "
+              f"integers {differ} (card, one-ulp) scaled float errors "
+              f"beyond {beyond}")
+    require(gc == cc, f"MTS counters differ: card {gc} cpu {cc}")
+    require(gc["p1_overflow"] == 0, f"p1_overflow {gc['p1_overflow']}")
+    for name in ints:
+        require(differ[name] == 0,
+                f"{name} differs between the card and the CPU")
+    require(not beyond, f"floats beyond the one-ulp yardstick: "
+            f"{sorted(beyond)}")
+    worst = max(errs, key=lambda k: errs[k][0])
+    ratio = max(errs, key=lambda k: errs[k][0] / max(errs[k][1], 1e-30))
+    bitwise = all(np.array_equal(g[k], c[k]) for k in g)
+    return dict(elements=n, capacity=st.capacity, **gc,
+                worst_field=worst, worst_scaled_err=errs[worst][0],
+                its_one_ulp_response=errs[worst][1],
+                worst_ratio_field=ratio, worst_ratio_errs=errs[ratio],
+                coupler_rel_err=errs["coupler"][0], state_bitwise=bitwise)
+
+
+def profile_window(torch, fn, profile_out, stem):
+    """Profile fn() once: writes the kernel table and trace under
+    profile_out; returns device kernel time (ms) and kernel count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = pathlib.Path(profile_out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"{stem}_profile.txt").write_text(prof.key_averages().table(
+        sort_by="cuda_time_total", row_limit=40))
+    prof.export_chrome_trace(str(out / f"{stem}_trace.json.gz"))
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() for e in kern) / 1e3, len(kern))
+
+
+def phase_dem_slice(ibp, torch, device, kernels, cfg, world,
+                    profile_out=None):
+    """The bench_dem_1m world through make_multi_step with K4."""
+    from icebergs_tpu_torch.diag import berg_chksum
+
+    grid, frc, st, deltas, n = world
+    mass0 = float(torch.where(st.alive, st.mass * st.mass_scaling,
+                              0.).double().sum())
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(5):
+        multi = dem_multi(ibp, grid, cfg, DEM_INNER, deltas)
+        out = multi(st, frc)                        # warm-up
+        torch.cuda.synchronize()
+        if int(out[1]) == 0:
+            break
+        cap = min(4 * cfg.fused_fallback_cap, st.capacity)
+        print(f"dem slice: Part-1 fallback cap overran (dropped="
+              f"{int(out[1])}); growing to {cap}")
+        cfg = cfg.replace(fused_fallback_cap=cap)
+    require(int(out[1]) == 0, f"p1_overflow {int(out[1])} != 0")
+
+    for fn in kernels.values():
+        fn.launches = 0
+    times = []
+    for w in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = multi(st, frc)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if w == 0:
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            diags = list(multi.step_diags)
+    s, ov, fb, acc = out
+    for k, c in launches.items():
+        require(c > 0, f"kernel {k} was not launched by the DEM path")
+
+    # host syncs in one outer step
+    step = dem_multi(ibp, grid, cfg, 1, deltas)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        step(s, frc)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    floats = [getattr(s, f) for f in ("lon", "lat", "uvel", "vvel", "mass",
+                                       "thickness", "ang_vel", "rot",
+                                       "xi", "yj")]
+    finite = all(bool(torch.isfinite(x[s.alive]).all()) for x in floats)
+    finite = finite and bool(torch.isfinite(
+        s.bond_nstress[s.alive]).all())
+    require(finite, "non-finite DEM state")
+    require(bool(torch.isfinite(acc).all()), "non-finite coupler fields")
+    mass1 = float(torch.where(s.alive, s.mass * s.mass_scaling,
+                              0.).double().sum())
+    require(mass1 <= mass0, f"total mass grew {mass0} -> {mass1}")
+    chk, n_alive = berg_chksum(s)
+    require(int(n_alive) > 0, "no elements alive")
+    s_step = statistics.median(times) / DEM_INNER
+    syncs = sorted({f"{pathlib.Path(r.filename).name}:{r.lineno}"
+                    for r in rec})
+    res = dict(
+        elements=n, capacity=st.capacity, substeps=cfg.n_sub_steps,
+        s_per_outer_step=s_step,
+        windows_s=[t / DEM_INNER for t in times],
+        dem_1m_element_substeps_per_sec=n * cfg.n_sub_steps / s_step,
+        conv_iters=[d.conv_iters for d in diags],
+        broken_bonds=[int(d.broken_bonds) for d in diags],
+        p1_fallback=[int(d.p1_fallback) for d in diags],
+        p1_overflow=int(ov), contact_fallback=int(fb),
+        berg_chksum=int(chk), alive=int(n_alive), mass0=mass0, mass1=mass1,
+        host_syncs_per_outer_step=len(rec), sync_kinds=syncs,
+        conv_iters_sync_step=step.step_diags[0].conv_iters,
+        fallback_cap=cfg.fused_fallback_cap,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if profile_out:
+        t0 = time.perf_counter()
+        busy, nk = profile_window(torch, lambda: step(s, frc), profile_out,
+                                  "dem_slice")
+        res.update(profiled_outer_step_s=time.perf_counter() - t0,
+                   device_kernel_ms_per_outer_step=busy,
+                   kernels_per_outer_step=nk)
+    return res, launches
 
 
 def phase_slice(ibp, torch, device, kernels, profile_out):
@@ -298,17 +757,10 @@ def phase_slice(ibp, torch, device, kernels, profile_out):
                fallback_cap=cfg.fused_fallback_cap,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if profile_out:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            multi(st, frc)
-            torch.cuda.synchronize()
-        pathlib.Path(profile_out).mkdir(parents=True, exist_ok=True)
-        table = prof.key_averages().table(sort_by="cuda_time_total",
-                                          row_limit=40)
-        (pathlib.Path(profile_out) / "slice_profile.txt").write_text(table)
-        prof.export_chrome_trace(str(pathlib.Path(profile_out)
-                                     / "slice_trace.json"))
+        busy, nk = profile_window(torch, lambda: multi(st, frc), profile_out,
+                                  "slice")
+        res.update(device_kernel_ms_per_step=busy / INNER,
+                   kernels_per_step=nk / INNER)
     return res, launches
 
 
@@ -326,7 +778,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import icebergs_tpu_torch as ibp
     from icebergs_tpu_torch import cuda_build
-    from icebergs_tpu_torch.ops import extract, pack, segment_spread
+    from icebergs_tpu_torch.ops import (dem_substeps, extract, pack,
+                                       segment_spread)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -340,38 +793,68 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     cuda_build.library()
     log = cuda_build.library_path().with_suffix(".log")
-    regs = [ln.strip() for ln in log.read_text().splitlines()
-            if "registers" in ln] if log.exists() else []
+    regs = [ln.strip().replace("ptxas info    : ", "")
+            for ln in log.read_text().splitlines()
+            if "registers" in ln or "spill" in ln] if log.exists() else []
     print(f"[2 build] {time.perf_counter() - t0:.1f} s "
           f"({cuda_build.library_path().name}); " + " | ".join(regs))
 
     kres = phase_kernels(ibp, torch, device)
+    t_dem = time.perf_counter()
+    dcfg = dem_config(ibp)
+    dem = dem_world(ibp, torch, dcfg, DEM_UNITS, NX_DEM, device)
+    print(f"[3 dem world] {dem[4]} elements, capacity {dem[2].capacity}, "
+          f"deltas {dem[3]}, built in {time.perf_counter() - t_dem:.1f} s")
+    kres.update(phase_kernels_dem(ibp, torch, device, dcfg, dem))
     for name, r in kres.items():
+        lib = ("-" if r["library_ms"] is None
+               else f"{r['library_ms']:.3f} ms")
         print(f"[3 kernel] {name}: kernel {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.3f} ms, max_abs_err {r['err']} "
-              f"({r['note']})")
+              f"{r['plain_ms']:.3f} ms, library {lib}, bound "
+              f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), max_abs_err "
+              f"{r['err']} ({r['note']})")
 
     cres = phase_cross(ibp, torch, device)
     print(f"[4 cross-check] {json.dumps(cres)}")
+    dcres = phase_dem_cross(ibp, torch, device)
+    print(f"[4b dem cross-check] {json.dumps(dcres)}")
 
     kernels = {"permute_cols_u32": pack.permute_cols_u32,
                "extract_sorted": extract.extract_sorted,
-               "segment_spread_sums": segment_spread.segment_spread_sums}
-    sres, launches = phase_slice(ibp, torch, device, kernels,
-                                 args.profile_out)
+               "segment_spread_sums": segment_spread.segment_spread_sums,
+               "dem_substeps": dem_substeps.part3_substeps_vmem}
+    fast = {k: kernels[k] for k in list(kernels)[:3]}
+    sres, launches = phase_slice(ibp, torch, device, fast, args.profile_out)
     print(f"[5 slice] {json.dumps(sres)}")
+    dres, dlaunches = phase_dem_slice(ibp, torch, device, kernels, dcfg, dem,
+                                      args.profile_out)
+    print(f"[6 dem slice] {json.dumps(dres)}")
 
     source = {"permute_cols_u32": ("permute_cols.cu",
                                    "icebergs_tpu/ops/pallas_pack.py:30"),
               "extract_sorted": ("extract_sorted.cu",
                                  "icebergs_tpu/ops/pallas_prepass.py:625"),
+              "extract_sorted/grouped": (
+                  "extract_sorted.cu", "icebergs_tpu/ops/pallas_prepass.py:625"),
               "segment_spread_sums": ("segment_spread.cu",
-                                      "icebergs_tpu/ops/pallas_spread.py:136")}
+                                      "icebergs_tpu/ops/pallas_spread.py:136"),
+              "dem_substeps": ("dem_substeps.cu",
+                               "icebergs_tpu/ops/dem_vmem.py:691")}
+    # launches on each main path: the fast lane (phase 5) and the DEM
+    # step (phase 6); the grouped K2 row is the DEM path's K2
+    by_path = {k: {"fast_lane": launches.get(k, 0),
+                   "dem": dlaunches[k]} for k in kernels}
+    by_path["extract_sorted/grouped"] = {"dem": dlaunches["extract_sorted"]}
+    by_path["extract_sorted"] = {"fast_lane": launches["extract_sorted"]}
     rows = [{"name": k, "route": "cuda",
              "source": f"icebergs_tpu_torch/csrc/{source[k][0]}",
-             "replaces": source[k][1], "launches": launches[k],
-             "max_abs_err": kres[k]["err"], "ms": kres[k]["ms"],
-             "plain_ms": kres[k]["plain_ms"]} for k in kernels]
+             "replaces": source[k][1],
+             "launches": sum(by_path[k].values()),
+             "launches_by_path": by_path[k],
+             "max_abs_err": r["err"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+             "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
+            for k, r in kres.items()]
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,12 @@
 A port of ``icebergs_tpu`` (the JAX package beside it, which stays the
 reference) to PyTorch, with the TPU's Pallas kernels rewritten as CUDA
 kernels for NVIDIA Hopper (``csrc/``, built by :mod:`.cuda_build` at
-first use).  This first slice is the production fast lane: the
+first use).  Ported so far: the production fast lane (the
 persistent-sorted coupling step with contacts, thermodynamics and
-spreading (:func:`make_multi_step`).  Module names mirror the JAX
-package; each module names its counterpart.
+spreading) and the MTS/DEM step of bonded conglomerates (Part-1 fused
+search, force convergence, the substep loop as one kernel), both behind
+:func:`make_multi_step`.  Module names mirror the JAX package; each
+module names its counterpart.
 
 Importing this package imports torch and never jax.  On CPU tensors
 every kernel runs as its plain PyTorch version; on CUDA tensors the
@@ -18,7 +20,8 @@ from .convert import (config_from_dict, forcing_from_numpy,
                       grid_from_numpy, state_from_numpy, to_numpy)
 from .forcing import Forcing, swirl_forcing, uniform_forcing
 from .grid import Grid, make_uniform_grid, pos_to_cell
-from .model import StepDiags, make_multi_step, make_persistent_multi_step
+from .model import (StepDiags, make_multi_step, make_persistent_multi_step,
+                    make_step)
 from .state import BergState, create_bergs, empty_state
 
 __all__ = [
@@ -26,6 +29,6 @@ __all__ = [
     "forcing_from_numpy", "grid_from_numpy", "state_from_numpy",
     "to_numpy", "Forcing", "swirl_forcing", "uniform_forcing", "Grid",
     "make_uniform_grid", "pos_to_cell", "StepDiags", "make_multi_step",
-    "make_persistent_multi_step", "BergState", "create_bergs",
+    "make_persistent_multi_step", "make_step", "BergState", "create_bergs",
     "empty_state",
 ]

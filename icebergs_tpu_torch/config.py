@@ -251,9 +251,9 @@ class IcebergsConfig:
     sort_packed_permute: bool = True  # re-sort transport: key-only
     #   4-operand sort + packed u32 row gathers (vs ~50-operand
     #   variadic payload sort)
-    pack_kernel: bool = True         # Pallas block-transpose pack/unpack
-    #   around packed row gathers (XLA's padded-minor relayout runs at
-    #   ~20 GB/s; the kernels move the same bits at streaming bandwidth)
+    pack_kernel: bool = True         # block-transpose pack/unpack
+    #   around packed row gathers (the port's K1 moves the columns in
+    #   one pass either way)
     interp_mode: str = "table"       # table|kernel|xla: "table" = ONE
     #   packed (N, <=128-lane) row gather of a per-cell slot table +
     #   identical per-berg math (regular grids; falls back to "xla"
@@ -269,7 +269,7 @@ class IcebergsConfig:
     spread_impl: str = "manual"      # pallas spread kernel window feed:
     #   manual|gathered|pipelined
     starts_via_scatter: bool = False  # cell_starts: searchsorted vs
-    #   scatter-min + reverse cummin (measured a wash on v5e)
+    #   scatter-min + reverse cummin (the port has searchsorted only)
     contact_epilogue: bool = False   # run the velocity-independent pair
     #   precompute (geometry/spring/projections) INSIDE the extraction
     #   kernel instead of the XLA chain.  Engagement is then decided by
@@ -388,9 +388,7 @@ _NOT_PORTED = (
     ("Runge_not_Verlet", True, 15, "RK4 stepping"),
     ("grid_is_latlon", True, 11, "lat-lon grids"),
     ("grid_is_regular", False, 11, "curvilinear grids"),
-    ("mts", True, 10, "MTS/DEM"),
-    ("dem", True, 10, "MTS/DEM"),
-    ("iceberg_bonds_on", True, 10, "bonded conglomerates"),
+    ("A68_test", True, 15, "the A68 test's XLA interpolation"),
     ("footloose", True, 9, "footloose calving"),
     ("hexagonal_icebergs", True, 11, "hexagonal spreading"),
     ("parallel_reprod", False, 15, "non-reproducing scatters"),
@@ -419,10 +417,37 @@ def check_ported(cfg: IcebergsConfig) -> None:
         no(f"slot_sum_method={cfg.slot_sum_method!r}", 15)
     if cfg.coastal_drift != 0. or cfg.tidal_drift != 0.:
         no("coastal/tidal drift (the XLA interpolation)", 11)
-    if cfg.resolved_contact_mode() != "fused3":
-        no(f"contact_mode={cfg.contact_mode!r} resolving to "
-           f"{cfg.resolved_contact_mode()!r}", 9)
     if cfg.extract_impl not in ("gathered", "manual", "pipelined"):
         raise ValueError(f"extract_impl={cfg.extract_impl!r}")
     if cfg.spread_impl not in ("gathered", "manual", "pipelined"):
         raise ValueError(f"spread_impl={cfg.spread_impl!r}")
+    if cfg.mts:
+        _check_mts(cfg, no)
+        return
+    if cfg.iceberg_bonds_on:
+        no("bonded springs outside MTS (make_ia_fn's bond group)", 9)
+    if cfg.resolved_contact_mode() != "fused3":
+        no(f"contact_mode={cfg.contact_mode!r} resolving to "
+           f"{cfg.resolved_contact_mode()!r}", 9)
+
+
+def _check_mts(cfg: IcebergsConfig, no) -> None:
+    """The MTS settings served: the DEM flag set of the substep kernel
+    (K4) with the fused Part-1 search; the rest is the scan substep
+    path (ROADMAP.md Queue 1 item 16)."""
+    if not cfg.dem:
+        no("MTS without DEM (implicit inner substeps)"
+           if not cfg.explicit_inner_mts
+           else "MTS without DEM (calculate_force bond substeps)", 16)
+    if not cfg.use_broken_bonds_for_substep_contact:
+        no("pair-list substep contacts (mts.compact_conglom_pairs, "
+           "use_broken_bonds_for_substep_contact=False)", 16)
+    if not cfg.break_bonds_on_sub_steps:
+        no("outer-step fracture (dem.break_bonds_dem, "
+           "break_bonds_on_sub_steps=False)", 16)
+    if cfg.fracture_criterion != "stress":
+        no(f"fracture_criterion={cfg.fracture_criterion!r}", 16)
+    if cfg.dem_beam_test > 0:
+        no(f"dem_beam_test={cfg.dem_beam_test}", 16)
+    if cfg.grid_is_latlon:
+        no("lat-lon grids", 11)

@@ -10,6 +10,8 @@
 // Per berg it writes the engaged count, the min / max engaged sorted slot
 // (kept as ints, stored as f32 like the TPU kernel: BIG = 2N when none)
 // and the 8 PT feature rows of those two partners, copied by index.
+// With group != 0 (the MTS Part-1 collision group) a candidate in the
+// berg's own conglomerate (equal PT_GRP row) is never engaged.
 //
 // Bound: memory and latency, not arithmetic.  A block reads ~3 strips of
 // ~(BN / occupancy + 2) cells; at the 1M-berg headline (~3.8 bergs/cell)
@@ -32,7 +34,7 @@ namespace {
 
 // PT feature rows (icebergs_tpu/ops/pallas_prepass.py:258-260)
 constexpr int PT_LON = 0, PT_LAT = 1, PT_RAD = 8, PT_ALIVE = 9, PT_KEY = 10,
-              PT_FLK = 12;
+              PT_GRP = 11, PT_FLK = 12;
 constexpr int NFEAT = 8;     // extracted rows per partner (6 eval + 2 spare)
 constexpr int EX_F1 = 4, EX_F2 = 12, EX_NOUT = 24;
 
@@ -42,7 +44,7 @@ __global__ void extract_sorted_kernel(const float* __restrict__ PT, int n,
                                       const int32_t* __restrict__ c_hi,
                                       const uint8_t* __restrict__ bad,
                                       float* __restrict__ out, int nstrips,
-                                      float cd, float slack) {
+                                      int group, float cd, float slack) {
   extern __shared__ float sm[];
   const int bn = blockDim.x;
   float* s_lon = sm;
@@ -51,19 +53,21 @@ __global__ void extract_sorted_kernel(const float* __restrict__ PT, int n,
   float* s_flk = sm + 3 * bn;
   float* s_alive = sm + 4 * bn;
   float* s_key = sm + 5 * bn;
+  float* s_grp = sm + 6 * bn;
 
   const int b = blockIdx.x;
   const int t = threadIdx.x;
   const long long N = n;
   const int gid = b * bn + t;
   const bool own = gid < n;
-  float lon1 = 0.f, lat1 = 0.f, R1 = 0.f, fl1 = -1.f, al1 = 0.f;
+  float lon1 = 0.f, lat1 = 0.f, R1 = 0.f, fl1 = -1.f, al1 = 0.f, g1 = 0.f;
   if (own) {
     lon1 = PT[PT_LON * N + gid];
     lat1 = PT[PT_LAT * N + gid];
     R1 = PT[PT_RAD * N + gid];
     fl1 = PT[PT_FLK * N + gid];
     al1 = PT[PT_ALIVE * N + gid];
+    g1 = PT[PT_GRP * N + gid];
   }
   const int big = 2 * n;
   int cnt = 0, vmin = big, vmax = -1;
@@ -86,6 +90,7 @@ __global__ void extract_sorted_kernel(const float* __restrict__ PT, int n,
           s_flk[t] = PT[PT_FLK * N + r];
           s_alive[t] = PT[PT_ALIVE * N + r];
           s_key[t] = PT[PT_KEY * N + r];
+          s_grp[t] = PT[PT_GRP * N + r];
         }
         __syncthreads();
         if (!own || !(al1 > 0.5f) || fl1 == -1.f) continue;
@@ -94,7 +99,8 @@ __global__ void extract_sorted_kernel(const float* __restrict__ PT, int n,
           const float key2 = s_key[k];
           const bool valid = key2 >= fclo && key2 <= fchi &&
                              s_alive[k] > 0.5f && wid != gid &&
-                             s_flk[k] != -1.f;
+                             s_flk[k] != -1.f &&
+                             !(group && s_grp[k] == g1);
           const float rx = lon1 - s_lon[k];
           const float ry = lat1 - s_lat[k];
           const float r2 = rx * rx + ry * ry;
@@ -125,13 +131,13 @@ __global__ void extract_sorted_kernel(const float* __restrict__ PT, int n,
 extern "C" int ib_extract_sorted(const void* PT, int n, const void* cell_starts,
                                  const void* c_lo, const void* c_hi,
                                  const void* bad, void* out, int nblocks,
-                                 int block_n, int nstrips, float cd,
-                                 float slack, void* stream) {
+                                 int block_n, int nstrips, int group,
+                                 float cd, float slack, void* stream) {
   if (nblocks == 0) return (int)cudaGetLastError();
-  const size_t smem = 6 * (size_t)block_n * sizeof(float);
+  const size_t smem = 7 * (size_t)block_n * sizeof(float);
   extract_sorted_kernel<<<nblocks, block_n, smem, (cudaStream_t)stream>>>(
       (const float*)PT, n, (const int32_t*)cell_starts, (const int32_t*)c_lo,
-      (const int32_t*)c_hi, (const uint8_t*)bad, (float*)out, nstrips, cd,
-      slack);
+      (const int32_t*)c_hi, (const uint8_t*)bad, (float*)out, nstrips, group,
+      cd, slack);
   return (int)cudaGetLastError();
 }

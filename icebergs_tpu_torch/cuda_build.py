@@ -33,10 +33,12 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # C entry points: name -> argtypes (each returns cudaGetLastError())
 _SIGNATURES = {
     "ib_permute_cols_u32": (_P, _P, _P, _I, _L, _L, _P),
-    "ib_extract_sorted": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-                          _P),
+    "ib_extract_sorted": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                          _F, _P),
     "ib_segment_spread_sums": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
     "ib_max_spread_extra": (),
+    "ib_dem_substeps": (_P, _I, _I, _P),
+    "ib_dem_args_size": (),
 }
 
 

@@ -1,8 +1,10 @@
-"""The coupling step: the production fast lane on a persistent sorted slab.
+"""The coupling step: the production fast lane on a persistent sorted
+slab, and the MTS/DEM step of bonded conglomerates.
 
-Counterpart of ``icebergs_tpu/model.py``'s ``StepDiags``,
+Counterpart of ``icebergs_tpu/model.py``'s ``StepDiags``, ``make_step``
+(its MTS branch, ``model.py:143-218, 279-406``),
 ``make_persistent_multi_step`` (``model.py:413-612``) and
-``make_multi_step``'s routing (``model.py:615-667``).  One step:
+``make_multi_step`` (``model.py:615-695``).  One fast-lane step:
 
 1. table interpolation of the forcing (one K1 read per berg);
 2. the fused3 contact search over the presorted slab (K2) and the
@@ -12,9 +14,15 @@ Counterpart of ``icebergs_tpu/model.py``'s ``StepDiags``,
 4. thermodynamics with its melt columns deferred;
 5. the spreading segment sums (K3) and the coupler fields.
 
+One MTS step: the table interpolation with the quadratic ocean depth,
+:func:`.mts.evolve_icebergs_mts` (Part-1 search through K2 with the
+conglomerate filter, the force-convergence loop, the substep loop in
+K4), thermodynamics with bonded melt, and K3 spreading behind a payload
+sort (K1) with all 14 deferred melt fields.
+
 The JAX ``lax.scan`` becomes a Python loop over ``n_inner`` steps that
-keeps the same coupler-field accumulator.  A step makes no host syncs
-(branch decisions depend on the config only).
+keeps the same coupler-field accumulator.  A fast-lane step makes no
+host syncs; an MTS step makes one per force-convergence iteration.
 """
 
 from __future__ import annotations
@@ -26,8 +34,10 @@ import torch
 from .config import IcebergsConfig, check_ported
 from .dynamics import evolve_icebergs
 from .grid import Grid
+from .mts import evolve_icebergs_mts
 from .ops import spread as _spread
 from .ops import thermo as _thermo
+from .ops.forces import neighbor_radius
 from .ops.fused_contact import FusedContactStats, make_ia_fn_fused3
 from .ops.interp_table import interp_to_bergs_table
 from .ops.sorted import sort_state_by_cell, uniform_state_fields
@@ -38,9 +48,16 @@ class StepDiags(NamedTuple):
     tickets: torch.Tensor
     bounced: torch.Tensor
     total_mass: torch.Tensor          # sum alive mass*mass_scaling (kg)
-    contact_overflow: torch.Tensor    # fused-search cap drops
-    contact_fallback: torch.Tensor    # bergs on the exact fallback
+    contact_overflow: Optional[torch.Tensor] = None  # fused-search drops
+    contact_fallback: Optional[torch.Tensor] = None  # exact-fallback bergs
+    p1_overflow: Optional[torch.Tensor] = None  # MTS Part-1 fallback drops
+    # not in the JAX StepDiags: the MTS step's Part-1 fallback rows, newly
+    # broken bonds and force-convergence iterations (MtsDiags)
+    p1_fallback: Optional[torch.Tensor] = None
+    broken_bonds: Optional[torch.Tensor] = None
+    conv_iters: Optional[int] = None
     floating_melt: Optional[torch.Tensor] = None   # (nx+2, ny+2) kg/m2/s
+    calving_hflx: Optional[torch.Tensor] = None
     berg_melt: Optional[torch.Tensor] = None
     spread_mass: Optional[torch.Tensor] = None
     spread_area: Optional[torch.Tensor] = None
@@ -48,6 +65,65 @@ class StepDiags(NamedTuple):
     spread_vvel: Optional[torch.Tensor] = None
     ustar_iceberg: Optional[torch.Tensor] = None
     mass_on_ocean: Optional[torch.Tensor] = None
+    u_iceberg: Optional[torch.Tensor] = None
+    v_iceberg: Optional[torch.Tensor] = None
+
+
+def make_step(grid: Grid, cfg: IcebergsConfig, *,
+              mts_neighbor_mode: Optional[str] = None,
+              mts_substep_kernel: str = "scan", mts_vmem_deltas=None,
+              mts_vmem_block_n: int = 512,
+              fused_fallback_cap: Optional[int] = None):
+    """The per-step coupling path, MTS branch: returns
+    ``step(state, forcing) -> (state, StepDiags)``.
+
+    ``mts_substep_kernel="vmem"`` with ``mts_vmem_deltas`` from
+    :func:`.ops.dem_substeps.analyze_bond_deltas` on a
+    :func:`~.ops.dem_substeps.pack_conglomerates_blocked` state runs the
+    substeps in K4; the scan path and the non-MTS step raise
+    ``NotImplementedError`` naming their ROADMAP.md item."""
+    if not cfg.mts:
+        raise NotImplementedError("the non-MTS per-step path (make_step; "
+                                  "ROADMAP.md Queue 1 item 9)")
+    check_ported(cfg)
+    if mts_neighbor_mode not in (None, "fused"):
+        raise NotImplementedError(f"mts_neighbor_mode={mts_neighbor_mode!r}"
+                                  " (ROADMAP.md Queue 1 item 16)")
+    cap = (cfg.fused_fallback_cap if fused_fallback_cap is None
+           else fused_fallback_cap)
+    radius = neighbor_radius(grid, cfg)
+
+    def step(st, frc):
+        st, _ = interp_to_bergs_table(st, grid, frc, cfg)
+        st, mts_d = evolve_icebergs_mts(
+            st, grid, frc, cfg, fused_kw={"fallback_cap": cap},
+            ncells_radius=radius, substep_kernel=mts_substep_kernel,
+            vmem_deltas=mts_vmem_deltas, vmem_block_n=mts_vmem_block_n)
+        # the spreading's payload sort keys on the pre-thermodynamics
+        # aliveness: rows that die in thermodynamics keep their cell, so
+        # their deferred melt still lands
+        key_alive = st.alive
+        st, melt = _thermo.thermodynamics(st, grid, frc, cfg,
+                                          defer_cell_cols=True)
+        sp, melt_fields = _spread.create_gridded_icebergs_fields(
+            st, grid, frc, cfg, key_alive=key_alive, cell_starts=None,
+            extra_cell_cols=melt.deferred_cols)
+        zero = torch.zeros((), dtype=torch.int32, device=st.device)
+        diags = StepDiags(
+            nbergs=st.count(), tickets=zero, bounced=zero,
+            total_mass=torch.where(st.alive, st.mass * st.mass_scaling,
+                                   0.).sum(),
+            p1_overflow=mts_d.p1_overflow, p1_fallback=mts_d.p1_fallback,
+            broken_bonds=mts_d.broken_bonds, conv_iters=mts_d.conv_iters,
+            floating_melt=melt_fields[0], calving_hflx=melt_fields[1],
+            berg_melt=melt_fields[2],
+            spread_mass=sp.spread_mass, spread_area=sp.spread_area,
+            spread_uvel=sp.spread_uvel, spread_vvel=sp.spread_vvel,
+            ustar_iceberg=sp.ustar_iceberg, mass_on_ocean=sp.mass_on_ocean,
+            u_iceberg=sp.u_iceberg, v_iceberg=sp.v_iceberg)
+        return st, diags
+
+    return step
 
 
 def make_persistent_multi_step(grid: Grid, cfg: IcebergsConfig,
@@ -165,8 +241,14 @@ def make_multi_step(grid: Grid, cfg: IcebergsConfig, n_inner: int,
     """``n_inner`` coupling steps with fixed forcing.  Routes eligible
     configurations (interactive, non-MTS, non-footloose, fused search,
     full thermodynamics and spreading, no calving) to
-    :func:`make_persistent_multi_step` exactly as the JAX package does;
-    the per-step path is not ported yet."""
+    :func:`make_persistent_multi_step` exactly as the JAX package does,
+    and MTS configurations through :func:`make_step` (``kw``).
+
+    ``with_stats=True`` returns ``(state, max overflow, max fallback,
+    coupler accumulator)``; on the per-step path the overflow includes
+    the MTS Part-1 drops and the accumulator sums the 8 coupler fields
+    of ``model.py:686-690``.  The per-step path also keeps the last
+    call's ``StepDiags`` in ``multi.step_diags``."""
     if persistent is None:
         nm = kw.get("neighbor_mode")
         nm = nm if nm is not None else (
@@ -185,5 +267,29 @@ def make_multi_step(grid: Grid, cfg: IcebergsConfig, n_inner: int,
         return make_persistent_multi_step(
             grid, cfg, n_inner, with_stats,
             **{k: v for k, v in kw.items() if k in _PERSISTENT_KW})
-    raise NotImplementedError("the per-step coupling path (make_step; "
-                              "ROADMAP.md Queue 1 item 9)")
+    step = make_step(grid, cfg, **kw)
+    nx, ny = grid.nx, grid.ny
+
+    def multi(st, frc):
+        zero = torch.zeros((), dtype=torch.int32, device=st.device)
+        ov, fb = zero, zero
+        acc = torch.zeros(nx + 2, ny + 2, dtype=st.dtype, device=st.device)
+        multi.step_diags = []
+        for _ in range(n_inner):
+            st, d = step(st, frc)
+            for o in (d.contact_overflow, d.p1_overflow):
+                if o is not None:
+                    ov = torch.maximum(ov, o)
+            if d.contact_fallback is not None:
+                fb = torch.maximum(fb, d.contact_fallback)
+            # keep the coupler outputs, as the JAX scan carries them
+            for f in (d.spread_mass, d.spread_area, d.ustar_iceberg,
+                      d.mass_on_ocean, d.floating_melt, d.calving_hflx,
+                      d.u_iceberg, d.v_iceberg):
+                if f is not None:
+                    acc = acc + f
+            multi.step_diags.append(d)
+        return (st, ov, fb, acc) if with_stats else st
+
+    multi.step_diags = []
+    return multi

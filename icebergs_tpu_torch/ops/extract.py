@@ -12,6 +12,10 @@ so the set of bergs sent to the exact fallback — and ``n_fallback`` —
 stay the reference's.  Rows of bad blocks carry the "no partner" result
 (count 0, min slot 2N, max slot -1, zero features); the caller discards
 them as the JAX package does.
+
+``exclude_same_group`` (the MTS Part-1 collision group) also drops
+candidates whose ``PT_GRP`` row (the conglomerate id) equals the berg's
+own (``pallas_prepass.py:709-710, 743-744``).
 """
 
 from __future__ import annotations
@@ -66,7 +70,8 @@ def block_tables(key_s, cell_starts, nx: int, ny: int, block_n: int,
 
 
 def extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad, block_n: int,
-                         contact_distance: float, chunk_rows: int = 65536):
+                         contact_distance: float, chunk_rows: int = 65536,
+                         exclude_same_group: bool = False):
     """Plain version: each row's candidates as a (rows, 2r+1, W) slab of
     strip slots ``cell_starts[c_lo] + k`` (W = the longest strip of a
     good block), engagement elementwise, count / min / max reductions,
@@ -101,6 +106,8 @@ def extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad, block_n: int,
                  & (cnd(PT_ALIVE) > 0.5) & (own(PT_ALIVE) > 0.5)
                  & (cand != rows[:, None, None])
                  & (own(PT_FLK) != -1.) & (cnd(PT_FLK) != -1.))
+        if exclude_same_group:
+            valid = valid & (cnd(PT_GRP) != own(PT_GRP))
         rx = own(PT_LON) - cnd(PT_LON)
         ry = own(PT_LAT) - cnd(PT_LAT)
         r2 = rx * rx + ry * ry
@@ -121,7 +128,8 @@ def extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad, block_n: int,
 
 
 def extract_sorted(PT, key_s, cell_starts, grid, cfg, *, block_n: int = 128,
-                   window: int = 160, radius: int = 1):
+                   window: int = 160, radius: int = 1,
+                   exclude_same_group: bool = False):
     """Contact search + extraction.  Returns ``(out (24, N) f32,
     bad_block (N,) bool)``.
 
@@ -144,7 +152,9 @@ def extract_sorted(PT, key_s, cell_starts, grid, cfg, *, block_n: int = 128,
     cd = float(cfg.contact_distance)
     if PT.device.type == "cpu":
         return (extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad,
-                                     block_n, cd), bad_block)
+                                     block_n, cd,
+                                     exclude_same_group=exclude_same_group),
+                bad_block)
     if PT.device.type != "cuda":
         raise NotImplementedError(f"no K2 kernel for {PT.device}")
     if not 32 <= block_n <= 1024 or block_n % 32:
@@ -158,7 +168,7 @@ def extract_sorted(PT, key_s, cell_starts, grid, cfg, *, block_n: int = 128,
     cuda_build.check(lib.ib_extract_sorted(
         PT.data_ptr(), N, cell_starts.data_ptr(), c_lo.data_ptr(),
         c_hi.data_ptr(), badu8.data_ptr(), out.data_ptr(), bad.shape[0],
-        block_n, c_lo.shape[1], cd, _SLACK,
+        block_n, c_lo.shape[1], int(exclude_same_group), cd, _SLACK,
         cuda_build.stream_ptr(PT.device)), "extract_sorted")
     extract_sorted.launches += 1
     return out, bad_block

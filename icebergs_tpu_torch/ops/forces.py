@@ -1,10 +1,15 @@
-"""Berg-berg contact forces: pair precompute and evaluation.
+"""Berg-berg contact forces: pair precompute and evaluation, and the
+host-side bond setup.
 
 Counterpart of the pair half of ``icebergs_tpu/ops/forces.py``
-(``_interaction_radius``, ``PairData``, ``precompute_pair_data``,
-``precompute_pair_data_T``, ``eval_pair_ia``, ``eval_pair_ia_T``; port of
-``calculate_force``, ``src/icebergs.F90:611-804``), for the legacy
-non-bonded contact group on a Cartesian grid (metric factors 1).
+(``neighbor_radius``, ``_interaction_radius``, ``PairData``,
+``precompute_pair_data``, ``precompute_pair_data_T``,
+``refresh_pair_velocities``, ``eval_pair_ia``, ``eval_pair_ia_T``; port of
+``calculate_force``, ``src/icebergs.F90:611-804``) for the non-bonded
+contact group on a Cartesian grid (metric factors 1) — the legacy
+dispatch and the modern one (``contact_distance`` crit, separate contact
+spring, ``use_c_crit_dist=False``) — and of ``initialize_bonds_host``,
+``compute_conglom_ids_host`` and ``count_bonds`` (numpy).
 
 ``*_T`` functions hold pair slabs as (M, N) with the partner axis first
 (the fused search's two partners); the plain ones as (N, M) (the exact
@@ -13,20 +18,38 @@ fallback's candidate strips).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .. import constants as C
 from ..config import IcebergsConfig
 from .accel import IA, f32_scalar
+from .pack import from_bits, permute_cols_u32, to_bits
+
+
+def neighbor_radius(grid, cfg: IcebergsConfig) -> int:
+    """Contact-cell search radius in cells (contact_cells from
+    contact_distance, icebergs_framework.F90:1493-1527): 2 for the
+    same-conglomerate window of the modern dispatch with bonds, 1 on the
+    legacy path, widened to cover ``contact_distance``.  Reads the grid
+    spacing on the host."""
+    r = 2 if (not _legacy(cfg) and cfg.iceberg_bonds_on) else 1
+    if cfg.contact_distance > 0.:
+        dx = grid.dx[1:-1, 1:-1].detach().cpu().numpy()
+        dmin = float(np.min(np.where(dx > 0, dx, np.inf)))
+        if dmin > 0 and np.isfinite(dmin):
+            r = max(r, int(np.ceil(cfg.contact_distance / dmin)))
+    return r
 
 
 def _interaction_radius(cfg: IcebergsConfig, A):
     """Inscribed-circle radius by packing shape (Stern et al 2017 Eq 4)."""
-    if cfg.hexagonal_icebergs or cfg.iceberg_bonds_on:
-        raise NotImplementedError("hexagonal / bonded radii (ROADMAP.md "
-                                  "Queue 1 items 10-11)")
+    if cfg.hexagonal_icebergs:
+        return torch.sqrt(A / (2. * f32_scalar(torch.sqrt, 3.)))
+    if cfg.iceberg_bonds_on:
+        return 0.5 * torch.sqrt(A)
     return torch.sqrt(A / C.PI)
 
 
@@ -42,6 +65,9 @@ class PairData(NamedTuple):
     ctan: torch.Tensor
     u2: torch.Tensor         # partner *_old velocity
     v2: torch.Tensor
+    # partner slots, kept where u2/v2 are refreshed mid-step (the MTS
+    # force-convergence loop; :func:`refresh_pair_velocities`)
+    other: Optional[torch.Tensor] = None
 
 
 def _damping(cfg: IcebergsConfig, spring_coef: float):
@@ -63,12 +89,16 @@ def _legacy(cfg: IcebergsConfig) -> bool:
 
 
 def _pair_terms(cfg, lon1, lat1, A1, M1, lon2, lat2, A2, M2, mask, u2,
-                v2, axis):
-    """The shared geometry / spring / projection chain of both layouts;
+                v2, axis, other=None):
+    """The shared geometry / spring / projection chain of both layouts
+    for the non-bonded contact group with ``use_c_crit_dist=False``:
+    crit = max(R1 + R2, contact_distance) with the contact spring, which
+    is the legacy dispatch too (``contact_distance`` 0, contact spring =
+    spring).  ``constant_interaction_LW`` enters only bonded pairs.
     ``axis`` is the partner axis the spring sums reduce over."""
-    if not _legacy(cfg):
-        raise NotImplementedError("modern contact dispatch (ROADMAP.md "
-                                  "Queue 1 item 10)")
+    if cfg.grid_is_latlon:
+        raise NotImplementedError("lat-lon pair metrics (ROADMAP.md Queue "
+                                  "1 item 11)")
     r_dist_x = lon1 - lon2
     r_dist_y = lat1 - lat2
     r_dist = torch.sqrt(r_dist_x * r_dist_x + r_dist_y * r_dist_y)
@@ -93,13 +123,14 @@ def _pair_terms(cfg, lon1, lat1, A1, M1, lon2, lat2, A2, M2, mask, u2,
                     P12=(r_dist_x * r_dist_y) / rs2,
                     P22=(r_dist_y * r_dist_y) / rs2,
                     crad=radial_damping * mm, ctan=tangental_damping * mm,
-                    u2=u2, v2=v2)
+                    u2=u2, v2=v2, other=other)
 
 
 def precompute_pair_data(st, cfg: IcebergsConfig, other, mask, *,
                          partner_st) -> PairData:
     """(N, M) pair data of primaries ``st`` (any object with the fields
-    read here) against ``partner_st`` rows ``other`` (N, M)."""
+    read here) against ``partner_st`` rows ``other`` (N, M) int32,
+    which the result keeps for :func:`refresh_pair_velocities`."""
     o = other.long()
     fl_k2 = partner_st.fl_k[o]
     mask = mask & (st.fl_k[:, None] != -1.) & (fl_k2 != -1.)
@@ -108,21 +139,38 @@ def precompute_pair_data(st, cfg: IcebergsConfig, other, mask, *,
         (st.length * st.width)[:, None], st.mass[:, None],
         partner_st.lon_old[o], partner_st.lat_old[o],
         partner_st.length[o] * partner_st.width[o], partner_st.mass[o],
-        mask, partner_st.uvel_old[o], partner_st.vvel_old[o], -1)
+        mask, partner_st.uvel_old[o], partner_st.vvel_old[o], -1,
+        other=other)
 
 
 def precompute_pair_data_T(st, cfg: IcebergsConfig, mask_T, *,
-                           partner_fields) -> PairData:
+                           partner_fields, other_T=None) -> PairData:
     """(M, N) pair data with the partners' fields handed in
     (``partner_fields``: (M, N) lon2, lat2, u2, v2, A2g, M2g — the
     extraction kernel's output, whose engagement test already excluded
-    fl_k == -1 on both sides)."""
+    fl_k == -1 on both sides).  ``other_T`` (M, N) int32 partner slots
+    are kept for :func:`refresh_pair_velocities`."""
     pf = partner_fields
     return _pair_terms(
         cfg, st.lon_old[None, :], st.lat_old[None, :],
         (st.length * st.width)[None, :], st.mass[None, :],
         pf["lon2"], pf["lat2"], pf["A2g"], pf["M2g"], mask_T,
-        pf["u2"], pf["v2"], 0)
+        pf["u2"], pf["v2"], 0, other=other_T)
+
+
+def refresh_pair_velocities(pd: PairData, st) -> PairData:
+    """Regather the partners' ``*_old`` velocities into frozen pair
+    geometry (the MTS Part-1 convergence loop, icebergs.F90:6663-6743:
+    positions stay frozen, only the velocities iterate).  Both columns
+    move in one K1 pass (``permute_cols_u32``) as the JAX package's
+    packed u32 transport moves them; bitwise a gather."""
+    R = torch.stack([to_bits(st.uvel_old), to_bits(st.vvel_old)])
+    moved = permute_cols_u32(R, pd.other.reshape(-1))
+    shape = pd.other.shape
+    return pd._replace(u2=from_bits(moved[0], st.uvel_old.dtype
+                                    ).reshape(shape),
+                       v2=from_bits(moved[1], st.vvel_old.dtype
+                                    ).reshape(shape))
 
 
 def _eval(pd: PairData, cfg: IcebergsConfig, u0, v0, u1, v1, axis):
@@ -165,3 +213,94 @@ def eval_pair_ia_T(pd: PairData, cfg: IcebergsConfig, u0, v0, u1,
     """(M, N)-layout twin of :func:`eval_pair_ia`."""
     return _eval(pd, cfg, u0[None, :], v0[None, :], u1[None, :],
                  v1[None, :], 0)
+
+
+# --------------------------------------------------------------------------
+# bond setup (host side, at init)
+# --------------------------------------------------------------------------
+
+def initialize_bonds_host(st, cfg: IcebergsConfig, max_pairwise=8192):
+    """Form bonds between nearby bergs (initialize_iceberg_bonds,
+    icebergs.F90:355-442): bond when the distance is below
+    ``length_for_manually_initialize_bonds`` or, with the radius
+    criterion, below 1.25 x (R1 + R2); partners in slot order, at most
+    ``max_bonds`` each.  Then labels conglomerates
+    (:func:`compute_conglom_ids_host`).
+
+    Host-side numpy on the O(n^2) pairwise matrix, as the JAX package
+    does up to 512 bergs: build large worlds by bonding one prototype
+    conglomerate and replicating its table with slot offsets (more than
+    ``max_pairwise`` live bergs raises)."""
+    alive = st.alive.cpu().numpy()
+    n = int(alive.sum())
+    if n > max_pairwise:
+        raise ValueError(f"{n} live bergs > max_pairwise={max_pairwise}: "
+                         "bond a prototype and replicate it")
+    idx = np.nonzero(alive)[0]
+
+    def host(x):
+        return x.detach().cpu().numpy().astype(np.float64)[idx]
+
+    lon, lat, L, W = host(st.lon), host(st.lat), host(st.length), \
+        host(st.width)
+    lat_ref = 0.5 * (lat[:, None] + lat[None, :])
+    if cfg.grid_is_latlon:
+        dxl = (np.pi / 180.) * cfg.Rearth * np.cos((np.pi / 180.) * lat_ref)
+        dyl = (np.pi / 180.) * cfg.Rearth
+    else:
+        dxl = np.ones_like(lat_ref)
+        dyl = 1.0
+    rx = (lon[:, None] - lon[None, :]) * dxl
+    ry = (lat[:, None] - lat[None, :]) * dyl
+    r = np.hypot(rx, ry)
+    np.fill_diagonal(r, np.inf)
+    A = L * W
+    R = (np.sqrt(A / (2. * np.sqrt(3.))) if cfg.hexagonal_icebergs
+         else 0.5 * np.sqrt(A))
+    if cfg.manually_initialize_bonds_from_radii:
+        crit = 1.25 * (R[:, None] + R[None, :])
+    else:
+        crit = cfg.length_for_manually_initialize_bonds
+    pairs = r < crit
+
+    B = st.max_bonds
+    bond_idx = np.full((st.capacity, B), -1, np.int32)
+    bond_len = np.zeros((st.capacity, B))
+    nb = np.zeros((st.capacity,))
+    for a in range(n):
+        partners = np.nonzero(pairs[a])[0]
+        for k, b in enumerate(partners[:B]):
+            bond_idx[idx[a], k] = idx[b]
+            bond_len[idx[a], k] = r[a, b]
+        nb[idx[a]] = min(len(partners), B)
+    dev, dt = st.device, st.dtype
+    st = st.replace(bond_idx=torch.as_tensor(bond_idx, device=dev),
+                    bond_length=torch.as_tensor(bond_len).to(dev, dt),
+                    n_bonds=torch.as_tensor(nb).to(dev, dt))
+    return compute_conglom_ids_host(st)
+
+
+def compute_conglom_ids_host(st):
+    """Label bonded conglomerates (set_conglom_ids,
+    icebergs_framework.F90:2737): the connected components of the bond
+    graph, numbered from 1; unbonded bergs get singleton labels.  Host
+    side (scipy)."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    N = st.capacity
+    bond_idx = st.bond_idx.cpu().numpy()
+    m = bond_idx >= 0
+    rows = np.nonzero(m)[0]
+    cols = bond_idx[m]
+    g = coo_matrix((np.ones(len(rows)), (rows, cols)), shape=(N, N))
+    _, labels = connected_components(g, directed=False)
+    return st.replace(conglom_id=torch.as_tensor(
+        (labels + 1).astype(np.int32), device=st.device))
+
+
+def count_bonds(st):
+    """Refresh n_bonds from the bond table (count_bonds,
+    icebergs_framework.F90:4860)."""
+    dem_alive = (st.bond_idx >= 0) & (st.bond_broken != 1)
+    return st.replace(n_bonds=dem_alive.sum(dim=1).to(st.dtype))

@@ -1,17 +1,20 @@
-"""Fused interactive-force closure over the presorted slab (fused3).
+"""Fused interactive-force closures over the extraction search (K2).
 
-Counterpart of the presorted path of ``icebergs_tpu/ops/fused_contact.py``
+Counterpart of ``icebergs_tpu/ops/fused_contact.py``
 (``FusedContactStats``, ``_compact``, ``_subset_strip_tables``,
-``_fallback_group``, ``_scatter_fold``, ``_take_rows``, the presorted
-branch of ``_origin_frame_groups_extract`` and
-``make_ia_fn_fused3(presorted=True)``):
+``_fallback_group``, ``_scatter_fold``, ``_take_rows``,
+``_origin_frame_groups_extract``, ``make_ia_fn_fused3(presorted=True)``
+and ``make_ia_fn_fused_mts1``):
 
 1. K2 (:func:`.extract.extract_sorted`) searches each berg's strips and
    returns the count, min/max partner slots and both partners' features;
+   on a slab that is not cell-sorted the search runs on a sorted view
+   (the feature rows moved by K1) and its results come back to the
+   origin frame through one inverse K1 transport;
 2. bergs with 1-2 partners outside bad blocks are evaluated on a (2, N)
    partner table built from those features — no partner gathers;
 3. bergs with >= 3 partners or in bad blocks go through the exact
-   fallback over their 3x3-cell strips, compacted to ``fallback_cap``
+   fallback over their (2r+1)-row strips, compacted to ``fallback_cap``
    rows and folded back with one small scatter per field.
 
 Overflow (fallback rows beyond the cap, strips wider than the strip
@@ -29,10 +32,12 @@ import torch
 from ..config import IcebergsConfig
 from . import forces as _forces
 from .accel import IA
-from .extract import (EX_CNT, EX_F1, EX_F2, PT_ALIVE, PT_AREA, PT_FLK,
-                      PT_KEY, PT_LAT, PT_LON, PT_MASS, PT_NEVAL, PT_NF,
-                      PT_RAD, PT_U, PT_V, extract_sorted)
-from .sorted import starts_from_sorted_key
+from .extract import (EX_CNT, EX_F1, EX_F2, EX_VMAX, EX_VMIN, PT_ALIVE,
+                      PT_AREA, PT_FLK, PT_GRP, PT_KEY, PT_LAT, PT_LON,
+                      PT_MASS, PT_NEVAL, PT_NF, PT_RAD, PT_U, PT_V,
+                      extract_sorted)
+from .pack import from_bits, permute_cols_u32, to_bits
+from .sorted import lex_cell_id_order, starts_from_sorted_key
 
 
 class FusedContactStats(NamedTuple):
@@ -96,10 +101,13 @@ def _take_rows(st, sel):
     return SimpleNamespace(**{f: getattr(st, f)[s] for f in _TAKE_FIELDS})
 
 
-def _fallback_group(st, bad, key_s, cell_starts, grid, cfg, *,
-                    fallback_cap, fallback_strip_width, radius=1):
-    """Exact fallback for >= 3-partner / bad-block rows of the sorted
-    slab: ``(pd_f, sel_f, vrow_f, stats)``."""
+def _fallback_group(st, bad, order, key_s, cell_starts, grid, cfg, *,
+                    fallback_cap, fallback_strip_width, radius=1,
+                    exclude_same_group=False):
+    """Exact fallback for >= 3-partner / bad-block rows: compacted in the
+    frame of ``st``; candidate strips address the sorted slab and map
+    back through ``order`` (None when ``st`` is the sorted slab).
+    Returns ``(pd_f, sel_f, vrow_f, stats)``."""
     N = st.capacity
     sel_f, vrow_f, drop_f = _compact(bad, fallback_cap)
     s = sel_f.long()
@@ -109,7 +117,12 @@ def _fallback_group(st, bad, key_s, cell_starts, grid, cfg, *,
         sub_f, torch.full_like(sel_f, -1), key_s < grid.nx * grid.ny, N,
         cell_starts, grid, fallback_strip_width, radius=radius)
     cand_f = cand_s.clamp(max=N - 1)
+    cand_f = (cand_f.to(torch.int32) if order is None
+              else order[cand_f])
     valid_f = valid_f & (cand_f != sel_f[:, None])
+    if exclude_same_group:
+        valid_f = valid_f & (st.conglom_id[cand_f.long()]
+                             != st.conglom_id[s][:, None])
     pd_f = _forces.precompute_pair_data(
         _take_rows(st, sel_f), cfg, cand_f, valid_f & vrow_f[:, None],
         partner_st=st)
@@ -130,51 +143,102 @@ def _scatter_fold(sel_f, vrow_f, capacity):
     return fold
 
 
-def contact_features(st, grid, cfg: IcebergsConfig):
-    """K2's inputs on the presorted slab: the (PT_NF, N) feature rows and
-    the sorted cell keys (dead rows = ncells)."""
+def contact_features(st, grid, cfg: IcebergsConfig,
+                     exclude_same_group: bool = False):
+    """K2's inputs in the frame of ``st``: the (PT_NF, N) feature rows
+    and the cell keys (dead rows = ncells); ``exclude_same_group`` adds
+    the conglomerate id row ``PT_GRP``."""
     N = st.capacity
     ncells = grid.nx * grid.ny
     dtype = st.lon.dtype
-    key_s = torch.where(st.alive, st.jne * grid.nx + st.ine,
-                        ncells).to(torch.int32)
+    key = torch.where(st.alive, st.jne * grid.nx + st.ine,
+                      ncells).to(torch.int32)
     A = st.length * st.width
     rows = [torch.zeros(N, dtype=dtype, device=st.device)] * PT_NF
-    for r, f in ((PT_LON, st.lon_old), (PT_LAT, st.lat_old),
-                 (PT_U, st.uvel_old), (PT_V, st.vvel_old), (PT_AREA, A),
-                 (PT_MASS, st.mass),
-                 (PT_RAD, _forces._interaction_radius(cfg, A)),
-                 (PT_ALIVE, st.alive.to(dtype)), (PT_KEY, key_s.to(dtype)),
-                 (PT_FLK, st.fl_k)):
+    feats = [(PT_LON, st.lon_old), (PT_LAT, st.lat_old),
+             (PT_U, st.uvel_old), (PT_V, st.vvel_old), (PT_AREA, A),
+             (PT_MASS, st.mass),
+             (PT_RAD, _forces._interaction_radius(cfg, A)),
+             (PT_ALIVE, st.alive.to(dtype)), (PT_KEY, key.to(dtype)),
+             (PT_FLK, st.fl_k)]
+    if exclude_same_group:
+        feats.append((PT_GRP, st.conglom_id.to(dtype)))
+    for r, f in feats:
         rows[r] = f
-    return torch.stack(rows), key_s
+    return torch.stack(rows), key
 
 
-def _presorted_groups(st, grid, cfg: IcebergsConfig, *, block_n, window,
-                      fallback_cap, fallback_strip_width, cell_starts,
-                      radius=1):
-    """Search + pair data on the presorted slab (the presorted branch of
-    ``_origin_frame_groups_extract``): ``(pd_n, pd_f, sel_f, vrow_f,
-    stats)``."""
+def _extract_groups(st, grid, cfg: IcebergsConfig, *, block_n, window,
+                    fallback_cap, fallback_strip_width, presorted,
+                    cell_starts=None, radius=1, exclude_same_group=False,
+                    with_partner_slots=False):
+    """Search + pair data (``_origin_frame_groups_extract``).
+
+    ``presorted``: ``st`` is the (cell, id)-sorted slab and everything
+    stays in its frame.  Otherwise the search runs on a sorted view —
+    the (cell, id_cnt, id_ij) order, the feature rows moved by K1 — and
+    count, bad flag, partner slots and the 12 partner-feature rows come
+    back to the origin frame in one inverse K1 transport.
+    ``with_partner_slots`` keeps origin-frame partner slots in the pair
+    data for :func:`forces.refresh_pair_velocities`.
+
+    Returns ``(pd_n, pd_f, sel_f, vrow_f, stats)``."""
+    N = st.capacity
     ncells = grid.nx * grid.ny
-    PT, key_s = contact_features(st, grid, cfg)
-    if cell_starts is None:
+    PT, key = contact_features(st, grid, cfg, exclude_same_group)
+    if presorted:
+        order = inv = None
+        key_s = key
+        if cell_starts is None:
+            cell_starts = starts_from_sorted_key(key_s, ncells)
+    else:
+        order = lex_cell_id_order(key, st.id_cnt, st.id_ij)
+        inv = torch.empty_like(order)
+        inv[order.long()] = torch.arange(N, dtype=order.dtype,
+                                         device=order.device)
+        PT = from_bits(permute_cols_u32(to_bits(PT), order), PT.dtype)
+        key_s = key[order.long()]
         cell_starts = starts_from_sorted_key(key_s, ncells)
     out, bad_block = extract_sorted(PT, key_s, cell_starts, grid, cfg,
                                     block_n=block_n, window=window,
-                                    radius=radius)
+                                    radius=radius,
+                                    exclude_same_group=exclude_same_group)
     cnt = out[EX_CNT].to(torch.int32)
     bad = (bad_block | (cnt > 2)) & (key_s < ncells)
+    lanes = [cnt, bad.to(torch.int32)]
+    if with_partner_slots:
+        # min/max engaged sorted slots -> origin-frame partner slots
+        i1 = out[EX_VMIN].clamp(0, N - 1).to(torch.int32)
+        i2 = out[EX_VMAX].clamp(0, N - 1).to(torch.int32)
+        if order is not None:
+            i1, i2 = order[i1.long()], order[i2.long()]
+        zero = torch.zeros_like(cnt)
+        lanes += [torch.where(cnt >= 1, i1, zero),
+                  torch.where(cnt >= 2, i2, zero)]
+    frows = ([out[EX_F1 + k] for k in range(PT_NEVAL)]
+             + [out[EX_F2 + k] for k in range(PT_NEVAL)])
+    if inv is not None:
+        R = permute_cols_u32(torch.stack(
+            lanes + [to_bits(f) for f in frows]), inv)
+        nl = len(lanes)
+        lanes = list(R[:nl])
+        frows = [from_bits(R[nl + k], out.dtype) for k in range(len(frows))]
+    cnt, bad = lanes[0], lanes[1] > 0
+    other_T = torch.stack(lanes[2:4]) if with_partner_slots else None
+
     normal = (cnt > 0) & ~bad & st.alive
     m_n = torch.stack([normal, normal & (cnt >= 2)])
     names = ("lon2", "lat2", "u2", "v2", "A2g", "M2g")
-    partner_fields = {nm: torch.stack([out[EX_F1 + k], out[EX_F2 + k]])
-                      for k, nm in enumerate(names[:PT_NEVAL])}
+    partner_fields = {nm: torch.stack([frows[k], frows[PT_NEVAL + k]])
+                      for k, nm in enumerate(names)}
     pd_n = _forces.precompute_pair_data_T(st, cfg, m_n,
-                                          partner_fields=partner_fields)
+                                          partner_fields=partner_fields,
+                                          other_T=other_T)
     pd_f, sel_f, vrow_f, stats = _fallback_group(
-        st, bad, key_s, cell_starts, grid, cfg, fallback_cap=fallback_cap,
-        fallback_strip_width=fallback_strip_width, radius=radius)
+        st, bad, order, key_s, cell_starts, grid, cfg,
+        fallback_cap=fallback_cap,
+        fallback_strip_width=fallback_strip_width, radius=radius,
+        exclude_same_group=exclude_same_group)
     return pd_n, pd_f, sel_f, vrow_f, stats
 
 
@@ -191,11 +255,12 @@ def make_ia_fn_fused3(st, grid, cfg: IcebergsConfig, *, block_n: int = 128,
                                   "Queue 1 item 9)")
     if not cfg.legacy_contact_dispatch or cfg.iceberg_bonds_on:
         raise NotImplementedError("modern contact dispatch / bonds "
-                                  "(ROADMAP.md Queue 1 item 10)")
-    pd_n, pd_f, sel_f, vrow_f, stats = _presorted_groups(
+                                  "outside MTS (ROADMAP.md Queue 1 item 9)")
+    pd_n, pd_f, sel_f, vrow_f, stats = _extract_groups(
         st, grid, cfg, block_n=block_n, window=window,
         fallback_cap=fallback_cap,
-        fallback_strip_width=fallback_strip_width, cell_starts=cell_starts)
+        fallback_strip_width=fallback_strip_width, presorted=True,
+        cell_starts=cell_starts)
     u0, v0 = st.uvel, st.vvel
     s = sel_f.long()
     fold = _scatter_fold(sel_f, vrow_f, st.capacity)
@@ -206,3 +271,47 @@ def make_ia_fn_fused3(st, grid, cfg: IcebergsConfig, *, block_n: int = 128,
         return IA(*(fold(x, f) for x, f in zip(bn, bf)))
 
     return ia_fn, stats
+
+
+def make_ia_fn_fused_mts1(st, grid, cfg: IcebergsConfig, *,
+                          block_n: int = 256, window: int = 512,
+                          fallback_cap: int = 4096,
+                          fallback_strip_width: int = 64,
+                          radius: int = None):
+    """The MTS Part-1 cross-conglomerate collision group (accel_mts
+    mts_part=1 -> interactive_force's cross-conglomerate branch,
+    icebergs.F90:565-607): crit = max(R1 + R2, contact_distance) with the
+    contact spring, searched by K2 with the conglomerate filter over
+    (2r+1)-row strips of the unsorted slab, evaluated on an origin-frame
+    (2, N) partner table plus the exact strip fallback.
+
+    Returns ``(refresh, stats)``: ``refresh(s) -> ia_fn`` regathers the
+    partners' ``*_old`` velocities from ``s`` into the frozen pair
+    geometry (the force-convergence loop's contract,
+    icebergs.F90:6663-6743)."""
+    if not cfg.mts:
+        raise ValueError("the mts1 group is the MTS Part-1 collision group")
+    if radius is None:
+        radius = _forces.neighbor_radius(grid, cfg)
+    pd_n, pd_f, sel_f, vrow_f, stats = _extract_groups(
+        st, grid, cfg, block_n=block_n, window=window,
+        fallback_cap=fallback_cap,
+        fallback_strip_width=fallback_strip_width, presorted=False,
+        radius=radius, exclude_same_group=True, with_partner_slots=True)
+    u0, v0 = st.uvel, st.vvel
+    s = sel_f.long()
+    fold = _scatter_fold(sel_f, vrow_f, st.capacity)
+
+    def refresh(cur):
+        pdn = _forces.refresh_pair_velocities(pd_n, cur)
+        pdf = _forces.refresh_pair_velocities(pd_f, cur)
+
+        def ia_fn(u1, v1):
+            bn = _forces.eval_pair_ia_T(pdn, cfg, u0, v0, u1, v1)
+            bf = _forces.eval_pair_ia(pdf, cfg, u0[s], v0[s], u1[s],
+                                      v1[s])
+            return IA(*(fold(x, f) for x, f in zip(bn, bf)))
+
+        return ia_fn
+
+    return refresh, stats

@@ -1,13 +1,15 @@
 """Single-gather table interpolation of the forcing to the bergs.
 
 Counterpart of the table path of ``icebergs_tpu/ops/pallas_interp.py``
-(``interp_cell_table``, ``_env_rows_from_slots``,
-``interp_to_bergs_table``; ``pallas_interp.py:69-273, 437-496``): every
+(``interp_cell_table``, ``_env_rows_from_slots``, ``_quad_od_from_rows``,
+``interp_to_bergs_table``; ``pallas_interp.py:69-273, 386-496``): every
 per-cell quantity the interpolation reads is precomputed into a
 (64, ncells) slot table, each berg reads its cell's column through K1
 (:func:`..ops.pack.permute_cols_u32`, idx = cell key), and the per-berg
 bilinear / stencil arithmetic follows term for term.  The walk's 5x5 and
-9x9 land-mask anchors ride the same read.
+9x9 land-mask anchors ride the same read.  MTS configurations read the
+ocean depth through the quadratic stencil instead, from 25 more rows
+(``with_quad_od``; 89 in all, which K1 moves as it moves 64).
 """
 
 from __future__ import annotations
@@ -27,13 +29,18 @@ S_NANX, S_NANY = 49, 50
 S_M25L, S_M25H = 51, 52
 S_M81 = 53            # rows 53..61
 S_NROWS = 64
+S_QOD = S_NROWS       # 25 quad-od rows when with_quad_od
 
 
-def interp_cell_table(grid: Grid, frc, cfg: IcebergsConfig):
+def interp_cell_table(grid: Grid, frc, cfg: IcebergsConfig,
+                      with_quad_od: bool = False):
     """(S_NROWS, ncells) float32 per-cell slot table in cell-key order
     (key = j*nx + i): the corner values, SSH-stencil slopes with their
     nonfinite-indicator bits, the A-grid scalars, ocean depth + ssh and
-    the walk anchors — elementwise the values the JAX table holds."""
+    the walk anchors — elementwise the values the JAX table holds.
+    ``with_quad_od`` appends the 25 rows of the 5x5 (edge-padded)
+    neighbourhood of ``ocean_depth + ssh`` that the MTS quadratic depth
+    read touches."""
     from ..dynamics import _msk25_table, _msk81_rows
 
     nx, ny = grid.nx, grid.ny
@@ -113,8 +120,55 @@ def interp_cell_table(grid: Grid, frc, cfg: IcebergsConfig):
             m81[k, 5:nx + 5, 5:ny + 5]).to(torch.float32)
 
     z = torch.zeros(nx * ny, dtype=torch.float32, device=dev)
-    return torch.stack([z if r is None else r.to(torch.float32)
-                        for r in rows])
+    rows = [z if r is None else r for r in rows]
+    if with_quad_od:
+        # padded-array read fld[(i+1)+dx, (j+1)+dy] per interior cell
+        fld = grid.ocean_depth + frc.ssh
+        fldq = torch.nn.functional.pad(fld[None, None], (2, 2, 2, 2),
+                                       mode="replicate")[0, 0]
+        for dy in (-2, -1, 0, 1, 2):
+            for dx in (-2, -1, 0, 1, 2):
+                rows.append(key_order(fldq[3 + dx:3 + dx + nx,
+                                           3 + dy:3 + dy + ny]))
+    return torch.stack([r.to(torch.float32) for r in rows])
+
+
+def _quad_od_from_rows(read, key, xi, yj, grid: Grid, cfg: IcebergsConfig):
+    """MTS quadratic depth (``quad_interp_from_agrid``, regular grid,
+    icebergs_framework.F90:7168-7255) from the 25 quad-od rows, with the
+    local coordinate taken from ``i + xi`` as the JAX table path does."""
+    nx, ny = grid.nx, grid.ny
+    i = key % nx
+    j = torch.div(key, nx, rounding_mode="floor")
+    mind = 0 if cfg.rev_mind else 1
+    par_i = (i + 1) % 2
+    par_j = (j + 1) % 2
+    is_lo = torch.where(par_i == mind, torch.where(xi >= 0.5, i, i - 2),
+                        i - 1).clamp(-1, nx - 2)
+    js_lo = torch.where(par_j == mind, torch.where(yj >= 0.5, j, j - 2),
+                        j - 1).clamp(-1, ny - 2)
+    dxo = is_lo - i
+    dyo = js_lo - j
+    xloc = (i - is_lo).to(xi.dtype) + xi - 1.5
+    yloc = (j - js_lo).to(yj.dtype) + yj - 1.5
+    xb = (0.5 * xloc * (xloc - 1.), (1. + xloc) * (1. - xloc),
+          0.5 * xloc * (xloc + 1.))
+    yb = (0.5 * yloc * (yloc - 1.), (1. + yloc) * (1. - yloc),
+          0.5 * yloc * (yloc + 1.))
+
+    def coeff(basis, d, o):
+        c = torch.zeros_like(basis[0])
+        for a in range(3):
+            c = c + torch.where(d == o - a, basis[a], 0.)
+        return c
+
+    cx = [coeff(xb, dxo, o) for o in (-2, -1, 0, 1, 2)]
+    cy = [coeff(yb, dyo, o) for o in (-2, -1, 0, 1, 2)]
+    out = torch.zeros_like(xi)
+    for oy in range(5):
+        for ox in range(5):
+            out = out + cx[ox] * cy[oy] * read(S_QOD + oy * 5 + ox)
+    return out
 
 
 def _env_rows_from_slots(read, xi, yj, cfg: IcebergsConfig):
@@ -177,22 +231,28 @@ def interp_to_bergs_table(st, grid: Grid, frc, cfg: IcebergsConfig):
     """Cache the interpolated environment on every berg.
 
     Returns ``(state_with_env, (m25_pre, m81_pre))``: the walk's packed
-    5x5 anchor (N,) and 9x9 anchor rows (9, N), int32."""
-    if cfg.coastal_drift != 0. or cfg.tidal_drift != 0. or cfg.mts:
+    5x5 anchor (N,) and 9x9 anchor rows (9, N), int32.  MTS configs take
+    ``od`` from the quadratic stencil rows."""
+    if cfg.coastal_drift != 0. or cfg.tidal_drift != 0.:
         raise NotImplementedError(
-            "table interpolation with coastal/tidal drift or MTS "
-            "(ROADMAP.md Queue 1 items 10-11)")
+            "table interpolation with coastal/tidal drift (ROADMAP.md "
+            "Queue 1 item 11)")
+    if cfg.mts and cfg.A68_test:
+        raise NotImplementedError("the A68 test's XLA interpolation "
+                                  "(ROADMAP.md Queue 1 item 15)")
     ncells = grid.nx * grid.ny
     key = torch.where(st.alive, st.jne * grid.nx + st.ine,
                       ncells).to(torch.int32)
-    tbl = interp_cell_table(grid, frc, cfg)
-    tbl = torch.cat([tbl, tbl.new_zeros(S_NROWS, 1)], dim=1)
+    tbl = interp_cell_table(grid, frc, cfg, with_quad_od=cfg.mts)
+    tbl = torch.cat([tbl, tbl.new_zeros(tbl.shape[0], 1)], dim=1)
     rows = permute_cols_u32(tbl.view(torch.int32), key).view(torch.float32)
 
     def read(s):
         return rows[s]
 
     out = _env_rows_from_slots(read, st.xi, st.yj, cfg)
+    if cfg.mts:
+        out[12] = _quad_od_from_rows(read, key, st.xi, st.yj, grid, cfg)
     m25_pre = out[13].to(torch.int32) + out[14].to(torch.int32) * 8192
     m81_pre = torch.stack([read(S_M81 + k).to(torch.int32)
                            for k in range(9)])

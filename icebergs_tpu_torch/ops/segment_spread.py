@@ -2,7 +2,7 @@
 
 Counterpart of ``icebergs_tpu/ops/pallas_spread.py`` (``cell_tables``,
 ``_weights_from_rows``, ``build_rows``, ``segment_spread_sums``,
-``spread_cell_sums`` on the presorted branch).  Each cell's rows are
+``spread_cell_sums``).  Each cell's rows are
 summed in (cell, id) order — the association of the TPU kernel's
 selection matmul — by the CUDA kernel (one thread per cell) and by the
 plain version (one vectorized add per occupancy rank).
@@ -234,12 +234,24 @@ def build_rows(st, grid, frc, cfg: IcebergsConfig, extra_cols,
 def spread_cell_sums(st, grid, frc, cfg: IcebergsConfig, extra_cols, *,
                      key_alive, cell_starts, cell_block: int = 128,
                      window: int = None):
-    """Presorted end-to-end kernel path: the state slab is already
-    (cell, id) sorted for ``key_alive`` rows, so the rows stack directly.
-    Returns ``(S, nbad)``."""
-    _, rows = build_rows(st, grid, frc, cfg, extra_cols,
-                         key_alive=key_alive)
+    """End-to-end kernel path.  With ``cell_starts`` the state slab is
+    already (cell, id) sorted for ``key_alive`` rows and the rows stack
+    directly; without, the payload rows are moved into the (cell,
+    id_cnt, id_ij) order by K1 (the JAX package's one payload sort) and
+    the cell starts come from the sorted keys.  Returns ``(S, nbad)``."""
+    from .pack import from_bits, permute_cols_u32, to_bits
+    from .sorted import lex_cell_id_order, starts_from_sorted_key
+
+    key, rows = build_rows(st, grid, frc, cfg, extra_cols,
+                           key_alive=key_alive)
+    rows_s = torch.stack(rows)
+    if cell_starts is None:
+        order = lex_cell_id_order(key, st.id_cnt, st.id_ij)
+        rows_s = from_bits(permute_cols_u32(to_bits(rows_s), order),
+                           rows_s.dtype)
+        cell_starts = starts_from_sorted_key(key[order.long()],
+                                             grid.nx * grid.ny)
     S, bad = segment_spread_sums(
-        torch.stack(rows), cell_starts.to(torch.int32), cell_tables(grid),
-        cfg, len(extra_cols or []), cell_block=cell_block, window=window)
+        rows_s, cell_starts.to(torch.int32), cell_tables(grid), cfg,
+        len(extra_cols or []), cell_block=cell_block, window=window)
     return S, bad.sum(dtype=torch.int32)

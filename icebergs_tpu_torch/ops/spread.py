@@ -72,12 +72,13 @@ def sum_slots(out9):
 def create_gridded_icebergs_fields(st, grid, frc, cfg: IcebergsConfig, *,
                                    key_alive, cell_starts,
                                    extra_cell_cols=None):
-    """The coupler fields from one K3 pass over the presorted slab.
+    """The coupler fields from one K3 pass: over the presorted slab when
+    ``cell_starts`` is given, else behind a payload sort (K1).
 
-    ``key_alive`` is the aliveness the slab was sorted with (rows that
-    died in thermodynamics keep their cell, so their deferred melt still
-    lands); ``extra_cell_cols`` are per-berg columns summed per owning
-    cell in the same pass.  Returns ``SpreadDiags`` or, with extra
+    ``key_alive`` is the sort key's aliveness (pre-thermodynamics: rows
+    that died in thermodynamics keep their cell, so their deferred melt
+    still lands); ``extra_cell_cols`` are per-berg columns summed per
+    owning cell in the same pass.  Returns ``SpreadDiags`` or, with extra
     columns, ``(SpreadDiags, extra_fields)``."""
     if not cfg.parallel_reprod or cfg.hexagonal_icebergs:
         raise NotImplementedError("slot-scatter spreading (ROADMAP.md "

@@ -286,7 +286,7 @@ def thermodynamics(st, grid, frc, cfg: IcebergsConfig,
     Mv_fl, Me_fl = Mv, Me
 
     N_max = cfg.n_max_bonds_shape
-    N_bonds = torch.zeros_like(M)
+    N_bonds = st.n_bonds if cfg.iceberg_bonds_on else torch.zeros_like(M)
     N_bonds = torch.where(st.static_berg == 1., N_max, N_bonds)
 
     if cfg.melt_icebergs_as_ice_shelf or cfg.use_mixed_melting:

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 import icebergs_tpu_torch as ibp
-from icebergs_tpu_torch.ops import extract, pack
+from icebergs_tpu_torch.ops import dem_substeps as k4
+from icebergs_tpu_torch.ops import extract, forces, pack
 from icebergs_tpu_torch.ops import segment_spread as ss
 from icebergs_tpu_torch.ops import sorted as srt
 from icebergs_tpu_torch.ops import thermo
@@ -104,3 +105,140 @@ def test_step_on_card_matches_cpu(dev):
         a, b = g[name][live], c[name][live]
         np.testing.assert_allclose(a, b, rtol=1e-5,
                                    atol=2e-5 * np.abs(b).max())
+
+
+def _dem_cfg(**kw):
+    base = dict(
+        grid_is_latlon=False, Lx=-1.0, use_f_plane=True, lat_ref=-55.0,
+        dt=120.0, Runge_not_Verlet=False, mts=True, mts_sub_steps=12,
+        explicit_inner_mts=True, dem=True, dem_spring_coef=5.e6,
+        dem_damping_coef=1.0, poisson=0.3, interactive_icebergs_on=True,
+        iceberg_bonds_on=True, spring_coef=0.00065359477124183,
+        contact_spring_coef=1.e-7, contact_distance=4.e3,
+        force_convergence=True, convergence_tolerance=1e-4,
+        use_broken_bonds_for_substep_contact=True,
+        break_bonds_on_sub_steps=True, fracture_criterion="stress",
+        frac_thres_scaling=1., frac_thres_n=18.e3, frac_thres_t=100.e3,
+        constant_interaction_LW=True, constant_length=3000.,
+        constant_width=3000., manually_initialize_bonds=True,
+        manually_initialize_bonds_from_radii=True,
+        allow_bergs_to_roll=False, max_bonds=6, hexagonal_icebergs=False,
+        fused_fallback_cap=256)
+    base.update(kw)
+    return ibp.IcebergsConfig(**base).normalized(warn=False)
+
+
+def _dem_world(cfg, jitter, units=6, side=5, gap=3.85e3, seed=3):
+    """``units`` bonded side x side conglomerates in a row, ``gap`` apart
+    (beyond the bonding radius, inside the contact distance),
+    on a 64 x 64 grid of 7 km cells, built on the CPU and packed into
+    128-slot blocks; random velocities and ocean depths."""
+    r, dxy = 1500.0, 7000.0
+    rng = np.random.RandomState(seed)
+    px, py = np.meshgrid(np.arange(side) * 2 * r, np.arange(side) * 2 * r,
+                         indexing="ij")
+    pitch = 2 * r * (side - 1) + gap
+    lon = np.concatenate([px.ravel() + 2 * dxy + u * pitch
+                          for u in range(units)])
+    lat = np.tile(py.ravel() + 2 * dxy, units)
+    n = lon.size
+    lon = lon + rng.uniform(-jitter, jitter, n)
+    lat = lat + rng.uniform(-jitter, jitter, n)
+    cpu = torch.device("cpu")
+    grid = ibp.make_uniform_grid(64, 64, 0., 0., dxy, dxy,
+                                 grid_is_latlon=False, device=cpu)
+    frc = ibp.uniform_forcing(64, 64, uo=0.25, vo=0.05, ua=5.0, sst=-2.,
+                              sss=34., device=cpu)
+    st = ibp.create_bergs(256, lon=lon, lat=lat,
+                          uvel=rng.uniform(-0.3, 0.3, n),
+                          vvel=rng.uniform(-0.3, 0.3, n),
+                          mass=850. * 200. * (2 * r) ** 2, thickness=200.,
+                          width=2 * r, length=2 * r, mass_scaling=1.0,
+                          id_cnt=np.arange(n) + 1, max_bonds=6,
+                          od=rng.uniform(120., 260., n), device=cpu)
+    i, j, xi, yj = ibp.pos_to_cell(grid, st.lon, st.lat, -1.0)
+    st = forces.count_bonds(forces.initialize_bonds_host(
+        st.replace(ine=i, jne=j, xi=xi, yj=yj), cfg))
+    st = k4.pack_conglomerates_blocked(st, 128)
+    st = st.replace(axn_fast=st.uvel * 1e-3, ayn_fast=st.vvel * -1e-3,
+                    ang_vel=st.uvel * 1e-5)
+    deltas = k4.analyze_bond_deltas(st.bond_idx, 128)
+    assert deltas
+    return grid, frc, st, deltas
+
+
+@pytest.mark.parametrize("jitter,flags", [
+    (40.0, {}),
+    (2.0, {"short_step_mts_grounding": True, "use_grounding_torque": True,
+           "frac_thres_n": 1.8e5}),
+])
+def test_dem_substeps_kernel_matches_plain(dev, jitter, flags):
+    """K4 against its plain version on the card: integers exact, floats
+    bitwise (both round every operation separately: -fmad=false, IEEE
+    sqrtf / sinf / division)."""
+    cfg = _dem_cfg(**flags)
+    _, _, st, deltas = _dem_world(cfg, jitter)
+    st = st.to(dev)
+    before = k4.part3_substeps_vmem.launches
+    out, nb = k4.part3_substeps_vmem(st, cfg, deltas, block_n=128)
+    assert k4.part3_substeps_vmem.launches == before + 1
+    ref, nbp = k4.part3_substeps_plain(st, cfg, deltas, block_n=128)
+    assert int(nb) == int(nbp)
+    if not flags:
+        assert int(nb) > 10
+    for name in ("bond_broken", "n_bonds") + k4._CAR_FIELDS \
+            + k4._BOND_FIELDS:
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+
+
+def test_extract_grouped_kernel_matches_plain(dev):
+    """K2 with the conglomerate filter at radius 2 against its plain
+    version on the sorted view of a bonded world."""
+    cfg = _dem_cfg()
+    grid, _, st, _ = _dem_world(cfg, 10.0)
+    grid, st = grid.to(dev), st.to(dev)
+    st, cs = srt.sort_state_by_cell(st, grid)
+    PT, key_s = contact_features(st, grid, cfg, exclude_same_group=True)
+    out, _ = extract.extract_sorted(PT, key_s, cs, grid, cfg, block_n=32,
+                                    window=512, radius=2,
+                                    exclude_same_group=True)
+    c_lo, c_hi, bad = extract.block_tables(key_s, cs, grid.nx, grid.ny, 32,
+                                           512, radius=2)
+    plain = extract.extract_sorted_plain(PT, cs, c_lo, c_hi, bad, 32,
+                                         float(cfg.contact_distance),
+                                         exclude_same_group=True)
+    assert torch.equal(out, plain)
+    cnt = out[extract.EX_CNT]
+    assert int((cnt > 0).sum()) > 0
+    own = extract.extract_sorted(PT, key_s, cs, grid, cfg, block_n=32,
+                                 window=512, radius=2)[0]
+    assert bool((own[extract.EX_CNT] >= cnt).all())
+    assert int(own[extract.EX_CNT].sum()) > int(cnt.sum())
+
+
+def test_dem_step_on_card_matches_cpu(dev):
+    """One MTS outer step (Part 1 through K1/K2, K4, K1/K3 spreading) on
+    the card against the CPU: integers and the MTS counters exact,
+    floats within 2e-3 of scale (an ulp where the two libraries' sin /
+    pow round differently, grown by the stiff bonds over 12 substeps)."""
+    cfg = _dem_cfg()
+    grid, frc, st, deltas = _dem_world(cfg, 8.0)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        multi = ibp.make_multi_step(grid.to(d), cfg, 1, with_stats=True,
+                                    mts_substep_kernel="vmem",
+                                    mts_vmem_deltas=deltas,
+                                    mts_vmem_block_n=128)
+        s, ov, fb, _ = multi(st.to(d), frc.to(d))
+        sd = multi.step_diags[0]
+        outs.append((ibp.to_numpy(s), int(ov), int(fb), sd.conv_iters,
+                     int(sd.broken_bonds), int(sd.p1_fallback)))
+    (g, *gc), (c, *cc) = outs
+    assert gc == cc and gc[0] == 0
+    for name in ("alive", "id_cnt", "ine", "jne", "bond_broken", "n_bonds"):
+        np.testing.assert_array_equal(g[name], c[name])
+    live = g["alive"]
+    for name in ("lon", "lat", "uvel", "vvel", "ang_vel", "bond_nstress"):
+        a, b = g[name][live], c[name][live]
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=2e-3 * np.abs(b).max())
