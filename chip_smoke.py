@@ -11,8 +11,10 @@ Phases, one line each:
    the card's name and power limit as nvidia-smi reports them;
 2. build: compiles the CUDA kernels from ``icebergs_tpu_torch/csrc``
    and prints each kernel's registers and spills;
-3. kernels: K1 (column permute), K2 (contact extraction) and K3 (spread
-   segment sums) at the shapes the headline world gives them, and K2
+3. kernels: K1 (column permute), K2 (contact extraction), K3 (spread
+   segment sums), K5 (the prepass search), K6 (the sorted-frame
+   interpolation) and K7 (the pair evaluation over the bucket tables,
+   max_per_cell 24) at the shapes the headline world gives them, and K2
    with the conglomerate filter (radius 2, block 256, window 512) and K4
    (the DEM substep loop, 60 substeps) at the shapes of the 1M-element
    DEM world, each against its plain PyTorch version on the card, with
@@ -21,6 +23,8 @@ Phases, one line each:
 4. cross-check: a 50k-berg world runs 2 steps on the card and, with the
    plain versions, on a CPU copy; integer outputs must match exactly,
    floats within a stated tolerance;
+4c. the same cross-check for the per-step ``buckets`` path with K7 and
+   the persistent ``fused`` lane with the kernel interpolation;
 4b. DEM cross-check: 20 conglomerates of 22x22 elements, 2.5-3.5 km
    apart, run one MTS outer step on the card and on a CPU copy; ids,
    cells, bond tables and the MTS counters must match exactly, floats
@@ -33,7 +37,14 @@ Phases, one line each:
    conglomerates of 22x22 bonded elements, 999,944 in all, 512x512 grid
    of 7 km cells, dt 600 s, 60 substeps) packed one conglomerate per
    512-slot block, through ``make_multi_step`` with the substep kernel,
-   2 outer steps per window after a warm-up, timed over 3 windows.
+   2 outer steps per window after a warm-up, timed over 3 windows;
+7. the per-step slice: the headline world through
+   ``make_multi_step(persistent=False)`` with the ``fused3``, ``fused``
+   and ``buckets`` (max_per_cell 24, K7) neighbour modes, 8 steps per
+   window, 3 windows each; the largest cell occupancy must stay within
+   max_per_cell before the first step, before the last and after it;
+8. the persistent lane with ``neighbor_mode="fused"`` and
+   ``interp_mode="kernel"`` (K5, K6) on the headline world, timed as in 5.
 
 The last two lines are a JSON object with each kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -92,8 +103,38 @@ FP32_FLOPS_PER_S = 67e12
 # (sqrt, division and sin as one each): per bond slot per substep, and per
 # element per substep (drift, assembly, kick, angular update)
 K4_FLOPS_PER_SLOT, K4_FLOPS_PER_ELEMENT = 185, 40
-# K2: per candidate pair test (separation, crit, compares); K3: per row
+# K2 and K5: per candidate pair test (separation, crit, compares); K3:
+# per row
 K2_FLOPS_PER_PAIR, K3_FLOPS_PER_ROW_BASE = 12, 110
+# K6 per berg (8 bilinear interpolations, the stencil slopes, the
+# rotations and the scrub), counted from csrc/interp_sorted.cu; K7 per
+# pair with the pmag scaling (two pmag terms, D and the five sums)
+K6_FLOPS_PER_BERG, K7_FLOPS_PER_PAIR = 150, 75
+K6_SLOTS_READ = 53          # slot rows 0-52 of the (64, ncells) table
+# the bucket tables of the per-step slice (M = 9 x 24 candidates)
+MAX_PER_CELL = 24
+# K7 against its plain version: the same per-pair arithmetic, but each
+# row's sums are taken across a warp and a shuffle tree, not in
+# torch.sum's order; at most a few of a row's M terms are nonzero, so the
+# orders differ by an ulp of the few-term sums
+K7_RTOL, K7_ATOL_SCALE = 1e-5, 1e-6
+
+
+# phase 4c: the new paths' card-vs-CPU cross-checks
+CROSS_PATHS = (
+    ("per-step buckets", None,
+     dict(persistent=False, neighbor_mode="buckets",
+          max_per_cell=MAX_PER_CELL)),
+    ("persistent fused kernel-interp",
+     dict(interp_mode="kernel", fused_fallback_cap=32768),
+     dict(neighbor_mode="fused")))
+# phase 7: each per-step neighbour mode and the kernels it must launch
+PERSTEP_PATHS = (
+    ("fused3", ("permute_cols_u32", "extract_sorted", "segment_spread_sums")),
+    ("fused", ("contact_prepass_sorted", "permute_cols_u32",
+               "segment_spread_sums")),
+    ("buckets", ("eval_pair_ia_kernel", "permute_cols_u32",
+                 "segment_spread_sums")))
 
 
 def bound(nbytes: float, flops: float):
@@ -353,7 +394,113 @@ def phase_kernels(ibp, torch, device):
         note=(f"ncells={ncells} R={rows_s.shape[0]} window_bad="
               f"{int(sbad.sum())} max_occupancy="
               f"{int((cs[1:] - cs[:-1]).max())}"))
+
+    # K5 on the sorted slab, as the persistent fused lane runs it
+    from icebergs_tpu_torch.ops import interp_sorted as k6, prepass
+    from icebergs_tpu_torch.ops import forces
+    from icebergs_tpu_torch.ops.pairs import eval_pair_ia_kernel
+    win = cfg.fused_window
+    P, key_p = prepass.prepass_features(st, grid, cfg)
+    k5 = prepass.contact_prepass_sorted(P, key_p, cs, grid, cfg, block_n=128,
+                                        window=win)
+    p_lo, p_hi, pbad = prepass.block_tables(key_p, cs, grid.nx, grid.ny, 128,
+                                            win)
+    cd = float(cfg.contact_distance)
+    k5p = prepass.prepass_sorted_plain(P, cs, p_lo, p_hi, 128, win, cd)
+    require(all(torch.equal(a, b) for a, b in zip(k5[:3], k5p)),
+            "K5 count / min / max slot differ from the plain version")
+    res["contact_prepass_sorted"] = dict(
+        err=max(max_abs_err(torch, a, b) for a, b in zip(k5[:3], k5p)),
+        ms=cuda_ms(torch, lambda: prepass.contact_prepass_sorted(
+            P, key_p, cs, grid, cfg, block_n=128, window=win)),
+        plain_ms=cuda_ms(torch, lambda: prepass.prepass_sorted_plain(
+            P, cs, p_lo, p_hi, 128, win, cd), reps=2),
+        library_ms=None,
+        bound=bound(nbytes(P, cs, p_lo, p_hi, *k5[:3]),
+                    K2_FLOPS_PER_PAIR * k5_pair_tests(torch, P, cs, p_lo,
+                                                      p_hi, 128, win)),
+        note=(f"N={N_HEAD} BN 128 window {win} bad_blocks="
+              f"{int(pbad.sum())}/{pbad.numel()} engaged_rows="
+              f"{int((k5p[0] > 0).sum())} rows_3plus="
+              f"{int((k5p[0] > 2).sum())}"))
+
+    # K6 on the sorted slab with the slot table (bitwise: the same
+    # expressions, each operation rounded once on both sides)
+    key6 = key_p
+    r6 = k6.interp_sorted(tbl[:, :ncells], key6, st.xi, st.yj, grid, cfg)
+    r6p = k6.interp_sorted_plain(tbl[:, :ncells], key6, st.xi, st.yj, cfg)
+    require(torch.equal(r6, r6p), "K6 rows differ from the plain version")
+    t6 = tbl[:, :ncells].contiguous()
+    # the kernel reads the 53 used slot rows of each occupied cell
+    occupied = int(torch.bincount(key6.long(), minlength=ncells + 1)[
+        :ncells].gt(0).sum())
+    res["interp_sorted"] = dict(
+        err=max_abs_err(torch, r6, r6p),
+        ms=cuda_ms(torch, lambda: k6.interp_sorted(t6, key6, st.xi, st.yj,
+                                                    grid, cfg)),
+        plain_ms=cuda_ms(torch, lambda: k6.interp_sorted_plain(
+            t6, key6, st.xi, st.yj, cfg), reps=5),
+        library_ms=None,
+        bound=bound(K6_SLOTS_READ * 4 * occupied
+                    + nbytes(key6, st.xi, st.yj, r6),
+                    K6_FLOPS_PER_BERG * N_HEAD),
+        note=(f"N={N_HEAD} table {tuple(t6.shape)} occupied_cells="
+              f"{occupied}"))
+    del P, k5, k5p, r6, r6p
+
+    # K7 on the bucket tables of the per-step slice (the unsorted slab)
+    nbr = forces.build_neighbor_tables(st0, grid, cfg,
+                                       max_per_cell=MAX_PER_CELL)
+    pd = forces.precompute_pair_data(st0, cfg, nbr.cand_idx, nbr.cand_valid,
+                                     partner_st=st0)
+    del nbr
+    vel = (st0.uvel, st0.vvel, st0.uvel * 1.01 + 0.01, st0.vvel * 0.99)
+    k7 = eval_pair_ia_kernel(pd, cfg, *vel)
+    k7p = forces.eval_pair_ia(pd, cfg, *vel)
+    require(torch.equal(k7.IA_x, k7p.IA_x) and torch.equal(k7.IA_y, k7p.IA_y),
+            "K7 spring sums are not passed through")
+    err7, worst7 = 0.0, 0.0
+    for f in ("P11", "P12", "P22", "Pu_x", "Pu_y"):
+        a, b = getattr(k7, f).double(), getattr(k7p, f).double()
+        scale = max(float(b.abs().max()), 1e-30)
+        require(bool(((a - b).abs() <= K7_RTOL * b.abs()
+                      + K7_ATOL_SCALE * scale).all()),
+                f"K7 {f} beyond its tolerance")
+        err7 = max(err7, float((a - b).abs().max()))
+        worst7 = max(worst7, float((a - b).abs().max()) / scale)
+    # the function needs the mask, and of the seven slabs only the 32-byte
+    # sectors (8 floats; M = 216 keeps rows sector-aligned) that hold an
+    # active pair: an inactive pair adds exact zeros
+    n_active = int(pd.active.sum())
+    sectors = int(pd.active.reshape(-1, 8).any(1).sum())
+    res["eval_pair_ia_kernel"] = dict(
+        err=err7,
+        ms=cuda_ms(torch, lambda: eval_pair_ia_kernel(pd, cfg, *vel),
+                   reps=10),
+        plain_ms=cuda_ms(torch, lambda: forces.eval_pair_ia(pd, cfg, *vel),
+                         reps=3),
+        library_ms=None,
+        bound=bound(nbytes(pd.active, *vel) + 7 * 32 * sectors
+                    + 5 * 4 * N_HEAD, K7_FLOPS_PER_PAIR * n_active),
+        note=(f"N={N_HEAD} M={pd.P11.shape[1]} active_pairs={n_active} "
+              f"active_sectors={sectors} worst_scaled_err={worst7:.3e} "
+              f"bitwise={all(torch.equal(getattr(k7, f), getattr(k7p, f)) for f in k7._fields)}"))
+    del pd, k7, k7p
+    torch.cuda.empty_cache()
     return res
+
+
+def k5_pair_tests(torch, P, cs, c_lo, c_hi, block_n, window):
+    """Candidate pair tests K5 makes on these inputs: for each block, its
+    live rows times the slots its strips scan (bad blocks included)."""
+    from icebergs_tpu_torch.ops.prepass import F_ALIVE, strip_ranges
+    N = P.shape[0]
+    start, end = strip_ranges(cs, c_lo, c_hi, window, N)
+    cand = (end - start).clamp(min=0).sum(1)
+    nb = c_lo.shape[0]
+    live = torch.zeros(nb * block_n, device=P.device)
+    live[:N] = (P[:, F_ALIVE] > 0.5).float()
+    return float((cand.double() * live.view(nb, block_n).sum(1)).sum())
 
 
 def k2_pair_tests(torch, PT, cs, c_lo, c_hi, bad, block_n):
@@ -471,17 +618,20 @@ def phase_kernels_dem(ibp, torch, device, cfg, world):
     return res
 
 
-def phase_cross(ibp, torch, device):
-    """2 steps of a mid-size world on the card and on a CPU copy."""
+def phase_cross(ibp, torch, device, cfg_kw=None, multi_kw=None):
+    """2 steps of a mid-size world on the card and on a CPU copy, through
+    ``make_multi_step(**multi_kw)`` (config changed by ``cfg_kw``)."""
     import numpy as np
     from icebergs_tpu_torch.ops.sorted import starts_from_sorted_key
 
     cfg, grid, frc, st = headline_world(ibp, torch, N_CROSS, NX_CROSS,
                                         device, seed=1)
+    cfg = cfg.replace(**(cfg_kw or {}))
     cpu = torch.device("cpu")
     outs = {}
     for dev in (device, cpu):
-        multi = ibp.make_multi_step(grid.to(dev), cfg, 2, with_stats=True)
+        multi = ibp.make_multi_step(grid.to(dev), cfg, 2, with_stats=True,
+                                    **(multi_kw or {}))
         s, ov, fb, acc = multi(st.to(dev), frc.to(dev))
         outs[dev.type] = (ibp.to_numpy(s), int(ov), int(fb),
                           acc.cpu().numpy())
@@ -604,9 +754,10 @@ def profile_window(torch, fn, profile_out, stem):
     return (sum(e.time_range.elapsed_us() for e in kern) / 1e3, len(kern))
 
 
-def phase_dem_slice(ibp, torch, device, kernels, cfg, world,
+def phase_dem_slice(ibp, torch, device, kernels, required, cfg, world,
                     profile_out=None):
-    """The bench_dem_1m world through make_multi_step with K4."""
+    """The bench_dem_1m world through make_multi_step with K4; each of
+    the ``required`` kernels must launch."""
     from icebergs_tpu_torch.diag import berg_chksum
 
     grid, frc, st, deltas, n = world
@@ -638,8 +789,9 @@ def phase_dem_slice(ibp, torch, device, kernels, cfg, world,
             launches = {k: fn.launches for k, fn in kernels.items()}
             diags = list(multi.step_diags)
     s, ov, fb, acc = out
-    for k, c in launches.items():
-        require(c > 0, f"kernel {k} was not launched by the DEM path")
+    for k in required:
+        require(launches[k] > 0, f"kernel {k} was not launched by the DEM "
+                "path")
 
     # host syncs in one outer step
     step = dem_multi(ibp, grid, cfg, 1, deltas)
@@ -691,24 +843,50 @@ def phase_dem_slice(ibp, torch, device, kernels, cfg, world,
     return res, launches
 
 
-def phase_slice(ibp, torch, device, kernels, profile_out):
-    """The headline world through make_multi_step."""
+def max_occupancy(torch, st, grid):
+    """The most alive bergs in one cell (bin_bergs' counts before the
+    max_per_cell cut)."""
+    cell = (st.jne * grid.nx + st.ine)[st.alive].long()
+    return int(torch.bincount(cell, minlength=grid.nx * grid.ny).max())
+
+
+def phase_path(ibp, torch, device, kernels, label, cfg_kw=None,
+               multi_kw=None, profile_out=None):
+    """The headline world through ``make_multi_step(**multi_kw)`` (config
+    changed by ``cfg_kw``): a warm-up that grows the fallback cap until
+    nothing overflows, 3 timed windows of ``INNER`` steps with every
+    kernel's launches counted over the first, one step under torch's
+    sync debug mode, and checks of the final state."""
     from icebergs_tpu_torch.diag import berg_chksum
 
     cfg, grid, frc, st = headline_world(ibp, torch, N_HEAD, NX_HEAD, device)
+    cfg = cfg.replace(**(cfg_kw or {}))
+    multi_kw = multi_kw or {}
+    mpc = multi_kw.get("max_per_cell")
+    occ0 = max_occupancy(torch, st, grid)
+    if mpc is not None:
+        require(occ0 <= mpc, f"{label}: {occ0} bergs in one cell > "
+                f"max_per_cell {mpc}")
     mass0 = float(torch.where(st.alive, st.mass * st.mass_scaling,
                               0.).double().sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(4):
-        multi = ibp.make_multi_step(grid, cfg, INNER, with_stats=True)
+        multi = ibp.make_multi_step(grid, cfg, INNER, with_stats=True,
+                                    **multi_kw)
         out = multi(st, frc)                        # warm-up
         torch.cuda.synchronize()
         if int(out[1]) == 0:
             break
-        cap = min(4 * cfg.fused_fallback_cap, N_HEAD)
-        print(f"slice: fallback cap overran (dropped={int(out[1])}); "
+        # at least 4x, and past the rows this run dropped
+        cap = min(max(4 * cfg.fused_fallback_cap,
+                      1 << (cfg.fused_fallback_cap
+                            + int(out[1])).bit_length()), N_HEAD)
+        print(f"{label}: fallback cap overran (dropped={int(out[1])}); "
               f"growing to {cap}")
         cfg = cfg.replace(fused_fallback_cap=cap)
-    require(int(out[1]) == 0, f"contact_overflow {int(out[1])} != 0")
+    require(int(out[1]) == 0, f"{label}: contact_overflow {int(out[1])} "
+            "!= 0")
 
     for fn in kernels.values():
         fn.launches = 0
@@ -722,11 +900,18 @@ def phase_slice(ibp, torch, device, kernels, profile_out):
         if w == 0:
             launches = {k: fn.launches for k, fn in kernels.items()}
     s, ov, fb, acc = out
-    for k, n in launches.items():
-        require(n > 0, f"kernel {k} was not launched by the main path")
+    occ = [occ0]
+    if mpc is not None:
+        # the tables the last step builds, and the state it leaves
+        s_in = ibp.make_multi_step(grid, cfg, INNER - 1, with_stats=True,
+                                   **multi_kw)(st, frc)[0]
+        occ += [max_occupancy(torch, s_in, grid),
+                max_occupancy(torch, s, grid)]
+        require(max(occ) <= mpc, f"{label}: {occ} bergs in one cell > "
+                f"max_per_cell {mpc}")
 
     # host syncs inside one step (torch's sync debug mode warns on each)
-    step = ibp.make_multi_step(grid, cfg, 1, with_stats=True)
+    step = ibp.make_multi_step(grid, cfg, 1, with_stats=True, **multi_kw)
     s1 = step(s, frc)[0]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
@@ -740,25 +925,29 @@ def phase_slice(ibp, torch, device, kernels, profile_out):
                                        "thickness", "width", "length",
                                        "xi", "yj")]
     finite = all(bool(torch.isfinite(x[s.alive]).all()) for x in floats)
-    require(finite, "non-finite state")
-    require(bool(torch.isfinite(acc).all()), "non-finite coupler fields")
+    require(finite, f"{label}: non-finite state")
+    require(bool(torch.isfinite(acc).all()),
+            f"{label}: non-finite coupler fields")
     mass1 = float(torch.where(s.alive, s.mass * s.mass_scaling,
                               0.).double().sum())
-    require(mass1 <= mass0, f"total mass grew {mass0} -> {mass1}")
+    require(mass1 <= mass0, f"{label}: total mass grew {mass0} -> {mass1}")
     chk, n_alive = berg_chksum(s)
-    require(int(n_alive) > 0, "no bergs alive")
+    require(int(n_alive) > 0, f"{label}: no bergs alive")
     syncs = sorted({f"{pathlib.Path(r.filename).name}:{r.lineno}"
                     for r in rec})
     res = dict(ms_per_step=statistics.median(times), windows_ms=times,
                contact_overflow=int(ov), contact_fallback=int(fb),
                berg_chksum=int(chk), alive=int(n_alive), mass0=mass0,
                mass1=mass1, host_syncs_per_step=len(rec),
-               sync_kinds=syncs,
-               fallback_cap=cfg.fused_fallback_cap,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+               sync_kinds=syncs, fallback_cap=cfg.fused_fallback_cap,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches)
+    if mpc is not None:
+        # before the first step, before the last, after the last
+        res.update(max_per_cell=mpc, max_occupancy=occ)
     if profile_out:
         busy, nk = profile_window(torch, lambda: multi(st, frc), profile_out,
-                                  "slice")
+                                  label)
         res.update(device_kernel_ms_per_step=busy / INNER,
                    kernels_per_step=nk / INNER)
     return res, launches
@@ -778,7 +967,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import icebergs_tpu_torch as ibp
     from icebergs_tpu_torch import cuda_build
-    from icebergs_tpu_torch.ops import (dem_substeps, extract, pack,
+    from icebergs_tpu_torch.ops import (dem_substeps, extract,
+                                       interp_sorted, pack, pairs, prepass,
                                        segment_spread)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -818,17 +1008,58 @@ def main(argv=None) -> int:
     print(f"[4 cross-check] {json.dumps(cres)}")
     dcres = phase_dem_cross(ibp, torch, device)
     print(f"[4b dem cross-check] {json.dumps(dcres)}")
+    for name, ckw, mkw in CROSS_PATHS:
+        r = phase_cross(ibp, torch, device, ckw, mkw)
+        print(f"[4c cross-check {name}] {json.dumps(r)}")
+        require(r["overflow"] == 0, f"4c {name}: contact_overflow "
+                f"{r['overflow']}")
 
     kernels = {"permute_cols_u32": pack.permute_cols_u32,
                "extract_sorted": extract.extract_sorted,
                "segment_spread_sums": segment_spread.segment_spread_sums,
-               "dem_substeps": dem_substeps.part3_substeps_vmem}
-    fast = {k: kernels[k] for k in list(kernels)[:3]}
-    sres, launches = phase_slice(ibp, torch, device, fast, args.profile_out)
-    print(f"[5 slice] {json.dumps(sres)}")
-    dres, dlaunches = phase_dem_slice(ibp, torch, device, kernels, dcfg, dem,
-                                      args.profile_out)
+               "dem_substeps": dem_substeps.part3_substeps_vmem,
+               "contact_prepass_sorted": prepass.contact_prepass_sorted,
+               "interp_sorted": interp_sorted.interp_sorted,
+               "eval_pair_ia_kernel": pairs.eval_pair_ia_kernel}
+    # launches on each main path: every kernel's count is set to 0 just
+    # before the path runs and read just after its first timed window;
+    # each path must launch the kernels listed for it
+    by_path = {}
+
+    def run_path(tag, label, names, **kw):
+        res, launches = phase_path(ibp, torch, device, kernels, label,
+                                   profile_out=args.profile_out, **kw)
+        for k, n in launches.items():
+            if n:
+                by_path.setdefault(k, {})[label] = n
+        print(f"[{tag}] {json.dumps(res)}")
+        for k in names:
+            require(launches[k] > 0, f"kernel {k} was not launched by the "
+                    f"{label} path")
+        require(res["host_syncs_per_step"] == 0,
+                f"{label}: host syncs in a step: {res['sync_kinds']}")
+
+    run_path("5 slice", "fast_lane", ("permute_cols_u32", "extract_sorted",
+                                      "segment_spread_sums"))
+    dres, dlaunches = phase_dem_slice(
+        ibp, torch, device, kernels, ("permute_cols_u32", "extract_sorted",
+                                      "segment_spread_sums", "dem_substeps"),
+        dcfg, dem, args.profile_out)
     print(f"[6 dem slice] {json.dumps(dres)}")
+    for k, n in dlaunches.items():
+        if n:
+            by_path.setdefault(k, {})["dem"] = n
+    for mode, names in PERSTEP_PATHS:
+        kw = dict(persistent=False, neighbor_mode=mode)
+        if mode == "buckets":
+            kw.update(max_per_cell=MAX_PER_CELL)
+        run_path(f"7 per-step {mode}", f"perstep_{mode}", names,
+                 multi_kw=kw)
+    run_path("8 persistent fused kernel-interp", "persistent_fused_kernel",
+             ("contact_prepass_sorted", "interp_sorted", "permute_cols_u32",
+              "segment_spread_sums"),
+             cfg_kw=dict(interp_mode="kernel"),
+             multi_kw=dict(neighbor_mode="fused"))
 
     source = {"permute_cols_u32": ("permute_cols.cu",
                                    "icebergs_tpu/ops/pallas_pack.py:30"),
@@ -839,18 +1070,21 @@ def main(argv=None) -> int:
               "segment_spread_sums": ("segment_spread.cu",
                                       "icebergs_tpu/ops/pallas_spread.py:136"),
               "dem_substeps": ("dem_substeps.cu",
-                               "icebergs_tpu/ops/dem_vmem.py:691")}
-    # launches on each main path: the fast lane (phase 5) and the DEM
-    # step (phase 6); the grouped K2 row is the DEM path's K2
-    by_path = {k: {"fast_lane": launches.get(k, 0),
-                   "dem": dlaunches[k]} for k in kernels}
-    by_path["extract_sorted/grouped"] = {"dem": dlaunches["extract_sorted"]}
-    by_path["extract_sorted"] = {"fast_lane": launches["extract_sorted"]}
+                               "icebergs_tpu/ops/dem_vmem.py:691"),
+              "contact_prepass_sorted": (
+                  "prepass_sorted.cu", "icebergs_tpu/ops/pallas_prepass.py:67"),
+              "interp_sorted": ("interp_sorted.cu",
+                                "icebergs_tpu/ops/pallas_interp.py:275"),
+              "eval_pair_ia_kernel": ("pair_eval.cu",
+                                      "icebergs_tpu/ops/pallas_pairs.py:108")}
+    # the grouped K2 row is the DEM path's K2, the plain row the others'
+    k2 = by_path.get("extract_sorted", {})
+    by_path["extract_sorted/grouped"] = {"dem": k2.pop("dem", 0)}
     rows = [{"name": k, "route": "cuda",
              "source": f"icebergs_tpu_torch/csrc/{source[k][0]}",
              "replaces": source[k][1],
-             "launches": sum(by_path[k].values()),
-             "launches_by_path": by_path[k],
+             "launches": sum(by_path.get(k, {}).values()),
+             "launches_by_path": by_path.get(k, {}),
              "max_abs_err": r["err"], "ms": r["ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
              "bound_by": r["bound"][1], "library_ms": r["library_ms"]}

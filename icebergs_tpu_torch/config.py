@@ -410,9 +410,9 @@ def check_ported(cfg: IcebergsConfig) -> None:
     for name, bad, item, what in _NOT_PORTED:
         if getattr(cfg, name) == bad:
             no(f"{what} ({name}={bad!r})", item)
-    if cfg.interp_mode != "table":
-        no(f"interp_mode={cfg.interp_mode!r}",
-           14 if cfg.interp_mode == "kernel" else 15)
+    if cfg.interp_mode not in ("table", "kernel"):
+        no(f"interp_mode={cfg.interp_mode!r} (the XLA interpolation "
+           "interp_flds)", 15)
     if cfg.slot_sum_method != "pallas":
         no(f"slot_sum_method={cfg.slot_sum_method!r}", 15)
     if cfg.coastal_drift != 0. or cfg.tidal_drift != 0.:
@@ -426,9 +426,8 @@ def check_ported(cfg: IcebergsConfig) -> None:
         return
     if cfg.iceberg_bonds_on:
         no("bonded springs outside MTS (make_ia_fn's bond group)", 9)
-    if cfg.resolved_contact_mode() != "fused3":
-        no(f"contact_mode={cfg.contact_mode!r} resolving to "
-           f"{cfg.resolved_contact_mode()!r}", 9)
+    if cfg.resolved_contact_mode() == "sorted":
+        no("contact_mode='sorted' (strip_neighbor_tables)", 9)
 
 
 def _check_mts(cfg: IcebergsConfig, no) -> None:

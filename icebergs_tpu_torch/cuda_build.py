@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, at first use, from the
-sources in this checkout only.  The library goes to ``_build/`` under a
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one compiler process per source, all started together, and the objects
+are linked into one shared library with a plain C interface, at first
+use, from the sources in this checkout only.  The library goes to ``_build/`` under a
 name keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is reused.  ``-fmad=false`` keeps every
 multiply and add separately rounded, as the reference's arithmetic is.
@@ -24,9 +25,9 @@ import subprocess
 _PKG = pathlib.Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-fmad=false", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
+                 "-fmad=false", "-Xptxas", "-v")
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -39,6 +40,10 @@ _SIGNATURES = {
     "ib_max_spread_extra": (),
     "ib_dem_substeps": (_P, _I, _I, _P),
     "ib_dem_args_size": (),
+    "ib_prepass_sorted": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                          _P, _P, _P, _P),
+    "ib_pair_eval": (_P,) * 12 + (_I, _I, _I, _P, _P),
+    "ib_interp_sorted": (_P, _I, _P, _P, _P, _I, _I, _P, _P),
 }
 
 
@@ -57,7 +62,7 @@ def _nvcc() -> str:
 
 def library_path() -> pathlib.Path:
     """Path of the built library for the current sources (may not exist)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + ("-shared",)).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -65,20 +70,40 @@ def library_path() -> pathlib.Path:
 
 
 def build() -> pathlib.Path:
-    """Compile the kernels unless the current sources are already built;
-    the compiler's resource report goes to ``<library>.log``."""
+    """Compile the kernels unless the current sources are already built:
+    one ``nvcc -c`` per source, run in parallel, then one link.  The
+    compiler's resource report goes to ``<library>.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus],
-                          capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    tag = f"{out.stem}.{os.getpid()}"
+    cus = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in cus]
+    procs = [subprocess.Popen([_nvcc(), *COMPILE_FLAGS, "-c", "-o", str(o),
+                               str(p)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for p, o in zip(cus, objs)]
+    logs, failed = [], []
+    for p, proc in zip(cus, procs):
+        so, se = proc.communicate()
+        logs.append(f"== {p.name}\n{so}{se}")
+        if proc.returncode != 0:
+            failed.append(f"{p.name} ({proc.returncode}):\n{se[-4000:]}")
+    tmp = out.with_name(f"{tag}.tmp.so")
+    if not failed:
+        proc = subprocess.run([_nvcc(), *ARCH_FLAGS, "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n"
+                          f"{proc.stderr[-4000:]}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(logs))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 

@@ -1,28 +1,33 @@
 """The coupling step: the production fast lane on a persistent sorted
-slab, and the MTS/DEM step of bonded conglomerates.
+slab, the per-step path, and the MTS/DEM step of bonded conglomerates.
 
 Counterpart of ``icebergs_tpu/model.py``'s ``StepDiags``, ``make_step``
-(its MTS branch, ``model.py:143-218, 279-406``),
+(``model.py:110-406`` without calving and footloose),
 ``make_persistent_multi_step`` (``model.py:413-612``) and
 ``make_multi_step`` (``model.py:615-695``).  One fast-lane step:
 
-1. table interpolation of the forcing (one K1 read per berg);
-2. the fused3 contact search over the presorted slab (K2) and the
-   Verlet step with the gather-free 9x9-anchor walk;
+1. table interpolation of the forcing (one K1 read per berg), or with
+   ``interp_mode="kernel"`` the sorted-frame interpolation (K6);
+2. the contact search over the presorted slab — fused3 (K2), or
+   ``"fused"`` (K5) — and the Verlet step with the land-bounce walk;
 3. one (cell, id) re-sort of the whole state (K1), which serves the
    thermodynamics, the spreading and the next step's search;
 4. thermodynamics with its melt columns deferred;
 5. the spreading segment sums (K3) and the coupler fields.
 
-One MTS step: the table interpolation with the quadratic ocean depth,
+One per-step (``make_step``) step keeps the slot order: the table
+interpolation; the contact search on a sorted view — ``"fused3"`` (K2
+plus K1 transports), ``"fused"`` (K5) or the ``"buckets"`` tables with
+their pair evaluation through K7; Verlet;
+thermodynamics; K3 spreading behind a payload sort (K1) with all 14
+deferred melt fields.  An MTS step replaces the dynamics with
 :func:`.mts.evolve_icebergs_mts` (Part-1 search through K2 with the
 conglomerate filter, the force-convergence loop, the substep loop in
-K4), thermodynamics with bonded melt, and K3 spreading behind a payload
-sort (K1) with all 14 deferred melt fields.
+K4) and reads the ocean depth through the quadratic stencil.
 
 The JAX ``lax.scan`` becomes a Python loop over ``n_inner`` steps that
-keeps the same coupler-field accumulator.  A fast-lane step makes no
-host syncs; an MTS step makes one per force-convergence iteration.
+keeps the same coupler-field accumulator.  A non-MTS step makes no host
+syncs; an MTS step makes one per force-convergence iteration.
 """
 
 from __future__ import annotations
@@ -35,10 +40,12 @@ from .config import IcebergsConfig, check_ported
 from .dynamics import evolve_icebergs
 from .grid import Grid
 from .mts import evolve_icebergs_mts
+from .ops import forces as _forces
 from .ops import spread as _spread
 from .ops import thermo as _thermo
-from .ops.forces import neighbor_radius
-from .ops.fused_contact import FusedContactStats, make_ia_fn_fused3
+from .ops.fused_contact import (FusedContactStats, make_ia_fn_fused,
+                                make_ia_fn_fused2, make_ia_fn_fused3)
+from .ops.interp_sorted import interp_to_bergs_sorted
 from .ops.interp_table import interp_to_bergs_table
 from .ops.sorted import sort_state_by_cell, uniform_state_fields
 
@@ -69,58 +76,137 @@ class StepDiags(NamedTuple):
     v_iceberg: Optional[torch.Tensor] = None
 
 
-def make_step(grid: Grid, cfg: IcebergsConfig, *,
+def _zero_spread(st, grid):
+    """The with_spread=False probe's coupler fields: zeros."""
+    z = torch.zeros(grid.nx + 2, grid.ny + 2, dtype=st.dtype,
+                    device=st.device)
+    return _spread.SpreadDiags(*([z] * 6 + [None] * 7))
+
+
+def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
+              with_interactions: Optional[bool] = None,
+              with_spread: bool = True, with_calving: bool = False,
+              max_per_cell: int = 16, neighbor_mode: Optional[str] = None,
+              neighbor_window: str = "full",
+              contact_cap: Optional[int] = None,
               mts_neighbor_mode: Optional[str] = None,
               mts_substep_kernel: str = "scan", mts_vmem_deltas=None,
-              mts_vmem_block_n: int = 512,
-              fused_fallback_cap: Optional[int] = None):
-    """The per-step coupling path, MTS branch: returns
-    ``step(state, forcing) -> (state, StepDiags)``.
+              mts_vmem_block_n: int = 512, fused_block_n: int = 128,
+              fused_window: Optional[int] = None,
+              fused_fallback_cap: Optional[int] = None,
+              fused_fallback_strip_width: int = 64):
+    """The per-step coupling path: returns
+    ``step(state, forcing) -> (state, StepDiags)``, the state in slot
+    order.
 
-    ``mts_substep_kernel="vmem"`` with ``mts_vmem_deltas`` from
+    Non-MTS: ``neighbor_mode`` ``"fused3"`` (the default of an
+    interactive legacy config), ``"fused"`` or ``"buckets"`` (with
+    ``max_per_cell``, ``neighbor_window`` and ``contact_cap``; the
+    pair evaluation always goes through K7, whose wrapper takes the plain
+    version for CPU tensors); ``with_interactions`` / ``with_thermo`` /
+    ``with_spread`` = False drop a phase.  MTS: ``mts_substep_kernel=
+    "vmem"`` with ``mts_vmem_deltas`` from
     :func:`.ops.dem_substeps.analyze_bond_deltas` on a
     :func:`~.ops.dem_substeps.pack_conglomerates_blocked` state runs the
-    substeps in K4; the scan path and the non-MTS step raise
-    ``NotImplementedError`` naming their ROADMAP.md item."""
-    if not cfg.mts:
-        raise NotImplementedError("the non-MTS per-step path (make_step; "
-                                  "ROADMAP.md Queue 1 item 9)")
+    substeps in K4.  What is not ported raises ``NotImplementedError``
+    naming its ROADMAP.md item."""
     check_ported(cfg)
-    if mts_neighbor_mode not in (None, "fused"):
+    if with_calving:
+        raise NotImplementedError("calving (ROADMAP.md Queue 1 item 9)")
+    if cfg.interp_mode != "table":
+        raise NotImplementedError(
+            f"interp_mode={cfg.interp_mode!r} on the per-step path (the XLA "
+            "interpolation interp_flds; ROADMAP.md Queue 1 item 15)")
+    if cfg.mts and mts_neighbor_mode not in (None, "fused"):
         raise NotImplementedError(f"mts_neighbor_mode={mts_neighbor_mode!r}"
                                   " (ROADMAP.md Queue 1 item 16)")
+    interactive = (cfg.interactive_icebergs_on if with_interactions is None
+                   else with_interactions)
+    if neighbor_mode is None:
+        neighbor_mode = (cfg.resolved_contact_mode() if interactive
+                         else "buckets")
+    if neighbor_mode == "sorted":
+        raise NotImplementedError("neighbor_mode='sorted' "
+                                  "(strip_neighbor_tables; ROADMAP.md Queue "
+                                  "1 item 9)")
+    if neighbor_mode not in ("fused", "fused3", "buckets"):
+        raise ValueError(f"neighbor_mode={neighbor_mode!r}")
+    window = cfg.fused_window if fused_window is None else fused_window
     cap = (cfg.fused_fallback_cap if fused_fallback_cap is None
            else fused_fallback_cap)
-    radius = neighbor_radius(grid, cfg)
+    radius = _forces.neighbor_radius(grid, cfg) if interactive else 1
+
+    def contacts(st):
+        """(ia_fn, FusedContactStats or None, contact_cap overflow)."""
+        if neighbor_mode in ("fused", "fused3"):
+            mk = make_ia_fn_fused3 if neighbor_mode == "fused3" \
+                else make_ia_fn_fused2
+            kw = dict(presorted=False) if neighbor_mode == "fused3" else {}
+            ia_fn, fstats = mk(st, grid, cfg, block_n=fused_block_n,
+                               window=window, fallback_cap=cap,
+                               fallback_strip_width=fused_fallback_strip_width,
+                               **kw)
+            return ia_fn, fstats, None
+        nbr = _forces.build_neighbor_tables(st, grid, cfg,
+                                            max_per_cell=max_per_cell,
+                                            ncells_radius=radius,
+                                            window=neighbor_window)
+        ia_fn = _forces.make_ia_fn(st, nbr, cfg, contact_cap=contact_cap)
+        return ia_fn, None, ia_fn.overflow
 
     def step(st, frc):
-        st, _ = interp_to_bergs_table(st, grid, frc, cfg)
-        st, mts_d = evolve_icebergs_mts(
-            st, grid, frc, cfg, fused_kw={"fallback_cap": cap},
-            ncells_radius=radius, substep_kernel=mts_substep_kernel,
-            vmem_deltas=mts_vmem_deltas, vmem_block_n=mts_vmem_block_n)
+        zero = torch.zeros((), dtype=torch.int32, device=st.device)
+        st, m25_pre = interp_to_bergs_table(st, grid, frc, cfg)
+        fstats = mts_d = cap_ov = None
+        if cfg.mts:
+            st, mts_d = evolve_icebergs_mts(
+                st, grid, frc, cfg, fused_kw={"fallback_cap": cap},
+                ncells_radius=radius, substep_kernel=mts_substep_kernel,
+                vmem_deltas=mts_vmem_deltas, vmem_block_n=mts_vmem_block_n)
+            tickets = bounced = zero
+        else:
+            ia_fn = None
+            if interactive:
+                ia_fn, fstats, cap_ov = contacts(st)
+            out = evolve_icebergs(st, grid, frc, cfg, ia_fn=ia_fn,
+                                  m25_pre=m25_pre)
+            st, tickets, bounced = out.state, out.tickets, out.bounced
         # the spreading's payload sort keys on the pre-thermodynamics
         # aliveness: rows that die in thermodynamics keep their cell, so
         # their deferred melt still lands
         key_alive = st.alive
-        st, melt = _thermo.thermodynamics(st, grid, frc, cfg,
-                                          defer_cell_cols=True)
-        sp, melt_fields = _spread.create_gridded_icebergs_fields(
-            st, grid, frc, cfg, key_alive=key_alive, cell_starts=None,
-            extra_cell_cols=melt.deferred_cols)
-        zero = torch.zeros((), dtype=torch.int32, device=st.device)
+        melt = None
+        if with_thermo:
+            st, melt = _thermo.thermodynamics(st, grid, frc, cfg,
+                                              defer_cell_cols=True)
+        melt_fields = [None] * 3
+        if not with_spread:
+            sp = _zero_spread(st, grid)
+        elif melt is not None:
+            sp, melt_fields = _spread.create_gridded_icebergs_fields(
+                st, grid, frc, cfg, key_alive=key_alive, cell_starts=None,
+                extra_cell_cols=melt.deferred_cols)
+        else:
+            sp = _spread.create_gridded_icebergs_fields(
+                st, grid, frc, cfg, key_alive=key_alive, cell_starts=None)
         diags = StepDiags(
-            nbergs=st.count(), tickets=zero, bounced=zero,
+            nbergs=st.count(), tickets=tickets, bounced=bounced,
             total_mass=torch.where(st.alive, st.mass * st.mass_scaling,
                                    0.).sum(),
-            p1_overflow=mts_d.p1_overflow, p1_fallback=mts_d.p1_fallback,
-            broken_bonds=mts_d.broken_bonds, conv_iters=mts_d.conv_iters,
+            contact_overflow=(fstats.overflow if fstats is not None
+                              else cap_ov),
+            contact_fallback=(fstats.n_fallback if fstats is not None
+                              else None),
             floating_melt=melt_fields[0], calving_hflx=melt_fields[1],
             berg_melt=melt_fields[2],
             spread_mass=sp.spread_mass, spread_area=sp.spread_area,
             spread_uvel=sp.spread_uvel, spread_vvel=sp.spread_vvel,
             ustar_iceberg=sp.ustar_iceberg, mass_on_ocean=sp.mass_on_ocean,
             u_iceberg=sp.u_iceberg, v_iceberg=sp.v_iceberg)
+        if mts_d is not None:
+            diags = diags._replace(
+                p1_overflow=mts_d.p1_overflow, p1_fallback=mts_d.p1_fallback,
+                broken_bonds=mts_d.broken_bonds, conv_iters=mts_d.conv_iters)
         return st, diags
 
     return step
@@ -142,36 +228,49 @@ def make_persistent_multi_step(grid: Grid, cfg: IcebergsConfig,
 
     Returns ``multi(st, frc)`` giving the cell-sorted final state, or with
     ``with_stats`` ``(state, max_contact_overflow, max_contact_fallback,
-    coupler_accumulator)``.  ``with_interp`` / ``with_ia`` /
+    coupler_accumulator)``.  ``neighbor_mode`` is ``"fused3"`` (K2, the
+    default) or ``"fused"`` (K5); ``cfg.interp_mode == "kernel"`` reads
+    the environment through K6.  ``with_interp`` / ``with_ia`` /
     ``with_spread`` / ``with_thermo`` = False are measurement probes that
     drop a phase (``contact_cap`` is accepted for API parity; the fused
-    search is cap-free)."""
+    searches are cap-free)."""
     if not cfg.interactive_icebergs_on or cfg.mts:
         raise ValueError("the persistent step needs interactive_icebergs_on "
                          "and no MTS")
     check_ported(cfg)
-    if neighbor_mode not in (None, "fused3"):
-        raise NotImplementedError(f"neighbor_mode={neighbor_mode!r} "
-                                  "(ROADMAP.md Queue 1 item 14)")
+    if neighbor_mode is None:
+        neighbor_mode = cfg.resolved_contact_mode()
+        if neighbor_mode not in ("fused", "fused3"):
+            neighbor_mode = "fused3"
+    if neighbor_mode not in ("fused", "fused3"):
+        raise ValueError(f"neighbor_mode={neighbor_mode!r}: the persistent "
+                         "step runs the fused searches only")
     window = cfg.fused_window if fused_window is None else fused_window
     cap = (cfg.fused_fallback_cap if fused_fallback_cap is None
            else fused_fallback_cap)
     uniform = uniform_state_fields(cfg)
+    interp = (interp_to_bergs_sorted if cfg.interp_mode == "kernel"
+              else interp_to_bergs_table)
     nx, ny = grid.nx, grid.ny
 
     def step(st, cell_starts, frc):
         m25_pre = None
         if with_interp:
-            st, m25_pre = interp_to_bergs_table(st, grid, frc, cfg)
-        if with_ia:
+            st, m25_pre = interp(st, grid, frc, cfg)
+        if not with_ia:
+            zero = torch.zeros((), dtype=torch.int32, device=st.device)
+            ia_fn, fstats = None, FusedContactStats(zero, zero)
+        elif neighbor_mode == "fused3":
             ia_fn, fstats = make_ia_fn_fused3(
                 st, grid, cfg, block_n=fused_block_n, window=window,
                 fallback_cap=cap,
                 fallback_strip_width=fused_fallback_strip_width,
                 presorted=True, cell_starts=cell_starts)
         else:
-            zero = torch.zeros((), dtype=torch.int32, device=st.device)
-            ia_fn, fstats = None, FusedContactStats(zero, zero)
+            ia_fn, fstats = make_ia_fn_fused(
+                st, cell_starts, grid, cfg, block_n=fused_block_n,
+                window=window, fallback_cap=cap,
+                fallback_strip_width=fused_fallback_strip_width)
         out = evolve_icebergs(st, grid, frc, cfg, ia_fn=ia_fn,
                               m25_pre=m25_pre)
         st, cell_starts = sort_state_by_cell(out.state, grid,
@@ -193,9 +292,7 @@ def make_persistent_multi_step(grid: Grid, cfg: IcebergsConfig,
             if extra is not None:
                 sp, melt_fields = sp
         else:
-            z = torch.zeros(nx + 2, ny + 2, dtype=st.dtype,
-                            device=st.device)
-            sp = _spread.SpreadDiags(*([z] * 6 + [None] * 7))
+            sp = _zero_spread(st, grid)
         diags = StepDiags(
             nbergs=st.count(), tickets=out.tickets, bounced=out.bounced,
             total_mass=torch.where(st.alive, st.mass * st.mass_scaling,
@@ -242,7 +339,8 @@ def make_multi_step(grid: Grid, cfg: IcebergsConfig, n_inner: int,
     configurations (interactive, non-MTS, non-footloose, fused search,
     full thermodynamics and spreading, no calving) to
     :func:`make_persistent_multi_step` exactly as the JAX package does,
-    and MTS configurations through :func:`make_step` (``kw``).
+    and the rest, or any with ``persistent=False``, through
+    :func:`make_step` (``kw``).
 
     ``with_stats=True`` returns ``(state, max overflow, max fallback,
     coupler accumulator)``; on the per-step path the overflow includes

@@ -44,10 +44,12 @@ def window_lanes(window: int) -> int:
     return -(-(window + 128) // 128) * 128
 
 
-def block_tables(key_s, cell_starts, nx: int, ny: int, block_n: int,
-                 window: int, radius: int = 1):
-    """Per block of ``block_n`` sorted rows: the strip cell ranges
-    ``(c_lo, c_hi)`` (nblocks, 2r+1) int32 and the bad flag (nblocks,)."""
+def strip_cells(key_s, nx: int, ny: int, block_n: int, radius: int = 1):
+    """Per block of ``block_n`` sorted rows (the tail padded with dead
+    keys): the inclusive strip cell ranges ``(c_lo, c_hi)`` (nblocks,
+    2r+1) over grid rows j-r .. j+r of the block's cell span, and the
+    span flag (a span wider than ``nx - (2r+1)``), as both TPU search
+    wrappers compute them."""
     N = key_s.shape[0]
     ncells = nx * ny
     nstrips = 2 * radius + 1
@@ -62,11 +64,19 @@ def block_tables(key_s, cell_starts, nx: int, ny: int, block_n: int,
                         device=key.device) * nx
     c_lo = (c0[:, None] - radius + offs[None, :]).clamp(0, ncells - 1)
     c_hi = (c1c[:, None] + radius + offs[None, :]).clamp(-1, ncells - 1)
+    return c_lo.contiguous(), c_hi.contiguous(), span_bad
+
+
+def block_tables(key_s, cell_starts, nx: int, ny: int, block_n: int,
+                 window: int, radius: int = 1):
+    """Per block of ``block_n`` sorted rows: the strip cell ranges
+    ``(c_lo, c_hi)`` (nblocks, 2r+1) int32 and the bad flag (nblocks,)."""
+    c_lo, c_hi, span_bad = strip_cells(key_s, nx, ny, block_n, radius)
     cs = cell_starts.long()
     ws128 = cs[c_lo.long()] // 128
     win_need = cs[(c_hi + 1).long()] - ws128 * 128
     win_bad = (win_need > window_lanes(window)).any(dim=1)
-    return c_lo.contiguous(), c_hi.contiguous(), span_bad | win_bad
+    return c_lo, c_hi, span_bad | win_bad
 
 
 def extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad, block_n: int,

@@ -1,14 +1,18 @@
-"""Berg-berg contact forces: pair precompute and evaluation, and the
-host-side bond setup.
+"""Berg-berg contact forces: the cell-binned neighbour search, pair
+precompute and evaluation, and the host-side bond setup.
 
-Counterpart of the pair half of ``icebergs_tpu/ops/forces.py``
-(``neighbor_radius``, ``_interaction_radius``, ``PairData``,
+Counterpart of ``icebergs_tpu/ops/forces.py``: ``NeighborTables``,
+``bin_bergs``, ``neighbor_radius`` and ``build_neighbor_tables``
+(``forces.py:25-140``); ``_interaction_radius``, ``PairData``,
 ``precompute_pair_data``, ``precompute_pair_data_T``,
-``refresh_pair_velocities``, ``eval_pair_ia``, ``eval_pair_ia_T``; port of
-``calculate_force``, ``src/icebergs.F90:611-804``) for the non-bonded
-contact group on a Cartesian grid (metric factors 1) — the legacy
-dispatch and the modern one (``contact_distance`` crit, separate contact
-spring, ``use_c_crit_dist=False``) — and of ``initialize_bonds_host``,
+``refresh_pair_velocities``, ``eval_pair_ia`` and ``eval_pair_ia_T``
+(port of ``calculate_force``, ``src/icebergs.F90:611-804``) for the
+non-bonded contact group on a Cartesian grid (metric factors 1) — the
+legacy dispatch and the modern one (``contact_distance`` crit, separate
+contact spring, ``use_c_crit_dist=False``); the ``contact_cap``
+compaction (``active_contact_bergs``, ``compacted_contact_pairdata``,
+``scatter_ia``), ``bond_partner_table`` and ``make_ia_fn`` outside MTS
+without bonds (``forces.py:559-763``); and ``initialize_bonds_host``,
 ``compute_conglom_ids_host`` and ``count_bonds`` (numpy).
 
 ``*_T`` functions hold pair slabs as (M, N) with the partner axis first
@@ -18,6 +22,7 @@ fallback's candidate strips).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -27,6 +32,44 @@ from .. import constants as C
 from ..config import IcebergsConfig
 from .accel import IA, f32_scalar
 from .pack import from_bits, permute_cols_u32, to_bits
+
+
+class NeighborTables(NamedTuple):
+    cand_idx: torch.Tensor         # (N, M) candidate partner slots (>= 0)
+    cand_valid: torch.Tensor       # (N, M) bool
+    is_bond_partner: torch.Tensor  # (N, M) candidate is bonded to this berg
+
+
+def bin_bergs(st, grid, cfg: IcebergsConfig, max_per_cell: int):
+    """Bucket alive bergs by cell (the reference's per-cell linked lists
+    as a dense table): ``(buckets (ncells+1, K) int32, counts (ncells+1,)
+    int32)``, bergs in slot order within a cell, those beyond ``K``
+    dropped from the table and from ``counts``; row ``ncells`` takes the
+    dead bergs and stays empty."""
+    nx, ny = grid.nx, grid.ny
+    ncells = nx * ny
+    N = st.capacity
+    dev = st.device
+    cell = torch.where(st.alive, st.jne * nx + st.ine,
+                       ncells).to(torch.int32)
+    # jnp.argsort is stable: a berg's rank in its cell follows slot order
+    order = torch.argsort(cell, stable=True)
+    sorted_cell = cell[order]
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    first = torch.searchsorted(sorted_cell, sorted_cell, side="left")
+    rank = torch.empty_like(idx)
+    rank[order] = idx - first.to(torch.int32)
+    ok = st.alive & (rank < max_per_cell)
+    c_safe = torch.where(ok, cell, ncells).long()
+    r_safe = torch.where(ok, rank, 0).long()
+    buckets = torch.full((ncells + 1, max_per_cell), -1, dtype=torch.int32,
+                         device=dev)
+    # every row that is not ok writes -1 to (ncells, 0): the duplicates
+    # agree, so the unordered put is deterministic
+    buckets.index_put_((c_safe, r_safe), torch.where(ok, idx, -1))
+    counts = torch.zeros(ncells + 1, dtype=torch.int32, device=dev)
+    counts.index_add_(0, c_safe, ok.to(torch.int32))
+    return buckets, counts
 
 
 def neighbor_radius(grid, cfg: IcebergsConfig) -> int:
@@ -42,6 +85,53 @@ def neighbor_radius(grid, cfg: IcebergsConfig) -> int:
         if dmin > 0 and np.isfinite(dmin):
             r = max(r, int(np.ceil(cfg.contact_distance / dmin)))
     return r
+
+
+def build_neighbor_tables(st, grid, cfg: IcebergsConfig,
+                          max_per_cell: int = 16,
+                          ncells_radius: Optional[int] = None,
+                          window: str = "full") -> NeighborTables:
+    """Candidate partners of every berg: the buckets of its (2r+1)^2
+    surrounding cells, or with ``window="quadrant"`` (radius 1 only) the
+    2x2 block of cells nearest its position in its cell.  (N, M) tables
+    with M = cells x ``max_per_cell``."""
+    nx, ny = grid.nx, grid.ny
+    ncells = nx * ny
+    r = neighbor_radius(grid, cfg) if ncells_radius is None \
+        else ncells_radius
+    buckets, _ = bin_bergs(st, grid, cfg, max_per_cell)
+    if window == "quadrant":
+        if r != 1:
+            raise ValueError("the quadrant window needs a 3x3-equivalent "
+                             "radius")
+        sx = torch.where(st.xi >= 0.5, 1, -1).to(torch.int32)
+        sy = torch.where(st.yj >= 0.5, 1, -1).to(torch.int32)
+        z = torch.zeros_like(sx)
+        offsets = [(z, z), (sx, z), (z, sy), (sx, sy)]
+    elif window == "full":
+        offsets = [(di, dj) for dj in range(-r, r + 1)
+                   for di in range(-r, r + 1)]
+    else:
+        raise ValueError(f"window={window!r}")
+    cand = []
+    for di, dj in offsets:
+        ci = st.ine + di
+        cj = st.jne + dj
+        ok = (ci >= 0) & (ci < nx) & (cj >= 0) & (cj < ny) & st.alive
+        cand.append(buckets[torch.where(ok, cj * nx + ci, ncells).long()])
+    cand_idx = torch.cat(cand, dim=1)
+    self_idx = torch.arange(st.capacity, device=st.device)[:, None]
+    valid = (cand_idx >= 0) & (cand_idx != self_idx)
+    cand_safe = cand_idx.clamp(min=0)
+    valid = valid & st.alive[cand_safe.long()] & st.alive[:, None]
+    if cfg.iceberg_bonds_on:
+        bonds = torch.where(st.bond_idx >= 0, st.bond_idx, -2)
+        is_bonded = (cand_idx[:, :, None] == bonds[:, None, :]).any(-1) \
+            & valid
+    else:
+        is_bonded = torch.zeros_like(valid)
+    return NeighborTables(cand_idx=cand_safe, cand_valid=valid,
+                          is_bond_partner=is_bonded)
 
 
 def _interaction_radius(cfg: IcebergsConfig, A):
@@ -144,12 +234,20 @@ def precompute_pair_data(st, cfg: IcebergsConfig, other, mask, *,
 
 
 def precompute_pair_data_T(st, cfg: IcebergsConfig, mask_T, *,
-                           partner_fields, other_T=None) -> PairData:
+                           partner_fields=None, other_T=None) -> PairData:
     """(M, N) pair data with the partners' fields handed in
     (``partner_fields``: (M, N) lon2, lat2, u2, v2, A2g, M2g — the
     extraction kernel's output, whose engagement test already excluded
-    fl_k == -1 on both sides).  ``other_T`` (M, N) int32 partner slots
-    are kept for :func:`refresh_pair_velocities`."""
+    fl_k == -1 on both sides), or without them gathered from ``st`` at
+    the (M, N) partner slots ``other_T`` with the fl_k == -1 mask.
+    ``other_T`` is kept for :func:`refresh_pair_velocities`."""
+    if partner_fields is None:
+        o = other_T.long()
+        mask_T = mask_T & (st.fl_k[None, :] != -1.) & (st.fl_k[o] != -1.)
+        partner_fields = dict(
+            lon2=st.lon_old[o], lat2=st.lat_old[o], u2=st.uvel_old[o],
+            v2=st.vvel_old[o], A2g=st.length[o] * st.width[o],
+            M2g=st.mass[o])
     pf = partner_fields
     return _pair_terms(
         cfg, st.lon_old[None, :], st.lat_old[None, :],
@@ -213,6 +311,126 @@ def eval_pair_ia_T(pd: PairData, cfg: IcebergsConfig, u0, v0, u1,
     """(M, N)-layout twin of :func:`eval_pair_ia`."""
     return _eval(pd, cfg, u0[None, :], v0[None, :], u1[None, :],
                  v1[None, :], 0)
+
+
+def active_contact_bergs(st, cfg: IcebergsConfig, other, mask):
+    """Which bergs have any engaged (r < crit) candidate: the cheap pass
+    in front of the ``contact_cap`` compaction (r^2 against crit^2, crit
+    = max(R1 + R2, contact_distance))."""
+    if cfg.grid_is_latlon:
+        raise NotImplementedError("lat-lon pair metrics (ROADMAP.md Queue "
+                                  "1 item 11)")
+    o = other.long()
+    mask = mask & (st.fl_k[:, None] != -1.) & (st.fl_k[o] != -1.)
+    rx = st.lon_old[:, None] - st.lon_old[o]
+    ry = st.lat_old[:, None] - st.lat_old[o]
+    r2 = rx * rx + ry * ry
+    R1 = _interaction_radius(cfg, (st.length * st.width)[:, None])
+    R2 = _interaction_radius(cfg, st.length[o] * st.width[o])
+    crit = (R1 + R2).clamp(min=cfg.contact_distance)
+    return (mask & (r2 > 0.) & (r2 < crit * crit)).any(dim=1)
+
+
+_TAKE_FIELDS = ("lon_old", "lat_old", "fl_k", "uvel_old", "vvel_old",
+                "thickness", "length", "width", "mass")
+
+
+def take_rows(st, sel):
+    """The rows ``sel`` of the fields :func:`precompute_pair_data` reads
+    of its primaries (a compact primary view)."""
+    s = sel.long()
+    return SimpleNamespace(**{f: getattr(st, f)[s] for f in _TAKE_FIELDS})
+
+
+def compact_rows(flag, cap: int):
+    """Rank-compact the True rows of ``flag`` into ``[0, cap)``: returns
+    ``(sel, valid_row, n_dropped)``, ``sel`` ascending."""
+    N = flag.shape[0]
+    dev = flag.device
+    rank = torch.cumsum(flag.to(torch.int32), 0, dtype=torch.int32) - 1
+    granted = flag & (rank < cap)
+    buf = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+    buf.index_copy_(0, torch.where(granted, rank, cap).long(),
+                    torch.arange(N, dtype=torch.int32, device=dev))
+    valid_row = torch.arange(cap, device=dev) < granted.sum(
+        dtype=torch.int32)
+    return buf[:cap], valid_row, (flag & ~granted).sum(dtype=torch.int32)
+
+
+def compacted_contact_pairdata(st, cfg: IcebergsConfig, other, mask, *,
+                               cap: int):
+    """Pair data of the bergs with an engaged candidate, rank-compacted
+    into ``cap`` rows.  Returns ``(pd, sel, valid_row, overflow)``:
+    ``sel`` maps compact rows to slots, ``overflow`` counts the engaged
+    bergs beyond the cap (dropped)."""
+    sel, valid_row, overflow = compact_rows(
+        active_contact_bergs(st, cfg, other, mask), cap)
+    s = sel.long()
+    pd = precompute_pair_data(take_rows(st, sel), cfg, other[s],
+                              mask[s] & valid_row[:, None], partner_st=st)
+    return pd, sel, valid_row, overflow
+
+
+def scatter_ia(ia_sub: IA, sel, valid_row, N: int) -> IA:
+    """A compact-subset IA back in full-length fields (zeros elsewhere);
+    invalid rows go to a dump row."""
+    tgt = torch.where(valid_row, sel, N).long()
+
+    def put(a):
+        out = a.new_zeros(N + 1)
+        out.index_copy_(0, tgt, torch.where(valid_row, a, 0.))
+        return out[:N]
+    return IA(*(put(x) for x in ia_sub))
+
+
+def bond_partner_table(st):
+    """(N, B) partner slots and validity from the bond table."""
+    other = st.bond_idx.clamp(min=0)
+    valid = (st.bond_idx >= 0) & st.alive[:, None] & st.alive[other.long()]
+    return other, valid
+
+
+def make_ia_fn(st, nbr: NeighborTables, cfg: IcebergsConfig, *,
+               contact_cap: Optional[int] = None):
+    """The interactive-force closure ``ia_fn(u1, v1) -> IA`` over the
+    bucket tables, outside MTS and without bonds: the legacy dispatch's
+    all-pairs contact group, or the modern dispatch's cross-conglomerate
+    contact group (``interactive_force``, icebergs.F90:479-607).
+    Every group is evaluated through K7
+    (:func:`.pairs.eval_pair_ia_kernel`, the plain :func:`eval_pair_ia`
+    for CPU tensors); ``contact_cap`` first compacts
+    the bergs with an engaged candidate into that many rows, and
+    ``ia_fn.overflow`` then counts the engaged bergs it dropped (the JAX
+    package drops them uncounted)."""
+    if cfg.mts:
+        raise NotImplementedError("the MTS Part-1 tables search (ROADMAP.md "
+                                  "Queue 1 item 16)")
+    if cfg.iceberg_bonds_on:
+        raise NotImplementedError("bonded springs outside MTS (ROADMAP.md "
+                                  "Queue 1 item 9)")
+    from .pairs import eval_pair_ia_kernel as ev
+    u0, v0 = st.uvel, st.vvel
+    N = st.capacity
+    m = nbr.cand_valid
+    if not _legacy(cfg):
+        cong = st.conglom_id
+        m = m & (cong[:, None] != cong[nbr.cand_idx.long()])
+    overflow = None
+    if contact_cap is None:
+        pd = precompute_pair_data(st, cfg, nbr.cand_idx, m, partner_st=st)
+
+        def ia_fn(u1, v1):
+            return ev(pd, cfg, u0, v0, u1, v1)
+    else:
+        pd, sel, vrow, overflow = compacted_contact_pairdata(
+            st, cfg, nbr.cand_idx, m, cap=contact_cap)
+        s = sel.long()
+
+        def ia_fn(u1, v1):
+            return scatter_ia(ev(pd, cfg, u0[s], v0[s], u1[s], v1[s]), sel,
+                              vrow, N)
+    ia_fn.overflow = overflow
+    return ia_fn
 
 
 # --------------------------------------------------------------------------

@@ -1,21 +1,29 @@
-"""Fused interactive-force closures over the extraction search (K2).
+"""Fused interactive-force closures over the contact searches (K2, K5).
 
 Counterpart of ``icebergs_tpu/ops/fused_contact.py``
-(``FusedContactStats``, ``_compact``, ``_subset_strip_tables``,
-``_fallback_group``, ``_scatter_fold``, ``_take_rows``,
-``_origin_frame_groups_extract``, ``make_ia_fn_fused3(presorted=True)``
-and ``make_ia_fn_fused_mts1``):
+(``FusedContactStats``, ``_subset_strip_tables``,
+``_fallback_group``, ``_scatter_fold``,
+``_origin_frame_groups_extract``, ``make_ia_fn_fused3``,
+``make_ia_fn_fused_mts1``; ``_sorted_contact_groups`` and
+``make_ia_fn_fused``; ``_origin_frame_search``, ``_origin_frame_groups``
+and ``make_ia_fn_fused2``):
 
 1. K2 (:func:`.extract.extract_sorted`) searches each berg's strips and
    returns the count, min/max partner slots and both partners' features;
    on a slab that is not cell-sorted the search runs on a sorted view
    (the feature rows moved by K1) and its results come back to the
-   origin frame through one inverse K1 transport;
-2. bergs with 1-2 partners outside bad blocks are evaluated on a (2, N)
-   partner table built from those features — no partner gathers;
+   origin frame through one inverse K1 transport.  K5
+   (:func:`.prepass.contact_prepass_sorted`) is the same search without
+   the features: ``make_ia_fn_fused`` (the persistent sorted slab) and
+   ``make_ia_fn_fused2`` (a sorted view, partner slots mapped back to
+   the origin frame) gather the partners' fields instead;
+2. bergs with 1-2 partners outside bad blocks are evaluated on a
+   two-partner table;
 3. bergs with >= 3 partners or in bad blocks go through the exact
    fallback over their (2r+1)-row strips, compacted to ``fallback_cap``
-   rows and folded back with one small scatter per field.
+   rows (``_compact``, :func:`.forces.compact_rows`) and folded back
+   with one small scatter per field (``make_ia_fn_fused``: one
+   rank-table gather per field, as the JAX function folds them).
 
 Overflow (fallback rows beyond the cap, strips wider than the strip
 width) is counted in ``FusedContactStats.overflow``; a nonzero count
@@ -37,27 +45,13 @@ from .extract import (EX_CNT, EX_F1, EX_F2, EX_VMAX, EX_VMIN, PT_ALIVE,
                       PT_MASS, PT_NEVAL, PT_NF, PT_RAD, PT_U, PT_V,
                       extract_sorted)
 from .pack import from_bits, permute_cols_u32, to_bits
+from .prepass import contact_prepass_sorted, prepass_features
 from .sorted import lex_cell_id_order, starts_from_sorted_key
 
 
 class FusedContactStats(NamedTuple):
     overflow: torch.Tensor      # engaged bergs dropped by cap overflow
     n_fallback: torch.Tensor    # bergs routed through the exact fallback
-
-
-def _compact(flag, cap: int):
-    """Rank-compact the True rows of ``flag`` into ``[0, cap)``: returns
-    ``(sel, valid_row, n_dropped)``, ``sel`` ascending."""
-    N = flag.shape[0]
-    rank = torch.cumsum(flag.to(torch.int32), 0, dtype=torch.int32) - 1
-    granted = flag & (rank < cap)
-    buf = torch.zeros(cap + 1, dtype=torch.int32, device=flag.device)
-    buf.index_copy_(0, torch.where(granted, rank, cap).long(),
-                    torch.arange(N, dtype=torch.int32, device=flag.device))
-    nact = granted.sum(dtype=torch.int32)
-    valid_row = torch.arange(cap, device=flag.device) < nact
-    dropped = (flag & ~granted).sum(dtype=torch.int32)
-    return buf[:cap], valid_row, dropped
 
 
 def _subset_strip_tables(sub, self_ids, full_alive, capacity, cell_starts,
@@ -91,16 +85,6 @@ def _subset_strip_tables(sub, self_ids, full_alive, capacity, cell_starts,
     return cand_idx, valid, truncated.to(torch.int32)
 
 
-_TAKE_FIELDS = ("lon_old", "lat_old", "fl_k", "uvel_old", "vvel_old",
-                "thickness", "length", "width", "mass")
-
-
-def _take_rows(st, sel):
-    """Compact primary-row view for :func:`forces.precompute_pair_data`."""
-    s = sel.long()
-    return SimpleNamespace(**{f: getattr(st, f)[s] for f in _TAKE_FIELDS})
-
-
 def _fallback_group(st, bad, order, key_s, cell_starts, grid, cfg, *,
                     fallback_cap, fallback_strip_width, radius=1,
                     exclude_same_group=False):
@@ -109,7 +93,7 @@ def _fallback_group(st, bad, order, key_s, cell_starts, grid, cfg, *,
     back through ``order`` (None when ``st`` is the sorted slab).
     Returns ``(pd_f, sel_f, vrow_f, stats)``."""
     N = st.capacity
-    sel_f, vrow_f, drop_f = _compact(bad, fallback_cap)
+    sel_f, vrow_f, drop_f = _forces.compact_rows(bad, fallback_cap)
     s = sel_f.long()
     sub_f = SimpleNamespace(ine=st.ine[s], jne=st.jne[s],
                             alive=st.alive[s] & vrow_f)
@@ -124,7 +108,7 @@ def _fallback_group(st, bad, order, key_s, cell_starts, grid, cfg, *,
         valid_f = valid_f & (st.conglom_id[cand_f.long()]
                              != st.conglom_id[s][:, None])
     pd_f = _forces.precompute_pair_data(
-        _take_rows(st, sel_f), cfg, cand_f, valid_f & vrow_f[:, None],
+        _forces.take_rows(st, sel_f), cfg, cand_f, valid_f & vrow_f[:, None],
         partner_st=st)
     stats = FusedContactStats(overflow=drop_f + trunc_f,
                               n_fallback=bad.sum(dtype=torch.int32))
@@ -242,24 +226,31 @@ def _extract_groups(st, grid, cfg: IcebergsConfig, *, block_n, window,
     return pd_n, pd_f, sel_f, vrow_f, stats
 
 
+def _check_legacy(cfg: IcebergsConfig):
+    if not cfg.legacy_contact_dispatch:
+        raise ValueError("the fused contact searches cover the legacy "
+                         "contact dispatch only (no MTS, contact_distance "
+                         "or separate contact spring)")
+    if cfg.iceberg_bonds_on:
+        raise NotImplementedError("bonded springs outside MTS (ROADMAP.md "
+                                  "Queue 1 item 9)")
+
+
 def make_ia_fn_fused3(st, grid, cfg: IcebergsConfig, *, block_n: int = 128,
                       window: int = 160, fallback_cap: int = 1024,
                       fallback_strip_width: int = 64,
                       presorted: bool = True, cell_starts=None):
-    """Interactive-force closure ``ia_fn(u1, v1) -> IA`` over a slab that
-    is physically (cell, id) sorted, plus its ``FusedContactStats``.
-    Legacy contact dispatch only (no MTS, contact_distance or separate
-    contact spring; no bonds)."""
-    if not presorted:
-        raise NotImplementedError("fused3 on an unsorted slab (ROADMAP.md "
-                                  "Queue 1 item 9)")
-    if not cfg.legacy_contact_dispatch or cfg.iceberg_bonds_on:
-        raise NotImplementedError("modern contact dispatch / bonds "
-                                  "outside MTS (ROADMAP.md Queue 1 item 9)")
+    """Interactive-force closure ``ia_fn(u1, v1) -> IA`` over the
+    extraction search, plus its ``FusedContactStats``: on a slab that is
+    physically (cell, id) sorted (``presorted``), or on a sorted view of
+    any slab with the results in its own frame.  Legacy contact dispatch
+    only (no MTS, contact_distance or separate contact spring; no
+    bonds)."""
+    _check_legacy(cfg)
     pd_n, pd_f, sel_f, vrow_f, stats = _extract_groups(
         st, grid, cfg, block_n=block_n, window=window,
         fallback_cap=fallback_cap,
-        fallback_strip_width=fallback_strip_width, presorted=True,
+        fallback_strip_width=fallback_strip_width, presorted=presorted,
         cell_starts=cell_starts)
     u0, v0 = st.uvel, st.vvel
     s = sel_f.long()
@@ -315,3 +306,135 @@ def make_ia_fn_fused_mts1(st, grid, cfg: IcebergsConfig, *,
         return ia_fn
 
     return refresh, stats
+
+
+def _rank_fold(bad, vrow_f, fallback_cap: int):
+    """Fold a compact fallback result back with one rank-table gather per
+    field (``x + tab[code_f]``, ``fused_contact.py:161-183``)."""
+    rank = torch.cumsum(bad.to(torch.int32), 0, dtype=torch.int32) - 1
+    code = torch.where(bad & (rank < fallback_cap), rank,
+                       fallback_cap).long()
+
+    def fold(x, f):
+        return x + torch.cat([torch.where(vrow_f, f, 0.),
+                              f.new_zeros(1)])[code]
+    return fold
+
+
+def make_ia_fn_fused(ss, cell_starts, grid, cfg: IcebergsConfig, *,
+                     block_n: int = 128, window: int = 160,
+                     fallback_cap: int = 1024,
+                     fallback_strip_width: int = 64):
+    """Interactive-force closure over the persistent (cell, id)-sorted
+    slab ``ss`` through K5 (``_sorted_contact_groups``): bergs with 1-2
+    engaged partners on an (N, 2) partner table {pmin, pmax} whose
+    fields are gathered from the slab, the rest through the exact strip
+    fallback, folded back through a rank table.  Returns ``(ia_fn,
+    FusedContactStats)``; legacy contact dispatch only, no bonds."""
+    _check_legacy(cfg)
+    N = ss.capacity
+    nx = grid.nx
+    ncells = nx * grid.ny
+    P, key_s = prepass_features(ss, grid, cfg)
+    cnt, pmin, pmax, bad_block = contact_prepass_sorted(
+        P, key_s, cell_starts, grid, cfg, block_n=block_n, window=window)
+    alive_s = key_s < ncells
+    # in a bad block the count itself is untrustworthy (a truncated
+    # window can hide partners): every alive berg there takes the fallback
+    bad = (bad_block | (cnt > 2)) & alive_s
+    normal = (cnt > 0) & ~bad_block & (cnt <= 2) & alive_s
+    others_n = torch.stack([pmin.clamp(min=0), pmax.clamp(min=0)], dim=-1)
+    m_n = normal[:, None] & torch.stack([pmin >= 0, (pmax >= 0) & (cnt > 1)],
+                                        dim=-1)
+    pd_n = _forces.precompute_pair_data(ss, cfg, others_n, m_n,
+                                        partner_st=ss)
+
+    sel_f, vrow_f, drop_f = _forces.compact_rows(bad, fallback_cap)
+    s = sel_f.long()
+    sub_f = SimpleNamespace(ine=(key_s % nx)[s],
+                            jne=torch.div(key_s, nx,
+                                          rounding_mode="floor")[s],
+                            alive=alive_s[s])
+    cand_f, valid_f, trunc_f = _subset_strip_tables(
+        sub_f, sel_f, alive_s, N, cell_starts, grid, fallback_strip_width)
+    pd_f = _forces.precompute_pair_data(
+        _forces.take_rows(ss, sel_f), cfg, cand_f.to(torch.int32),
+        valid_f & vrow_f[:, None], partner_st=ss)
+    stats = FusedContactStats(overflow=drop_f + trunc_f,
+                              n_fallback=bad.sum(dtype=torch.int32))
+    fold = _rank_fold(bad, vrow_f, fallback_cap)
+    u0, v0 = ss.uvel, ss.vvel
+
+    def ia_fn(u1, v1):
+        bn = _forces.eval_pair_ia(pd_n, cfg, u0, v0, u1, v1)
+        bf = _forces.eval_pair_ia(pd_f, cfg, u0[s], v0[s], u1[s], v1[s])
+        return IA(*(fold(x, f) for x, f in zip(bn, bf)))
+
+    return ia_fn, stats
+
+
+def _origin_frame_groups(st, grid, cfg: IcebergsConfig, *, block_n, window,
+                         fallback_cap, fallback_strip_width, radius=1,
+                         exclude_same_group=False):
+    """``_origin_frame_search`` + ``_origin_frame_groups``: K5 on the
+    (cell, id_cnt, id_ij)-sorted view of ``st``, its partner slots mapped
+    back to the origin frame through ``order`` and everything else
+    through its inverse; the normal group as a (2, N) partner table
+    gathered from ``st`` and the exact fallback compacted in the origin
+    frame.  Returns ``(pd_n, pd_f, sel_f, vrow_f, stats)``."""
+    N = st.capacity
+    ncells = grid.nx * grid.ny
+    P, key = prepass_features(st, grid, cfg, exclude_same_group)
+    order = lex_cell_id_order(key, st.id_cnt, st.id_ij)
+    ol = order.long()
+    inv = torch.empty_like(ol)
+    inv[ol] = torch.arange(N, device=ol.device)
+    key_s = key[ol]
+    cell_starts = starts_from_sorted_key(key_s, ncells)
+    cnt, pmin, pmax, bad_block = contact_prepass_sorted(
+        P[ol], key_s, cell_starts, grid, cfg, block_n=block_n,
+        window=window, radius=radius,
+        exclude_same_group=exclude_same_group)
+    alive_s = key_s < ncells
+    bad = (bad_block | (cnt > 2)) & alive_s
+    normal = (cnt > 0) & ~bad_block & (cnt <= 2) & alive_s
+    p1 = torch.where(normal & (pmin >= 0), order[pmin.clamp(min=0).long()],
+                     -1)
+    p2 = torch.where(normal & (pmax >= 0) & (cnt > 1),
+                     order[pmax.clamp(min=0).long()], -1)
+    p1_o, p2_o, bad_o = p1[inv], p2[inv], bad[inv]
+    others_T = torch.stack([p1_o.clamp(min=0), p2_o.clamp(min=0)])
+    m_T = torch.stack([p1_o >= 0, p2_o >= 0])
+    pd_n = _forces.precompute_pair_data_T(st, cfg, m_T, other_T=others_T)
+    pd_f, sel_f, vrow_f, stats = _fallback_group(
+        st, bad_o, order, key_s, cell_starts, grid, cfg,
+        fallback_cap=fallback_cap,
+        fallback_strip_width=fallback_strip_width, radius=radius,
+        exclude_same_group=exclude_same_group)
+    return pd_n, pd_f, sel_f, vrow_f, stats
+
+
+def make_ia_fn_fused2(st, grid, cfg: IcebergsConfig, *, block_n: int = 128,
+                      window: int = 160, fallback_cap: int = 1024,
+                      fallback_strip_width: int = 64):
+    """Sortless interactive-force closure (the origin slot order) through
+    K5 on a sorted view: the state is never reordered, partner slots map
+    back once, and the pair evaluation runs on the origin frame.
+    Per-berg results equal :func:`make_ia_fn_fused3`'s bit for bit (the
+    same partners, the same values, the same arithmetic).  Legacy
+    contact dispatch only, no bonds."""
+    _check_legacy(cfg)
+    pd_n, pd_f, sel_f, vrow_f, stats = _origin_frame_groups(
+        st, grid, cfg, block_n=block_n, window=window,
+        fallback_cap=fallback_cap,
+        fallback_strip_width=fallback_strip_width)
+    u0, v0 = st.uvel, st.vvel
+    s = sel_f.long()
+    fold = _scatter_fold(sel_f, vrow_f, st.capacity)
+
+    def ia_fn(u1, v1):
+        bn = _forces.eval_pair_ia_T(pd_n, cfg, u0, v0, u1, v1)
+        bf = _forces.eval_pair_ia(pd_f, cfg, u0[s], v0[s], u1[s], v1[s])
+        return IA(*(fold(x, f) for x, f in zip(bn, bf)))
+
+    return ia_fn, stats

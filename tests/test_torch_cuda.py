@@ -12,11 +12,14 @@ import torch
 
 import icebergs_tpu_torch as ibp
 from icebergs_tpu_torch.ops import dem_substeps as k4
-from icebergs_tpu_torch.ops import extract, forces, pack
+from icebergs_tpu_torch.ops import extract, forces, pack, prepass
+from icebergs_tpu_torch.ops import interp_sorted as k6
 from icebergs_tpu_torch.ops import segment_spread as ss
 from icebergs_tpu_torch.ops import sorted as srt
 from icebergs_tpu_torch.ops import thermo
 from icebergs_tpu_torch.ops.fused_contact import contact_features
+from icebergs_tpu_torch.ops.interp_table import interp_cell_table
+from icebergs_tpu_torch.ops.pairs import eval_pair_ia_kernel
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -88,13 +91,88 @@ def test_segment_spread_kernel_matches_plain(dev):
     assert torch.equal(S, ss.segment_spread_sums_plain(rows, cs, tbl, cfg))
 
 
-def test_step_on_card_matches_cpu(dev):
+@pytest.mark.parametrize("window", [160, 16])
+def test_prepass_kernel_matches_plain(dev, window):
+    """K5 against its plain version: exact, in bad blocks too."""
+    cfg, grid, frc, st, cs = _world(dev)
+    P, key_s = prepass.prepass_features(st, grid, cfg)
+    before = prepass.contact_prepass_sorted.launches
+    got = prepass.contact_prepass_sorted(P, key_s, cs, grid, cfg,
+                                         block_n=128, window=window)
+    assert prepass.contact_prepass_sorted.launches == before + 1
+    c_lo, c_hi, bad = prepass.block_tables(key_s, cs, grid.nx, grid.ny, 128,
+                                           window)
+    ref = prepass.prepass_sorted_plain(P, cs, c_lo, c_hi, 128, window, 0.)
+    for a, b in zip(got[:3], ref):
+        assert torch.equal(a, b)
+    # K5's 8-aligned 160-row window is tight for 128-row blocks at ~5
+    # bergs per cell: some blocks go bad at 160, nearly all at 16
+    assert (int(bad.sum()) > 100 if window == 16
+            else 0 < int(bad.sum()) < bad.numel())
+    assert int((got[0] > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("pmag", [True, False])
+def test_pair_eval_kernel_matches_plain(dev, pmag):
+    """K7 against forces.eval_pair_ia on the bucket tables: the sums are
+    taken in another order (lanes and a shuffle tree), so within 1e-5
+    relative plus 1e-6 of each field's scale; the spring sums pass
+    through."""
+    cfg, grid, frc, st, _ = _world(dev)
+    cfg = cfg.replace(scale_damping_by_pmag=pmag)
+    st = st.replace(uvel=st.uvel + 0.1, vvel=st.vvel - 0.05)
+    nbr = forces.build_neighbor_tables(st, grid, cfg, max_per_cell=16)
+    pd = forces.precompute_pair_data(st, cfg, nbr.cand_idx, nbr.cand_valid,
+                                     partner_st=st)
+    vel = (st.uvel, st.vvel, st.uvel * 0.9, st.vvel * 1.1)
+    before = eval_pair_ia_kernel.launches
+    got = eval_pair_ia_kernel(pd, cfg, *vel)
+    assert eval_pair_ia_kernel.launches == before + 1
+    ref = forces.eval_pair_ia(pd, cfg, *vel)
+    assert int(pd.active.sum()) > 100
+    assert torch.equal(got.IA_x, ref.IA_x)
+    for f in ("P11", "P12", "P22", "Pu_x", "Pu_y"):
+        a, b = getattr(got, f).cpu().numpy(), getattr(ref, f).cpu().numpy()
+        np.testing.assert_allclose(a, b, rtol=1e-5,
+                                   atol=1e-6 * np.abs(b).max(), err_msg=f)
+
+
+def test_interp_sorted_kernel_matches_plain(dev):
+    """K6 against its plain version: bitwise (the same expressions, each
+    operation rounded once on both sides)."""
+    cfg, grid, frc, st, _ = _world(dev)
+    ncells = grid.nx * grid.ny
+    key = torch.where(st.alive, st.jne * grid.nx + st.ine,
+                      ncells).to(torch.int32)
+    tbl = interp_cell_table(grid, frc, cfg)
+    before = k6.interp_sorted.launches
+    rows = k6.interp_sorted(tbl, key, st.xi, st.yj, grid, cfg)
+    assert k6.interp_sorted.launches == before + 1
+    assert torch.equal(rows, k6.interp_sorted_plain(tbl, key, st.xi, st.yj,
+                                                    cfg))
+
+
+@pytest.mark.parametrize("path", ["persistent", "fused3", "fused",
+                                  "buckets", "persistent_fused_kernel"])
+def test_step_on_card_matches_cpu(dev, path):
+    """Two steps of each path on the card against the CPU (the plain
+    versions): integers and counters exact, floats within the CPU parity
+    tolerance."""
     cfg, grid, frc, st, _ = _world(dev, n=5000, nx=32)
+    cfg = cfg.replace(fused_fallback_cap=8192)
+    kw = {}
+    if path == "persistent_fused_kernel":
+        cfg = cfg.replace(interp_mode="kernel")
+        kw = dict(neighbor_mode="fused")
+    elif path != "persistent":
+        kw = dict(persistent=False, neighbor_mode=path)
+        if path == "buckets":
+            kw.update(max_per_cell=24)
     outs = []
     for d in (dev, torch.device("cpu")):
         s, ov, fb, _ = ibp.make_multi_step(grid.to(d), cfg, 2,
-                                           with_stats=True)(st.to(d),
-                                                            frc.to(d))
+                                           with_stats=True, **kw)(
+            st.to(d), frc.to(d))
         outs.append((ibp.to_numpy(s), int(ov), int(fb)))
     (g, gov, gfb), (c, cov, cfb) = outs
     assert (gov, gfb) == (cov, cfb) and gov == 0

@@ -135,14 +135,21 @@ def test_unported_settings_raise():
     cfg = ibp.IcebergsConfig(grid_is_latlon=False, Runge_not_Verlet=False,
                              interactive_icebergs_on=True)
     ibp.check_ported(cfg)
-    for kw in (dict(interp_mode="kernel"), dict(interp_mode="xla"),
-               dict(contact_epilogue=True), dict(Runge_not_Verlet=True),
-               dict(slot_sum_method="scatter"), dict(mts=True)):
+    for kw in (dict(interp_mode="xla"), dict(contact_mode="sorted"),
+               dict(iceberg_bonds_on=True), dict(contact_epilogue=True),
+               dict(Runge_not_Verlet=True), dict(slot_sum_method="scatter"),
+               dict(mts=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ibp.check_ported(cfg.replace(**kw))
     for impl in ("gathered", "manual", "pipelined"):
         ibp.check_ported(cfg.replace(extract_impl=impl, spread_impl=impl))
+    for mode in ("fused3", "fused", "buckets"):
+        ibp.check_ported(cfg.replace(contact_mode=mode, interp_mode="kernel"))
     grid = ibp.make_uniform_grid(4, 4, 0., 0., 1., 1., grid_is_latlon=False,
                                  device=CPU)
     with pytest.raises(NotImplementedError, match="per-step"):
-        ibp.make_multi_step(grid, cfg, 1, persistent=False)
+        ibp.make_multi_step(grid, cfg.replace(interp_mode="kernel"), 1,
+                            persistent=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ibp.make_multi_step(grid, cfg, 1, persistent=False,
+                            neighbor_mode="sorted")
