@@ -11,15 +11,19 @@ Phases, one line each:
    the card's name and power limit as nvidia-smi reports them;
 2. build: compiles the CUDA kernels from ``icebergs_tpu_torch/csrc``
    and prints each kernel's registers and spills;
-3. kernels: K1 (column permute), K2 (contact extraction), K3 (spread
-   segment sums), K5 (the prepass search), K6 (the sorted-frame
-   interpolation) and K7 (the pair evaluation over the bucket tables,
-   max_per_cell 24) at the shapes the headline world gives them, and K2
-   with the conglomerate filter (radius 2, block 256, window 512) and K4
-   (the DEM substep loop, 60 substeps) at the shapes of the 1M-element
-   DEM world, each against its plain PyTorch version on the card, with
-   both times, a library call's time where one computes the same
-   function, and the bound computed from the inputs;
+3. kernels: K1 (column permute; on the first sort's random order, and
+   also on the persistent lane's re-sort after one step and its table
+   gather), K2 (contact extraction), K3 (spread segment sums), K5 (the
+   prepass search), K6 (the sorted-frame interpolation) and K7 (the pair
+   evaluation over the bucket tables, max_per_cell 24) at the shapes the
+   headline world gives them, and K2 with the conglomerate filter
+   (radius 2, block 256, window 512) and K4 (the DEM substep loop, 60
+   substeps; both instantiations bitwise and timed, the generic one also
+   with constant_interaction_LW off, with each instantiation's registers,
+   spills, shared memory and CTAs per SM) at the shapes of the 1M-element DEM
+   world, each against its plain PyTorch version on the card, with both
+   times, a library call's time where one computes the same function,
+   and the bound computed from the inputs;
 4. cross-check: a 50k-berg world runs 2 steps on the card and, with the
    plain versions, on a CPU copy; integer outputs must match exactly,
    floats within a stated tolerance;
@@ -79,12 +83,8 @@ DEM_BLOCK = 512             # one 484-element conglomerate per block
 DEM_INNER = 2               # outer steps per timed window
 DEM_CAP0 = 65536            # Part-1 fallback cap (bench_dem_1m.py:172-181)
 DEM_CROSS_UNITS, NX_DEM_CROSS = 20, 128
-# K4 against its plain version on the card: both round every operation
-# separately (-fmad=false, IEEE sqrtf / sinf / division), so they are
-# expected bitwise; the bound allows for one ulp in a library sin grown
-# by the stiff bonds (k = 5e6) over 60 substeps, as tests/test_torch_dem.py
-# measured for a one-ulp bond length (<= 1.5e-3 of scale)
-K4_ATOL_SCALE = 2e-3
+# K4 is held bitwise to its plain version on the card: both round every
+# operation separately (-fmad=false, IEEE sqrtf / sinf / division)
 # the DEM cross-check, card against CPU, after one outer step: integers
 # exact.  Floats cannot be held to a fixed bound: the 60 stiff substeps
 # (dtf 10 s against the 11.7 s stability limit) turn one ulp in the
@@ -103,6 +103,9 @@ FP32_FLOPS_PER_S = 67e12
 # (sqrt, division and sin as one each): per bond slot per substep, and per
 # element per substep (drift, assembly, kick, angular update)
 K4_FLOPS_PER_SLOT, K4_FLOPS_PER_ELEMENT = 185, 40
+K4_BOUND_NOTE = ("the bound counts each division, sqrt and sin as one "
+                 "operation, and the 67 TFLOP/s peak counts an FMA as two, "
+                 "while -fmad=false emits none: the card cannot reach it")
 # K2 and K5: per candidate pair test (separation, crit, compares); K3:
 # per row
 K2_FLOPS_PER_PAIR, K3_FLOPS_PER_ROW_BASE = 12, 110
@@ -311,26 +314,34 @@ def phase_kernels(ibp, torch, device):
     cfg, grid, frc, st0 = headline_world(ibp, torch, N_HEAD, NX_HEAD,
                                          device)
     ncells = grid.nx * grid.ny
-    # K1 at the re-sort's shape: every non-uniform column of the
-    # unsorted state moved by the (cell, id) order
+    # K1 at the first sort's shape: every non-uniform column of the
+    # unsorted state moved by the (cell, id) order, a random permutation
     key = torch.where(st0.alive, st0.jne * grid.nx + st0.ine,
                       ncells).to(torch.int32)
     order = srt.lex_cell_id_order(key, st0.id_cnt, st0.id_ij)
     skip = set(srt.uniform_state_fields(cfg)) | {"id_cnt", "id_ij",
                                                  "alive"}
-    R = torch.stack([pack.to_bits(getattr(st0, f.name))
-                     for f in dataclasses.fields(st0)
-                     if f.name not in skip])
+
+    def columns(s):
+        return torch.stack([pack.to_bits(getattr(s, f.name))
+                            for f in dataclasses.fields(s)
+                            if f.name not in skip])
+
+    def k1_at(R_, idx, what):
+        """(ms, index_select ms, bound ms) of K1 on R_[:, idx], after
+        holding it bitwise to the plain version."""
+        out = pack.permute_cols_u32(R_, idx)
+        require(torch.equal(out, pack.permute_cols_u32_plain(R_, idx)),
+                f"K1 differs from R[:, idx] ({what})")
+        il = idx.long()
+        return (cuda_ms(torch, lambda: pack.permute_cols_u32(R_, idx)),
+                cuda_ms(torch, lambda: torch.index_select(R_, 1, il)),
+                bound(nbytes(R_, idx, out), 0.)[0])
+
+    R = columns(st0)
     k1 = pack.permute_cols_u32(R, order)
     k1p = pack.permute_cols_u32_plain(R, order)
-    require(torch.equal(k1, k1p), "K1 differs from R[:, idx] (re-sort)")
-    # ... and at the table interpolation's shape
-    tbl = interp_cell_table(grid, frc, cfg)
-    tbl = torch.cat([tbl, tbl.new_zeros(tbl.shape[0], 1)], 1)
-    tbits = tbl.view(torch.int32)
-    require(torch.equal(pack.permute_cols_u32(tbits, key),
-                        pack.permute_cols_u32_plain(tbits, key)),
-            "K1 differs from R[:, idx] (table)")
+    require(torch.equal(k1, k1p), "K1 differs from R[:, idx] (first sort)")
     order_l = order.long()
     res = {"permute_cols_u32": dict(
         err=max_abs_err(torch, k1, k1p),
@@ -338,13 +349,49 @@ def phase_kernels(ibp, torch, device):
         plain_ms=cuda_ms(torch, lambda: pack.permute_cols_u32_plain(
             R, order), reps=5),
         library_ms=cuda_ms(torch, lambda: torch.index_select(R, 1, order_l)),
-        bound=bound(nbytes(R, order, k1), 0.),
-        note=(f"C={R.shape[0]} N={R.shape[1]}; table C=64: "
-              f"{cuda_ms(torch, lambda: pack.permute_cols_u32(tbits, key)):.3f}"
-              f" ms"))}
+        bound=bound(nbytes(R, order, k1), 0.))}
+
+    # ... and at the shapes the persistent lane launches it every step:
+    # the re-sort after one step, a near-identity order (the step keeps
+    # the slab sorted by the cells of its start, so its state is the
+    # sorted world's slots and the new order maps each berg's slot after
+    # the step to its slot before), and the table interpolation's gather
+    # by the sorted slab's cell keys (by the unsorted keys on the per-step
+    # and DEM paths)
+    st, cs = srt.sort_state_by_cell(st0, grid)
+    s1 = ibp.make_multi_step(grid, cfg, 1)(st0, frc)
+    ids = st.id_cnt.long()
+    require(torch.equal(ids.sort().values,
+                        torch.arange(st.capacity, device=device)),
+            "K1 re-sort order: id_cnt is not a permutation of the slots")
+    slot = torch.empty_like(ids)
+    slot[ids] = torch.arange(st.capacity, device=device)
+    order1 = slot[s1.id_cnt.long()].to(torch.int32)
+    shift = int((order1.long() - torch.arange(st.capacity, device=device)
+                 ).abs().max())
+    key_st = torch.where(st.alive, st.jne * grid.nx + st.ine,
+                         ncells).to(torch.int32)
+    key_s1 = torch.where(s1.alive, s1.jne * grid.nx + s1.ine, ncells)
+    changed = int((key_st[order1.long()] != key_s1).sum())
+    re1 = k1_at(columns(st), order1, "re-sort after one step")
+    del s1, key_s1
+    tbl = interp_cell_table(grid, frc, cfg)
+    tbl = torch.cat([tbl, tbl.new_zeros(tbl.shape[0], 1)], 1)
+    tbits = tbl.view(torch.int32)
+    tb_sorted = k1_at(tbits, key_st, "table, sorted keys")
+    tb_unsorted = k1_at(tbits, key, "table, unsorted keys")
+
+    def fmt(r):
+        return (f"{r[0]:.3f} ms (index_select {r[1]:.3f} ms, bound "
+                f"{r[2]:.4f} ms)")
+    res["permute_cols_u32"]["note"] = (
+        f"first sort C={R.shape[0]} N={R.shape[1]} (random order); re-sort "
+        f"after one step: {fmt(re1)}, {changed} of {st.capacity} bergs "
+        f"changed cell, no slot moved by more than {shift}; table gather "
+        f"C={tbits.shape[0]} by sorted keys: {fmt(tb_sorted)}; by unsorted "
+        f"keys: {fmt(tb_unsorted)}")
 
     # K2 on the sorted slab
-    st, cs = srt.sort_state_by_cell(st0, grid)
     PT, key_s = contact_features(st, grid, cfg)
     out, bad_block = extract.extract_sorted(
         PT, key_s, cs, grid, cfg, block_n=128, window=cfg.fused_window)
@@ -528,7 +575,6 @@ def k4_flops(torch, st, cfg):
 def phase_kernels_dem(ibp, torch, device, cfg, world):
     """K2 with the conglomerate filter and K4 at the DEM world's shapes,
     each against its plain version."""
-    import numpy as np
     from icebergs_tpu_torch.ops import dem_substeps as k4, extract
     from icebergs_tpu_torch.ops import sorted as srt
     from icebergs_tpu_torch.ops.fused_contact import contact_features
@@ -575,32 +621,23 @@ def phase_kernels_dem(ibp, torch, device, cfg, world):
               f"bad_blocks={int(bad.sum())}/{bad.numel()} engaged_rows="
               f"{int((cnt > 0).sum())} rows_3plus={int((cnt > 2).sum())}"))}
 
-    # K4 on the packed world, each element moved by up to 8 m so that
-    # some bonds fracture and broken-bond contact engages
-    rng = np.random.RandomState(5)
-    jit = [torch.as_tensor(rng.uniform(-8., 8., st.capacity)).to(
-        device, st.dtype) * st.alive for _ in range(2)]
-    s4 = st.replace(lon=st.lon + jit[0], lat=st.lat + jit[1],
-                    lon_old=st.lon + jit[0], lat_old=st.lat + jit[1])
-    out4, nb4 = k4.part3_substeps_vmem(s4, cfg, deltas, DEM_BLOCK)
-    outp4, nbp4 = k4.part3_substeps_plain(s4, cfg, deltas, DEM_BLOCK)
-    require(int(nb4) == int(nbp4), f"K4 nbroken {int(nb4)} != plain "
-            f"{int(nbp4)}")
-    for name in ("bond_broken", "n_bonds"):
-        require(torch.equal(getattr(out4, name), getattr(outp4, name)),
-                f"K4 {name} differs from the plain version")
-    worst, err, bitwise = 0.0, 0.0, True
-    for name in k4._CAR_FIELDS + k4._BOND_FIELDS:
-        a, b = getattr(out4, name), getattr(outp4, name)
-        bitwise = bitwise and torch.equal(a, b)
-        e = max_abs_err(torch, a, b)
-        err = max(err, e)
-        worst = max(worst, e / max(float(b.abs().max()), 1e-30))
-    require(worst <= K4_ATOL_SCALE, f"K4 floats differ by {worst} of scale")
+    s4 = k4_state(torch, st, device)
+    out4, nb4, err, worst, ms = k4_run(torch, k4, s4, cfg, deltas)
     mv = s4.alive & (s4.static_berg < 0.5)
+    variant = k4.instantiation(cfg, s4.max_bonds)
+    res_k4 = k4_resources(k4, s4.max_bonds, DEM_BLOCK)
+    # the generic instantiation, which serves every other flag set, on the
+    # same inputs: the DEM flag set and the same world with
+    # constant_interaction_LW off (its elements' length and width are the
+    # constant ones)
+    cfg_lw = dem_config(ibp, constant_interaction_LW=False)
+    gen = [k4_run(torch, k4, s4, c, deltas, "generic")
+           for c in (cfg, cfg_lw)]
+    gen_note = (f"generic on these inputs {gen[0][4]:.3f} ms, with "
+                f"constant_interaction_LW off {gen[1][4]:.3f} ms (nbroken "
+                f"{int(gen[1][1])}), both bitwise")
     res["dem_substeps"] = dict(
-        err=err, ms=cuda_ms(torch, lambda: k4.part3_substeps_vmem(
-            s4, cfg, deltas, DEM_BLOCK), reps=5),
+        err=err, ms=ms,
         plain_ms=cuda_ms(torch, lambda: k4.part3_substeps_plain(
             s4, cfg, deltas, DEM_BLOCK), reps=1),
         library_ms=None,
@@ -613,9 +650,64 @@ def phase_kernels_dem(ibp, torch, device, cfg, world):
             k4_flops(torch, s4, cfg)),
         note=(f"N={s4.capacity} block {DEM_BLOCK} deltas {deltas} "
               f"substeps {cfg.n_sub_steps} moving={int(mv.sum())} "
-              f"nbroken={int(nb4)} bitwise={bitwise} worst_scaled_err="
-              f"{worst:.3e}"))
+              f"nbroken={int(nb4)} bitwise=True worst_scaled_err="
+              f"{worst:.3e}; launched {variant}; {gen_note}; {res_k4}; "
+              f"{K4_BOUND_NOTE}"))
     return res
+
+
+def k4_state(torch, st, device):
+    """Phase 3's K4 input: the packed DEM world with each element moved by
+    up to 8 m, so that some bonds fracture and broken-bond contact
+    engages."""
+    import numpy as np
+    rng = np.random.RandomState(5)
+    jit = [torch.as_tensor(rng.uniform(-8., 8., st.capacity)).to(
+        device, st.dtype) * st.alive for _ in range(2)]
+    return st.replace(lon=st.lon + jit[0], lat=st.lat + jit[1],
+                      lon_old=st.lon + jit[0], lat_old=st.lat + jit[1])
+
+
+def k4_run(torch, k4, s, cfg, deltas, variant=None):
+    """K4 on s in one instantiation (None: the one the configuration
+    takes), held bitwise to its plain version on every field, then timed:
+    (out, nbroken, max abs err, worst error of scale, ms)."""
+    kw = {} if variant is None else {"variant": variant}
+
+    def run():
+        return k4.part3_substeps_vmem(s, cfg, deltas, DEM_BLOCK, **kw)
+    out, nb = run()
+    ref, nbp = k4.part3_substeps_plain(s, cfg, deltas, DEM_BLOCK)
+    require(int(nb) == int(nbp), f"K4 nbroken {int(nb)} != plain "
+            f"{int(nbp)}")
+    for name in ("bond_broken", "n_bonds"):
+        require(torch.equal(getattr(out, name), getattr(ref, name)),
+                f"K4 {name} differs from the plain version")
+    worst, err = 0.0, 0.0
+    for name in k4._CAR_FIELDS + k4._BOND_FIELDS:
+        a, b = getattr(out, name), getattr(ref, name)
+        e = max_abs_err(torch, a, b)
+        err = max(err, e)
+        worst = max(worst, e / max(float(b.abs().max()), 1e-30))
+        require(torch.equal(a, b), f"K4 {name} differs from the plain "
+                f"version by {e} ({worst:.3e} of scale)")
+    del ref
+    return out, nb, err, worst, cuda_ms(torch, run, reps=5)
+
+
+def k4_resources(k4, nslots, block_n):
+    """Each K4 instantiation's registers, stack and spill bytes (the
+    build's -Xptxas -v report), dynamic shared memory and resident CTAs
+    per SM at block_n threads, as one line."""
+    parts = []
+    for variant, r in sorted(k4.kernel_resources().items()):
+        smem, ctas = k4.kernel_config(variant, nslots, block_n)
+        parts.append(
+            f"{variant}: {r['registers']} registers, stack "
+            f"{r.get('stack')} B, spill "
+            f"stores/loads {r.get('spill_stores')}/{r.get('spill_loads')} B, "
+            f"smem {smem} B, {ctas} CTAs/SM at {block_n} threads")
+    return "; ".join(parts) or "no ptxas report"
 
 
 def phase_cross(ibp, torch, device, cfg_kw=None, multi_kw=None):

@@ -19,6 +19,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -38,7 +39,8 @@ _SIGNATURES = {
                           _F, _P),
     "ib_segment_spread_sums": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
     "ib_max_spread_extra": (),
-    "ib_dem_substeps": (_P, _I, _I, _P),
+    "ib_dem_substeps": (_P, _I, _I, _I, _P),
+    "ib_dem_config": (_I, _I, _I, _P, _P),
     "ib_dem_args_size": (),
     "ib_prepass_sorted": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                           _P, _P, _P, _P),
@@ -117,6 +119,33 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def resource_report() -> dict:
+    """Each compiled function's registers, stack frame, spill stores and
+    spill loads (bytes), keyed by its mangled name, parsed from the
+    ``-Xptxas -v`` lines of the current library's build log (empty when
+    there is no log)."""
+    log = library_path().with_suffix(".log")
+    if not log.exists():
+        return {}
+    out, name = {}, None
+    for ln in log.read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w$.]+)", ln)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and name:
+            out[name].update(zip(("stack", "spill_stores", "spill_loads"),
+                                 map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def check(err: int, what: str) -> None:

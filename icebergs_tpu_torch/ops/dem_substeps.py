@@ -10,7 +10,11 @@ stress fracture of 1140-1199) and broken-bond contact (806-956 via
 :func:`pack_conglomerates_blocked` layout no conglomerate straddles a
 block of ``block_n`` slots, so all ``n_sub_steps`` substeps run per block
 in one launch of ``csrc/dem_substeps.cu``: one CTA per block, one thread
-per element, partners read from shared memory.
+per element, partners read from shared memory.  The kernel has two
+instantiations (:func:`instantiation`): one compiled for the flag set of
+``tools/bench_dem_1m.py`` with 6 bond slots, and a generic one that reads
+the flags and the slot count at run time, both built for two 512-thread
+CTAs per SM.
 
 :func:`part3_substeps_plain` is the same function in plain PyTorch
 (partners gathered by index, a Python loop over substeps); CPU tensors
@@ -22,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+import re
 
 import numpy as np
 import torch
@@ -35,7 +40,7 @@ from .dem import _HEXDENOM, dem_K_damp, grounding_drag_coeff, tdiv
 MAX_DELTAS = 8
 _SENT = -(10 ** 8)
 MAX_BLOCK = 512            # threads per CTA of the kernel
-_SLOTS = (4, 6, 8)         # max_bonds the kernel is instantiated for
+MAX_SLOTS = 8              # most bond slots (max_bonds) the kernel takes
 
 _CAR_FIELDS = ("lon", "lat", "lon_old", "lat_old", "uvel", "vvel",
                "uvel_old", "vvel_old", "axn_fast", "ayn_fast",
@@ -166,6 +171,9 @@ def supports_vmem_substeps(cfg: IcebergsConfig) -> bool:
 _F_CONST_LW, _F_HEX, _F_BONDS, _F_BREAK_SUB = 1, 2, 4, 8
 _F_SHORT_GROUND, _F_GROUND_TORQUE, _F_ORIG_MOI = 16, 32, 64
 _F_IGNORE_TANG, _F_PMAG = 128, 256
+# the flag set of tools/bench_dem_1m.py, which has its own instantiation
+DEM_FLAGS = _F_CONST_LW | _F_BONDS | _F_BREAK_SUB | _F_PMAG
+_VARIANTS = {"generic": 0, "dem": 1}
 
 
 def _params(cfg: IcebergsConfig):
@@ -566,23 +574,61 @@ class _DemArgs(ctypes.Structure):
                 + [(f, ctypes.c_float) for f in _PARAM_ORDER])
 
 
+def instantiation(cfg: IcebergsConfig, max_bonds: int) -> str:
+    """The kernel instantiation a launch takes: ``"dem"`` (compiled for
+    :data:`DEM_FLAGS` and 6 bond slots) or ``"generic"``.  Decided on the
+    host from the configuration alone."""
+    return ("dem" if _flags(cfg) == DEM_FLAGS and max_bonds == 6
+            else "generic")
+
+
+def kernel_config(variant: str, nslots: int, block_n: int):
+    """``(dynamic shared memory bytes, resident CTAs per SM)`` of a kernel
+    instantiation at ``block_n`` threads on the current CUDA device."""
+    lib = cuda_build.library()
+    smem, ctas = ctypes.c_int(), ctypes.c_int()
+    cuda_build.check(lib.ib_dem_config(_VARIANTS[variant], nslots, block_n,
+                                       ctypes.byref(smem),
+                                       ctypes.byref(ctas)), "dem_config")
+    return smem.value, ctas.value
+
+
+def kernel_resources() -> dict:
+    """Registers, stack frame and spill bytes of each K4 instantiation
+    (``"dem"``, ``"generic"``), from the library's ``-Xptxas -v`` report."""
+    out = {}
+    for name, r in cuda_build.resource_report().items():
+        m = re.search(r"dem_substeps_kernelILi\d+ELi(n?)\d+E", name)
+        if m and "registers" in r:
+            out["generic" if m.group(1) else "dem"] = r
+    return out
+
+
 def part3_substeps_vmem(st, cfg: IcebergsConfig, deltas,
-                        block_n: int = 512):
+                        block_n: int = 512, variant: str = None):
     """Run all ``cfg.n_sub_steps`` fast substeps per conglomerate block.
     Returns ``(state, nbroken)``.
 
     ``deltas`` come from :func:`analyze_bond_deltas` on the bond table
     this state carries.  A CPU state takes :func:`part3_substeps_plain`;
-    a CUDA state launches K4 (counted in ``part3_substeps_vmem.launches``).
+    a CUDA state launches K4 (counted in ``part3_substeps_vmem.launches``)
+    in the instantiation :func:`instantiation` picks, or in ``variant``
+    (``"generic"`` serves every flag set; the card tests and
+    ``chip_smoke.py`` hold it to the plain version on the DEM world too).
     """
     _check(st, cfg, deltas, block_n)
+    variant = variant or instantiation(cfg, st.max_bonds)
+    if variant not in _VARIANTS or (variant == "dem" and instantiation(
+            cfg, st.max_bonds) != "dem"):
+        raise ValueError(f"K4 instantiation {variant!r} cannot run this "
+                         "configuration")
     if st.device.type == "cpu":
         return part3_substeps_plain(st, cfg, deltas, block_n)
     if st.device.type != "cuda":
         raise NotImplementedError(f"no K4 kernel for {st.device}")
-    if block_n > MAX_BLOCK or st.max_bonds not in _SLOTS:
+    if block_n > MAX_BLOCK or not 1 <= st.max_bonds <= MAX_SLOTS:
         raise ValueError(f"K4 takes block_n <= {MAX_BLOCK} and max_bonds in "
-                         f"{_SLOTS} (got {block_n}, {st.max_bonds})")
+                         f"1..{MAX_SLOTS} (got {block_n}, {st.max_bonds})")
     lib = cuda_build.library()
     if lib.ib_dem_args_size() != ctypes.sizeof(_DemArgs):
         raise RuntimeError("DemArgs layout differs between C and Python")
@@ -623,6 +669,7 @@ def part3_substeps_vmem(st, cfg: IcebergsConfig, deltas,
         setattr(a, k, v)
     cuda_build.check(lib.ib_dem_substeps(
         ctypes.addressof(a), st.capacity // block_n, block_n,
+        _VARIANTS[variant],
         cuda_build.stream_ptr(st.device)), "dem_substeps")
     part3_substeps_vmem.launches += 1
     return _finish(st, car_out, broken_out, bond_out)

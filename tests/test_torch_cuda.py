@@ -206,19 +206,29 @@ def _dem_cfg(**kw):
     return ibp.IcebergsConfig(**base).normalized(warn=False)
 
 
-def _dem_world(cfg, jitter, units=6, side=5, gap=3.85e3, seed=3):
+def _dem_world(cfg, jitter, units=6, side=5, gap=3.85e3, seed=3,
+               block_n=128, max_bonds=6, hex_units=()):
     """``units`` bonded side x side conglomerates in a row, ``gap`` apart
     (beyond the bonding radius, inside the contact distance),
     on a 64 x 64 grid of 7 km cells, built on the CPU and packed into
-    128-slot blocks; random velocities and ocean depths."""
+    ``block_n``-slot blocks; random velocities and ocean depths.  The
+    units in ``hex_units`` are hexagonally packed (up to six bonds an
+    element, so slots 4-5 are used in their warps only); the others bond
+    through at most four slots."""
     r, dxy = 1500.0, 7000.0
     rng = np.random.RandomState(seed)
-    px, py = np.meshgrid(np.arange(side) * 2 * r, np.arange(side) * 2 * r,
-                         indexing="ij")
+    ix, iy = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    ix, iy = ix.ravel(), iy.ravel()
     pitch = 2 * r * (side - 1) + gap
-    lon = np.concatenate([px.ravel() + 2 * dxy + u * pitch
-                          for u in range(units)])
-    lat = np.tile(py.ravel() + 2 * dxy, units)
+    lon, lat = [], []
+    for u in range(units):
+        if u in hex_units:
+            px, py = ix * r * np.sqrt(3.), iy * 2 * r + (ix % 2) * r
+        else:
+            px, py = ix * 2 * r, iy * 2 * r
+        lon.append(px + 2 * dxy + u * pitch)
+        lat.append(py + 2 * dxy)
+    lon, lat = np.concatenate(lon), np.concatenate(lat)
     n = lon.size
     lon = lon + rng.uniform(-jitter, jitter, n)
     lat = lat + rng.uniform(-jitter, jitter, n)
@@ -232,37 +242,61 @@ def _dem_world(cfg, jitter, units=6, side=5, gap=3.85e3, seed=3):
                           vvel=rng.uniform(-0.3, 0.3, n),
                           mass=850. * 200. * (2 * r) ** 2, thickness=200.,
                           width=2 * r, length=2 * r, mass_scaling=1.0,
-                          id_cnt=np.arange(n) + 1, max_bonds=6,
+                          id_cnt=np.arange(n) + 1, max_bonds=max_bonds,
                           od=rng.uniform(120., 260., n), device=cpu)
     i, j, xi, yj = ibp.pos_to_cell(grid, st.lon, st.lat, -1.0)
     st = forces.count_bonds(forces.initialize_bonds_host(
         st.replace(ine=i, jne=j, xi=xi, yj=yj), cfg))
-    st = k4.pack_conglomerates_blocked(st, 128)
+    st = k4.pack_conglomerates_blocked(st, block_n)
     st = st.replace(axn_fast=st.uvel * 1e-3, ayn_fast=st.vvel * -1e-3,
                     ang_vel=st.uvel * 1e-5)
-    deltas = k4.analyze_bond_deltas(st.bond_idx, 128)
+    deltas = k4.analyze_bond_deltas(st.bond_idx, block_n)
     assert deltas
     return grid, frc, st, deltas
 
 
-@pytest.mark.parametrize("jitter,flags", [
-    (40.0, {}),
-    (2.0, {"short_step_mts_grounding": True, "use_grounding_torque": True,
-           "frac_thres_n": 1.8e5}),
-])
-def test_dem_substeps_kernel_matches_plain(dev, jitter, flags):
-    """K4 against its plain version on the card: integers exact, floats
-    bitwise (both round every operation separately: -fmad=false, IEEE
-    sqrtf / sinf / division)."""
+# (instantiation, forced, jitter (m), config changes, world changes): the
+# DEM world's flag set at both block sizes and with slots 4-5 used in some
+# warps only, the generic instantiation forced onto that flag set, then
+# each flag the generic instantiation reads, and other slot counts
+_K4_CASES = [
+    ("dem", False, 40.0, {}, {}),
+    ("dem", False, 40.0, {}, {"block_n": 512}),
+    ("dem", False, 40.0, {}, {"hex_units": (2,)}),
+    ("dem", False, 40.0, {}, {"hex_units": (1,), "block_n": 512}),
+    ("generic", True, 40.0, {}, {"hex_units": (1,), "block_n": 512}),
+    ("generic", False, 2.0, {"short_step_mts_grounding": True,
+                             "use_grounding_torque": True,
+                             "frac_thres_n": 1.8e5}, {}),
+    # the hexagonal bonding radius (4.03 km) reaches across 3.85 km gaps
+    ("generic", False, 40.0, {"hexagonal_icebergs": True}, {"gap": 4.5e3}),
+    ("generic", False, 40.0, {"orig_dem_moment_of_inertia": True}, {}),
+    ("generic", False, 40.0, {"ignore_tangential_force": True}, {}),
+    ("generic", False, 40.0, {"scale_damping_by_pmag": False}, {}),
+    ("generic", False, 40.0, {"constant_interaction_LW": False}, {}),
+    ("generic", False, 40.0, {}, {"max_bonds": 4}),
+    ("generic", False, 40.0, {}, {"max_bonds": 8, "hex_units": (2,)}),
+]
+
+
+@pytest.mark.parametrize("variant,forced,jitter,flags,world", _K4_CASES)
+def test_dem_substeps_kernel_matches_plain(dev, variant, forced, jitter,
+                                           flags, world):
+    """K4 against its plain version on the card, in both instantiations:
+    integers exact, floats bitwise (both round every operation
+    separately: -fmad=false, IEEE sqrtf / sinf / division)."""
     cfg = _dem_cfg(**flags)
-    _, _, st, deltas = _dem_world(cfg, jitter)
+    _, _, st, deltas = _dem_world(cfg, jitter, **world)
+    block_n = world.get("block_n", 128)
+    assert (k4.instantiation(cfg, st.max_bonds) == variant) != forced
     st = st.to(dev)
     before = k4.part3_substeps_vmem.launches
-    out, nb = k4.part3_substeps_vmem(st, cfg, deltas, block_n=128)
+    out, nb = k4.part3_substeps_vmem(st, cfg, deltas, block_n=block_n,
+                                     variant=variant if forced else None)
     assert k4.part3_substeps_vmem.launches == before + 1
-    ref, nbp = k4.part3_substeps_plain(st, cfg, deltas, block_n=128)
+    ref, nbp = k4.part3_substeps_plain(st, cfg, deltas, block_n=block_n)
     assert int(nb) == int(nbp)
-    if not flags:
+    if jitter > 10.0:
         assert int(nb) > 10
     for name in ("bond_broken", "n_bonds") + k4._CAR_FIELDS \
             + k4._BOND_FIELDS:

@@ -1,0 +1,77 @@
+"""Time K4, the DEM substep kernel, in another version of this package.
+
+Runs ``chip_smoke.py`` phase 3's K4 case (the 999,944-element DEM world of
+``tools/bench_dem_1m.py``, each element moved by up to 8 m, 60 substeps,
+held bitwise to the plain version) with the package found under
+``--root``: this checkout by default, or an unpacked copy of another
+commit inside it (e.g. ``git archive`` into a directory ``.gitignore``
+lists), so that two versions are timed in one run on one card.  Each of
+``--lw`` (constant_interaction_LW on, off) and ``--variants`` (``auto``:
+the instantiation the configuration takes; ``generic``, where the
+package has it) prints one JSON line with the mean time of each of
+``--windows`` windows of 5 launches.  Needs one CUDA GPU:
+
+    python3 tools/time_k4.py [--root DIR] [--lw 1,0] [--variants auto,generic]
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=str(REPO),
+                    help="checkout inside this one whose package is timed")
+    ap.add_argument("--lw", default="1", help="constant_interaction_LW "
+                    "values, comma-separated")
+    ap.add_argument("--variants", default="auto")
+    ap.add_argument("--windows", type=int, default=3)
+    args = ap.parse_args()
+    root = pathlib.Path(args.root).resolve()
+    if root != REPO and REPO not in root.parents:
+        ap.error(f"--root {root} is not inside {REPO}")
+
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(root))
+    import icebergs_tpu_torch as ibp
+    from icebergs_tpu_torch.ops import dem_substeps as k4
+    spec = importlib.util.spec_from_file_location("smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    cfg = smoke.dem_config(ibp)
+    _, _, st, deltas, n = smoke.dem_world(ibp, torch, cfg, smoke.DEM_UNITS,
+                                          smoke.NX_DEM, device)
+    s4 = smoke.k4_state(torch, st, device)
+    for lw in (int(x) for x in args.lw.split(",")):
+        c = smoke.dem_config(ibp, constant_interaction_LW=bool(lw))
+        for v in args.variants.split(","):
+            r = [smoke.k4_run(torch, k4, s4, c, deltas,
+                              None if v == "auto" else v)
+                 for _ in range(args.windows)]
+            print(json.dumps(dict(
+                root=str(root.relative_to(REPO)) or ".", lw=lw, variant=v,
+                ms=[x[4] for x in r], bitwise=True, nbroken=int(r[0][1]),
+                elements=n, substeps=c.n_sub_steps, device=smi)),
+                flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
