@@ -11,9 +11,14 @@ Phases, one line each:
    the card's name and power limit as nvidia-smi reports them;
 2. build: compiles the CUDA kernels from ``icebergs_tpu_torch/csrc``
    and prints each kernel's registers and spills;
-3. kernels: K1 (column permute; on the first sort's random order, and
-   also on the persistent lane's re-sort after one step and its table
-   gather), K2 (contact extraction), K3 (spread segment sums), K5 (the
+3. kernels: K1 at every shape a path gives it (the first sort, the
+   persistent re-sort, the table gather by sorted, unsorted and DEM keys,
+   the sorted views' moves and their inverses, the spread's row sort,
+   the DEM refresh) through both routes (the column list, the row route)
+   beside ``index_select``, with the kernels' registers, spills and CTAs
+   per SM, K2 (contact extraction; the generic instantiation timed
+   beside the compiled one, with each one's registers, spills and CTAs
+   per SM), K3 (spread segment sums), K5 (the
    prepass search), K6 (the sorted-frame interpolation) and K7 (the pair
    evaluation over the bucket tables, max_per_cell 24) at the shapes the
    headline world gives them, and K2 with the conglomerate filter
@@ -21,9 +26,11 @@ Phases, one line each:
    substeps; both instantiations bitwise and timed, the generic one also
    with constant_interaction_LW off, with each instantiation's registers,
    spills, shared memory and CTAs per SM) at the shapes of the 1M-element DEM
-   world, each against its plain PyTorch version on the card, with both
-   times, a library call's time where one computes the same function,
-   and the bound computed from the inputs;
+   world, each against its plain PyTorch version on the card.  Each
+   kernel's ``ms`` is the device time of one wrapper call with the
+   host's enqueueing hidden (``device_ms``), the call's time with the
+   host in its note; plain and library times are CUDA-event means; the
+   bound is computed from the inputs;
 4. cross-check: a 50k-berg world runs 2 steps on the card and, with the
    plain versions, on a CPU copy; integer outputs must match exactly,
    floats within a stated tolerance;
@@ -53,11 +60,19 @@ Phases, one line each:
 The last two lines are a JSON object with each kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without them.  Imports nothing of JAX.
+
+``--ab DIR`` runs phase 3's K1 and K2 cases only, with the package of a
+copy of another commit unpacked at DIR inside this checkout (``git
+archive`` into a directory ``.gitignore`` lists), so that a parent and a
+change are timed on one card in one call: parent, change, change, parent.
+It also times K1's form before the column list (the caller's stack and
+the column kernel on the matrix).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import pathlib
 import statistics
@@ -107,8 +122,13 @@ K4_BOUND_NOTE = ("the bound counts each division, sqrt and sin as one "
                  "operation, and the 67 TFLOP/s peak counts an FMA as two, "
                  "while -fmad=false emits none: the card cannot reach it")
 # K2 and K5: per candidate pair test (separation, crit, compares); K3:
-# per row
+# per row.  The bounds of K2 and K5 count the tests of the engaged pairs
+# only: no exact search can skip those, and any other pair a search may
+# cull
 K2_FLOPS_PER_PAIR, K3_FLOPS_PER_ROW_BASE = 12, 110
+# K2's chunk of staged candidates per instantiation (csrc/extract_sorted.cu
+# CH_OF), for the count of the pair tests its skip leaves
+K2_CHUNK = {False: 16, True: 32}
 # K6 per berg (8 bilinear interpolations, the stencil slopes, the
 # rotations and the scrub), counted from csrc/interp_sorted.cu; K7 per
 # pair with the pmag scaling (two pmag terms, D and the five sums)
@@ -132,12 +152,13 @@ CROSS_PATHS = (
      dict(interp_mode="kernel", fused_fallback_cap=32768),
      dict(neighbor_mode="fused")))
 # phase 7: each per-step neighbour mode and the kernels it must launch
+# (K1's row route: the per-step paths' table gather and the persistent
+# lanes' first sort; the column gather everywhere else)
+K1_ROWS = ("pack_rows_u32", "gather_rows_u32")
 PERSTEP_PATHS = (
-    ("fused3", ("permute_cols_u32", "extract_sorted", "segment_spread_sums")),
-    ("fused", ("contact_prepass_sorted", "permute_cols_u32",
-               "segment_spread_sums")),
-    ("buckets", ("eval_pair_ia_kernel", "permute_cols_u32",
-                 "segment_spread_sums")))
+    ("fused3", K1_ROWS + ("extract_sorted", "segment_spread_sums")),
+    ("fused", K1_ROWS + ("contact_prepass_sorted", "segment_spread_sums")),
+    ("buckets", K1_ROWS + ("eval_pair_ia_kernel", "segment_spread_sums")))
 
 
 def bound(nbytes: float, flops: float):
@@ -297,67 +318,358 @@ def cuda_ms(torch, fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
+def device_ms(torch, fn, reps=20):
+    """Device time per fn() call with the host's enqueueing hidden: a spin
+    kernel holds the card while the host enqueues the ``reps`` calls, so
+    the CUDA events bracket their device work back to back.  This is the
+    wrapper's whole call on the card (its small PyTorch operations too),
+    and every kernel row's ``ms`` is this one measure."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    if "hz" not in _SPIN:
+        torch.cuda.synchronize()
+        a.record()
+        torch.cuda._sleep(10_000_000)
+        b.record()
+        torch.cuda.synchronize()
+        _SPIN["hz"] = 1e7 / (a.elapsed_time(b) / 1e3)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    spin = 2 * reps * (time.perf_counter() - t0) + 0.005
+    for _ in range(3):
+        torch.cuda._sleep(int(_SPIN["hz"] * spin))
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if enqueue < spin:
+            return a.elapsed_time(b) / reps
+        spin *= 4
+    fail(f"the host took {enqueue:.3f} s to enqueue {reps} calls, longer "
+         "than the spin that hides it")
+
+
+_SPIN = {}
+
+
+def host_us(torch, fn, reps=20):
+    """Host time per fn() call (µs), the card left to catch up after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
 def max_abs_err(torch, x, y):
     if x.dtype == torch.int32:
         return float((x.to(torch.int64) - y.to(torch.int64)).abs().max())
     return float((x.to(torch.float64) - y.to(torch.float64)).abs().max())
 
 
-def phase_kernels(ibp, torch, device):
-    """Each kernel against its plain version at headline shapes."""
+def state_columns(torch, pack, st, skip):
+    """Every state column outside ``skip`` as K1's re-sort hands it over:
+    1-D leaves whole, 2-D leaves column by column, as int32 bits."""
+    import dataclasses
+    cols = []
+    for f in dataclasses.fields(st):
+        if f.name in skip:
+            continue
+        leaf = getattr(st, f.name)
+        subs = [leaf] if leaf.dim() == 1 else list(leaf.T)
+        cols += [pack.to_bits(c) for c in subs]
+    return cols
+
+
+def k1_case(torch, pack, name, cols, idx, table=False, parent_form=False):
+    """K1 at one caller's shape, from the caller's columns (``None`` for
+    a column of zeros): the column-list entry and the row route, each held
+    bitwise to ``R[:, idx]`` of the stacked matrix (for a table with the
+    dead key's zero column), ``index_select`` on that matrix, the bound
+    (the columns that are not zeros, idx and the output at the HBM rate)
+    and the column list's host time per call.  ``parent_form`` (``--ab``)
+    also times the parent's form: the caller's stack and the column
+    kernel on the matrix.  Times are ``device_ms``, the host hidden.
+    A package without the column list and the row route (an older
+    commit's) gets the parent's form only."""
+    nsrc = next(c for c in cols if c is not None).shape[0]
+    zero = idx.new_zeros(nsrc)
+    full = [zero if c is None else c for c in cols]
+
+    def stack():
+        M = torch.stack(full)
+        return torch.cat([M, M.new_zeros(M.shape[0], 1)], 1) if table else M
+    M = stack()
+    il = idx.long()
+    ref = M[:, il]
+    require(torch.equal(pack.permute_cols_u32(M, idx), ref),
+            f"K1 differs from R[:, idx] ({name})")
+    r = dict(name=name, C=len(cols), n=idx.numel(), nsrc=nsrc,
+             zero_cols=sum(c is None for c in cols),
+             index_select_ms=device_ms(torch, lambda: torch.index_select(
+                 M, 1, il)),
+             bound_ms=bound(nbytes(*(c for c in cols if c is not None),
+                                   idx, ref), 0.)[0])
+    if parent_form:
+        r.update(parent_ms=device_ms(torch, lambda: pack.permute_cols_u32(
+                     stack(), idx)),
+                 parent_host_us=host_us(torch, lambda: pack.permute_cols_u32(
+                     stack(), idx)),
+                 copy_ms=device_ms(torch, stack),
+                 kernel_on_matrix_ms=device_ms(
+                     torch, lambda: pack.permute_cols_u32(M, idx)))
+    if hasattr(pack, "gather_rows_u32"):
+        for form, kw in (("columns", {}), ("rows", {"via_rows": True})):
+            require(torch.equal(pack.permute_cols_u32(cols, idx, **kw), ref),
+                    f"K1 {form} differs ({name})")
+            r[f"{form}_ms"] = device_ms(
+                torch, lambda: pack.permute_cols_u32(cols, idx, **kw))
+        r["columns_host_us"] = host_us(
+            torch, lambda: pack.permute_cols_u32(cols, idx))
+    return r
+
+
+def k1_resources(pack):
+    """K1's kernels' registers and spills (the build's -Xptxas -v report)
+    and resident CTAs per SM, as one line (empty for a package without
+    them)."""
+    if not hasattr(pack, "kernel_resources"):
+        return ""
+    return "; ".join(
+        f"{k}: {r.get('registers')} registers, spill stores/loads "
+        f"{r.get('spill_stores')}/{r.get('spill_loads')} B, {r['ctas']} "
+        f"CTAs/SM at {r['threads']} threads ({r['smem']} B shared at "
+        f"C={r['C']})" for k, r in pack.kernel_resources().items())
+
+
+def k2_resources(extract, block_n, radius, group, variant=None):
+    """The K2 instantiation a launch takes, its registers and spills and
+    resident CTAs per SM, as one line."""
+    if not hasattr(extract, "kernel_config"):
+        return "no instantiation report"
+    v, smem, ctas = extract.kernel_config(block_n, radius, group, variant)
+    r = extract.kernel_resources().get(v, {})
+    return (f"instantiation {v}: {r.get('registers')} registers, spill "
+            f"stores/loads {r.get('spill_stores')}/{r.get('spill_loads')} B,"
+            f" {smem} B shared, {ctas} CTAs/SM at {block_n} threads")
+
+
+def k2_case(torch, extract, PT, key_s, cs, grid, cfg, ab, **kw):
+    """K2 on a sorted slab (``kw``: the wrapper's block_n, window, radius,
+    exclude_same_group), held bitwise to its plain version (the features
+    of the good blocks); its row of the kernels line.  Outside ``--ab``
+    the generic instantiation is timed on the same inputs, alternating
+    with the compiled one.  Returns (row, plain output, bad_block)."""
+    bn, win = kw["block_n"], kw["window"]
+    rad, group = kw.get("radius", 1), kw.get("exclude_same_group", False)
+    cd = float(cfg.contact_distance)
+    N = PT.shape[1]
+
+    def k2(**v):
+        return extract.extract_sorted(PT, key_s, cs, grid, cfg, **kw, **v)
+    out, bad_block = k2()
+    c_lo, c_hi, bad = extract.block_tables(key_s, cs, grid.nx, grid.ny, bn,
+                                           win, radius=rad)
+
+    def k2p():
+        return extract.extract_sorted_plain(PT, cs, c_lo, c_hi, bad, bn, cd,
+                                            exclude_same_group=group)
+    outp = k2p()
+    ints = [extract.EX_CNT, extract.EX_VMIN, extract.EX_VMAX]
+    require(torch.equal(out[ints], outp[ints]),
+            f"K2 (BN {bn}) count / min / max slot differ from the plain "
+            "version")
+    require(torch.equal(out[:, ~bad_block], outp[:, ~bad_block]),
+            f"K2 (BN {bn}) features differ from the plain version")
+    cnt = outp[extract.EX_CNT]
+    engaged = float(cnt.double().sum())
+    # the function reads the feature rows 0-7 (the partners' copies), the
+    # rows of the tests and the block tables, and writes 24 rows
+    rows = [extract.PT_RAD, extract.PT_ALIVE, extract.PT_KEY, extract.PT_FLK]
+    rows += [extract.PT_GRP] if group else []
+    need = nbytes(PT[:8], cs, c_lo, c_hi, bad, out) + 4 * len(rows) * N
+    tested = k2_tested_pairs(torch, extract, PT, cs, c_lo, c_hi, bad, bn,
+                             K2_CHUNK[group], cd)
+    t_ops = K2_FLOPS_PER_PAIR * engaged / FP32_FLOPS_PER_S * 1e3
+    t_bytes = need / HBM_BYTES_PER_S * 1e3
+    ms = device_ms(torch, k2)
+    gen = ""
+    if not ab:
+        g = k2(variant="generic")
+        require(torch.equal(g[0], out), f"generic K2 (BN {bn}) differs")
+        t = [device_ms(torch, lambda: k2(variant="generic")),
+             device_ms(torch, lambda: k2(variant="generic")),
+             device_ms(torch, k2)]
+        ms = statistics.median([ms, t[2]])
+        gen = (f"; generic instantiation on these inputs {t[0]:.4f}, "
+               f"{t[1]:.4f} ms against {ms:.4f} (compiled, median of 2; "
+               f"order compiled, generic, generic, compiled), bitwise; "
+               f"{k2_resources(extract, bn, rad, group, 'generic')}")
+    row = dict(
+        err=max_abs_err(torch, out, outp), ms=ms,
+        plain_ms=None if ab else cuda_ms(torch, k2p, reps=2),
+        library_ms=None,
+        bound=bound(need, K2_FLOPS_PER_PAIR * engaged),
+        note=(f"N={PT.shape[1]} radius {rad} BN {bn} window {win} "
+              f"bad_blocks={int(bad.sum())}/{bad.numel()} engaged_pairs="
+              f"{engaged:.0f} engaged_rows={int((cnt > 0).sum())} "
+              f"rows_3plus={int((cnt > 2).sum())}; pair tests the kernel's "
+              f"chunk skip leaves {tested:.0f} (bound: the engaged pairs' "
+              f"tests {t_ops:.4f} ms, the bytes {t_bytes:.4f} ms); with "
+              f"the host {cuda_ms(torch, k2):.3f} ms; "
+              f"{k2_resources(extract, bn, rad, group)}{gen}"))
+    return row, outp, bad_block
+
+
+def k2_tested_pairs(torch, extract, PT, cs, c_lo, c_hi, bad, block_n, ch,
+                    cd):
+    """Pair tests K2 makes on these inputs: each warp tests all ``ch``
+    slots of every chunk of staged candidates that its box test keeps
+    (csrc/extract_sorted.cu), in float32 as the kernel computes it."""
+    from icebergs_tpu_torch.ops.extract import _SLACK
+    N = PT.shape[1]
+    nb = bad.numel()
+    csl = cs.long()
+    start = csl[c_lo.long()]
+    length = torch.where(bad[:, None], 0,
+                         (csl[(c_hi + 1).long()] - start).clamp(min=0))
+    W = -(-max(int(length.max()), 1) // ch) * ch
+    k = torch.arange(W, device=PT.device)
+    slot = (start[:, :, None] + k).clamp(max=N - 1)        # (nb, ns, W)
+    key = PT[extract.PT_KEY][slot]
+    lon = PT[extract.PT_LON][slot]
+    inc = ((k < length[:, :, None]) & (key >= c_lo[:, :, None])
+           & (key <= c_hi[:, :, None])
+           & (PT[extract.PT_ALIVE][slot] > 0.5)
+           & (PT[extract.PT_FLK][slot] != -1.) & ~torch.isnan(lon))
+    inf = float("inf")
+
+    def chunks(x, fill, hi):
+        x = torch.where(inc, x, fill).view(nb, -1, W // ch, ch)
+        return x.amax(3) if hi else x.amin(3)
+    lat = PT[extract.PT_LAT][slot]
+    clo_x, chi_x = chunks(lon, inf, False), chunks(lon, -inf, True)
+    clo_y, chi_y = chunks(lat, inf, False), chunks(lat, -inf, True)
+    crm = chunks(PT[extract.PT_RAD][slot].abs(), 0., True)
+    nch = (length + ch - 1) // ch
+    exists = torch.arange(W // ch, device=PT.device) < nch[:, :, None]
+    # each warp's box over its lanes that can engage
+    pad = nb * block_n - N
+
+    def lanes(r):
+        return torch.nn.functional.pad(PT[r], (0, pad)).view(nb, -1, 32)
+    can = ((lanes(extract.PT_ALIVE) > 0.5) & (lanes(extract.PT_FLK) != -1.)
+           & ~torch.isnan(lanes(extract.PT_LON)))
+    wx, wy, wr = lanes(extract.PT_LON), lanes(extract.PT_LAT), lanes(
+        extract.PT_RAD).abs()
+    wlo_x = torch.where(can, wx, inf).amin(2)[:, :, None, None]
+    whi_x = torch.where(can, wx, -inf).amax(2)[:, :, None, None]
+    wlo_y = torch.where(can, wy, inf).amin(2)[:, :, None, None]
+    whi_y = torch.where(can, wy, -inf).amax(2)[:, :, None, None]
+    wrm = torch.where(can, wr, 0.).amax(2)[:, :, None, None]
+    zero = torch.zeros((), device=PT.device)
+    gx = torch.maximum(torch.maximum(clo_x[:, None] - whi_x,
+                                     wlo_x - chi_x[:, None]), zero)
+    gy = torch.maximum(torch.maximum(clo_y[:, None] - whi_y,
+                                     wlo_y - chi_y[:, None]), zero)
+    cb = torch.maximum(wrm + crm[:, None], torch.tensor(
+        abs(cd), dtype=torch.float32, device=PT.device))
+    keep = ~(gx * gx + gy * gy > cb * cb * _SLACK)
+    keep &= exists[:, None] & can.any(2)[:, :, None, None]
+    return float(keep.sum()) * 32 * ch
+
+
+def k1_rows(torch, pack, cases, cols_re, order1, trows, key):
+    """The kernels-line rows of K1's three entries: the column gather at
+    the persistent re-sort after one step (its note: the same kernel at a
+    random order, the spread's row sort), and the row route's pack and
+    row gather at the per-step paths' table gather (the unsorted keys),
+    each held bitwise to its plain version."""
+    re1 = next(c for c in cases if c["name"] == "re-sort after one step")
+    sp = next(c for c in cases if c["name"] == "spread row sort")
+    got = pack.permute_cols_u32(cols_re, order1)
+    ref = pack.permute_cols_u32_plain(cols_re, order1)
+    require(torch.equal(got, ref), "K1 columns differ from the plain version")
+    T = pack.pack_rows_u32(trows)
+    Tp = pack.pack_rows_u32_plain(trows)
+    require(torch.equal(T, Tp), "K1 pack differs from the plain version")
+    g = pack.gather_rows_u32(T, key)
+    gp = pack.gather_rows_u32_plain(T, key)
+    require(torch.equal(g, gp), "K1 row gather differs from the plain "
+            "version")
+    Mt = torch.stack(trows)
+    Mt = torch.cat([Mt, Mt.new_zeros(Mt.shape[0], 1)], 1)
+    kl = key.long()
+    return {
+        "permute_cols_u32": dict(
+            err=max_abs_err(torch, got, ref), ms=re1["columns_ms"],
+            plain_ms=cuda_ms(torch, lambda: pack.permute_cols_u32_plain(
+                cols_re, order1), reps=5),
+            library_ms=re1["index_select_ms"],
+            bound=(re1["bound_ms"], "bytes"),
+            note=(f"re-sort after one step, C={re1['C']} N={re1['n']}, "
+                  f"the host {re1['columns_host_us']:.1f} us a call; at a "
+                  f"random order (the spread's row sort, C={sp['C']}): "
+                  f"{sp['columns_ms']:.4f} ms against a "
+                  f"{sp['bound_ms']:.4f} ms bound (bytes)")),
+        "pack_rows_u32": dict(
+            err=max_abs_err(torch, T, Tp),
+            ms=device_ms(torch, lambda: pack.pack_rows_u32(trows)),
+            plain_ms=cuda_ms(torch, lambda: pack.pack_rows_u32_plain(trows),
+                             reps=5),
+            library_ms=device_ms(torch, lambda: torch.stack(trows,
+                                                             dim=1)),
+            bound=bound(nbytes(*trows, T), 0.),
+            note=f"the cell table, C={len(trows)} ncells={T.shape[0]}"),
+        "gather_rows_u32": dict(
+            err=max_abs_err(torch, g, gp),
+            ms=device_ms(torch, lambda: pack.gather_rows_u32(T, key)),
+            plain_ms=cuda_ms(torch, lambda: pack.gather_rows_u32_plain(
+                T, key), reps=5),
+            library_ms=device_ms(torch, lambda: torch.index_select(
+                Mt, 1, kl)),
+            bound=bound(nbytes(T, key, g), 0.),
+            note=(f"the table by the per-step slab's keys, C={len(trows)} "
+                  f"N={key.numel()}"))}
+
+
+def phase_kernels(ibp, torch, device, ab=False):
+    """Each kernel against its plain version at headline shapes (``ab``:
+    K1 and K2 only, as a parent / change comparison runs them)."""
     from icebergs_tpu_torch.ops import pack, extract, segment_spread as ss
     from icebergs_tpu_torch.ops import sorted as srt, thermo
-    from icebergs_tpu_torch.ops.fused_contact import contact_features
+    from icebergs_tpu_torch.ops import fused_contact as fc
     from icebergs_tpu_torch.ops.interp_table import interp_cell_table
-    import dataclasses
 
     cfg, grid, frc, st0 = headline_world(ibp, torch, N_HEAD, NX_HEAD,
                                          device)
     ncells = grid.nx * grid.ny
-    # K1 at the first sort's shape: every non-uniform column of the
-    # unsorted state moved by the (cell, id) order, a random permutation
+    case = functools.partial(k1_case, torch, pack, parent_form=ab)
+    # K1 at each shape a headline path gives it.  The first sort (once
+    # per persistent run) and the per-step paths' moves go by the (cell,
+    # id) order of the unsorted slab, a random permutation
     key = torch.where(st0.alive, st0.jne * grid.nx + st0.ine,
                       ncells).to(torch.int32)
     order = srt.lex_cell_id_order(key, st0.id_cnt, st0.id_ij)
     skip = set(srt.uniform_state_fields(cfg)) | {"id_cnt", "id_ij",
                                                  "alive"}
+    k1 = [case("first sort", state_columns(
+        torch, pack, st0, skip), order)]
 
-    def columns(s):
-        return torch.stack([pack.to_bits(getattr(s, f.name))
-                            for f in dataclasses.fields(s)
-                            if f.name not in skip])
-
-    def k1_at(R_, idx, what):
-        """(ms, index_select ms, bound ms) of K1 on R_[:, idx], after
-        holding it bitwise to the plain version."""
-        out = pack.permute_cols_u32(R_, idx)
-        require(torch.equal(out, pack.permute_cols_u32_plain(R_, idx)),
-                f"K1 differs from R[:, idx] ({what})")
-        il = idx.long()
-        return (cuda_ms(torch, lambda: pack.permute_cols_u32(R_, idx)),
-                cuda_ms(torch, lambda: torch.index_select(R_, 1, il)),
-                bound(nbytes(R_, idx, out), 0.)[0])
-
-    R = columns(st0)
-    k1 = pack.permute_cols_u32(R, order)
-    k1p = pack.permute_cols_u32_plain(R, order)
-    require(torch.equal(k1, k1p), "K1 differs from R[:, idx] (first sort)")
-    order_l = order.long()
-    res = {"permute_cols_u32": dict(
-        err=max_abs_err(torch, k1, k1p),
-        ms=cuda_ms(torch, lambda: pack.permute_cols_u32(R, order)),
-        plain_ms=cuda_ms(torch, lambda: pack.permute_cols_u32_plain(
-            R, order), reps=5),
-        library_ms=cuda_ms(torch, lambda: torch.index_select(R, 1, order_l)),
-        bound=bound(nbytes(R, order, k1), 0.))}
-
-    # ... and at the shapes the persistent lane launches it every step:
-    # the re-sort after one step, a near-identity order (the step keeps
-    # the slab sorted by the cells of its start, so its state is the
-    # sorted world's slots and the new order maps each berg's slot after
-    # the step to its slot before), and the table interpolation's gather
-    # by the sorted slab's cell keys (by the unsorted keys on the per-step
-    # and DEM paths)
+    # the persistent lane's every step: the re-sort after one step, a
+    # near-identity order (the step keeps the slab sorted by the cells of
+    # its start, so its state is the sorted world's slots and the new
+    # order maps each berg's slot after the step to its slot before), and
+    # the table gather by the sorted slab's cell keys
     st, cs = srt.sort_state_by_cell(st0, grid)
     s1 = ibp.make_multi_step(grid, cfg, 1)(st0, frc)
     ids = st.id_cnt.long()
@@ -373,52 +685,60 @@ def phase_kernels(ibp, torch, device):
                          ncells).to(torch.int32)
     key_s1 = torch.where(s1.alive, s1.jne * grid.nx + s1.ine, ncells)
     changed = int((key_st[order1.long()] != key_s1).sum())
-    re1 = k1_at(columns(st), order1, "re-sort after one step")
+    k1.append(case("re-sort after one step", state_columns(
+        torch, pack, st, skip), order1))
+    k1[-1].update(changed_cell=changed, largest_shift=shift)
     del s1, key_s1
     tbl = interp_cell_table(grid, frc, cfg)
-    tbl = torch.cat([tbl, tbl.new_zeros(tbl.shape[0], 1)], 1)
-    tbits = tbl.view(torch.int32)
-    tb_sorted = k1_at(tbits, key_st, "table, sorted keys")
-    tb_unsorted = k1_at(tbits, key, "table, unsorted keys")
-
-    def fmt(r):
-        return (f"{r[0]:.3f} ms (index_select {r[1]:.3f} ms, bound "
-                f"{r[2]:.4f} ms)")
-    res["permute_cols_u32"]["note"] = (
-        f"first sort C={R.shape[0]} N={R.shape[1]} (random order); re-sort "
-        f"after one step: {fmt(re1)}, {changed} of {st.capacity} bergs "
-        f"changed cell, no slot moved by more than {shift}; table gather "
-        f"C={tbits.shape[0]} by sorted keys: {fmt(tb_sorted)}; by unsorted "
-        f"keys: {fmt(tb_unsorted)}")
+    trows = list(tbl.view(torch.int32))
+    k1.append(case("table, sorted keys", trows, key_st,
+                      table=True))
+    # the per-step paths: the table gather by the unsorted keys, the
+    # contact search's sorted view (the feature rows), its inverse move
+    # (count, bad flag, 12 partner-feature rows) and the spread's row sort
+    # (13 payload rows and the 14 melt columns)
+    k1.append(case("table, unsorted keys", trows, key,
+                      table=True))
+    rows0, _ = fc.contact_features(st0, grid, cfg)
+    k1.append(case("contact sort", [
+        None if bool((r == 0).all()) else pack.to_bits(r) for r in rows0],
+        order))
+    inv = torch.empty_like(order)
+    inv[order.long()] = torch.arange(N_HEAD, dtype=order.dtype,
+                                     device=device)
+    PT_v = pack.from_bits(pack.permute_cols_u32(pack.to_bits(rows0), order),
+                          rows0.dtype)
+    out_v, _ = extract.extract_sorted(PT_v, key[order.long()],
+                                      srt.starts_from_sorted_key(
+                                          key[order.long()], ncells),
+                                      grid, cfg, block_n=128,
+                                      window=cfg.fused_window)
+    lanes = [out_v[extract.EX_CNT].to(torch.int32),
+             (out_v[extract.EX_CNT] > 2).to(torch.int32)]
+    frows = [pack.to_bits(out_v[b + k]) for b in (extract.EX_F1,
+                                                  extract.EX_F2)
+             for k in range(extract.PT_NEVAL)]
+    k1.append(case("inverse move", lanes + frows, inv))
+    del PT_v, out_v, lanes, frows
+    st_t0, melt0 = thermo.thermodynamics(st0, grid, frc, cfg)
+    _, rows_sp = ss.build_rows(st_t0, grid, frc, cfg, melt0.deferred_cols,
+                               key_alive=st0.alive)
+    k1.append(case("spread row sort", [pack.to_bits(r) for r in rows_sp],
+                   order))
+    del st_t0, melt0, rows_sp
+    res = {}
+    if hasattr(pack, "gather_rows_u32"):
+        res.update(k1_rows(torch, pack, k1, state_columns(
+            torch, pack, st, skip), order1, trows, key))
+        res["permute_cols_u32"]["note"] += "; " + k1_resources(pack)
 
     # K2 on the sorted slab
-    PT, key_s = contact_features(st, grid, cfg)
-    out, bad_block = extract.extract_sorted(
-        PT, key_s, cs, grid, cfg, block_n=128, window=cfg.fused_window)
-    c_lo, c_hi, bad = extract.block_tables(key_s, cs, grid.nx, grid.ny, 128,
-                                           cfg.fused_window)
-    outp = extract.extract_sorted_plain(PT, cs, c_lo, c_hi, bad, 128,
-                                        float(cfg.contact_distance))
-    ints = [extract.EX_CNT, extract.EX_VMIN, extract.EX_VMAX]
-    require(torch.equal(out[ints], outp[ints]),
-            "K2 count / min / max slot differ from the plain version")
-    good = ~bad_block
-    require(torch.equal(out[:, good], outp[:, good]),
-            "K2 features differ from the plain version")
-    res["extract_sorted"] = dict(
-        err=max_abs_err(torch, out, outp),
-        ms=cuda_ms(torch, lambda: extract.extract_sorted(
-            PT, key_s, cs, grid, cfg, block_n=128,
-            window=cfg.fused_window)),
-        plain_ms=cuda_ms(torch, lambda: extract.extract_sorted_plain(
-            PT, cs, c_lo, c_hi, bad, 128, float(cfg.contact_distance)),
-            reps=2),
-        library_ms=None,
-        bound=bound(nbytes(PT, cs, c_lo, c_hi, bad, out),
-                    K2_FLOPS_PER_PAIR * k2_pair_tests(torch, PT, cs, c_lo,
-                                                      c_hi, bad, 128)),
-        note=(f"N={N_HEAD} bad_blocks={int(bad.sum())}/{bad.numel()} "
-              f"engaged_rows={int((outp[extract.EX_CNT] > 0).sum())}"))
+    PT, key_s = fc.contact_features(st, grid, cfg)
+    res["extract_sorted"] = k2_case(torch, extract, PT, key_s, cs, grid, cfg,
+                                    ab, block_n=128,
+                                    window=cfg.fused_window)[0]
+    if ab:
+        return res, k1
 
     # K3 on the sorted slab with the thermodynamics' melt columns
     st_t, melt = thermo.thermodynamics(st, grid, frc, cfg)
@@ -429,10 +749,11 @@ def phase_kernels(ibp, torch, device):
     S, sbad = ss.segment_spread_sums(rows_s, cs, tblc, cfg, 3)
     Sp = ss.segment_spread_sums_plain(rows_s, cs, tblc, cfg)
     require(torch.equal(S, Sp), "K3 sums differ from the plain version")
+    def k3():
+        return ss.segment_spread_sums(rows_s, cs, tblc, cfg, 3)
     res["segment_spread_sums"] = dict(
         err=max_abs_err(torch, S, Sp),
-        ms=cuda_ms(torch, lambda: ss.segment_spread_sums(
-            rows_s, cs, tblc, cfg, 3)),
+        ms=device_ms(torch, k3),
         plain_ms=cuda_ms(torch, lambda: ss.segment_spread_sums_plain(
             rows_s, cs, tblc, cfg), reps=5),
         library_ms=None,
@@ -440,7 +761,8 @@ def phase_kernels(ibp, torch, device):
                     (K3_FLOPS_PER_ROW_BASE + 3) * int(st.alive.sum())),
         note=(f"ncells={ncells} R={rows_s.shape[0]} window_bad="
               f"{int(sbad.sum())} max_occupancy="
-              f"{int((cs[1:] - cs[:-1]).max())}"))
+              f"{int((cs[1:] - cs[:-1]).max())}; with the host "
+              f"{cuda_ms(torch, k3):.3f} ms"))
 
     # K5 on the sorted slab, as the persistent fused lane runs it
     from icebergs_tpu_torch.ops import interp_sorted as k6, prepass
@@ -456,20 +778,25 @@ def phase_kernels(ibp, torch, device):
     k5p = prepass.prepass_sorted_plain(P, cs, p_lo, p_hi, 128, win, cd)
     require(all(torch.equal(a, b) for a, b in zip(k5[:3], k5p)),
             "K5 count / min / max slot differ from the plain version")
+    def k5_call():
+        return prepass.contact_prepass_sorted(P, key_p, cs, grid, cfg,
+                                              block_n=128, window=win)
+    engaged5 = float(k5p[0].double().sum())
+    tests5 = k5_pair_tests(torch, P, cs, p_lo, p_hi, 128, win)
     res["contact_prepass_sorted"] = dict(
         err=max(max_abs_err(torch, a, b) for a, b in zip(k5[:3], k5p)),
-        ms=cuda_ms(torch, lambda: prepass.contact_prepass_sorted(
-            P, key_p, cs, grid, cfg, block_n=128, window=win)),
+        ms=device_ms(torch, k5_call),
         plain_ms=cuda_ms(torch, lambda: prepass.prepass_sorted_plain(
             P, cs, p_lo, p_hi, 128, win, cd), reps=2),
         library_ms=None,
         bound=bound(nbytes(P, cs, p_lo, p_hi, *k5[:3]),
-                    K2_FLOPS_PER_PAIR * k5_pair_tests(torch, P, cs, p_lo,
-                                                      p_hi, 128, win)),
+                    K2_FLOPS_PER_PAIR * engaged5),
         note=(f"N={N_HEAD} BN 128 window {win} bad_blocks="
-              f"{int(pbad.sum())}/{pbad.numel()} engaged_rows="
-              f"{int((k5p[0] > 0).sum())} rows_3plus="
-              f"{int((k5p[0] > 2).sum())}"))
+              f"{int(pbad.sum())}/{pbad.numel()} engaged_pairs="
+              f"{engaged5:.0f} engaged_rows={int((k5p[0] > 0).sum())} "
+              f"rows_3plus={int((k5p[0] > 2).sum())}; pair tests the "
+              f"kernel makes {tests5:.0f}; with the host "
+              f"{cuda_ms(torch, k5_call):.3f} ms"))
 
     # K6 on the sorted slab with the slot table (bitwise: the same
     # expressions, each operation rounded once on both sides)
@@ -483,8 +810,8 @@ def phase_kernels(ibp, torch, device):
         :ncells].gt(0).sum())
     res["interp_sorted"] = dict(
         err=max_abs_err(torch, r6, r6p),
-        ms=cuda_ms(torch, lambda: k6.interp_sorted(t6, key6, st.xi, st.yj,
-                                                    grid, cfg)),
+        ms=device_ms(torch, lambda: k6.interp_sorted(t6, key6, st.xi,
+                                                      st.yj, grid, cfg)),
         plain_ms=cuda_ms(torch, lambda: k6.interp_sorted_plain(
             t6, key6, st.xi, st.yj, cfg), reps=5),
         library_ms=None,
@@ -522,8 +849,7 @@ def phase_kernels(ibp, torch, device):
     sectors = int(pd.active.reshape(-1, 8).any(1).sum())
     res["eval_pair_ia_kernel"] = dict(
         err=err7,
-        ms=cuda_ms(torch, lambda: eval_pair_ia_kernel(pd, cfg, *vel),
-                   reps=10),
+        ms=device_ms(torch, lambda: eval_pair_ia_kernel(pd, cfg, *vel)),
         plain_ms=cuda_ms(torch, lambda: forces.eval_pair_ia(pd, cfg, *vel),
                          reps=3),
         library_ms=None,
@@ -534,7 +860,7 @@ def phase_kernels(ibp, torch, device):
               f"bitwise={all(torch.equal(getattr(k7, f), getattr(k7p, f)) for f in k7._fields)}"))
     del pd, k7, k7p
     torch.cuda.empty_cache()
-    return res
+    return res, k1
 
 
 def k5_pair_tests(torch, P, cs, c_lo, c_hi, block_n, window):
@@ -550,19 +876,6 @@ def k5_pair_tests(torch, P, cs, c_lo, c_hi, block_n, window):
     return float((cand.double() * live.view(nb, block_n).sum(1)).sum())
 
 
-def k2_pair_tests(torch, PT, cs, c_lo, c_hi, bad, block_n):
-    """Candidate pair tests K2 makes on these inputs: for each good block,
-    its live rows times the slots of its strips."""
-    from icebergs_tpu_torch.ops.extract import PT_ALIVE
-    csl = cs.long()
-    cand = (csl[(c_hi + 1).long()] - csl[c_lo.long()]).clamp(min=0).sum(1)
-    nb = bad.numel()
-    live = torch.zeros(nb * block_n, device=PT.device)
-    live[:PT.shape[1]] = (PT[PT_ALIVE] > 0.5).float()
-    rows = live.view(nb, block_n).sum(1)
-    return float((torch.where(bad, 0, cand).double() * rows).sum())
-
-
 def k4_flops(torch, st, cfg):
     """K4's operations on these inputs: every bonded slot (intact or
     broken) of a moving element and every moving element, per substep."""
@@ -572,54 +885,66 @@ def k4_flops(torch, st, cfg):
                               + K4_FLOPS_PER_ELEMENT * int(mv.sum()))
 
 
-def phase_kernels_dem(ibp, torch, device, cfg, world):
-    """K2 with the conglomerate filter and K4 at the DEM world's shapes,
-    each against its plain version."""
-    from icebergs_tpu_torch.ops import dem_substeps as k4, extract
-    from icebergs_tpu_torch.ops import sorted as srt
+def phase_kernels_dem(ibp, torch, device, cfg, world, ab=False):
+    """K1 at the DEM path's shapes, K2 with the conglomerate filter and
+    K4 at the DEM world's shapes, each against its plain version (``ab``:
+    K1 and K2 only)."""
+    from icebergs_tpu_torch.ops import dem_substeps as k4, extract, pack
+    from icebergs_tpu_torch.ops import segment_spread as ss, sorted as srt
+    from icebergs_tpu_torch.ops import thermo
     from icebergs_tpu_torch.ops.fused_contact import contact_features
+    from icebergs_tpu_torch.ops.interp_table import interp_cell_table
     from icebergs_tpu_torch.ops.pack import (from_bits, permute_cols_u32,
                                              to_bits)
 
     grid, frc, st, deltas, n = world
     ncells = grid.nx * grid.ny
+    case = functools.partial(k1_case, torch, pack, parent_form=ab)
     # K2 as Part 1 runs it: the unsorted slab's feature rows moved into
     # (cell, id) order, radius 2, block 256, window 512
     PT0, key = contact_features(st, grid, cfg, exclude_same_group=True)
     order = srt.lex_cell_id_order(key, st.id_cnt, st.id_ij)
     PT = from_bits(permute_cols_u32(to_bits(PT0), order), PT0.dtype)
     key_s = key[order.long()]
+    # K1 at each shape of the DEM path, in the packed slab's (cell, id)
+    # order: the table gather (89 rows with the quadratic depth), Part 1's
+    # sorted view and inverse move (with the partner slots), the partner
+    # velocities' refresh and the spread's row sort
+    k1 = [case("dem table", list(interp_cell_table(
+        grid, frc, cfg, with_quad_od=True).view(torch.int32)), key,
+        table=True)]
+    k1.append(case("dem contact sort", [
+        None if bool((r == 0).all()) else to_bits(r) for r in PT0], order))
     cs = srt.starts_from_sorted_key(key_s, ncells)
-    bn, win, rad = 256, 512, 2
-    cd = float(cfg.contact_distance)
-
-    def k2():
-        return extract.extract_sorted(PT, key_s, cs, grid, cfg, block_n=bn,
-                                      window=win, radius=rad,
-                                      exclude_same_group=True)
-    out, bad_block = k2()
-    c_lo, c_hi, bad = extract.block_tables(key_s, cs, grid.nx, grid.ny, bn,
-                                           win, radius=rad)
-
-    def k2p():
-        return extract.extract_sorted_plain(PT, cs, c_lo, c_hi, bad, bn, cd,
-                                            exclude_same_group=True)
-    outp = k2p()
-    ints = [extract.EX_CNT, extract.EX_VMIN, extract.EX_VMAX]
-    require(torch.equal(out[ints], outp[ints]),
-            "grouped K2 count / min / max slot differ from the plain version")
-    require(torch.equal(out[:, ~bad_block], outp[:, ~bad_block]),
-            "grouped K2 features differ from the plain version")
+    row, outp, bad_block = k2_case(torch, extract, PT, key_s, cs, grid, cfg,
+                                   ab, block_n=256, window=512, radius=2,
+                                   exclude_same_group=True)
+    res = {"extract_sorted/grouped": row}
     cnt = outp[extract.EX_CNT]
-    res = {"extract_sorted/grouped": dict(
-        err=max_abs_err(torch, out, outp), ms=cuda_ms(torch, k2),
-        plain_ms=cuda_ms(torch, k2p, reps=2), library_ms=None,
-        bound=bound(nbytes(PT, cs, c_lo, c_hi, bad, out),
-                    K2_FLOPS_PER_PAIR * k2_pair_tests(torch, PT, cs, c_lo,
-                                                      c_hi, bad, bn)),
-        note=(f"N={PT.shape[1]} radius {rad} BN {bn} window {win} "
-              f"bad_blocks={int(bad.sum())}/{bad.numel()} engaged_rows="
-              f"{int((cnt > 0).sum())} rows_3plus={int((cnt > 2).sum())}"))}
+
+    inv = torch.empty_like(order)
+    inv[order.long()] = torch.arange(order.numel(), dtype=order.dtype,
+                                     device=device)
+    N = order.numel()
+    i1 = order[outp[extract.EX_VMIN].clamp(0, N - 1).long()]
+    i2 = order[outp[extract.EX_VMAX].clamp(0, N - 1).long()]
+    lanes = [cnt.to(torch.int32), (bad_block | (cnt > 2)).to(torch.int32),
+             torch.where(cnt >= 1, i1, 0), torch.where(cnt >= 2, i2, 0)]
+    frows = [to_bits(outp[b + k]) for b in (extract.EX_F1, extract.EX_F2)
+             for k in range(extract.PT_NEVAL)]
+    k1.append(case("dem inverse move", lanes + frows, inv))
+    other = permute_cols_u32(torch.stack(lanes[2:]), inv).reshape(-1)
+    k1.append(case("dem refresh", [
+        to_bits(st.uvel_old), to_bits(st.vvel_old)], other))
+    del lanes, frows, other
+    st_t, melt = thermo.thermodynamics(st, grid, frc, cfg)
+    _, rows_sp = ss.build_rows(st_t, grid, frc, cfg, melt.deferred_cols,
+                               key_alive=st.alive)
+    k1.append(case("dem spread row sort",
+                      [to_bits(r) for r in rows_sp], order))
+    del st_t, melt, rows_sp
+    if ab:
+        return res, k1
 
     s4 = k4_state(torch, st, device)
     out4, nb4, err, worst, ms = k4_run(torch, k4, s4, cfg, deltas)
@@ -653,7 +978,7 @@ def phase_kernels_dem(ibp, torch, device, cfg, world):
               f"nbroken={int(nb4)} bitwise=True worst_scaled_err="
               f"{worst:.3e}; launched {variant}; {gen_note}; {res_k4}; "
               f"{K4_BOUND_NOTE}"))
-    return res
+    return res, k1
 
 
 def k4_state(torch, st, device):
@@ -692,7 +1017,7 @@ def k4_run(torch, k4, s, cfg, deltas, variant=None):
         require(torch.equal(a, b), f"K4 {name} differs from the plain "
                 f"version by {e} ({worst:.3e} of scale)")
     del ref
-    return out, nb, err, worst, cuda_ms(torch, run, reps=5)
+    return out, nb, err, worst, device_ms(torch, run, reps=5)
 
 
 def k4_resources(k4, nslots, block_n):
@@ -1049,6 +1374,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-out", default=None,
                     help="directory for a profiler table and trace")
+    ap.add_argument("--ab", metavar="ROOT", default=None,
+                    help="run only phase 3's K1 and K2 cases, with the "
+                    "package of the checkout at ROOT (a copy of another "
+                    "commit inside this one, or this one): the parent / "
+                    "change comparison")
     args = ap.parse_args(argv)
 
     import torch
@@ -1056,7 +1386,12 @@ def main(argv=None) -> int:
         print("no CUDA device: the port's kernels need an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
+    root = ROOT
+    if args.ab is not None:
+        root = pathlib.Path(args.ab).resolve()
+        if root != ROOT and ROOT not in root.parents:
+            ap.error(f"--ab {root} is not inside {ROOT}")
+    sys.path.insert(0, str(root))
     import icebergs_tpu_torch as ibp
     from icebergs_tpu_torch import cuda_build
     from icebergs_tpu_torch.ops import (dem_substeps, extract,
@@ -1081,20 +1416,30 @@ def main(argv=None) -> int:
     print(f"[2 build] {time.perf_counter() - t0:.1f} s "
           f"({cuda_build.library_path().name}); " + " | ".join(regs))
 
-    kres = phase_kernels(ibp, torch, device)
+    ab = args.ab is not None
+    kres, k1 = phase_kernels(ibp, torch, device, ab)
     t_dem = time.perf_counter()
     dcfg = dem_config(ibp)
     dem = dem_world(ibp, torch, dcfg, DEM_UNITS, NX_DEM, device)
     print(f"[3 dem world] {dem[4]} elements, capacity {dem[2].capacity}, "
           f"deltas {dem[3]}, built in {time.perf_counter() - t_dem:.1f} s")
-    kres.update(phase_kernels_dem(ibp, torch, device, dcfg, dem))
+    dres, dk1 = phase_kernels_dem(ibp, torch, device, dcfg, dem, ab)
+    kres.update(dres)
+    for c in k1 + dk1:
+        print(f"[3 k1] {json.dumps(c)}")
+    def fmt(x):
+        return "-" if x is None else f"{x:.3f} ms"
     for name, r in kres.items():
-        lib = ("-" if r["library_ms"] is None
-               else f"{r['library_ms']:.3f} ms")
-        print(f"[3 kernel] {name}: kernel {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.3f} ms, library {lib}, bound "
+        print(f"[3 kernel] {name}: kernel {r['ms']:.4f} ms, plain "
+              f"{fmt(r['plain_ms'])}, library {fmt(r['library_ms'])}, bound "
               f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), max_abs_err "
               f"{r['err']} ({r['note']})")
+    if ab:
+        print(smi)
+        print(json.dumps({"ab": str(root.relative_to(ROOT)) or ".",
+                          "k1": k1 + dk1, "k2": {
+                              k: r["ms"] for k, r in kres.items()}}))
+        return 0
 
     cres = phase_cross(ibp, torch, device)
     print(f"[4 cross-check] {json.dumps(cres)}")
@@ -1107,6 +1452,8 @@ def main(argv=None) -> int:
                 f"{r['overflow']}")
 
     kernels = {"permute_cols_u32": pack.permute_cols_u32,
+               "pack_rows_u32": pack.pack_rows_u32,
+               "gather_rows_u32": pack.gather_rows_u32,
                "extract_sorted": extract.extract_sorted,
                "segment_spread_sums": segment_spread.segment_spread_sums,
                "dem_substeps": dem_substeps.part3_substeps_vmem,
@@ -1131,12 +1478,12 @@ def main(argv=None) -> int:
         require(res["host_syncs_per_step"] == 0,
                 f"{label}: host syncs in a step: {res['sync_kinds']}")
 
-    run_path("5 slice", "fast_lane", ("permute_cols_u32", "extract_sorted",
-                                      "segment_spread_sums"))
+    run_path("5 slice", "fast_lane", K1_ROWS + (
+        "permute_cols_u32", "extract_sorted", "segment_spread_sums"))
     dres, dlaunches = phase_dem_slice(
-        ibp, torch, device, kernels, ("permute_cols_u32", "extract_sorted",
-                                      "segment_spread_sums", "dem_substeps"),
-        dcfg, dem, args.profile_out)
+        ibp, torch, device, kernels, (
+            "permute_cols_u32", "extract_sorted", "segment_spread_sums",
+            "dem_substeps"), dcfg, dem, args.profile_out)
     print(f"[6 dem slice] {json.dumps(dres)}")
     for k, n in dlaunches.items():
         if n:
@@ -1155,6 +1502,10 @@ def main(argv=None) -> int:
 
     source = {"permute_cols_u32": ("permute_cols.cu",
                                    "icebergs_tpu/ops/pallas_pack.py:30"),
+              "pack_rows_u32": ("permute_cols.cu",
+                                "icebergs_tpu/ops/pallas_pack.py:30"),
+              "gather_rows_u32": ("permute_cols.cu",
+                                  "icebergs_tpu/ops/pallas_pack.py:62"),
               "extract_sorted": ("extract_sorted.cu",
                                  "icebergs_tpu/ops/pallas_prepass.py:625"),
               "extract_sorted/grouped": (

@@ -10,24 +10,63 @@
 // Per berg it writes the engaged count, the min / max engaged sorted slot
 // (kept as ints, stored as f32 like the TPU kernel: BIG = 2N when none)
 // and the 8 PT feature rows of those two partners, copied by index.
-// With group != 0 (the MTS Part-1 collision group) a candidate in the
-// berg's own conglomerate (equal PT_GRP row) is never engaged.
+// With GROUP (the MTS Part-1 collision group) a candidate in the berg's
+// own conglomerate (equal PT_GRP row) is never engaged.
 //
-// Bound: memory and latency, not arithmetic.  A block reads ~3 strips of
-// ~(BN / occupancy + 2) cells; at the 1M-berg headline (~3.8 bergs/cell)
-// that is ~400 candidate rows of 6 floats per 128 bergs, staged once in
-// shared memory and compared by all 128 threads.  On the TPU the window
-// was a fixed 128-aligned DMA with a window-overflow flag; here each strip
-// is read over its exact extent [cell_starts[c_lo], cell_starts[c_hi+1]),
-// in tiles of BN rows, so no read is wasted.  Blocks that the wrapper
-// flags bad (span or window overflow, computed as the TPU wrapper does so
-// that the fallback set stays the same) are skipped and write the
-// "no partner" result; the caller routes their bergs to the exact
-// fallback.  Build with -fmad=false: the compare must round rx*rx + ry*ry
-// and crit*crit*slack exactly as the reference does, or engagement flips
-// at the boundary.
+// Bound: instruction issue.  At the 1M-berg headline a block of 128 bergs
+// meets ~400 candidates and every thread tests every one; the data are a
+// few KB in shared memory.  So the design cuts instructions per test and
+// tests:
+//
+// - Staging decides what depends on the candidate alone.  Each candidate
+//   is staged once as a float4 {lon, lat, rad, grp}; one that fails a
+//   candidate-only test (key in strip, alive, fl_k != -1) or lies past its
+//   strip's end is staged with lon = NaN.  The inner loop is one LDS.128
+//   and the distance test.  Exactness: with lon = NaN, rx and r2 are NaN,
+//   so `r2 > 0 && r2 <= t` is false, as the reference's validity mask
+//   makes it.  The berg's own slot needs no test either: it stages the
+//   berg's own lon and lat bits, so rx = ry = 0 and r2 = 0 fails r2 > 0
+//   (a NaN or inf coordinate gives r2 = NaN, which fails too).  A berg
+//   that cannot engage (past N, not alive, fl_k == -1) takes lon1 = NaN
+//   and so never engages.
+// - Whole strips are staged per __syncthreads: all 2r+1 strips of a block,
+//   each padded to chunks of CH candidates, up to 256 candidates per warp
+//   and 2048 per block in a round.
+// - Chunks far from a warp are skipped by the whole warp.  Staging keeps,
+//   per chunk, the box of its candidates' lon / lat and the largest
+//   |rad|; each warp keeps the box of its bergs' lon / lat and their
+//   largest |R1|.  A chunk is skipped when the gap between the boxes
+//   gx = max(cmin_lon - wmax_lon, wmin_lon - cmax_lon, 0) (gy likewise)
+//   gives gx*gx + gy*gy > cb*cb*slack with cb = max(wmax_R + cmax_R, |cd|).
+//   Exactness: float subtraction, multiplication and addition are
+//   correctly rounded and so monotone, and x - y rounds to -(y - x); so
+//   every pair of a lane and a candidate of the chunk has |rx| >= gx,
+//   |ry| >= gy, r2 = rx*rx + ry*ry >= gx*gx + gy*gy, and
+//   |crit| <= max(|R1 + R2|, |cd|) <= cb, so crit*crit*slack <=
+//   cb*cb*slack < r2: the pair fails the test whatever the radii and
+//   whether or not contact_distance sets crit.  fminf / fmaxf ignore the
+//   NaN of a staged-out candidate or a lane that cannot engage; a box with
+//   no members is (+inf, -inf) and is skipped (none of its pairs can
+//   engage); a NaN in the test itself compares false and does not skip.
+// - BN 128 / 3 strips (the fast lane and the per-step fused3 path) and
+//   BN 256 / 5 strips / GROUP (MTS Part 1) are compile-time
+//   instantiations; other shapes take a generic one (BN and strips at run
+//   time, GROUP compiled in both ways, with the chunk size of the
+//   compiled shape of the same GROUP), which a caller may also force
+//   onto the compiled shapes to time the specialisation.
+//
+// Blocks that the wrapper flags bad (span or window overflow, computed as
+// the TPU wrapper does so that the fallback set stays the same) are
+// skipped and write the "no partner" result; the caller routes their
+// bergs to the exact fallback.  Build with -fmad=false: the compare must
+// round rx*rx + ry*ry and crit*crit*slack exactly as the reference does,
+// or engagement flips at the boundary.  The epilogue writes 24 rows (96 B
+// per berg) and reads the two partners' 8 feature rows only for engaged
+// bergs, next to the berg in the sorted slab: ~0.03 ms of HBM time at
+// 1M bergs.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -37,81 +76,185 @@ constexpr int PT_LON = 0, PT_LAT = 1, PT_RAD = 8, PT_ALIVE = 9, PT_KEY = 10,
               PT_GRP = 11, PT_FLK = 12;
 constexpr int NFEAT = 8;     // extracted rows per partner (6 eval + 2 spare)
 constexpr int EX_F1 = 4, EX_F2 = 12, EX_NOUT = 24;
+constexpr int MAX_STRIPS = 9;          // radius <= 4
+// staged candidates: 256 a warp, at most 2048 a block
+constexpr int CAND_PER_WARP = 256, MAX_CAND = 2048;
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void extract_sorted_kernel(const float* __restrict__ PT, int n,
-                                      const int32_t* __restrict__ cell_starts,
-                                      const int32_t* __restrict__ c_lo,
-                                      const int32_t* __restrict__ c_hi,
-                                      const uint8_t* __restrict__ bad,
-                                      float* __restrict__ out, int nstrips,
-                                      int group, float cd, float slack) {
-  extern __shared__ float sm[];
-  const int bn = blockDim.x;
-  float* s_lon = sm;
-  float* s_lat = sm + bn;
-  float* s_rad = sm + 2 * bn;
-  float* s_flk = sm + 3 * bn;
-  float* s_alive = sm + 4 * bn;
-  float* s_key = sm + 5 * bn;
-  float* s_grp = sm + 6 * bn;
+// chunks staged per round at bn threads and ch candidates a chunk
+__host__ __device__ constexpr int cap_chunks(int bn, int ch) {
+  return ((bn / 32) * CAND_PER_WARP < MAX_CAND ? (bn / 32) * CAND_PER_WARP
+                                                : MAX_CAND) / ch;
+}
+
+size_t smem_bytes(int bn, int ch) {
+  const size_t cap = (size_t)cap_chunks(bn, ch);
+  return cap * ch * sizeof(float4) + cap * (sizeof(float4) + sizeof(float));
+}
+
+// min / max over lanes w*W .. w*W + W - 1 (W = 32: the warp; W = 16: each
+// half)
+template <int W>
+__device__ __forceinline__ float group_min(float v) {
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1)
+    v = fminf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+template <int W>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+// BN_T / NS_T: threads per block and strips, or 0 for run-time values;
+// CH: candidates per chunk (16 or 32), the grain of the warp's skip.
+template <int BN_T, int NS_T, bool GROUP, int CH>
+__global__ void __launch_bounds__(BN_T ? BN_T : 1024)
+extract_sorted_kernel(const float* __restrict__ PT, int n,
+                      const int32_t* __restrict__ cell_starts,
+                      const int32_t* __restrict__ c_lo,
+                      const int32_t* __restrict__ c_hi,
+                      const uint8_t* __restrict__ bad,
+                      float* __restrict__ out, int nstrips_rt, float cd,
+                      float slack) {
+  const int bn = BN_T ? BN_T : (int)blockDim.x;
+  const int ns = NS_T ? NS_T : nstrips_rt;
+  constexpr int LPC = 32 / CH;                 // chunks a warp stages at once
+  const int cap = cap_chunks(bn, CH);
+  const int nwarps = bn / 32;
+  extern __shared__ float4 sm4[];
+  float4* s_cand = sm4;                        // [cap * CH]
+  float4* s_box = sm4 + cap * CH;              // [cap] lon min/max, lat min/max
+  float* s_rmax = (float*)(s_box + cap);       // [cap] largest |rad|
+  __shared__ int s_start[MAX_STRIPS], s_len[MAX_STRIPS];
+  __shared__ int s_choff[MAX_STRIPS + 1];
+  __shared__ float s_clo[MAX_STRIPS], s_chi[MAX_STRIPS];
 
   const int b = blockIdx.x;
   const int t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5;
   const long long N = n;
   const int gid = b * bn + t;
   const bool own = gid < n;
-  float lon1 = 0.f, lat1 = 0.f, R1 = 0.f, fl1 = -1.f, al1 = 0.f, g1 = 0.f;
+  const float qnan = __int_as_float(0x7fc00000);
+  float lon1 = qnan, lat1 = 0.f, R1 = 0.f, g1 = 0.f;
   if (own) {
-    lon1 = PT[PT_LON * N + gid];
+    const float al1 = PT[PT_ALIVE * N + gid];
+    const float fl1 = PT[PT_FLK * N + gid];
     lat1 = PT[PT_LAT * N + gid];
     R1 = PT[PT_RAD * N + gid];
-    fl1 = PT[PT_FLK * N + gid];
-    al1 = PT[PT_ALIVE * N + gid];
-    g1 = PT[PT_GRP * N + gid];
+    if (GROUP) g1 = PT[PT_GRP * N + gid];
+    // a berg that cannot engage takes lon1 = NaN (see the note above)
+    if (al1 > 0.5f && fl1 != -1.f) lon1 = PT[PT_LON * N + gid];
   }
   const int big = 2 * n;
   int cnt = 0, vmin = big, vmax = -1;
 
   if (!bad[b]) {
-    for (int s = 0; s < nstrips; ++s) {
-      const int clo = c_lo[b * nstrips + s];
-      const int chi = c_hi[b * nstrips + s];
-      const float fclo = (float)clo, fchi = (float)chi;
+    if (t < ns) {
+      const int clo = c_lo[b * ns + t];
+      const int chi = c_hi[b * ns + t];
       const int start = cell_starts[clo];
-      const int end = cell_starts[chi + 1];
-      for (int base = start; base < end; base += bn) {
-        const int m = min(bn, end - base);
-        __syncthreads();
-        if (t < m) {
-          const long long r = base + t;
-          s_lon[t] = PT[PT_LON * N + r];
-          s_lat[t] = PT[PT_LAT * N + r];
-          s_rad[t] = PT[PT_RAD * N + r];
-          s_flk[t] = PT[PT_FLK * N + r];
-          s_alive[t] = PT[PT_ALIVE * N + r];
-          s_key[t] = PT[PT_KEY * N + r];
-          s_grp[t] = PT[PT_GRP * N + r];
+      const int len = cell_starts[chi + 1] - start;
+      s_start[t] = start;
+      s_len[t] = len > 0 ? len : 0;
+      s_clo[t] = (float)clo;
+      s_chi[t] = (float)chi;
+    }
+    __syncthreads();
+    if (t == 0) {
+      int acc = 0;
+      for (int s = 0; s < ns; ++s) {
+        s_choff[s] = acc;
+        acc += (s_len[s] + CH - 1) / CH;
+      }
+      s_choff[ns] = acc;
+    }
+    // this warp's box over the lanes that can engage (NaN lon1 ignored)
+    const bool can = !isnan(lon1);
+    const float wlo_x = group_min<32>(can ? lon1 : INFINITY);
+    const float whi_x = group_max<32>(can ? lon1 : -INFINITY);
+    const float wlo_y = group_min<32>(can ? lat1 : INFINITY);
+    const float whi_y = group_max<32>(can ? lat1 : -INFINITY);
+    const float wr = group_max<32>(can ? fabsf(R1) : 0.f);
+    const bool warp_can = __any_sync(FULL, can);
+    const float acd = fabsf(cd);
+    __syncthreads();
+    const int nch = s_choff[ns];
+
+    for (int ch0 = 0; ch0 < nch; ch0 += cap) {
+      const int m = min(cap, nch - ch0);
+      // stage: warp w takes chunks LPC*w .. LPC*w + LPC - 1, then the
+      // next LPC*nwarps; CH lanes a chunk, one candidate a lane
+      for (int q0 = warp * LPC; q0 < m; q0 += nwarps * LPC) {
+        const int q = q0 + lane / CH;
+        const int ch = ch0 + q;
+        int s = 0;
+        while (s + 1 < ns && s_choff[s + 1] <= ch) ++s;
+        const int k = (ch - s_choff[s]) * CH + lane % CH;
+        const int slot = s_start[s] + k;
+        float4 c = make_float4(qnan, 0.f, 0.f, 0.f);
+        bool v = false;
+        if (q < m && k < s_len[s]) {
+          const float key2 = PT[PT_KEY * N + slot];
+          const float al2 = PT[PT_ALIVE * N + slot];
+          const float fl2 = PT[PT_FLK * N + slot];
+          v = key2 >= s_clo[s] && key2 <= s_chi[s] && al2 > 0.5f &&
+              fl2 != -1.f;
+          c.y = PT[PT_LAT * N + slot];
+          c.z = PT[PT_RAD * N + slot];
+          if (GROUP) c.w = PT[PT_GRP * N + slot];
+          if (v) c.x = PT[PT_LON * N + slot];
         }
-        __syncthreads();
-        if (!own || !(al1 > 0.5f) || fl1 == -1.f) continue;
-        for (int k = 0; k < m; ++k) {
-          const int wid = base + k;
-          const float key2 = s_key[k];
-          const bool valid = key2 >= fclo && key2 <= fchi &&
-                             s_alive[k] > 0.5f && wid != gid &&
-                             s_flk[k] != -1.f &&
-                             !(group && s_grp[k] == g1);
-          const float rx = lon1 - s_lon[k];
-          const float ry = lat1 - s_lat[k];
-          const float r2 = rx * rx + ry * ry;
-          const float crit = fmaxf(R1 + s_rad[k], cd);
-          if (valid && r2 > 0.f && r2 <= crit * crit * slack) {
-            ++cnt;
-            vmin = min(vmin, wid);
-            vmax = max(vmax, wid);
+        if (q < m) s_cand[q * CH + lane % CH] = c;
+        const bool in = v && !isnan(c.x);
+        const float lo_x = group_min<CH>(in ? c.x : INFINITY);
+        const float hi_x = group_max<CH>(in ? c.x : -INFINITY);
+        const float lo_y = group_min<CH>(in ? c.y : INFINITY);
+        const float hi_y = group_max<CH>(in ? c.y : -INFINITY);
+        const float rm = group_max<CH>(in ? fabsf(c.z) : 0.f);
+        if (lane % CH == 0 && q < m) {
+          s_box[q] = make_float4(lo_x, hi_x, lo_y, hi_y);
+          s_rmax[q] = rm;
+        }
+      }
+      __syncthreads();
+      if (warp_can) {
+        for (int q = 0; q < m; ++q) {
+          const float4 bx = s_box[q];
+          const float gx = fmaxf(fmaxf(bx.x - whi_x, wlo_x - bx.y), 0.f);
+          const float gy = fmaxf(fmaxf(bx.z - whi_y, wlo_y - bx.w), 0.f);
+          const float cb = fmaxf(wr + s_rmax[q], acd);
+          const float d2 = gx * gx + gy * gy;
+          if (d2 > cb * cb * slack) continue;        // warp-uniform
+          const int ch = ch0 + q;
+          int s = 0;
+          while (s + 1 < ns && s_choff[s + 1] <= ch) ++s;
+          const int base = s_start[s] + (ch - s_choff[s]) * CH;
+          const float4* cq = s_cand + q * CH;
+#pragma unroll 8
+          for (int k = 0; k < CH; ++k) {
+            const float4 c = cq[k];
+            const float rx = lon1 - c.x;
+            const float ry = lat1 - c.y;
+            const float r2 = rx * rx + ry * ry;
+            const float crit = fmaxf(R1 + c.z, cd);
+            bool e = r2 > 0.f && r2 <= crit * crit * slack;
+            if (GROUP) e = e && c.w != g1;
+            if (e) {
+              const int wid = base + k;
+              ++cnt;
+              vmin = min(vmin, wid);
+              vmax = max(vmax, wid);
+            }
           }
         }
       }
+      __syncthreads();
     }
   }
   if (!own) return;
@@ -119,11 +262,41 @@ __global__ void extract_sorted_kernel(const float* __restrict__ PT, int n,
   out[1 * N + gid] = (float)vmin;
   out[2 * N + gid] = (float)vmax;
   out[3 * N + gid] = 0.f;
+#pragma unroll
   for (int f = 0; f < NFEAT; ++f) {
     out[(EX_F1 + f) * N + gid] = cnt > 0 ? PT[f * N + vmin] : 0.f;
     out[(EX_F2 + f) * N + gid] = cnt > 0 ? PT[f * N + vmax] : 0.f;
   }
+#pragma unroll
   for (int f = EX_F2 + NFEAT; f < EX_NOUT; ++f) out[f * N + gid] = 0.f;
+}
+
+// instantiations: 0 = BN 128 / 3 strips (chunks of 16), 1 = BN 256 / 5
+// strips / GROUP (chunks of 32), 2 = generic (16), 3 = generic / GROUP
+// (32).  Chunks of 16 against 32: 0.153 against 0.168 ms at BN 128, 0.298
+// against 0.271 at BN 256 (NVIDIA H100, chip_smoke.py --ab).
+enum { V_FUSED3 = 0, V_PART1 = 1, V_GENERIC = 2, V_GENERIC_GROUP = 3 };
+constexpr int CH_OF[4] = {16, 32, 16, 32};
+
+typedef void (*KernelFn)(const float*, int, const int32_t*, const int32_t*,
+                         const int32_t*, const uint8_t*, float*, int, float,
+                         float);
+
+KernelFn kernel_of(int variant) {
+  switch (variant) {
+    case V_FUSED3: return extract_sorted_kernel<128, 3, false, 16>;
+    case V_PART1: return extract_sorted_kernel<256, 5, true, 32>;
+    case V_GENERIC: return extract_sorted_kernel<0, 0, false, 16>;
+    case V_GENERIC_GROUP: return extract_sorted_kernel<0, 0, true, 32>;
+    default: return nullptr;
+  }
+}
+
+// generic != 0 forces the generic instantiation
+int variant_of(int block_n, int nstrips, int group, int generic) {
+  if (!generic && block_n == 128 && nstrips == 3 && !group) return V_FUSED3;
+  if (!generic && block_n == 256 && nstrips == 5 && group) return V_PART1;
+  return group ? V_GENERIC_GROUP : V_GENERIC;
 }
 
 }  // namespace
@@ -132,12 +305,31 @@ extern "C" int ib_extract_sorted(const void* PT, int n, const void* cell_starts,
                                  const void* c_lo, const void* c_hi,
                                  const void* bad, void* out, int nblocks,
                                  int block_n, int nstrips, int group,
-                                 float cd, float slack, void* stream) {
+                                 int generic, float cd, float slack,
+                                 void* stream) {
   if (nblocks == 0) return (int)cudaGetLastError();
-  const size_t smem = 7 * (size_t)block_n * sizeof(float);
-  extract_sorted_kernel<<<nblocks, block_n, smem, (cudaStream_t)stream>>>(
+  if (block_n % 32 || block_n < 32 || block_n > 1024 || nstrips < 1 ||
+      nstrips > MAX_STRIPS)
+    return (int)cudaErrorInvalidValue;
+  const int v = variant_of(block_n, nstrips, group, generic);
+  kernel_of(v)<<<nblocks, block_n, smem_bytes(block_n, CH_OF[v]),
+                 (cudaStream_t)stream>>>(
       (const float*)PT, n, (const int32_t*)cell_starts, (const int32_t*)c_lo,
-      (const int32_t*)c_hi, (const uint8_t*)bad, (float*)out, nstrips, group,
-      cd, slack);
+      (const int32_t*)c_hi, (const uint8_t*)bad, (float*)out, nstrips, cd,
+      slack);
   return (int)cudaGetLastError();
+}
+
+// The instantiation a launch takes, its dynamic shared memory and its
+// resident CTAs per SM at block_n threads.
+extern "C" int ib_extract_config(int block_n, int nstrips, int group,
+                                 int generic, int* variant, int* smem,
+                                 int* ctas_per_sm) {
+  if (block_n % 32 || block_n < 32 || block_n > 1024 || nstrips < 1 ||
+      nstrips > MAX_STRIPS)
+    return (int)cudaErrorInvalidValue;
+  *variant = variant_of(block_n, nstrips, group, generic);
+  *smem = (int)smem_bytes(block_n, CH_OF[*variant]);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, kernel_of(*variant), block_n, (size_t)*smem);
 }

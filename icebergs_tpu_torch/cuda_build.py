@@ -34,9 +34,13 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 # C entry points: name -> argtypes (each returns cudaGetLastError())
 _SIGNATURES = {
-    "ib_permute_cols_u32": (_P, _P, _P, _I, _L, _L, _P),
-    "ib_extract_sorted": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                          _F, _P),
+    "ib_permute_cols": (_P, _P, _I, _P, _P, _L, _L, _P),
+    "ib_pack_rows": (_P, _P, _I, _P, _L, _P),
+    "ib_gather_rows": (_P, _L, _I, _P, _P, _L, _L, _P),
+    "ib_k1_config": (_I, _I, _P, _P, _P),
+    "ib_extract_sorted": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _F, _F, _P),
+    "ib_extract_config": (_I, _I, _I, _I, _P, _P, _P),
     "ib_segment_spread_sums": (_P, _I, _P, _P, _P, _I, _I, _I, _P),
     "ib_max_spread_extra": (),
     "ib_dem_substeps": (_P, _I, _I, _I, _P),

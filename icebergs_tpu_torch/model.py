@@ -156,7 +156,10 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
 
     def step(st, frc):
         zero = torch.zeros((), dtype=torch.int32, device=st.device)
-        st, m25_pre = interp_to_bergs_table(st, grid, frc, cfg)
+        # the per-step slab keeps the slots' order, random in cell; the
+        # MTS slab is packed by conglomerate, local in cell (PERF.md)
+        st, m25_pre = interp_to_bergs_table(st, grid, frc, cfg,
+                                            via_rows=not cfg.mts)
         fstats = mts_d = cap_ov = None
         if cfg.mts:
             st, mts_d = evolve_icebergs_mts(
@@ -312,7 +315,8 @@ def make_persistent_multi_step(grid: Grid, cfg: IcebergsConfig,
         zero = torch.zeros((), dtype=torch.int32, device=st.device)
         ov, fb = zero, zero
         acc = torch.zeros(nx + 2, ny + 2, dtype=st.dtype, device=st.device)
-        st, cs = sort_state_by_cell(st, grid)
+        # the slab's first order is random: K1's row route (PERF.md)
+        st, cs = sort_state_by_cell(st, grid, via_rows=True)
         for _ in range(n_inner):
             st, cs, d = step(st, cs, frc)
             ov = torch.maximum(ov, d.contact_overflow)

@@ -16,9 +16,19 @@ them as the JAX package does.
 ``exclude_same_group`` (the MTS Part-1 collision group) also drops
 candidates whose ``PT_GRP`` row (the conglomerate id) equals the berg's
 own (``pallas_prepass.py:709-710, 743-744``).
+
+The kernel (``csrc/extract_sorted.cu``) has instantiations compiled for
+the two shapes the paths launch (:func:`kernel_config`): BN 128, radius 1
+(the fast lane and per-step ``fused3``) and BN 256, radius 2 with the
+conglomerate filter (MTS Part 1); other shapes take a generic one, and
+``variant="generic"`` forces it onto those two (to time the
+specialisation).
 """
 
 from __future__ import annotations
+
+import ctypes
+import re
 
 import numpy as np
 import torch
@@ -137,14 +147,56 @@ def extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad, block_n: int,
     return out
 
 
+_VARIANTS = ("fused3", "part1", "generic", "generic_group")
+
+
+def _generic(variant) -> int:
+    if variant not in (None, "generic"):
+        raise ValueError(f"variant={variant!r}: need None or 'generic'")
+    return int(variant == "generic")
+
+
+def kernel_config(block_n: int, radius: int, exclude_same_group: bool,
+                  variant: str = None):
+    """``(instantiation, dynamic shared memory bytes, resident CTAs per
+    SM)`` of the K2 launch at these settings on the current CUDA device:
+    ``"fused3"`` (BN 128, radius 1), ``"part1"`` (BN 256, radius 2, the
+    conglomerate filter) or a generic one (also where ``variant ==
+    "generic"``)."""
+    v, smem, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    cuda_build.check(cuda_build.library().ib_extract_config(
+        block_n, 2 * radius + 1, int(exclude_same_group), _generic(variant),
+        ctypes.byref(v), ctypes.byref(smem), ctypes.byref(ctas)),
+        "extract_config")
+    return _VARIANTS[v.value], smem.value, ctas.value
+
+
+def kernel_resources() -> dict:
+    """Registers, stack frame and spill bytes of each K2 instantiation,
+    from the library's ``-Xptxas -v`` report."""
+    out = {}
+    for name, r in cuda_build.resource_report().items():
+        m = re.search(r"extract_sorted_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                      name)
+        if m and "registers" in r:
+            bn, ns, g = m.groups()
+            key = ({("128", "3", "0"): "fused3",
+                    ("256", "5", "1"): "part1"}.get((bn, ns, g))
+                   or ("generic_group" if g == "1" else "generic"))
+            out[key] = r
+    return out
+
+
 def extract_sorted(PT, key_s, cell_starts, grid, cfg, *, block_n: int = 128,
                    window: int = 160, radius: int = 1,
-                   exclude_same_group: bool = False):
+                   exclude_same_group: bool = False, variant: str = None):
     """Contact search + extraction.  Returns ``(out (24, N) f32,
-    bad_block (N,) bool)``.
+    bad_block (N,) bool)``.  ``variant="generic"`` launches the generic
+    instantiation whatever the shape (:func:`kernel_config`).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (counted in ``extract_sorted.launches``)."""
+    generic = _generic(variant)
     if PT.dim() != 2 or PT.shape[0] != PT_NF or PT.dtype != torch.float32:
         raise ValueError(f"PT {tuple(PT.shape)} {PT.dtype}: need "
                          f"({PT_NF}, N) float32")
@@ -167,9 +219,9 @@ def extract_sorted(PT, key_s, cell_starts, grid, cfg, *, block_n: int = 128,
                 bad_block)
     if PT.device.type != "cuda":
         raise NotImplementedError(f"no K2 kernel for {PT.device}")
-    if not 32 <= block_n <= 1024 or block_n % 32:
-        raise ValueError(f"block_n={block_n}: need a multiple of 32 "
-                         f"in [32, 1024]")
+    if not 32 <= block_n <= 1024 or block_n % 32 or not 0 <= radius <= 4:
+        raise ValueError(f"block_n={block_n}, radius={radius}: need a "
+                         f"multiple of 32 in [32, 1024] and a radius <= 4")
     if not PT.is_contiguous() or cell_starts.dtype != torch.int32:
         raise ValueError("PT must be contiguous, cell_starts int32")
     out = torch.empty(EX_NOUT, N, dtype=torch.float32, device=PT.device)
@@ -178,8 +230,8 @@ def extract_sorted(PT, key_s, cell_starts, grid, cfg, *, block_n: int = 128,
     cuda_build.check(lib.ib_extract_sorted(
         PT.data_ptr(), N, cell_starts.data_ptr(), c_lo.data_ptr(),
         c_hi.data_ptr(), badu8.data_ptr(), out.data_ptr(), bad.shape[0],
-        block_n, c_lo.shape[1], int(exclude_same_group), cd, _SLACK,
-        cuda_build.stream_ptr(PT.device)), "extract_sorted")
+        block_n, c_lo.shape[1], int(exclude_same_group), generic, cd,
+        _SLACK, cuda_build.stream_ptr(PT.device)), "extract_sorted")
     extract_sorted.launches += 1
     return out, bad_block
 

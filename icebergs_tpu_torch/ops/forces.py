@@ -262,8 +262,8 @@ def refresh_pair_velocities(pd: PairData, st) -> PairData:
     positions stay frozen, only the velocities iterate).  Both columns
     move in one K1 pass (``permute_cols_u32``) as the JAX package's
     packed u32 transport moves them; bitwise a gather."""
-    R = torch.stack([to_bits(st.uvel_old), to_bits(st.vvel_old)])
-    moved = permute_cols_u32(R, pd.other.reshape(-1))
+    moved = permute_cols_u32([to_bits(st.uvel_old), to_bits(st.vvel_old)],
+                             pd.other.reshape(-1))
     shape = pd.other.shape
     return pd._replace(u2=from_bits(moved[0], st.uvel_old.dtype
                                     ).reshape(shape),

@@ -132,13 +132,21 @@ def contact_features(st, grid, cfg: IcebergsConfig,
     """K2's inputs in the frame of ``st``: the (PT_NF, N) feature rows
     and the cell keys (dead rows = ncells); ``exclude_same_group`` adds
     the conglomerate id row ``PT_GRP``."""
-    N = st.capacity
+    rows, key = contact_feature_rows(st, grid, cfg, exclude_same_group)
+    z = torch.zeros(st.capacity, dtype=st.lon.dtype, device=st.device)
+    return torch.stack([z if r is None else r for r in rows]), key
+
+
+def contact_feature_rows(st, grid, cfg: IcebergsConfig,
+                         exclude_same_group: bool = False):
+    """:func:`contact_features` before the stack: the PT_NF rows as a
+    list (``None`` for the rows that are zero) and the cell keys."""
     ncells = grid.nx * grid.ny
     dtype = st.lon.dtype
     key = torch.where(st.alive, st.jne * grid.nx + st.ine,
                       ncells).to(torch.int32)
     A = st.length * st.width
-    rows = [torch.zeros(N, dtype=dtype, device=st.device)] * PT_NF
+    rows = [None] * PT_NF
     feats = [(PT_LON, st.lon_old), (PT_LAT, st.lat_old),
              (PT_U, st.uvel_old), (PT_V, st.vvel_old), (PT_AREA, A),
              (PT_MASS, st.mass),
@@ -149,7 +157,7 @@ def contact_features(st, grid, cfg: IcebergsConfig,
         feats.append((PT_GRP, st.conglom_id.to(dtype)))
     for r, f in feats:
         rows[r] = f
-    return torch.stack(rows), key
+    return rows, key
 
 
 def _extract_groups(st, grid, cfg: IcebergsConfig, *, block_n, window,
@@ -169,18 +177,21 @@ def _extract_groups(st, grid, cfg: IcebergsConfig, *, block_n, window,
     Returns ``(pd_n, pd_f, sel_f, vrow_f, stats)``."""
     N = st.capacity
     ncells = grid.nx * grid.ny
-    PT, key = contact_features(st, grid, cfg, exclude_same_group)
     if presorted:
+        PT, key = contact_features(st, grid, cfg, exclude_same_group)
         order = inv = None
         key_s = key
         if cell_starts is None:
             cell_starts = starts_from_sorted_key(key_s, ncells)
     else:
+        rows, key = contact_feature_rows(st, grid, cfg, exclude_same_group)
         order = lex_cell_id_order(key, st.id_cnt, st.id_ij)
         inv = torch.empty_like(order)
         inv[order.long()] = torch.arange(N, dtype=order.dtype,
                                          device=order.device)
-        PT = from_bits(permute_cols_u32(to_bits(PT), order), PT.dtype)
+        # K1 writes the sorted feature matrix from the rows (no stack)
+        PT = from_bits(permute_cols_u32([to_bits(r) for r in rows], order),
+                       st.lon.dtype)
         key_s = key[order.long()]
         cell_starts = starts_from_sorted_key(key_s, ncells)
     out, bad_block = extract_sorted(PT, key_s, cell_starts, grid, cfg,
@@ -202,8 +213,7 @@ def _extract_groups(st, grid, cfg: IcebergsConfig, *, block_n, window,
     frows = ([out[EX_F1 + k] for k in range(PT_NEVAL)]
              + [out[EX_F2 + k] for k in range(PT_NEVAL)])
     if inv is not None:
-        R = permute_cols_u32(torch.stack(
-            lanes + [to_bits(f) for f in frows]), inv)
+        R = permute_cols_u32(lanes + [to_bits(f) for f in frows], inv)
         nl = len(lanes)
         lanes = list(R[:nl])
         frows = [from_bits(R[nl + k], out.dtype) for k in range(len(frows))]

@@ -5,7 +5,8 @@ Counterpart of the table path of ``icebergs_tpu/ops/pallas_interp.py``
 ``interp_to_bergs_table``; ``pallas_interp.py:69-273, 386-496``): every
 per-cell quantity the interpolation reads is precomputed into a
 (64, ncells) slot table, each berg reads its cell's column through K1
-(:func:`..ops.pack.permute_cols_u32`, idx = cell key), and the per-berg
+(:func:`..ops.pack.permute_cols_u32` from the table's rows, idx = cell
+key; by the row route where the keys are random), and the per-berg
 bilinear / stencil arithmetic follows term for term.  The walk's 5x5 and
 9x9 land-mask anchors ride the same read.  MTS configurations read the
 ocean depth through the quadratic stencil instead, from 25 more rows
@@ -18,7 +19,7 @@ import torch
 
 from ..config import IcebergsConfig
 from ..grid import Grid
-from .pack import permute_cols_u32
+from .pack import permute_cols_u32, to_bits
 
 # slot-row layout (pallas_interp.py:48-66)
 S_CORN = 0            # field k, corner (io, jo) -> row 4k + 2io + jo
@@ -41,6 +42,16 @@ def interp_cell_table(grid: Grid, frc, cfg: IcebergsConfig,
     ``with_quad_od`` appends the 25 rows of the 5x5 (edge-padded)
     neighbourhood of ``ocean_depth + ssh`` that the MTS quadratic depth
     read touches."""
+    rows = interp_cell_rows(grid, frc, cfg, with_quad_od)
+    z = torch.zeros(grid.nx * grid.ny, dtype=torch.float32,
+                    device=grid.msk.device)
+    return torch.stack([z if r is None else r for r in rows])
+
+
+def interp_cell_rows(grid: Grid, frc, cfg: IcebergsConfig,
+                     with_quad_od: bool = False):
+    """:func:`interp_cell_table` before the stack: its rows as a list of
+    (ncells,) float32 tensors, ``None`` for the rows that are zero."""
     from ..dynamics import _msk25_table, _msk81_rows
 
     nx, ny = grid.nx, grid.ny
@@ -119,8 +130,6 @@ def interp_cell_table(grid: Grid, frc, cfg: IcebergsConfig,
         rows[S_M81 + k] = key_order(
             m81[k, 5:nx + 5, 5:ny + 5]).to(torch.float32)
 
-    z = torch.zeros(nx * ny, dtype=torch.float32, device=dev)
-    rows = [z if r is None else r for r in rows]
     if with_quad_od:
         # padded-array read fld[(i+1)+dx, (j+1)+dy] per interior cell
         fld = grid.ocean_depth + frc.ssh
@@ -130,7 +139,7 @@ def interp_cell_table(grid: Grid, frc, cfg: IcebergsConfig,
             for dx in (-2, -1, 0, 1, 2):
                 rows.append(key_order(fldq[3 + dx:3 + dx + nx,
                                            3 + dy:3 + dy + ny]))
-    return torch.stack([r.to(torch.float32) for r in rows])
+    return [None if r is None else r.to(torch.float32) for r in rows]
 
 
 def _quad_od_from_rows(read, key, xi, yj, grid: Grid, cfg: IcebergsConfig):
@@ -227,12 +236,14 @@ def _env_rows_from_slots(read, xi, yj, cfg: IcebergsConfig):
             read(S_OD), read(S_M25L), read(S_M25H)]
 
 
-def interp_to_bergs_table(st, grid: Grid, frc, cfg: IcebergsConfig):
+def interp_to_bergs_table(st, grid: Grid, frc, cfg: IcebergsConfig, *,
+                          via_rows: bool = False):
     """Cache the interpolated environment on every berg.
 
     Returns ``(state_with_env, (m25_pre, m81_pre))``: the walk's packed
     5x5 anchor (N,) and 9x9 anchor rows (9, N), int32.  MTS configs take
-    ``od`` from the quadratic stencil rows."""
+    ``od`` from the quadratic stencil rows.  ``via_rows`` reads the table
+    by K1's row route, for a slab whose cell keys are in random order."""
     if cfg.coastal_drift != 0. or cfg.tidal_drift != 0.:
         raise NotImplementedError(
             "table interpolation with coastal/tidal drift (ROADMAP.md "
@@ -243,9 +254,11 @@ def interp_to_bergs_table(st, grid: Grid, frc, cfg: IcebergsConfig):
     ncells = grid.nx * grid.ny
     key = torch.where(st.alive, st.jne * grid.nx + st.ine,
                       ncells).to(torch.int32)
-    tbl = interp_cell_table(grid, frc, cfg, with_quad_od=cfg.mts)
-    tbl = torch.cat([tbl, tbl.new_zeros(tbl.shape[0], 1)], dim=1)
-    rows = permute_cols_u32(tbl.view(torch.int32), key).view(torch.float32)
+    # K1 reads the table's rows where they lie (no stack); the dead key
+    # (ncells) reads zeros
+    tbl = interp_cell_rows(grid, frc, cfg, with_quad_od=cfg.mts)
+    rows = permute_cols_u32([to_bits(r) for r in tbl], key,
+                            via_rows=via_rows).view(torch.float32)
 
     def read(s):
         return rows[s]

@@ -244,13 +244,15 @@ def spread_cell_sums(st, grid, frc, cfg: IcebergsConfig, extra_cols, *,
 
     key, rows = build_rows(st, grid, frc, cfg, extra_cols,
                            key_alive=key_alive)
-    rows_s = torch.stack(rows)
     if cell_starts is None:
+        # K1 writes the sorted rows from the row tensors (no stack)
         order = lex_cell_id_order(key, st.id_cnt, st.id_ij)
-        rows_s = from_bits(permute_cols_u32(to_bits(rows_s), order),
-                           rows_s.dtype)
+        rows_s = from_bits(permute_cols_u32([to_bits(r) for r in rows],
+                                            order), rows[0].dtype)
         cell_starts = starts_from_sorted_key(key[order.long()],
                                              grid.nx * grid.ny)
+    else:
+        rows_s = torch.stack(rows)
     S, bad = segment_spread_sums(
         rows_s, cell_starts.to(torch.int32), cell_tables(grid), cfg,
         len(extra_cols or []), cell_block=cell_block, window=window)

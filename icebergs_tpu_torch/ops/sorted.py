@@ -3,8 +3,8 @@
 Counterpart of ``icebergs_tpu/ops/sorted.py`` on its production branch
 (``sort_state_by_cell`` with ``packed_permute=True, pack_kernel=True``,
 ``sorted.py:83-143, 251-324``): a key-only sort, then every non-uniform
-state column moved by K1 (:func:`..ops.pack.permute_cols_u32`) in groups
-of at most 128 columns.
+state column moved by K1 (:func:`..ops.pack.permute_cols_u32`, which
+reads the columns in place, at most 128 a launch).
 """
 
 from __future__ import annotations
@@ -55,13 +55,16 @@ def uniform_state_fields(cfg: IcebergsConfig):
     return tuple(out)
 
 
-def sort_state_by_cell(st, grid: Grid, *, static_fields=()):
+def sort_state_by_cell(st, grid: Grid, *, static_fields=(),
+                       via_rows: bool = False):
     """Reorder every state leaf by (cell key, id_cnt, id_ij), dead bergs
     (key = ncells) last.  Returns ``(sorted_state, cell_starts)`` with
     ``cell_starts`` (ncells+1,) int32 the first sorted slot of each cell.
 
     ``static_fields`` (see :func:`uniform_state_fields`) are left in
-    place.  Bond partner slots are remapped through the permutation."""
+    place.  Bond partner slots are remapped through the permutation.
+    ``via_rows`` moves the columns by K1's row route (for a slab in
+    random order; bitwise the same)."""
     nx, ny = grid.nx, grid.ny
     ncells = nx * ny
     N = st.capacity
@@ -86,14 +89,14 @@ def sort_state_by_cell(st, grid: Grid, *, static_fields=()):
             cols.append((f.name, b, col.dtype))
             lanes.append(to_bits(col))
     packs = {}
-    for lo in range(0, len(lanes), 128):
-        moved = permute_cols_u32(torch.stack(lanes[lo:lo + 128]), order)
-        for k, (nm, b, dt) in enumerate(cols[lo:lo + 128]):
-            col = from_bits(moved[k], dt)
-            if b is None:
-                new[nm] = col
-            else:
-                packs.setdefault(nm, {})[b] = col
+    # K1 reads the leaves' columns where they lie (no stack), 128 a launch
+    moved = permute_cols_u32(lanes, order, via_rows=via_rows)
+    for k, (nm, b, dt) in enumerate(cols):
+        col = from_bits(moved[k], dt)
+        if b is None:
+            new[nm] = col
+        else:
+            packs.setdefault(nm, {})[b] = col
     for nm, colmap in packs.items():
         new[nm] = torch.stack([colmap[b] for b in range(len(colmap))],
                               dim=1)

@@ -65,6 +65,155 @@ def test_permute_kernel_bitwise(dev):
         assert torch.equal(out, pack.permute_cols_u32_plain(R, idx))
 
 
+def _k1_columns(g, dev, C, nsrc):
+    """C int32 columns as K1's callers hand them over: 1-D tensors, the
+    strided columns of a 2-D leaf, and None (zeros) for every fifth."""
+    R = torch.randint(-2**31, 2**31 - 1, (C, nsrc), generator=g,
+                      dtype=torch.int32).to(dev)
+    leaf = R[:3].T.contiguous()                      # (nsrc, 3)
+    cols = [leaf[:, b] for b in range(leaf.shape[1])]
+    cols += [None if c % 5 == 4 else R[c] for c in range(3, C)]
+    return cols
+
+
+@pytest.mark.parametrize("C", [2, 16, 49, 89, 150])
+@pytest.mark.parametrize("pattern", ["random", "near_identity",
+                                     "table_sorted", "table_unsorted",
+                                     "dead"])
+def test_permute_entries_bitwise(dev, C, pattern):
+    """Every K1 entry bitwise against its plain version at each index
+    pattern the paths give it: a random order, a near-identity order (the
+    persistent re-sort), cell keys into a table, sorted and unsorted, and
+    dead keys (idx == nsrc reads 0)."""
+    g = torch.Generator(device="cpu").manual_seed(C)
+    n = 70_001
+    nsrc = 5_003 if pattern.startswith("table") else n
+    cols = _k1_columns(g, dev, C, nsrc)
+    if pattern == "random":
+        idx = torch.randperm(n, generator=g)
+    elif pattern == "near_identity":
+        idx = torch.arange(n)
+        sw = torch.randint(0, n - 40, (n // 50,), generator=g)
+        d = torch.randint(1, 40, (n // 50,), generator=g)
+        idx[sw], idx[sw + d] = idx[sw + d].clone(), idx[sw].clone()
+    elif pattern == "table_unsorted":
+        idx = torch.randint(0, nsrc + 1, (n,), generator=g)
+    elif pattern == "table_sorted":
+        idx = torch.randint(0, nsrc + 1, (n,), generator=g).sort().values
+    else:
+        idx = torch.where(torch.rand(n, generator=g) < 0.3, nsrc,
+                          torch.randperm(n, generator=g))
+    idx = idx.to(torch.int32).to(dev)
+    ref = pack.permute_cols_u32_plain(cols, idx)
+    before = pack.permute_cols_u32.launches
+    assert torch.equal(pack.permute_cols_u32(cols, idx), ref)
+    assert pack.permute_cols_u32.launches == before + -(-C // 128)
+    assert torch.equal(pack.permute_cols_u32(cols, idx, via_rows=True), ref)
+    if C <= 128:
+        before = (pack.pack_rows_u32.launches, pack.gather_rows_u32.launches)
+        T = pack.pack_rows_u32(cols)
+        assert torch.equal(T, pack.pack_rows_u32_plain(cols))
+        out = pack.gather_rows_u32(T, idx)
+        assert (pack.pack_rows_u32.launches,
+                pack.gather_rows_u32.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+        assert torch.equal(out, ref)
+        assert torch.equal(out, pack.gather_rows_u32_plain(T, idx))
+        # rows of a wider table (strided rows: ldt > C)
+        W = torch.cat([T, T[:, :3]], dim=1)[:, :C]
+        assert torch.equal(pack.gather_rows_u32(W, idx), ref)
+
+
+def _k2_world(dev, n=16_000, nx=40, dxy=1000., seed=0):
+    """A sorted feature slab built to defeat K2's chunk culling: radii up
+    to 1.5 cells, bergs on cell edges, pairs placed one ulp inside, on and
+    outside crit*crit*slack, dead and fl_k == -1 rows, and conglomerate
+    ids shared by neighbours.  Returns (PT, key_s, cell_starts, grid)."""
+    from types import SimpleNamespace
+    rng = np.random.RandomState(seed)
+    lon = rng.uniform(0., nx * dxy, n).astype(np.float32)
+    lat = rng.uniform(0., nx * dxy, n).astype(np.float32)
+    # radii above a cell west of 10 km, small ones elsewhere
+    rad = np.where((rng.uniform(size=n) < 0.2) & (lon < 10 * dxy),
+                   rng.uniform(500., 1500., n),
+                   rng.uniform(20., 150., n)).astype(np.float32)
+    # every tenth berg on a cell edge
+    e = np.arange(0, n, 10)
+    lon[e] = (np.floor(lon[e] / dxy) * dxy).astype(np.float32)
+    # boundary pairs: berg k + 1 at rx = d (exact: both lons on the 2^-8
+    # grid) east of berg k, and R2 chosen so that crit*crit*slack equals
+    # d*d where a float R2 gives it; then a third moved 2^-8 m out
+    slack = np.float32(1. + 1e-6)
+    b = np.arange(1, n - 1, 7)
+    b = b[lon[b] < (nx - 4) * dxy]
+    lon[b] = np.floor(lon[b])
+    d = (np.floor(np.sqrt((rad[b] + rad[b + 1]).astype(np.float64) ** 2)
+                  * 256.) / 256.).astype(np.float32)
+    target = d * d
+    r2_est = (np.sqrt(target.astype(np.float64) / float(slack))
+              - rad[b]).astype(np.float32)
+    cand = (r2_est.view(np.int32)[:, None]
+            + np.arange(-8, 9, dtype=np.int32)[None]).view(np.float32)
+    crit = rad[b][:, None] + cand
+    thr = crit * crit * slack
+    pick = np.abs(thr.astype(np.float64) - target[:, None]).argmin(1)
+    rad[b + 1] = cand[np.arange(b.size), pick]
+    out = rng.uniform(size=b.size) < 1. / 3.
+    lon[b + 1] = lon[b] + d + np.where(out, np.float32(1. / 256.), 0.)
+    lat[b + 1] = lat[b]
+    i = np.clip((lon // dxy).astype(np.int64), 0, nx - 1)
+    j = np.clip((lat // dxy).astype(np.int64), 0, nx - 1)
+    alive = rng.uniform(size=n) > 0.03
+    key = np.where(alive, j * nx + i, nx * nx)
+    order = np.argsort(key, kind="stable")
+    PT = np.zeros((extract.PT_NF, n), np.float32)
+    PT[extract.PT_LON], PT[extract.PT_LAT] = lon, lat
+    for r in (extract.PT_U, extract.PT_V, extract.PT_AREA, extract.PT_MASS):
+        PT[r] = rng.standard_normal(n)
+    PT[extract.PT_RAD] = rad
+    PT[extract.PT_ALIVE] = alive
+    PT[extract.PT_KEY] = key
+    PT[extract.PT_GRP] = rng.randint(0, 3, n) + (np.arange(n) // 50) * 3
+    PT[extract.PT_FLK] = np.where(rng.uniform(size=n) < 0.02, -1., 0.)
+    PT = torch.as_tensor(np.ascontiguousarray(PT[:, order])).to(dev)
+    key_s = torch.as_tensor(key[order].astype(np.int32)).to(dev)
+    cs = srt.starts_from_sorted_key(key_s, nx * nx)
+    return PT, key_s, cs, SimpleNamespace(nx=nx, ny=nx)
+
+
+@pytest.mark.parametrize("block_n,radius,group,variant", [
+    (128, 1, False, None), (256, 2, True, None), (128, 1, False, "generic"),
+    (256, 2, True, "generic"), (64, 1, False, None), (32, 2, True, None),
+    (256, 1, False, None)])
+@pytest.mark.parametrize("cd", [0., 2500.])
+def test_extract_kernel_defeats_culling(dev, block_n, radius, group, variant,
+                                        cd):
+    """K2 bitwise against its plain version on a world where the chunk
+    skip is tight: both compiled instantiations (BN 128 radius 1; BN 256
+    radius 2 with the conglomerate filter), the generic one forced onto
+    their shapes, and generic shapes, with crit set by the radii and by a
+    contact_distance above R1 + R2."""
+    from types import SimpleNamespace
+    PT, key_s, cs, grid = _k2_world(dev)
+    cfg = SimpleNamespace(contact_distance=cd)
+    before = extract.extract_sorted.launches
+    out, bad_block = extract.extract_sorted(
+        PT, key_s, cs, grid, cfg, block_n=block_n, window=1024,
+        radius=radius, exclude_same_group=group, variant=variant)
+    assert extract.extract_sorted.launches == before + 1
+    c_lo, c_hi, bad = extract.block_tables(key_s, cs, grid.nx, grid.ny,
+                                           block_n, 1024, radius)
+    plain = extract.extract_sorted_plain(PT, cs, c_lo, c_hi, bad, block_n,
+                                         cd, exclude_same_group=group)
+    assert torch.equal(out, plain)
+    assert int((plain[extract.EX_CNT] > 0).sum()) > 1000
+    assert int(bad.sum()) < bad.numel() // 2
+    compiled = {(128, 1, False): "fused3", (256, 2, True): "part1"}
+    expect = None if variant else compiled.get((block_n, radius, group))
+    assert extract.kernel_config(block_n, radius, group, variant)[0] == (
+        expect or ("generic_group" if group else "generic"))
+
+
 @pytest.mark.parametrize("window", [160, 16])
 def test_extract_kernel_matches_plain(dev, window):
     cfg, grid, frc, st, cs = _world(dev)
