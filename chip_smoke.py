@@ -18,8 +18,13 @@ Phases, one line each:
    beside ``index_select``, with the kernels' registers, spills and CTAs
    per SM, K2 (contact extraction; the generic instantiation timed
    beside the compiled one, with each one's registers, spills and CTAs
-   per SM), K3 (spread segment sums), K5 (the
-   prepass search), K6 (the sorted-frame interpolation) and K7 (the pair
+   per SM), K3 (spread segment sums at 3 and 14 payload columns, in the
+   sequential association and, at a forced 128-row window, the slot
+   tree; the window_bad count and the association the headline slab
+   takes), K5 (the prepass search, its bad flags too; K3's and K5's
+   instantiations timed against the generic ones, with their registers,
+   spills, shared memory and CTAs per SM), K6 (the sorted-frame
+   interpolation) and K7 (the pair
    evaluation over the bucket tables, max_per_cell 24) at the shapes the
    headline world gives them, and K2 with the conglomerate filter
    (radius 2, block 256, window 512) and K4 (the DEM substep loop, 60
@@ -48,7 +53,8 @@ Phases, one line each:
    conglomerates of 22x22 bonded elements, 999,944 in all, 512x512 grid
    of 7 km cells, dt 600 s, 60 substeps) packed one conglomerate per
    512-slot block, through ``make_multi_step`` with the substep kernel,
-   2 outer steps per window after a warm-up, timed over 3 windows;
+   2 outer steps per window after a warm-up, timed over 3 windows, and
+   the window_bad count and association K3 takes on its final state;
 7. the per-step slice: the headline world through
    ``make_multi_step(persistent=False)`` with the ``fused3``, ``fused``
    and ``buckets`` (max_per_cell 24, K7) neighbour modes, 8 steps per
@@ -61,12 +67,12 @@ The last two lines are a JSON object with each kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without them.  Imports nothing of JAX.
 
-``--ab DIR`` runs phase 3's K1 and K2 cases only, with the package of a
-copy of another commit unpacked at DIR inside this checkout (``git
-archive`` into a directory ``.gitignore`` lists), so that a parent and a
-change are timed on one card in one call: parent, change, change, parent.
-It also times K1's form before the column list (the caller's stack and
-the column kernel on the matrix).
+``--ab DIR`` runs phase 3's K1, K2, K3 and K5 cases only, with the
+package of a copy of another commit unpacked at DIR inside this checkout
+(``git archive`` into a directory ``.gitignore`` lists), so that a parent
+and a change are timed on one card in one call: parent, change, change,
+parent.  It also times K1's form before the column list (the caller's
+stack and the column kernel on the matrix).
 """
 
 from __future__ import annotations
@@ -398,9 +404,7 @@ def k1_case(torch, pack, name, cols, idx, table=False, parent_form=False):
     (the columns that are not zeros, idx and the output at the HBM rate)
     and the column list's host time per call.  ``parent_form`` (``--ab``)
     also times the parent's form: the caller's stack and the column
-    kernel on the matrix.  Times are ``device_ms``, the host hidden.
-    A package without the column list and the row route (an older
-    commit's) gets the parent's form only."""
+    kernel on the matrix.  Times are ``device_ms``, the host hidden."""
     nsrc = next(c for c in cols if c is not None).shape[0]
     zero = idx.new_zeros(nsrc)
     full = [zero if c is None else c for c in cols]
@@ -427,23 +431,19 @@ def k1_case(torch, pack, name, cols, idx, table=False, parent_form=False):
                  copy_ms=device_ms(torch, stack),
                  kernel_on_matrix_ms=device_ms(
                      torch, lambda: pack.permute_cols_u32(M, idx)))
-    if hasattr(pack, "gather_rows_u32"):
-        for form, kw in (("columns", {}), ("rows", {"via_rows": True})):
-            require(torch.equal(pack.permute_cols_u32(cols, idx, **kw), ref),
-                    f"K1 {form} differs ({name})")
-            r[f"{form}_ms"] = device_ms(
-                torch, lambda: pack.permute_cols_u32(cols, idx, **kw))
-        r["columns_host_us"] = host_us(
-            torch, lambda: pack.permute_cols_u32(cols, idx))
+    for form, kw in (("columns", {}), ("rows", {"via_rows": True})):
+        require(torch.equal(pack.permute_cols_u32(cols, idx, **kw), ref),
+                f"K1 {form} differs ({name})")
+        r[f"{form}_ms"] = device_ms(
+            torch, lambda: pack.permute_cols_u32(cols, idx, **kw))
+    r["columns_host_us"] = host_us(
+        torch, lambda: pack.permute_cols_u32(cols, idx))
     return r
 
 
 def k1_resources(pack):
     """K1's kernels' registers and spills (the build's -Xptxas -v report)
-    and resident CTAs per SM, as one line (empty for a package without
-    them)."""
-    if not hasattr(pack, "kernel_resources"):
-        return ""
+    and resident CTAs per SM, as one line."""
     return "; ".join(
         f"{k}: {r.get('registers')} registers, spill stores/loads "
         f"{r.get('spill_stores')}/{r.get('spill_loads')} B, {r['ctas']} "
@@ -454,8 +454,6 @@ def k1_resources(pack):
 def k2_resources(extract, block_n, radius, group, variant=None):
     """The K2 instantiation a launch takes, its registers and spills and
     resident CTAs per SM, as one line."""
-    if not hasattr(extract, "kernel_config"):
-        return "no instantiation report"
     v, smem, ctas = extract.kernel_config(block_n, radius, group, variant)
     r = extract.kernel_resources().get(v, {})
     return (f"instantiation {v}: {r.get('registers')} registers, spill "
@@ -644,7 +642,7 @@ def k1_rows(torch, pack, cases, cols_re, order1, trows, key):
 
 def phase_kernels(ibp, torch, device, ab=False):
     """Each kernel against its plain version at headline shapes (``ab``:
-    K1 and K2 only, as a parent / change comparison runs them)."""
+    K1, K2, K3 and K5 only, as a parent / change comparison runs them)."""
     from icebergs_tpu_torch.ops import pack, extract, segment_spread as ss
     from icebergs_tpu_torch.ops import sorted as srt, thermo
     from icebergs_tpu_torch.ops import fused_contact as fc
@@ -726,77 +724,36 @@ def phase_kernels(ibp, torch, device, ab=False):
     k1.append(case("spread row sort", [pack.to_bits(r) for r in rows_sp],
                    order))
     del st_t0, melt0, rows_sp
-    res = {}
-    if hasattr(pack, "gather_rows_u32"):
-        res.update(k1_rows(torch, pack, k1, state_columns(
-            torch, pack, st, skip), order1, trows, key))
-        res["permute_cols_u32"]["note"] += "; " + k1_resources(pack)
+    res = k1_rows(torch, pack, k1, state_columns(torch, pack, st, skip),
+                  order1, trows, key)
+    res["permute_cols_u32"]["note"] += "; " + k1_resources(pack)
 
     # K2 on the sorted slab
     PT, key_s = fc.contact_features(st, grid, cfg)
     res["extract_sorted"] = k2_case(torch, extract, PT, key_s, cs, grid, cfg,
                                     ab, block_n=128,
                                     window=cfg.fused_window)[0]
-    if ab:
-        return res, k1
 
-    # K3 on the sorted slab with the thermodynamics' melt columns
+    # K3 on the sorted slab with the thermodynamics' melt columns: the
+    # persistent lanes' width (3, the payload rows where they lie) and the
+    # per-step and DEM paths' (all 14)
     st_t, melt = thermo.thermodynamics(st, grid, frc, cfg)
-    _, rows = ss.build_rows(st_t, grid, frc, cfg, melt.deferred_cols[:3],
-                            key_alive=st.alive)
-    rows_s = torch.stack(rows)
     tblc = ss.cell_tables(grid)
-    S, sbad = ss.segment_spread_sums(rows_s, cs, tblc, cfg, 3)
-    Sp = ss.segment_spread_sums_plain(rows_s, cs, tblc, cfg)
-    require(torch.equal(S, Sp), "K3 sums differ from the plain version")
-    def k3():
-        return ss.segment_spread_sums(rows_s, cs, tblc, cfg, 3)
-    res["segment_spread_sums"] = dict(
-        err=max_abs_err(torch, S, Sp),
-        ms=device_ms(torch, k3),
-        plain_ms=cuda_ms(torch, lambda: ss.segment_spread_sums_plain(
-            rows_s, cs, tblc, cfg), reps=5),
-        library_ms=None,
-        bound=bound(nbytes(rows_s, cs, tblc, S),
-                    (K3_FLOPS_PER_ROW_BASE + 3) * int(st.alive.sum())),
-        note=(f"ncells={ncells} R={rows_s.shape[0]} window_bad="
-              f"{int(sbad.sum())} max_occupancy="
-              f"{int((cs[1:] - cs[:-1]).max())}; with the host "
-              f"{cuda_ms(torch, k3):.3f} ms"))
+    for ne in (3, 14):
+        _, rows = ss.build_rows(st_t, grid, frc, cfg,
+                                melt.deferred_cols[:ne], key_alive=st.alive)
+        res.update(k3_case(torch, ss, rows, cs, tblc, cfg, ne, ab))
+    del st_t, melt, rows
 
     # K5 on the sorted slab, as the persistent fused lane runs it
     from icebergs_tpu_torch.ops import interp_sorted as k6, prepass
     from icebergs_tpu_torch.ops import forces
     from icebergs_tpu_torch.ops.pairs import eval_pair_ia_kernel
-    win = cfg.fused_window
     P, key_p = prepass.prepass_features(st, grid, cfg)
-    k5 = prepass.contact_prepass_sorted(P, key_p, cs, grid, cfg, block_n=128,
-                                        window=win)
-    p_lo, p_hi, pbad = prepass.block_tables(key_p, cs, grid.nx, grid.ny, 128,
-                                            win)
-    cd = float(cfg.contact_distance)
-    k5p = prepass.prepass_sorted_plain(P, cs, p_lo, p_hi, 128, win, cd)
-    require(all(torch.equal(a, b) for a, b in zip(k5[:3], k5p)),
-            "K5 count / min / max slot differ from the plain version")
-    def k5_call():
-        return prepass.contact_prepass_sorted(P, key_p, cs, grid, cfg,
-                                              block_n=128, window=win)
-    engaged5 = float(k5p[0].double().sum())
-    tests5 = k5_pair_tests(torch, P, cs, p_lo, p_hi, 128, win)
-    res["contact_prepass_sorted"] = dict(
-        err=max(max_abs_err(torch, a, b) for a, b in zip(k5[:3], k5p)),
-        ms=device_ms(torch, k5_call),
-        plain_ms=cuda_ms(torch, lambda: prepass.prepass_sorted_plain(
-            P, cs, p_lo, p_hi, 128, win, cd), reps=2),
-        library_ms=None,
-        bound=bound(nbytes(P, cs, p_lo, p_hi, *k5[:3]),
-                    K2_FLOPS_PER_PAIR * engaged5),
-        note=(f"N={N_HEAD} BN 128 window {win} bad_blocks="
-              f"{int(pbad.sum())}/{pbad.numel()} engaged_pairs="
-              f"{engaged5:.0f} engaged_rows={int((k5p[0] > 0).sum())} "
-              f"rows_3plus={int((k5p[0] > 2).sum())}; pair tests the "
-              f"kernel makes {tests5:.0f}; with the host "
-              f"{cuda_ms(torch, k5_call):.3f} ms"))
+    res["contact_prepass_sorted"] = k5_case(torch, prepass, P, key_p, cs,
+                                            grid, cfg, ab)
+    if ab:
+        return res, k1
 
     # K6 on the sorted slab with the slot table (bitwise: the same
     # expressions, each operation rounded once on both sides)
@@ -820,7 +777,7 @@ def phase_kernels(ibp, torch, device, ab=False):
                     K6_FLOPS_PER_BERG * N_HEAD),
         note=(f"N={N_HEAD} table {tuple(t6.shape)} occupied_cells="
               f"{occupied}"))
-    del P, k5, k5p, r6, r6p
+    del P, r6, r6p
 
     # K7 on the bucket tables of the per-step slice (the unsorted slab)
     nbr = forces.build_neighbor_tables(st0, grid, cfg,
@@ -861,6 +818,135 @@ def phase_kernels(ibp, torch, device, ab=False):
     del pd, k7, k7p
     torch.cuda.empty_cache()
     return res, k1
+
+
+def k3_case(torch, ss, rows, cs, tbl, cfg, n_extra, ab):
+    """K3 on the sorted slab at one payload width, held bitwise to its
+    plain version in the association its window flags take (the auto
+    window: sequential) and, outside ``--ab``, in the slot tree at a forced
+    128-row window; times the wrapper on the stacked payload (the call
+    both commits take under ``--ab``), the row list (the persistent lane's
+    call), the tree and the generic instantiation.  Its row of the
+    kernels line."""
+    name = "segment_spread_sums" + ("" if n_extra == 3 else
+                                    f"/extra{n_extra}")
+    M = torch.stack(rows)
+    ncells, N = tbl.shape[1], M.shape[1]
+
+    def k3(**kw):
+        return ss.segment_spread_sums(M, cs, tbl, cfg, n_extra, **kw)
+    S, bad = k3()
+    nbad = int(bad.sum())
+    assoc = "tree" if nbad else "sequential"
+    require(nbad == 0, f"K3 {name}: {nbad} blocks overflow the auto "
+            "window on the headline slab")
+    Sp = ss.segment_spread_sums_plain(M, cs, tbl, cfg)
+    require(torch.equal(S, Sp), f"K3 {name} sums differ from the plain "
+            "version")
+    rows_in = int(cs[-1] - cs[0])
+    # the payload rows after the key, 10 table rows, the cell starts and
+    # S, each once
+    need = 4 * rows_in * (12 + n_extra) + nbytes(tbl[:10], cs, S)
+    ms = device_ms(torch, k3)
+    note = (f"window_bad={nbad} association={assoc} (headline slab, auto "
+            f"window) ncells={ncells} rows={rows_in} n_extra={n_extra} "
+            f"max_occupancy={int((cs[1:] - cs[:-1]).max())}; with the host "
+            f"{cuda_ms(torch, k3):.3f} ms")
+    if not ab:
+        St, badt = k3(window=128)
+        nt = int(badt.sum())
+        require(nt > 0, "K3: no block overflows a 128-row window")
+        Stp = ss.segment_spread_sums_plain(M, cs, tbl, cfg, tree=True)
+        require(torch.equal(St, Stp), f"K3 {name} tree sums differ from "
+                "the plain version")
+        require(not torch.equal(St, S), f"K3 {name}: the tree equals the "
+                "sequential sums")
+        g = k3(variant="generic")[0]
+        require(torch.equal(g, S), f"generic K3 {name} differs")
+        t = [device_ms(torch, lambda: k3(variant="generic")),
+             device_ms(torch, k3)]
+        ms = statistics.median([ms, t[1]])
+        K = cfg.reprod_max_per_cell
+        v, smem, ctas = ss.kernel_config(n_extra, K)
+        res_k = ss.kernel_resources()
+        r = res_k.get(v, {})
+        rf = res_k.get("window_flags", {})
+        note += (f"; window 128: window_bad={nt} association=tree, bitwise "
+                 f"to the plain tree (K={K}), "
+                 f"{device_ms(torch, lambda: k3(window=128)):.4f} ms, plain "
+                 f"{cuda_ms(torch, lambda: ss.segment_spread_sums_plain(M, cs, tbl, cfg, tree=True), reps=2):.3f} ms; "
+                 f"the row list (no stack) "
+                 f"{device_ms(torch, lambda: ss.segment_spread_sums(rows, cs, tbl, cfg, n_extra)):.4f}"
+                 f" ms; generic instantiation {t[0]:.4f} ms against "
+                 f"{ms:.4f} (compiled, median of 2), bitwise; instantiation "
+                 f"{v}: {r.get('registers')} registers, spill stores/loads "
+                 f"{r.get('spill_stores')}/{r.get('spill_loads')} B, {smem} B "
+                 f"shared, {ctas} CTAs/SM at 256 threads; window flags "
+                 f"kernel {rf.get('registers')} registers")
+    return {name: dict(
+        err=max_abs_err(torch, S, Sp), ms=ms,
+        plain_ms=None if ab else cuda_ms(
+            torch, lambda: ss.segment_spread_sums_plain(M, cs, tbl, cfg),
+            reps=3),
+        library_ms=None,
+        bound=bound(need, (K3_FLOPS_PER_ROW_BASE + n_extra) * rows_in),
+        note=note)}
+
+
+def k5_case(torch, prepass, P, key_p, cs, grid, cfg, ab):
+    """K5 on the sorted slab as the `fused` paths run it (BN 128, the
+    config's window), held bitwise to its plain version (counts, partner
+    slots and the bad flags of block_tables); outside ``--ab`` the generic
+    instantiation is timed on the same inputs.  Its row of the kernels
+    line."""
+    win = cfg.fused_window
+    N = P.shape[0]
+
+    def k5(**kw):
+        return prepass.contact_prepass_sorted(P, key_p, cs, grid, cfg,
+                                              block_n=128, window=win, **kw)
+    out = k5()
+    p_lo, p_hi, pbad = prepass.block_tables(key_p, cs, grid.nx, grid.ny, 128,
+                                            win)
+    cd = float(cfg.contact_distance)
+
+    def k5p():
+        return prepass.prepass_sorted_plain(P, cs, p_lo, p_hi, 128, win, cd)
+    ref = k5p()
+    require(all(torch.equal(a, b) for a, b in zip(out[:3], ref)),
+            "K5 count / min / max slot differ from the plain version")
+    require(torch.equal(out[3], pbad[:, None].expand(-1, 128).reshape(-1)[
+        :N]), "K5 bad flags differ from block_tables'")
+    engaged = float(ref[0].double().sum())
+    tests = k5_pair_tests(torch, P, cs, p_lo, p_hi, 128, win)
+    ms = device_ms(torch, k5)
+    note = (f"N={N} BN 128 window {win} bad_blocks={int(pbad.sum())}/"
+            f"{pbad.numel()} engaged_pairs={engaged:.0f} engaged_rows="
+            f"{int((ref[0] > 0).sum())} rows_3plus={int((ref[0] > 2).sum())}"
+            f"; pair tests in the strips {tests:.0f}; with the host "
+            f"{cuda_ms(torch, k5):.3f} ms")
+    if not ab:
+        g = k5(variant="generic")
+        require(all(torch.equal(a, b) for a, b in zip(g, out)),
+                "generic K5 differs")
+        t = [device_ms(torch, lambda: k5(variant="generic")),
+             device_ms(torch, k5)]
+        ms = statistics.median([ms, t[1]])
+        v, smem, ctas = prepass.kernel_config(128, 1, False)
+        r = prepass.kernel_resources().get(v, {})
+        note += (f"; generic instantiation {t[0]:.4f} ms against {ms:.4f} "
+                 f"(compiled, median of 2), bitwise; instantiation {v}: "
+                 f"{r.get('registers')} registers, spill stores/loads "
+                 f"{r.get('spill_stores')}/{r.get('spill_loads')} B, {smem} B "
+                 f"shared, {ctas} CTAs/SM at 128 threads")
+    return dict(
+        err=max(max_abs_err(torch, a, b) for a, b in zip(out[:3], ref)),
+        ms=ms,
+        plain_ms=None if ab else cuda_ms(torch, k5p, reps=2),
+        library_ms=None,
+        # P, the cell starts and the block's keys read, the outputs written
+        bound=bound(nbytes(P, cs, key_p, *out), K2_FLOPS_PER_PAIR * engaged),
+        note=note)
 
 
 def k5_pair_tests(torch, P, cs, c_lo, c_hi, block_n, window):
@@ -1176,6 +1262,7 @@ def phase_dem_slice(ibp, torch, device, kernels, required, cfg, world,
     """The bench_dem_1m world through make_multi_step with K4; each of
     the ``required`` kernels must launch."""
     from icebergs_tpu_torch.diag import berg_chksum
+    from icebergs_tpu_torch.ops import segment_spread as ss, sorted as srt
 
     grid, frc, st, deltas, n = world
     mass0 = float(torch.where(st.alive, st.mass * st.mass_scaling,
@@ -1234,6 +1321,13 @@ def phase_dem_slice(ibp, torch, device, kernels, required, cfg, world,
     chk, n_alive = berg_chksum(s)
     require(int(n_alive) > 0, "no elements alive")
     s_step = statistics.median(times) / DEM_INNER
+    # K3's window flags on the final state, as its spreading sorts it
+    ncells = grid.nx * grid.ny
+    key = torch.where(s.alive, s.jne * grid.nx + s.ine, ncells).to(
+        torch.int32)
+    order = srt.lex_cell_id_order(key, s.id_cnt, s.id_ij)
+    nbad = int(ss.window_bad(srt.starts_from_sorted_key(
+        key[order.long()], ncells), ncells, s.capacity).sum())
     syncs = sorted({f"{pathlib.Path(r.filename).name}:{r.lineno}"
                     for r in rec})
     res = dict(
@@ -1248,6 +1342,8 @@ def phase_dem_slice(ibp, torch, device, kernels, required, cfg, world,
         berg_chksum=int(chk), alive=int(n_alive), mass0=mass0, mass1=mass1,
         host_syncs_per_outer_step=len(rec), sync_kinds=syncs,
         conv_iters_sync_step=step.step_diags[0].conv_iters,
+        spread_window_bad=nbad,
+        spread_association="tree" if nbad else "sequential",
         fallback_cap=cfg.fused_fallback_cap,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     if profile_out:
@@ -1375,7 +1471,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-out", default=None,
                     help="directory for a profiler table and trace")
     ap.add_argument("--ab", metavar="ROOT", default=None,
-                    help="run only phase 3's K1 and K2 cases, with the "
+                    help="run only phase 3's K1, K2, K3 and K5 cases, with the "
                     "package of the checkout at ROOT (a copy of another "
                     "commit inside this one, or this one): the parent / "
                     "change comparison")
@@ -1437,7 +1533,7 @@ def main(argv=None) -> int:
     if ab:
         print(smi)
         print(json.dumps({"ab": str(root.relative_to(ROOT)) or ".",
-                          "k1": k1 + dk1, "k2": {
+                          "k1": k1 + dk1, "ms": {
                               k: r["ms"] for k, r in kres.items()}}))
         return 0
 
@@ -1512,6 +1608,8 @@ def main(argv=None) -> int:
                   "extract_sorted.cu", "icebergs_tpu/ops/pallas_prepass.py:625"),
               "segment_spread_sums": ("segment_spread.cu",
                                       "icebergs_tpu/ops/pallas_spread.py:136"),
+              "segment_spread_sums/extra14": (
+                  "segment_spread.cu", "icebergs_tpu/ops/pallas_spread.py:136"),
               "dem_substeps": ("dem_substeps.cu",
                                "icebergs_tpu/ops/dem_vmem.py:691"),
               "contact_prepass_sorted": (
@@ -1520,9 +1618,15 @@ def main(argv=None) -> int:
                                 "icebergs_tpu/ops/pallas_interp.py:275"),
               "eval_pair_ia_kernel": ("pair_eval.cu",
                                       "icebergs_tpu/ops/pallas_pairs.py:108")}
-    # the grouped K2 row is the DEM path's K2, the plain row the others'
+    # the grouped K2 row is the DEM path's K2, the plain row the others';
+    # K3's 14-column row is the per-step and DEM paths', the plain row the
+    # persistent lanes' (3 columns)
     k2 = by_path.get("extract_sorted", {})
     by_path["extract_sorted/grouped"] = {"dem": k2.pop("dem", 0)}
+    k3 = by_path.get("segment_spread_sums", {})
+    by_path["segment_spread_sums/extra14"] = {
+        p: k3.pop(p) for p in list(k3)
+        if p == "dem" or p.startswith("perstep_")}
     rows = [{"name": k, "route": "cuda",
              "source": f"icebergs_tpu_torch/csrc/{source[k][0]}",
              "replaces": source[k][1],
@@ -1532,6 +1636,13 @@ def main(argv=None) -> int:
              "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
              "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
             for k, r in kres.items()]
+    # the rule-2 order of the redesigns: launches x (ms - bound_ms) over
+    # every path's first timed window (K1's row times one shape, the
+    # re-sort; its [3 k1] lines give the others)
+    cost = sorted(((r["launches"] * (r["ms"] - r["bound_ms"]), r["name"])
+                   for r in rows), reverse=True)
+    print("[rule2] launches x (ms - bound_ms): " + ", ".join(
+        f"{n} {c:.2f}" for c, n in cost))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

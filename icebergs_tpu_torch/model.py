@@ -47,6 +47,7 @@ from .ops.fused_contact import (FusedContactStats, make_ia_fn_fused,
                                 make_ia_fn_fused2, make_ia_fn_fused3)
 from .ops.interp_sorted import interp_to_bergs_sorted
 from .ops.interp_table import interp_to_bergs_table
+from .ops.segment_spread import cell_tables
 from .ops.sorted import sort_state_by_cell, uniform_state_fields
 
 
@@ -135,6 +136,7 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
     cap = (cfg.fused_fallback_cap if fused_fallback_cap is None
            else fused_fallback_cap)
     radius = _forces.neighbor_radius(grid, cfg) if interactive else 1
+    cell_table = cell_tables(grid) if with_spread else None
 
     def contacts(st):
         """(ia_fn, FusedContactStats or None, contact_cap overflow)."""
@@ -188,10 +190,11 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
         elif melt is not None:
             sp, melt_fields = _spread.create_gridded_icebergs_fields(
                 st, grid, frc, cfg, key_alive=key_alive, cell_starts=None,
-                extra_cell_cols=melt.deferred_cols)
+                extra_cell_cols=melt.deferred_cols, cell_table=cell_table)
         else:
             sp = _spread.create_gridded_icebergs_fields(
-                st, grid, frc, cfg, key_alive=key_alive, cell_starts=None)
+                st, grid, frc, cfg, key_alive=key_alive, cell_starts=None,
+                cell_table=cell_table)
         diags = StepDiags(
             nbergs=st.count(), tickets=tickets, bounced=bounced,
             total_mass=torch.where(st.alive, st.mass * st.mass_scaling,
@@ -255,6 +258,7 @@ def make_persistent_multi_step(grid: Grid, cfg: IcebergsConfig,
     interp = (interp_to_bergs_sorted if cfg.interp_mode == "kernel"
               else interp_to_bergs_table)
     nx, ny = grid.nx, grid.ny
+    cell_table = cell_tables(grid) if with_spread else None
 
     def step(st, cell_starts, frc):
         m25_pre = None
@@ -291,7 +295,8 @@ def make_persistent_multi_step(grid: Grid, cfg: IcebergsConfig,
             extra = melt.deferred_cols[:3] if melt is not None else None
             sp = _spread.create_gridded_icebergs_fields(
                 st, grid, frc, cfg, key_alive=key_alive,
-                cell_starts=cell_starts, extra_cell_cols=extra)
+                cell_starts=cell_starts, extra_cell_cols=extra,
+                cell_table=cell_table)
             if extra is not None:
                 sp, melt_fields = sp
         else:

@@ -18,12 +18,19 @@ the slot range ``[cell_starts[c_lo], min(cell_starts[c_hi + 1],
 what both versions here scan.  So the counts of bad blocks, whose window
 is truncated, are the TPU kernel's too.  The bad flags (a block's cell
 span wider than ``nx - (2r+1)``, or a strip that overflows its 8-aligned
-window; not K2's 128-aligned rule) are computed in torch exactly as the
-TPU wrapper computes them (``pallas_prepass.py:116-131``), so the
-fallback set and ``n_fallback`` stay the reference's.
+window; not K2's 128-aligned rule) follow the TPU wrapper's rule
+(``pallas_prepass.py:116-131``), so the fallback set and ``n_fallback``
+stay the reference's: :func:`block_tables` and :func:`strip_ranges`
+compute the tables in torch for the plain version (and the tests); the
+CUDA kernel (``csrc/prepass_sorted.cu``) builds them per block itself.
+It has an instantiation compiled for the `fused` paths' shape (BN 128,
+radius 1, no group) and a generic one (:func:`kernel_config`).
 """
 
 from __future__ import annotations
+
+import ctypes
+import re
 
 import numpy as np
 import torch
@@ -129,16 +136,57 @@ def prepass_sorted_plain(P, cell_starts, c_lo, c_hi, block_n: int,
     return cnt, pmin, pmax
 
 
+_VARIANTS = ("fused", "generic", "generic_group")
+
+
+def _generic(variant) -> int:
+    if variant not in (None, "generic"):
+        raise ValueError(f"variant={variant!r}: need None or 'generic'")
+    return int(variant == "generic")
+
+
+def kernel_config(block_n: int, radius: int, exclude_same_group: bool,
+                  variant: str = None):
+    """``(instantiation, dynamic shared memory bytes, resident CTAs per
+    SM)`` of the K5 launch at these settings on the current CUDA device:
+    ``"fused"`` (BN 128, radius 1, no group) or a generic one (also where
+    ``variant == "generic"``)."""
+    v, smem, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    cuda_build.check(cuda_build.library().ib_prepass_config(
+        block_n, 2 * radius + 1, int(exclude_same_group), _generic(variant),
+        ctypes.byref(v), ctypes.byref(smem), ctypes.byref(ctas)),
+        "prepass_config")
+    return _VARIANTS[v.value], smem.value, ctas.value
+
+
+def kernel_resources() -> dict:
+    """Registers, stack frame and spill bytes of each K5 instantiation,
+    from the library's ``-Xptxas -v`` report."""
+    out = {}
+    for name, r in cuda_build.resource_report().items():
+        m = re.search(r"prepass_sorted_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                      name)
+        if m and "registers" in r:
+            bn, ns, g = m.groups()
+            out["fused" if (bn, ns) == ("128", "3")
+                else "generic_group" if g == "1" else "generic"] = r
+    return out
+
+
 def contact_prepass_sorted(P, key_s, cell_starts, grid, cfg, *,
                            block_n: int = 256, window: int = 512,
                            radius: int = 1,
-                           exclude_same_group: bool = False):
+                           exclude_same_group: bool = False,
+                           variant: str = None):
     """Engaged-contact search on the cell-sorted frame.  Returns
     ``(cnt, pmin, pmax, bad_block)``: (N,) int32 counts and smallest /
     largest engaged partner slots (-1 = none), and (N,) bool.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (counted in ``contact_prepass_sorted.launches``)."""
+    kernel (counted in ``contact_prepass_sorted.launches``), which builds
+    the block tables itself; ``variant="generic"`` forces its generic
+    instantiation (:func:`kernel_config`)."""
+    generic = _generic(variant)
     if cfg.grid_is_latlon:
         raise NotImplementedError("lat-lon pair metrics (ROADMAP.md Queue "
                                   "1 item 11)")
@@ -152,33 +200,36 @@ def contact_prepass_sorted(P, key_s, cell_starts, grid, cfg, *,
                          f"{tuple(cell_starts.shape)}")
     if not (P.device == key_s.device == cell_starts.device):
         raise ValueError("P, key_s and cell_starts on different devices")
-    c_lo, c_hi, bad = block_tables(key_s, cell_starts, grid.nx, grid.ny,
-                                   block_n, window, radius)
-    # expand, not repeat_interleave: the latter reads its size on the host
-    bad_block = bad[:, None].expand(-1, block_n).reshape(-1)[:N]
     cd = float(cfg.contact_distance)
     if P.device.type == "cpu":
+        c_lo, c_hi, bad = block_tables(key_s, cell_starts, grid.nx, grid.ny,
+                                       block_n, window, radius)
+        # expand, not repeat_interleave: the latter reads its size on the
+        # host
+        bad_block = bad[:, None].expand(-1, block_n).reshape(-1)[:N]
         return (*prepass_sorted_plain(P, cell_starts, c_lo, c_hi, block_n,
                                       window, cd, exclude_same_group),
                 bad_block)
     if P.device.type != "cuda":
         raise NotImplementedError(f"no K5 kernel for {P.device}")
-    if not 32 <= block_n <= 1024 or block_n % 32:
-        raise ValueError(f"block_n={block_n}: need a multiple of 32 "
-                         f"in [32, 1024]")
+    if not 32 <= block_n <= 1024 or block_n % 32 or not 0 <= radius <= 4:
+        raise ValueError(f"block_n={block_n}, radius={radius}: need a "
+                         f"multiple of 32 in [32, 1024] and a radius <= 4")
     if (not P.is_contiguous() or P.data_ptr() % 16
+            or key_s.dtype != torch.int32
             or cell_starts.dtype != torch.int32):
-        raise ValueError("P must be contiguous and 16-byte aligned, "
-                         "cell_starts int32")
+        raise ValueError("P must be contiguous and 16-byte aligned, key_s "
+                         "and cell_starts int32")
     cnt = torch.empty(N, dtype=torch.int32, device=P.device)
     pmin = torch.empty_like(cnt)
     pmax = torch.empty_like(cnt)
+    bad_block = torch.empty(N, dtype=torch.bool, device=P.device)
     lib = cuda_build.library()
     cuda_build.check(lib.ib_prepass_sorted(
-        P.data_ptr(), N, cell_starts.data_ptr(), c_lo.data_ptr(),
-        c_hi.data_ptr(), bad.shape[0], block_n, c_lo.shape[1], window,
-        int(exclude_same_group), cd, _SLACK, cnt.data_ptr(),
-        pmin.data_ptr(), pmax.data_ptr(),
+        P.data_ptr(), N, key_s.data_ptr(), cell_starts.data_ptr(), grid.nx,
+        ncells, block_n, 2 * radius + 1, window, int(exclude_same_group),
+        generic, cd, _SLACK, cnt.data_ptr(), pmin.data_ptr(),
+        pmax.data_ptr(), bad_block.data_ptr(),
         cuda_build.stream_ptr(P.device)), "contact_prepass_sorted")
     contact_prepass_sorted.launches += 1
     return cnt, pmin, pmax, bad_block

@@ -2,18 +2,32 @@
 
 Counterpart of ``icebergs_tpu/ops/pallas_spread.py`` (``cell_tables``,
 ``_weights_from_rows``, ``build_rows``, ``segment_spread_sums``,
-``spread_cell_sums``).  Each cell's rows are
-summed in (cell, id) order — the association of the TPU kernel's
-selection matmul — by the CUDA kernel (one thread per cell) and by the
-plain version (one vectorized add per occupancy rank).
+``spread_cell_sums``) together with the overflow switch of
+``icebergs_tpu/ops/spread.py::_pallas_spread_sums``.
 
-The TPU kernel's window-overflow flags are computed as the reference
-computes them and reported; neither version here has a window, so their
-sums are valid either way.  (Where the JAX package sees overflow it
-switches to a tree-sum fallback whose sums differ only in association.)
+Two associations, as the JAX package sums:
+
+- **sequential** (the TPU kernel's selection matmul, whose contraction
+  runs in row order): each cell's rows added in (cell, id) order;
+- **slot tree** (``_cell_slot_sums_scatter_t``, ``spread.py:274-300``):
+  the cell's row of rank k < K-1 in slot k (``0 + r_k``), ranks >= K-1
+  added into slot K-1 in row order, empty slots 0, then a fixed pairwise
+  tree over the K = ``cfg.reprod_max_per_cell`` slots, zero-padded at odd
+  levels.
+
+The JAX package takes the tree for every cell of a call as soon as one
+128-cell block's rows overflow the TPU kernel's window (``nbad > 0``):
+a clustered world's coupler fields then differ from the sequential sums
+by association.  Both versions here take the same switch: the CUDA kernel
+computes the window flags and their count on the device and reads the
+count there (no host sync); the plain version reads it on the host.
 """
 
 from __future__ import annotations
+
+import array
+import ctypes
+import re
 
 import torch
 
@@ -33,7 +47,8 @@ N_SPREAD, N_CELLCOL = 36, 7
 
 
 def cell_tables(grid):
-    """(T_NROWS, ncells) static per-cell table (cell id = j*nx + i)."""
+    """(T_NROWS, ncells) static per-cell table (cell id = j*nx + i).  It
+    depends on the grid alone: callers build it once per grid."""
     nx, ny = grid.nx, grid.ny
     rows = [grid.msk[1 + di:nx + 1 + di, 1 + dj:ny + 1 + dj].T.reshape(-1)
             for dj in (-1, 0, 1) for di in (-1, 0, 1)]
@@ -88,13 +103,19 @@ def auto_window(N, ncells, cell_block, headroom: float = 4.0):
     return -(-int(exp * headroom + 256) // 128) * 128
 
 
+def window_lanes(N: int, ncells: int, cell_block: int = 128,
+                 window: int = None) -> int:
+    """The TPU kernel's window rows WL (128-aligned, with 128 of slop)."""
+    if window is None:
+        window = auto_window(N, ncells, cell_block)
+    return -(-(window + 128) // 128) * 128
+
+
 def window_bad(cell_starts, ncells: int, N: int, cell_block: int = 128,
                window: int = None):
     """(nblocks,) bool: cell blocks whose rows overflow the TPU kernel's
     window (``pallas_spread.py:178-183``)."""
-    if window is None:
-        window = auto_window(N, ncells, cell_block)
-    WL = -(-(window + 128) // 128) * 128
+    WL = window_lanes(N, ncells, cell_block, window)
     nblocks = -(-ncells // cell_block)
     b0 = torch.arange(nblocks, device=cell_starts.device) * cell_block
     cs = cell_starts.long()
@@ -120,66 +141,171 @@ def _row_products(rows_s, tbl, cfg: IcebergsConfig):
     return torch.cat([P9, Pc, rows_s[R_NFIX:]])
 
 
+def slot_tree(x):
+    """The fixed pairwise tree over the last axis, zero-padded to even at
+    each level (``_cell_slot_sums_scatter_t``'s reduction)."""
+    k = x.shape[-1]
+    while k > 1:
+        if k % 2:
+            x = torch.cat([x, x.new_zeros(*x.shape[:-1], 1)], dim=-1)
+            k += 1
+        x = x[..., 0::2] + x[..., 1::2]
+        k //= 2
+    return x[..., 0]
+
+
 def segment_spread_sums_plain(rows_s, cell_starts, tbl,
-                              cfg: IcebergsConfig):
-    """Plain version: add row ``cell_starts[c] + k`` to cell ``c`` for
-    k = 0 .. max occupancy - 1, vectorized over cells — each cell's rows
-    in sorted order, as the kernel adds them."""
+                              cfg: IcebergsConfig, tree: bool = False):
+    """Plain version, vectorized over cells: the row of rank k of every
+    cell is ``P[:, cell_starts[c] + k]``.  Sequential (``tree`` false):
+    one add per rank, in rank order.  Slot tree: ranks k < K-1 into slot
+    k, the rest added into slot K-1 in rank order, then
+    :func:`slot_tree` (``K = cfg.reprod_max_per_cell``)."""
     N = rows_s.shape[1]
     P = _row_products(rows_s, tbl, cfg)
     cs = cell_starts.long()
     first, occ = cs[:-1], cs[1:] - cs[:-1]
-    S = torch.zeros(P.shape[0], first.shape[0], dtype=P.dtype,
-                    device=P.device)
-    for k in range(int(occ.max()) if occ.numel() else 0):
-        r = (first + k).clamp(max=N - 1)
-        S = S + torch.where(k < occ, P[:, r], 0.)
-    return S.T.contiguous()
+    zero = torch.zeros(P.shape[0], first.shape[0], dtype=P.dtype,
+                       device=P.device)
+    nmax = int(occ.max()) if occ.numel() else 0
+
+    def rank(k):
+        return torch.where(k < occ, P[:, (first + k).clamp(max=N - 1)], 0.)
+    if not tree:
+        S = zero
+        for k in range(nmax):
+            S = S + rank(k)
+        return S.T.contiguous()
+    K = cfg.reprod_max_per_cell
+    slots = [zero + rank(k) if k < nmax else zero for k in range(K - 1)]
+    tail = zero
+    for k in range(K - 1, nmax):
+        tail = tail + rank(k)
+    return slot_tree(torch.stack(slots + [tail], dim=-1)).T.contiguous()
 
 
-def segment_spread_sums(rows_s, cell_starts, tbl, cfg: IcebergsConfig,
-                        n_extra: int, *, cell_block: int = 128,
-                        window: int = None):
-    """Per-cell sums of the 36 spread products, 7 cell columns and
-    ``n_extra`` pass-through rows of the cell-sorted payload ``rows_s``
-    ((13 + n_extra, N) float32, row R_KEY the sorted cell key).
+_VARIANTS = ("extra3", "extra14", "generic")
 
-    Returns ``(S (ncells, 43 + n_extra), bad (nblocks,) bool)``.  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel
-    (counted in ``segment_spread_sums.launches``)."""
-    R, N = rows_s.shape
+
+def _generic(variant) -> int:
+    if variant not in (None, "generic"):
+        raise ValueError(f"variant={variant!r}: need None or 'generic'")
+    return int(variant == "generic")
+
+
+def _payload(rows_s, n_extra: int):
+    """The payload's rows as a list of (N,) float32 tensors on one device,
+    from a (13 + n_extra, N) matrix or a sequence of rows."""
+    rows = list(rows_s)
+    if len(rows) != R_NFIX + n_extra or any(
+            r.dim() != 1 or r.dtype != torch.float32
+            or r.shape != rows[0].shape or r.device != rows[0].device
+            for r in rows):
+        raise ValueError(f"rows_s for n_extra={n_extra}: need "
+                         f"{R_NFIX + n_extra} float32 rows of one length "
+                         "on one device")
+    return rows
+
+
+def segment_spread_sums_count(rows_s, cell_starts, tbl, cfg: IcebergsConfig,
+                              n_extra: int, *, cell_block: int = 128,
+                              window: int = None, variant: str = None):
+    """:func:`segment_spread_sums` that also returns the count of flagged
+    blocks: ``(S, bad, nbad)``, ``nbad`` a 0-dim int32 tensor on the
+    payload's device."""
+    generic = _generic(variant)
+    rows = _payload(rows_s, n_extra)
+    N, dev = rows[0].shape[0], rows[0].device
     ncells = tbl.shape[1]
-    if R != R_NFIX + n_extra or rows_s.dtype != torch.float32:
-        raise ValueError(f"rows_s {tuple(rows_s.shape)} {rows_s.dtype} "
-                         f"for n_extra={n_extra}")
+    K = cfg.reprod_max_per_cell
     if tbl.shape[0] != T_NROWS or cell_starts.shape != (ncells + 1,):
         raise ValueError(f"tbl {tuple(tbl.shape)}, cell_starts "
                          f"{tuple(cell_starts.shape)}")
-    if not (rows_s.device == cell_starts.device == tbl.device):
+    if not (dev == cell_starts.device == tbl.device):
         raise ValueError("rows_s, cell_starts and tbl on different devices")
-    bad = window_bad(cell_starts, ncells, N, cell_block, window)
-    if rows_s.device.type == "cpu":
-        return segment_spread_sums_plain(rows_s, cell_starts, tbl, cfg), bad
-    if rows_s.device.type != "cuda":
-        raise NotImplementedError(f"no K3 kernel for {rows_s.device}")
+    if dev.type == "cpu":
+        bad = window_bad(cell_starts, ncells, N, cell_block, window)
+        nbad = bad.sum(dtype=torch.int32)
+        M = rows_s if torch.is_tensor(rows_s) else torch.stack(rows)
+        return (segment_spread_sums_plain(M, cell_starts, tbl, cfg,
+                                          tree=bool(nbad > 0)), bad, nbad)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"no K3 kernel for {dev}")
     lib = cuda_build.library()
     if n_extra > lib.ib_max_spread_extra():
         raise ValueError(f"n_extra={n_extra} > "
                          f"{lib.ib_max_spread_extra()}")
-    if not (rows_s.is_contiguous() and tbl.is_contiguous()
-            and cell_starts.dtype == torch.int32):
-        raise ValueError("rows_s/tbl must be contiguous, cell_starts int32")
+    if not 1 <= K <= lib.ib_max_spread_slots():
+        raise ValueError(f"reprod_max_per_cell={K}: the K3 kernel takes "
+                         f"1 .. {lib.ib_max_spread_slots()} slots")
+    if not all(r.stride() == (1,) for r in rows):
+        raise ValueError("payload rows must have stride 1")
+    if not (tbl.is_contiguous() and cell_starts.dtype == torch.int32):
+        raise ValueError("tbl must be contiguous, cell_starts int32")
     S = torch.empty(ncells, N_SPREAD + N_CELLCOL + n_extra,
-                    dtype=torch.float32, device=rows_s.device)
+                    dtype=torch.float32, device=dev)
+    bad = torch.empty(-(-ncells // cell_block), dtype=torch.bool, device=dev)
+    nbad = torch.empty((), dtype=torch.int32, device=dev)
+    # the payload rows after the key, by address (the array rides along
+    # so that it lives through the call)
+    ptrs = array.array("Q", [r.data_ptr() for r in rows[R_KEY + 1:]])
     cuda_build.check(lib.ib_segment_spread_sums(
-        rows_s.data_ptr(), N, cell_starts.data_ptr(), tbl.data_ptr(),
-        S.data_ptr(), ncells, n_extra, int(cfg.use_old_spreading),
-        cuda_build.stream_ptr(rows_s.device)), "segment_spread_sums")
+        ptrs.buffer_info()[0], cell_starts.data_ptr(), tbl.data_ptr(),
+        S.data_ptr(), bad.data_ptr(), nbad.data_ptr(), ncells, n_extra,
+        cell_block, window_lanes(N, ncells, cell_block, window), K,
+        int(cfg.use_old_spreading), generic,
+        cuda_build.stream_ptr(dev)), "segment_spread_sums")
     segment_spread_sums.launches += 1
+    return S, bad, nbad
+
+
+def segment_spread_sums(rows_s, cell_starts, tbl, cfg: IcebergsConfig,
+                        n_extra: int, *, cell_block: int = 128,
+                        window: int = None, variant: str = None):
+    """Per-cell sums of the 36 spread products, 7 cell columns and
+    ``n_extra`` pass-through rows of the cell-sorted payload ``rows_s``
+    ((13 + n_extra, N) float32, a matrix or a sequence of (N,) rows; row
+    R_KEY the sorted cell key), in the JAX package's association: the
+    slot tree when a block of ``cell_block`` cells overflows the TPU
+    kernel's ``window``, else sequential.
+
+    Returns ``(S (ncells, 43 + n_extra), bad (nblocks,) bool)``.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel
+    (counted in ``segment_spread_sums.launches``), the instantiation
+    compiled for ``n_extra`` (3 or 14) or, with ``variant="generic"`` or
+    another width, the generic one."""
+    S, bad, _ = segment_spread_sums_count(
+        rows_s, cell_starts, tbl, cfg, n_extra, cell_block=cell_block,
+        window=window, variant=variant)
     return S, bad
 
 
 segment_spread_sums.launches = 0
+
+
+def kernel_config(n_extra: int, K: int, variant: str = None):
+    """``(instantiation, dynamic shared memory bytes, resident CTAs per
+    SM)`` of the K3 launch at these settings on the current CUDA device:
+    ``"extra3"``, ``"extra14"`` or ``"generic"``."""
+    v, smem, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    cuda_build.check(cuda_build.library().ib_spread_config(
+        n_extra, K, _generic(variant), ctypes.byref(v), ctypes.byref(smem),
+        ctypes.byref(ctas)), "spread_config")
+    return _VARIANTS[v.value], smem.value, ctas.value
+
+
+def kernel_resources() -> dict:
+    """Registers, stack frame and spill bytes of each K3 instantiation,
+    from the library's ``-Xptxas -v`` report."""
+    out = {}
+    for name, r in cuda_build.resource_report().items():
+        m = re.search(r"segment_spread_kernelILi(n?\d+)E", name)
+        if m and "registers" in r:
+            out[{"3": "extra3", "14": "extra14"}.get(m.group(1),
+                                                      "generic")] = r
+        elif "spread_window_flags" in name and "registers" in r:
+            out["window_flags"] = r
+    return out
 
 
 def build_rows(st, grid, frc, cfg: IcebergsConfig, extra_cols,
@@ -232,13 +358,15 @@ def build_rows(st, grid, frc, cfg: IcebergsConfig, extra_cols,
 
 
 def spread_cell_sums(st, grid, frc, cfg: IcebergsConfig, extra_cols, *,
-                     key_alive, cell_starts, cell_block: int = 128,
+                     key_alive, cell_starts, tbl=None, cell_block: int = 128,
                      window: int = None):
     """End-to-end kernel path.  With ``cell_starts`` the state slab is
-    already (cell, id) sorted for ``key_alive`` rows and the rows stack
-    directly; without, the payload rows are moved into the (cell,
-    id_cnt, id_ij) order by K1 (the JAX package's one payload sort) and
-    the cell starts come from the sorted keys.  Returns ``(S, nbad)``."""
+    already (cell, id) sorted for ``key_alive`` rows and K3 reads the row
+    tensors where they lie; without, the payload rows are moved into the
+    (cell, id_cnt, id_ij) order by K1 (the JAX package's one payload sort)
+    and the cell starts come from the sorted keys.  ``tbl`` is the grid's
+    :func:`cell_tables` (built here when not given).  Returns ``(S,
+    nbad)``."""
     from .pack import from_bits, permute_cols_u32, to_bits
     from .sorted import lex_cell_id_order, starts_from_sorted_key
 
@@ -247,13 +375,14 @@ def spread_cell_sums(st, grid, frc, cfg: IcebergsConfig, extra_cols, *,
     if cell_starts is None:
         # K1 writes the sorted rows from the row tensors (no stack)
         order = lex_cell_id_order(key, st.id_cnt, st.id_ij)
-        rows_s = from_bits(permute_cols_u32([to_bits(r) for r in rows],
-                                            order), rows[0].dtype)
+        rows = from_bits(permute_cols_u32([to_bits(r) for r in rows],
+                                          order), rows[0].dtype)
         cell_starts = starts_from_sorted_key(key[order.long()],
                                              grid.nx * grid.ny)
     else:
-        rows_s = torch.stack(rows)
-    S, bad = segment_spread_sums(
-        rows_s, cell_starts.to(torch.int32), cell_tables(grid), cfg,
+        rows = [r.contiguous() for r in rows]
+    S, _, nbad = segment_spread_sums_count(
+        rows, cell_starts.to(torch.int32),
+        cell_tables(grid) if tbl is None else tbl, cfg,
         len(extra_cols or []), cell_block=cell_block, window=window)
-    return S, bad.sum(dtype=torch.int32)
+    return S, nbad

@@ -4,8 +4,10 @@ Counterpart of the kernel branch of ``icebergs_tpu/ops/spread.py``
 (``berg_spread_mass``, ``create_gridded_icebergs_fields``
 ``spread.py:799-837``, ``sum_slots``, ``_gridded_epilogue``; port of
 ``src/icebergs.F90:3390-3491, 3895-4243``): the per-cell sums come from
-K3 (:mod:`.segment_spread`), are shifted into the 9 neighbour slots of
-each cell and summed in the reference's fixed slot order.
+K3 (:mod:`.segment_spread`, in the JAX package's association: the slot
+tree when a block overflows the TPU kernel's window, else sequential),
+are shifted into the 9 neighbour slots of each cell and summed in the
+reference's fixed slot order.
 """
 
 from __future__ import annotations
@@ -17,6 +19,15 @@ import torch
 from ..config import IcebergsConfig
 from . import segment_spread as ss
 from .thermo import fl_bits_dimensions
+
+
+# K3's overflow rule, as the JAX package's PALLAS_SPREAD_CB /
+# PALLAS_SPREAD_WINDOW (icebergs_tpu/ops/spread.py:779-780) set it: the
+# TPU kernel's cells per block and window rows (None = its auto window).
+# Read at each call, so that a test can force the overflow association in
+# both packages the same way
+SPREAD_CB = 128
+SPREAD_WINDOW = None
 
 
 class SpreadDiags(NamedTuple):
@@ -71,9 +82,11 @@ def sum_slots(out9):
 
 def create_gridded_icebergs_fields(st, grid, frc, cfg: IcebergsConfig, *,
                                    key_alive, cell_starts,
-                                   extra_cell_cols=None):
+                                   extra_cell_cols=None, cell_table=None):
     """The coupler fields from one K3 pass: over the presorted slab when
     ``cell_starts`` is given, else behind a payload sort (K1).
+    ``cell_table`` is the grid's ``segment_spread.cell_tables`` (built
+    here when not given; a step keeps it).
 
     ``key_alive`` is the sort key's aliveness (pre-thermodynamics: rows
     that died in thermodynamics keep their cell, so their deferred melt
@@ -86,7 +99,9 @@ def create_gridded_icebergs_fields(st, grid, frc, cfg: IcebergsConfig, *,
     nx, ny = grid.nx, grid.ny
     FX = len(extra_cell_cols or [])
     S, _ = ss.spread_cell_sums(st, grid, frc, cfg, extra_cell_cols,
-                               key_alive=key_alive, cell_starts=cell_starts)
+                               key_alive=key_alive, cell_starts=cell_starts,
+                               tbl=cell_table, cell_block=SPREAD_CB,
+                               window=SPREAD_WINDOW)
     dt_ = S.dtype
     Sg = S[:, :36].reshape(ny, nx, 9, 4).permute(1, 0, 2, 3)
     out9 = torch.zeros(nx + 2, ny + 2, 9, 4, dtype=dt_, device=S.device)

@@ -32,7 +32,8 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _world(device, n=20000, nx=64, dxy=2000., seed=0):
+def _world(device, n=20000, nx=64, dxy=2000., seed=0, cluster=0):
+    """A sorted world; ``cluster`` bergs are put in one cell, (20, 30)."""
     cfg = ibp.IcebergsConfig(
         grid_is_latlon=False, Lx=-1.0, use_f_plane=True, lat_ref=45.0,
         dt=600.0, Runge_not_Verlet=False, interactive_icebergs_on=True,
@@ -43,6 +44,8 @@ def _world(device, n=20000, nx=64, dxy=2000., seed=0):
     rng = np.random.RandomState(seed)
     lon = rng.uniform(2 * dxy, (nx - 2) * dxy, n)
     lat = rng.uniform(2 * dxy, (nx - 2) * dxy, n)
+    lon[:cluster] = (20.5 + rng.uniform(-0.45, 0.45, cluster)) * dxy
+    lat[:cluster] = (30.5 + rng.uniform(-0.45, 0.45, cluster)) * dxy
     st = ibp.create_bergs(n + 512, lon=lon, lat=lat, mass=7.65e8,
                           thickness=40., width=150., length=150.,
                           device=device)
@@ -236,13 +239,54 @@ def test_segment_spread_kernel_matches_plain(dev):
                             key_alive=st.alive)
     rows = torch.stack(rows)
     tbl = ss.cell_tables(grid)
-    S, _ = ss.segment_spread_sums(rows, cs, tbl, cfg, 3)
+    S, bad = ss.segment_spread_sums(rows, cs, tbl, cfg, 3)
+    assert not bool(bad.any())
     assert torch.equal(S, ss.segment_spread_sums_plain(rows, cs, tbl, cfg))
+
+
+@pytest.mark.parametrize("n_extra", [3, 14, 9])
+@pytest.mark.parametrize("window,K", [(None, 16), (128, 16), (128, 5),
+                                      (128, 1)])
+def test_segment_spread_kernel_associations(dev, n_extra, window, K):
+    """K3 bitwise against its plain version in both associations on a
+    clustered world: one cell holds 700 rows (more than K, and its CTA's
+    rows more than a staging round), so the tree's slot K-1 and a cell
+    spanning chunks are exercised.  The auto window takes the sequential
+    sums, window 128 the slot tree (K = 5 pads the tree's odd levels,
+    K = 1 is one slot); each compiled width (3, 14) and the generic one
+    (9, and forced onto 3), the payload as a matrix and as a list."""
+    cfg, grid, frc, st, cs = _world(dev, cluster=700)
+    cfg = cfg.replace(reprod_max_per_cell=K)
+    st2, melt = thermo.thermodynamics(st, grid, frc, cfg)
+    _, rows = ss.build_rows(st2, grid, frc, cfg,
+                            melt.deferred_cols[:n_extra], key_alive=st.alive)
+    M = torch.stack(rows)
+    tbl = ss.cell_tables(grid)
+    assert int((cs[1:] - cs[:-1]).max()) >= 700
+    before = ss.segment_spread_sums.launches
+    S, bad, nbad = ss.segment_spread_sums_count(M, cs, tbl, cfg, n_extra,
+                                                window=window)
+    assert ss.segment_spread_sums.launches == before + 1
+    assert int(nbad) == int(bad.sum())
+    assert torch.equal(bad, ss.window_bad(cs, grid.nx * grid.ny,
+                                          M.shape[1], 128, window))
+    assert (int(nbad) > 0) == (window is not None)
+    plain = ss.segment_spread_sums_plain(M, cs, tbl, cfg,
+                                         tree=window is not None)
+    assert torch.equal(S, plain)
+    assert torch.equal(ss.segment_spread_sums(rows, cs, tbl, cfg, n_extra,
+                                              window=window)[0], plain)
+    if n_extra == 3:
+        assert torch.equal(ss.segment_spread_sums(
+            M, cs, tbl, cfg, 3, window=window, variant="generic")[0], plain)
+    expect = {3: "extra3", 14: "extra14"}.get(n_extra, "generic")
+    assert ss.kernel_config(n_extra, K)[0] == expect
 
 
 @pytest.mark.parametrize("window", [160, 16])
 def test_prepass_kernel_matches_plain(dev, window):
-    """K5 against its plain version: exact, in bad blocks too."""
+    """K5 against its plain version: exact, in bad blocks too, and the
+    bad flags the kernel builds equal the TPU rule's (block_tables)."""
     cfg, grid, frc, st, cs = _world(dev)
     P, key_s = prepass.prepass_features(st, grid, cfg)
     before = prepass.contact_prepass_sorted.launches
@@ -254,11 +298,57 @@ def test_prepass_kernel_matches_plain(dev, window):
     ref = prepass.prepass_sorted_plain(P, cs, c_lo, c_hi, 128, window, 0.)
     for a, b in zip(got[:3], ref):
         assert torch.equal(a, b)
+    assert torch.equal(got[3], bad[:, None].expand(-1, 128).reshape(-1)[
+        :P.shape[0]])
     # K5's 8-aligned 160-row window is tight for 128-row blocks at ~5
     # bergs per cell: some blocks go bad at 160, nearly all at 16
     assert (int(bad.sum()) > 100 if window == 16
             else 0 < int(bad.sum()) < bad.numel())
     assert int((got[0] > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("block_n,radius,group,variant", [
+    (128, 1, False, None), (128, 1, False, "generic"), (256, 2, True, None),
+    (64, 1, False, None), (32, 2, True, None), (128, 2, False, None)])
+@pytest.mark.parametrize("cd,window", [(0., 1024), (2500., 1024),
+                                       (0., 40)])
+def test_prepass_kernel_defeats_culling(dev, block_n, radius, group, variant,
+                                        cd, window):
+    """K5 bitwise against its plain version (counts, partner slots, bad
+    flags) on K2's culling-adversarial world (radii above a cell, bergs on
+    cell edges, pairs at exactly crit*crit*slack, dead and fl_k == -1
+    rows, shared conglomerate ids): the compiled instantiation (BN 128,
+    radius 1), the generic one forced onto it, generic shapes with and
+    without the group filter, crit set by the radii and by a
+    contact_distance above R1 + R2, and a 40-row window that truncates
+    strips and flags blocks bad."""
+    from types import SimpleNamespace
+    PT, key_s, cs, grid = _k2_world(dev)
+    P = torch.stack([PT[r] for r in (
+        extract.PT_LON, extract.PT_LAT, extract.PT_RAD, extract.PT_FLK,
+        extract.PT_ALIVE, extract.PT_KEY, extract.PT_GRP)]
+        + [torch.zeros_like(PT[0])], dim=1).contiguous()
+    cfg = SimpleNamespace(contact_distance=cd, grid_is_latlon=False)
+    before = prepass.contact_prepass_sorted.launches
+    got = prepass.contact_prepass_sorted(
+        P, key_s, cs, grid, cfg, block_n=block_n, window=window,
+        radius=radius, exclude_same_group=group, variant=variant)
+    assert prepass.contact_prepass_sorted.launches == before + 1
+    c_lo, c_hi, bad = prepass.block_tables(key_s, cs, grid.nx, grid.ny,
+                                           block_n, window, radius)
+    ref = prepass.prepass_sorted_plain(P, cs, c_lo, c_hi, block_n, window,
+                                       cd, exclude_same_group=group)
+    for a, b in zip(got[:3], ref):
+        assert torch.equal(a, b)
+    assert torch.equal(got[3], bad[:, None].expand(-1, block_n).reshape(-1)[
+        :P.shape[0]])
+    assert int((ref[0] > 0).sum()) > (1000 if window > 40 else 100)
+    assert (int(bad.sum()) > bad.numel() // 2 if window == 40
+            else int(bad.sum()) < bad.numel() // 2)
+    expect = ("fused" if (block_n, radius, group, variant)
+              == (128, 1, False, None)
+              else "generic_group" if group else "generic")
+    assert prepass.kernel_config(block_n, radius, group, variant)[0] == expect
 
 
 @pytest.mark.parametrize("pmag", [True, False])

@@ -1,13 +1,21 @@
 """K3 (spread segment sums) and the coupler fields against the JAX package.
 
-Tolerance: a cell with one or two rows sums bit for bit.  Denser cells
-agree within 1e-6 of each column's largest magnitude: the JAX kernel
-sums a cell's rows with a selection matmul, which in interpret mode on
-the CPU runs as an XLA dot whose accumulation order is the library's,
-while the port adds a cell's rows strictly in (cell, id) order (the TPU
-kernel's order).  Window-overflow flags are exact, including a case
-where they are set; there the JAX package itself switches to a tree-sum
-fallback whose sums differ from the kernel's only in association.
+Sequential association (no block overflows the TPU kernel's window): a
+cell with one or two rows sums bit for bit; denser cells agree within
+1e-6 of each column's largest magnitude, because the JAX kernel sums a
+cell's rows with a selection matmul, which in interpret mode on the CPU
+runs as an XLA dot whose accumulation order is the library's, while the
+port adds a cell's rows strictly in (cell, id) order (the TPU kernel's
+order).  Window-overflow flags are exact, including a case where they are
+set.
+
+Overflow association: when a block overflows, the JAX package sums every
+cell by the slot tree (``spread.py:274-300``) instead, and so does the
+port.  That association differs from the sequential one by up to a few
+ulps of a dense cell's sums, so the port's tree is held to the JAX
+package's on every cell, not only the good blocks: the cell sums and the
+coupler fields bit for bit, but for the one field whose epilogue XLA:CPU
+fuses (see the test).
 """
 
 import dataclasses
@@ -155,4 +163,96 @@ def test_coupler_fields_match_jax():
         np.testing.assert_allclose(t.numpy(), j, rtol=0,
                                    atol=1e-6 * max(np.abs(j).max(), 1e-30),
                                    err_msg=str(k))
+    assert float(np.abs(np.asarray(jsp.spread_mass)).max()) > 0
+
+
+def _jax_tree_sums(rows, cs, tbl, cfg, K):
+    """The JAX package's overflow association on the port's payload
+    (``_pallas_spread_sums``' fallback on sorted rows): the row products
+    by ``pallas_spread``, then ``_cell_slot_sums_scatter_t``."""
+    ncells = tbl.shape[1]
+    rows_s = jnp.asarray(rows.numpy())
+    key_s = rows_s[ss.R_KEY].astype(jnp.int32)
+    tblj = jnp.asarray(tbl.numpy())
+    tblrows = tblj[:, jnp.minimum(key_s, ncells - 1)]
+    w9 = jps._weights_from_rows(rows_s, tblrows, cfg, jnp.float32)
+    area_c = jnp.maximum(tblrows[ss.T_AREA:ss.T_AREA + 1], 1e-30)
+    u, v = rows_s[ss.R_U:ss.R_U + 1], rows_s[ss.R_V:ss.R_V + 1]
+    LWms = rows_s[ss.R_LWMS:ss.R_LWMS + 1]
+    vals = jnp.concatenate([rows_s[ss.R_MASS:ss.R_MASS + 1], LWms,
+                            u * LWms, v * LWms])
+    P9 = (w9[:, None, :] * vals[None, :, :]).reshape(36, -1)
+    w_cell = rows_s[ss.R_MASSMS:ss.R_MASSMS + 1] / area_c
+    contribT = jnp.concatenate(
+        [P9, w_cell, w_cell * u, w_cell * v,
+         rows_s[ss.R_VIRT:ss.R_NFIX], rows_s[ss.R_NFIX:]])
+    csj = jnp.asarray(cs.numpy())
+    rank = (jnp.arange(key_s.shape[0], dtype=jnp.int32)
+            - csj[jnp.minimum(key_s, ncells)])
+    return np.asarray(jspread._cell_slot_sums_scatter_t(
+        key_s, rank, contribT, ncells, K))
+
+
+@pytest.mark.parametrize("K", [16, 5])
+def test_segment_sums_tree_match_jax(K):
+    """At window 128 some block overflows: the port's K3 (plain version)
+    takes the slot tree, held bitwise to ``_cell_slot_sums_scatter_t`` on
+    every cell (the 40-berg cell puts 25 rows, or with K = 5 36 rows,
+    into slot K-1; K = 5 pads the tree's odd levels).  The row products
+    are the same float32 operations in both packages and the scatter adds
+    each slot's rows in row order, so no ulp is allowed."""
+    cfg = dataclasses.replace(_world()[0], reprod_max_per_cell=K)
+    rows, cs, tbl, tcfg = _rows()
+    tcfg = tcfg.replace(reprod_max_per_cell=K)
+    S, bad, nbad = ss.segment_spread_sums_count(rows, cs, tbl, tcfg, 3,
+                                                window=128)
+    assert int(nbad) == int(bad.sum()) > 0
+    assert int((cs[1:] - cs[:-1]).max()) >= 40
+    np.testing.assert_array_equal(S.numpy(),
+                                  _jax_tree_sums(rows, cs, tbl, cfg, K))
+    # the rows given as a list take the same path
+    S2, _ = ss.segment_spread_sums(list(rows), cs, tbl, tcfg, 3, window=128)
+    assert torch.equal(S, S2)
+    # without overflow the sums are sequential, which differ from the tree
+    Sq, badq = ss.segment_spread_sums(rows, cs, tbl, tcfg, 3)
+    assert not bool(badq.any())
+    assert torch.equal(Sq, ss.segment_spread_sums_plain(rows, cs, tbl,
+                                                        tcfg))
+    assert not torch.equal(Sq, S)
+
+
+def test_coupler_fields_overflow_match_jax(monkeypatch):
+    """Both packages forced to a 128-row window (their module constants,
+    read at call time; nothing here is a cached jit): a block overflows,
+    the JAX package switches to the slot tree, and the port's coupler
+    fields must follow it on every cell: bitwise, but for
+    ``ustar_iceberg``, within 2**-23 of its largest magnitude (1 ulp of
+    scale), because XLA:CPU fuses the multiply-adds of its ``du*du +
+    dv*dv`` and ``dvo*dvo + utide**2``, which the port rounds separately
+    (ROADMAP Queue 3).  The sequential sums differ from the tree's on
+    the dense cells (by up to ~2.4e-7 of scale) and fail here."""
+    monkeypatch.setattr(jspread, "PALLAS_SPREAD_WINDOW", 128)
+    monkeypatch.setattr(tspread, "SPREAD_WINDOW", 128)
+    cfg, grid, frc, st, key_alive, cs, cols, port = _world()
+    tcfg, tgrid, tfrc, tst, tkey_alive, tcs, tcols = port
+    ncells = NX * NX
+    key_s = jnp.where(key_alive, st.jne * NX + st.ine, ncells)
+    rank = jnp.arange(st.capacity, dtype=jnp.int32) - cs[
+        jnp.minimum(key_s, ncells)]
+    jsp, jx = jspread.create_gridded_icebergs_fields(
+        st, grid, frc, cfg, sort_ctx=(None, key_s, rank),
+        extra_cell_cols=cols, key_alive=key_alive, cell_starts=cs)
+    tsp, tx = tspread.create_gridded_icebergs_fields(
+        tst, tgrid, tfrc, tcfg, key_alive=tkey_alive, cell_starts=tcs,
+        extra_cell_cols=tcols)
+    pairs = [(f, getattr(tsp, f), getattr(jsp, f)) for f in tsp._fields]
+    pairs += [(f"extra {k}", t, j) for k, (t, j) in enumerate(zip(tx, jx))]
+    for name, t, j in pairs:
+        j = np.asarray(j)
+        if name == "ustar_iceberg":
+            np.testing.assert_allclose(t.numpy(), j, rtol=0,
+                                       atol=2 ** -23 * np.abs(j).max(),
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(t.numpy(), j, err_msg=name)
     assert float(np.abs(np.asarray(jsp.spread_mass)).max()) > 0
