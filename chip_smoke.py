@@ -24,12 +24,14 @@ Phases, one line each:
    takes), K5 (the prepass search, its bad flags too; K3's and K5's
    instantiations timed against the generic ones, with their registers,
    spills, shared memory and CTAs per SM), K6 (the sorted-frame
-   interpolation) and K7 (the pair
-   evaluation over the bucket tables, max_per_cell 24) at the shapes the
-   headline world gives them, and K2 with the conglomerate filter
-   (radius 2, block 256, window 512) and K4 (the DEM substep loop, 60
-   substeps; both instantiations bitwise and timed, the generic one also
-   with constant_interaction_LW off, with each instantiation's registers,
+   interpolation) and K7 (the pair evaluation over the bucket tables,
+   max_per_cell 24; both pmag instantiations, bitwise on the rows with
+   at most two active pairs and from run to run, with their registers,
+   spills, shared memory and CTAs per SM) at the shapes the headline
+   world gives them, and K2 with the conglomerate filter (radius 2,
+   block 256, window 512) and K4 (the DEM substep loop, 60 substeps;
+   both instantiations bitwise and timed, the generic one also with
+   constant_interaction_LW off, with each instantiation's registers,
    spills, shared memory and CTAs per SM) at the shapes of the 1M-element DEM
    world, each against its plain PyTorch version on the card.  Each
    kernel's ``ms`` is the device time of one wrapper call with the
@@ -67,7 +69,7 @@ The last two lines are a JSON object with each kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without them.  Imports nothing of JAX.
 
-``--ab DIR`` runs phase 3's K1, K2, K3 and K5 cases only, with the
+``--ab DIR`` runs phase 3's K1, K2, K3, K5 and K7 cases only, with the
 package of a copy of another commit unpacked at DIR inside this checkout
 (``git archive`` into a directory ``.gitignore`` lists), so that a parent
 and a change are timed on one card in one call: parent, change, change,
@@ -143,10 +145,12 @@ K6_SLOTS_READ = 53          # slot rows 0-52 of the (64, ncells) table
 # the bucket tables of the per-step slice (M = 9 x 24 candidates)
 MAX_PER_CELL = 24
 # K7 against its plain version: the same per-pair arithmetic, but each
-# row's sums are taken across a warp and a shuffle tree, not in
-# torch.sum's order; at most a few of a row's M terms are nonzero, so the
-# orders differ by an ulp of the few-term sums
+# row's sums are taken in ascending k from +0, not in torch.sum's order;
+# at most a few of a row's M terms are nonzero, so the orders differ by an
+# ulp of the few-term sums, and not at all on a row with at most two
+# (required bitwise there)
 K7_RTOL, K7_ATOL_SCALE = 1e-5, 1e-6
+K7_SUMS = ("P11", "P12", "P22", "Pu_x", "Pu_y")
 
 
 # phase 4c: the new paths' card-vs-CPU cross-checks
@@ -642,7 +646,8 @@ def k1_rows(torch, pack, cases, cols_re, order1, trows, key):
 
 def phase_kernels(ibp, torch, device, ab=False):
     """Each kernel against its plain version at headline shapes (``ab``:
-    K1, K2, K3 and K5 only, as a parent / change comparison runs them)."""
+    K1, K2, K3, K5 and K7 only, as a parent / change comparison runs
+    them)."""
     from icebergs_tpu_torch.ops import pack, extract, segment_spread as ss
     from icebergs_tpu_torch.ops import sorted as srt, thermo
     from icebergs_tpu_torch.ops import fused_contact as fc
@@ -747,11 +752,12 @@ def phase_kernels(ibp, torch, device, ab=False):
 
     # K5 on the sorted slab, as the persistent fused lane runs it
     from icebergs_tpu_torch.ops import interp_sorted as k6, prepass
-    from icebergs_tpu_torch.ops import forces
-    from icebergs_tpu_torch.ops.pairs import eval_pair_ia_kernel
+    from icebergs_tpu_torch.ops import forces, pairs
     P, key_p = prepass.prepass_features(st, grid, cfg)
     res["contact_prepass_sorted"] = k5_case(torch, prepass, P, key_p, cs,
                                             grid, cfg, ab)
+    res["eval_pair_ia_kernel"] = k7_case(torch, forces, pairs, st0, grid,
+                                         cfg, ab)
     if ab:
         return res, k1
 
@@ -778,46 +784,85 @@ def phase_kernels(ibp, torch, device, ab=False):
         note=(f"N={N_HEAD} table {tuple(t6.shape)} occupied_cells="
               f"{occupied}"))
     del P, r6, r6p
+    torch.cuda.empty_cache()
+    return res, k1
 
-    # K7 on the bucket tables of the per-step slice (the unsorted slab)
+
+def k7_case(torch, forces, pairs, st0, grid, cfg, ab):
+    """K7 on the bucket tables of the per-step slice (the unsorted slab,
+    max_per_cell 24) with the pmag scaling on (the default, the row) and
+    off: within K7_RTOL + K7_ATOL_SCALE of scale of its plain version,
+    bitwise on the rows with at most two active pairs and from run to
+    run; outside ``--ab`` each instantiation's registers, spills, shared
+    memory and CTAs per SM.  Its row of the kernels line."""
     nbr = forces.build_neighbor_tables(st0, grid, cfg,
                                        max_per_cell=MAX_PER_CELL)
     pd = forces.precompute_pair_data(st0, cfg, nbr.cand_idx, nbr.cand_valid,
                                      partner_st=st0)
     del nbr
+    N, M = pd.P11.shape
     vel = (st0.uvel, st0.vvel, st0.uvel * 1.01 + 0.01, st0.vvel * 0.99)
-    k7 = eval_pair_ia_kernel(pd, cfg, *vel)
-    k7p = forces.eval_pair_ia(pd, cfg, *vel)
-    require(torch.equal(k7.IA_x, k7p.IA_x) and torch.equal(k7.IA_y, k7p.IA_y),
-            "K7 spring sums are not passed through")
-    err7, worst7 = 0.0, 0.0
-    for f in ("P11", "P12", "P22", "Pu_x", "Pu_y"):
-        a, b = getattr(k7, f).double(), getattr(k7p, f).double()
-        scale = max(float(b.abs().max()), 1e-30)
-        require(bool(((a - b).abs() <= K7_RTOL * b.abs()
-                      + K7_ATOL_SCALE * scale).all()),
-                f"K7 {f} beyond its tolerance")
-        err7 = max(err7, float((a - b).abs().max()))
-        worst7 = max(worst7, float((a - b).abs().max()) / scale)
-    # the function needs the mask, and of the seven slabs only the 32-byte
-    # sectors (8 floats; M = 216 keeps rows sector-aligned) that hold an
-    # active pair: an inactive pair adds exact zeros
+    le2 = pd.active.sum(1) <= 2
+    out = {}
+    for pmag in (True, False):
+        c = cfg.replace(scale_damping_by_pmag=pmag)
+        got = pairs.eval_pair_ia_kernel(pd, c, *vel)
+        again = pairs.eval_pair_ia_kernel(pd, c, *vel)
+        ref = forces.eval_pair_ia(pd, c, *vel)
+        require(torch.equal(got.IA_x, ref.IA_x)
+                and torch.equal(got.IA_y, ref.IA_y),
+                "K7 spring sums are not passed through")
+        err, worst = 0.0, 0.0
+        for f in K7_SUMS:
+            a, b = getattr(got, f), getattr(ref, f)
+            require(torch.equal(a, getattr(again, f)),
+                    f"K7 {f} differs from run to run (pmag {pmag})")
+            require(torch.equal(a[le2], b[le2]), f"K7 {f} is not bitwise on "
+                    f"the rows with at most two active pairs (pmag {pmag})")
+            a, b = a.double(), b.double()
+            scale = max(float(b.abs().max()), 1e-30)
+            require(bool(((a - b).abs() <= K7_RTOL * b.abs()
+                          + K7_ATOL_SCALE * scale).all()),
+                    f"K7 {f} beyond its tolerance (pmag {pmag})")
+            err = max(err, float((a - b).abs().max()))
+            worst = max(worst, float((a - b).abs().max()) / scale)
+        out[pmag] = dict(err=err, worst=worst, ms=device_ms(
+            torch, lambda: pairs.eval_pair_ia_kernel(pd, c, *vel)))
+    on, off = out[True], out[False]
+    # the function needs the mask, the velocities, and of the seven slabs
+    # only the 32-byte sectors (8 floats) that hold an active pair: an
+    # inactive pair adds exact zeros
     n_active = int(pd.active.sum())
     sectors = int(pd.active.reshape(-1, 8).any(1).sum())
-    res["eval_pair_ia_kernel"] = dict(
-        err=err7,
-        ms=device_ms(torch, lambda: eval_pair_ia_kernel(pd, cfg, *vel)),
-        plain_ms=cuda_ms(torch, lambda: forces.eval_pair_ia(pd, cfg, *vel),
-                         reps=3),
+    mask_ms = cuda_ms(torch, lambda: pd.active.view(torch.uint8).amax())
+    host_ms = cuda_ms(torch, lambda: pairs.eval_pair_ia_kernel(pd, cfg,
+                                                               *vel))
+    note = (f"N={N} M={M} active_pairs={n_active} active_sectors={sectors} "
+            f"rows_3plus={int((~le2).sum())} (within tolerance, worst "
+            f"{on['worst']:.3e} of scale), rows_le2={int(le2.sum())} "
+            f"bitwise, run to run bitwise; pmag off {off['ms']:.4f} ms "
+            f"(worst {off['worst']:.3e}); a PyTorch read of the mask alone "
+            f"(amax) {mask_ms:.4f} ms; with the host {host_ms:.3f} ms")
+    if not ab:
+        res_k = pairs.kernel_resources()
+        for v, pmag in (("pmag", True), ("plain", False)):
+            tr, smem, ctas = pairs.kernel_config(M, pmag)
+            r = res_k.get(v, {})
+            note += (f"; instantiation {v}: {r.get('registers')} registers, "
+                     f"spill stores/loads {r.get('spill_stores')}/"
+                     f"{r.get('spill_loads')} B, {smem} B shared, {ctas} "
+                     f"CTAs/SM at 256 threads, {tr} rows a tile")
+    res = dict(
+        err=on["err"], ms=on["ms"],
+        plain_ms=None if ab else cuda_ms(
+            torch, lambda: forces.eval_pair_ia(pd, cfg, *vel), reps=3),
         library_ms=None,
         bound=bound(nbytes(pd.active, *vel) + 7 * 32 * sectors
-                    + 5 * 4 * N_HEAD, K7_FLOPS_PER_PAIR * n_active),
-        note=(f"N={N_HEAD} M={pd.P11.shape[1]} active_pairs={n_active} "
-              f"active_sectors={sectors} worst_scaled_err={worst7:.3e} "
-              f"bitwise={all(torch.equal(getattr(k7, f), getattr(k7p, f)) for f in k7._fields)}"))
-    del pd, k7, k7p
+                    + 5 * 4 * N, K7_FLOPS_PER_PAIR * n_active),
+        note=note)
+    del pd
     torch.cuda.empty_cache()
-    return res, k1
+    return res
 
 
 def k3_case(torch, ss, rows, cs, tbl, cfg, n_extra, ab):
@@ -1471,10 +1516,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-out", default=None,
                     help="directory for a profiler table and trace")
     ap.add_argument("--ab", metavar="ROOT", default=None,
-                    help="run only phase 3's K1, K2, K3 and K5 cases, with the "
-                    "package of the checkout at ROOT (a copy of another "
-                    "commit inside this one, or this one): the parent / "
-                    "change comparison")
+                    help="run only phase 3's K1, K2, K3, K5 and K7 cases, "
+                    "with the package of the checkout at ROOT (a copy of "
+                    "another commit inside this one, or this one): the "
+                    "parent / change comparison")
     args = ap.parse_args(argv)
 
     import torch

@@ -53,6 +53,7 @@ _SIGNATURES = {
                           _F, _P, _P, _P, _P, _P),
     "ib_prepass_config": (_I, _I, _I, _I, _P, _P, _P),
     "ib_pair_eval": (_P,) * 12 + (_I, _I, _I, _P, _P),
+    "ib_pair_eval_config": (_I, _I, _P, _P, _P),
     "ib_interp_sorted": (_P, _I, _P, _P, _P, _I, _I, _P, _P),
 }
 

@@ -376,6 +376,86 @@ def test_pair_eval_kernel_matches_plain(dev, pmag):
                                    atol=1e-6 * np.abs(b).max(), err_msg=f)
 
 
+K7_SUMS = ("P11", "P12", "P22", "Pu_x", "Pu_y")
+
+
+def _k7_pairs(dev, n, m, mask, seed=0):
+    """Synthetic (n, m) pair slabs from numpy: projections of random unit
+    normals, positive damping coefficients, partner velocities; every
+    slot finite.  ``mask``: "le2" (at most two active pairs a row, at
+    random slots), "all" (every pair active), "mixed" (rows of 0 to 12
+    active pairs) or "offset" ("mixed" with the mask stored one byte past
+    a 16-byte boundary)."""
+    rng = np.random.RandomState(seed)
+    th = rng.uniform(0., 2 * np.pi, (n, m))
+    nx, ny = np.cos(th), np.sin(th)
+    slab = {"P11": nx * nx, "P12": nx * ny, "P22": ny * ny,
+            "crad": rng.uniform(1e-3, 1e-2, (n, m)),
+            "ctan": rng.uniform(1e-4, 1e-3, (n, m)),
+            "u2": rng.randn(n, m) * 0.2, "v2": rng.randn(n, m) * 0.2}
+    if mask == "all":
+        act = np.ones((n, m), bool)
+    else:
+        k = rng.randint(0, 3 if mask == "le2" else 13, n)
+        act = rng.rand(n, m).argsort(1) < k[:, None]
+    a = torch.as_tensor(act, device=dev)
+    if mask == "offset":
+        buf = torch.zeros(n * m + 16, dtype=torch.bool, device=dev)
+        a = buf[1:1 + n * m].view(n, m)
+        a.copy_(torch.as_tensor(act, device=dev))
+    t = {f: torch.as_tensor(v.astype(np.float32), device=dev)
+         for f, v in slab.items()}
+    spring = [torch.as_tensor(rng.randn(n).astype(np.float32), device=dev)
+              for _ in range(2)]
+    pd = forces.PairData(a, *spring, **t)
+    vel = [torch.as_tensor((rng.randn(n) * 0.2).astype(np.float32),
+                           device=dev) for _ in range(4)]
+    return pd, vel
+
+
+# (M, mask): M 2305 takes tiles of 16 rows read in two 32 KB groups; its
+# dense sums of 2305 terms would need a wider tolerance than K7's
+_K7_SHAPES = [(m, mask) for m in (216, 144, 27)
+              for mask in ("le2", "all", "mixed", "offset")] + [
+    (2305, mask) for mask in ("le2", "mixed", "offset")]
+
+
+@pytest.mark.parametrize("pmag", [True, False])
+@pytest.mark.parametrize("m,mask", _K7_SHAPES)
+@pytest.mark.parametrize("n", [0, 1, 1000])
+def test_pair_eval_kernel_shapes(dev, n, m, mask, pmag):
+    """K7 against its plain version at unaligned rows (M 216 and 144, odd
+    M 27 and 2305), N of 0, 1 and not a multiple of the tile: bitwise on
+    rows with at most two active pairs, within 1e-5 relative plus 1e-6 of
+    each field's scale elsewhere (the sums' order); bitwise from run to
+    run; contiguous fields; one launch a call (none at N = 0)."""
+    cfg = ibp.IcebergsConfig(scale_damping_by_pmag=pmag)
+    pd, vel = _k7_pairs(dev, n, m, mask)
+    if mask == "offset" and n:
+        assert pd.active.data_ptr() % 16 == 1
+    before = eval_pair_ia_kernel.launches
+    got = eval_pair_ia_kernel(pd, cfg, *vel)
+    again = eval_pair_ia_kernel(pd, cfg, *vel)
+    assert eval_pair_ia_kernel.launches == before + (2 if n else 0)
+    ref = forces.eval_pair_ia(pd, cfg, *vel)
+    assert got.IA_x is pd.IA_x and got.IA_y is pd.IA_y
+    assert got.P21 is got.P12
+    le2 = pd.active.sum(1) <= 2
+    for f in K7_SUMS:
+        a, b = getattr(got, f), getattr(ref, f)
+        assert a.shape == (n,) and a.is_contiguous(), f
+        assert torch.equal(a, getattr(again, f)), f
+        assert torch.equal(a[le2], b[le2]), f
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        np.testing.assert_allclose(
+            a, b, rtol=1e-5, atol=1e-6 * (np.abs(b).max() if n else 0.),
+            err_msg=f)
+    if mask == "le2":
+        assert bool(le2.all())
+    elif n == 1000:
+        assert int((~le2).sum()) > 500
+
+
 def test_interp_sorted_kernel_matches_plain(dev):
     """K6 against its plain version: bitwise (the same expressions, each
     operation rounded once on both sides)."""

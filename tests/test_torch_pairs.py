@@ -2,8 +2,9 @@
 
 * K7's plain version (``forces.eval_pair_ia``, which
   ``pairs.eval_pair_ia_kernel`` runs for CPU tensors) against
-  ``eval_pair_ia_pallas`` in interpret mode on the same pair slabs, with
-  the pmag scaling on and off: ``rtol 1e-5`` (the JAX package's own
+  ``eval_pair_ia_pallas`` in interpret mode on the same pair slabs (the
+  world's bucket tables, and synthetic slabs with every pair active),
+  with the pmag scaling on and off: ``rtol 1e-5`` (the JAX package's own
   kernel tolerance, ``tests/test_pallas_pairs.py``; the interpret-mode
   body contracts multiply-adds and sums in another order).
 * ``bin_bergs`` and ``build_neighbor_tables`` (full and quadrant
@@ -91,24 +92,62 @@ def _assert_ia_close(t, j, alive, rtol=RTOL, atol_scale=ATOL_SCALE):
                                    err_msg=f)
 
 
-@pytest.mark.parametrize("pmag", [True, False])
-def test_pair_eval_plain_matches_pallas(pmag):
-    """The same (N, M) pair data through both evaluations."""
+def _dense_pairs(n=512, m=216, seed=5):
+    """(n, m) pair slabs with every candidate slot valid and active, all
+    finite: projections of random unit normals, positive damping
+    coefficients, partner velocities; and (n,) velocities."""
+    rng = np.random.RandomState(seed)
+    th = rng.uniform(0., 2 * np.pi, (n, m))
+    nx, ny = np.cos(th), np.sin(th)
+
+    def f32(x):
+        return np.asarray(x, np.float32)
+    pd = jforces.PairData(
+        active=np.ones((n, m), bool), IA_x=f32(rng.randn(n)),
+        IA_y=f32(rng.randn(n)), P11=f32(nx * nx), P12=f32(nx * ny),
+        P22=f32(ny * ny), crad=f32(rng.uniform(1e-3, 1e-2, (n, m))),
+        ctan=f32(rng.uniform(1e-4, 1e-3, (n, m))),
+        u2=f32(rng.randn(n, m) * 0.2), v2=f32(rng.randn(n, m) * 0.2))
+    vel = [f32(rng.randn(n) * 0.2) for _ in range(4)]
+    return pd, vel
+
+
+@pytest.mark.parametrize("pmag,mask", [
+    pytest.param(True, "engaged", id="True"),
+    pytest.param(False, "engaged", id="False"),
+    pytest.param(True, "all", id="True-all"),
+    pytest.param(False, "all", id="False-all")])
+def test_pair_eval_plain_matches_pallas(pmag, mask):
+    """The same (N, M) pair data through both evaluations: the bucket
+    tables of the world (its engaged pairs active) and, the dense regime,
+    synthetic slabs with every pair active.  There each row sums 216
+    signed terms in two orders, whose difference is bounded by ulps of
+    the row's sum of magnitudes, not of its sum: ``atol`` is 1e-6 of each
+    field's scale (the tolerance ``chip_smoke.py`` states for K7)."""
     cfg, grid, st, (tcfg, _, _) = _world(pmag)
-    nbr = jforces.build_neighbor_tables(st, grid, cfg, max_per_cell=120)
-    pd = jforces.precompute_pair_data(st, cfg, nbr.cand_idx, nbr.cand_valid,
-                                      bonded=False, use_c_crit_dist=False)
-    vel = _velocities(st)
+    atol_scale = 0.
+    if mask == "all":
+        pd, vel = _dense_pairs()
+        alive = np.ones(pd.P11.shape[0], bool)
+        atol_scale = 1e-6
+    else:
+        nbr = jforces.build_neighbor_tables(st, grid, cfg, max_per_cell=120)
+        pd = jforces.precompute_pair_data(st, cfg, nbr.cand_idx,
+                                          nbr.cand_valid, bonded=False,
+                                          use_c_crit_dist=False)
+        vel = _velocities(st)
+        alive = np.asarray(st.alive)
+        assert int(np.asarray(pd.active).sum()) > 100
     ref = eval_pair_ia_pallas(pd, cfg, *vel, interpret=True)
-    tpd = tforces.PairData(*(torch.as_tensor(np.array(x)) for x in pd))
+    tpd = tforces.PairData(*(torch.as_tensor(np.array(x)) for x in pd
+                             if x is not None))
     got = eval_pair_ia_kernel(tpd, tcfg,
                               *(torch.as_tensor(np.array(v)) for v in vel))
-    alive = np.asarray(st.alive)
-    assert int(np.asarray(pd.active).sum()) > 100
     for f in IA_FIELDS:
-        np.testing.assert_allclose(getattr(got, f).numpy()[alive],
-                                   np.asarray(getattr(ref, f))[alive],
-                                   rtol=1e-5, atol=1e-10, err_msg=f)
+        b = np.asarray(getattr(ref, f))[alive]
+        np.testing.assert_allclose(
+            getattr(got, f).numpy()[alive], b, rtol=1e-5,
+            atol=max(1e-10, atol_scale * float(np.abs(b).max())), err_msg=f)
     np.testing.assert_array_equal(got.IA_x.numpy(), np.asarray(ref.IA_x))
 
 
