@@ -24,7 +24,11 @@ Phases, one line each:
    takes), K5 (the prepass search, its bad flags too; K3's and K5's
    instantiations timed against the generic ones, with their registers,
    spills, shared memory and CTAs per SM), K6 (the sorted-frame
-   interpolation) and K7 (the pair evaluation over the bucket tables,
+   interpolation), K2's pair-epilogue instantiation (every row but the
+   spring sums bitwise, the spring sums bitwise on rows with at most two
+   exact pairs, the others counted; two calls bitwise), K3's pass-through
+   entry at the slot scatter spreading's 43 columns (slot tree and
+   sequential, bitwise) and K7 (the pair evaluation over the bucket tables,
    max_per_cell 24; both pmag instantiations, bitwise on the rows with
    at most two active pairs and from run to run, with their registers,
    spills, shared memory and CTAs per SM) at the shapes the headline
@@ -63,13 +67,22 @@ Phases, one line each:
    window, 3 windows each; the largest cell occupancy must stay within
    max_per_cell before the first step, before the last and after it;
 8. the persistent lane with ``neighbor_mode="fused"`` and
-   ``interp_mode="kernel"`` (K5, K6) on the headline world, timed as in 5.
+   ``interp_mode="kernel"`` (K5, K6) on the headline world, timed as in 5;
+9. the options of ROADMAP item 15 on the headline world, each timed as in
+   5 after a card-against-CPU cross-check of its configuration on the
+   phase-4 world: 9a the fast lane with RK4 and K2's pair epilogue; 9b
+   the fast lane with the three transport knobs and the slot scatter
+   spreading (its state after 8 steps must equal phase 5's bit for bit,
+   its coupler fields within a stated tolerance); 9c the per-step fused3
+   path with the XLA interpolation, ``parallel_reprod=False`` and the
+   class melt.
 
 The last two lines are a JSON object with each kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without them.  Imports nothing of JAX.
 
-``--ab DIR`` runs phase 3's K1, K2, K3, K5 and K7 cases only, with the
+``--ab DIR`` runs phase 3's K1, K2 (with its epilogue where the package
+has one), K3, K5 and K7 cases only, with the
 package of a copy of another commit unpacked at DIR inside this checkout
 (``git archive`` into a directory ``.gitignore`` lists), so that a parent
 and a change are timed on one card in one call: parent, change, change,
@@ -134,6 +147,11 @@ K4_BOUND_NOTE = ("the bound counts each division, sqrt and sin as one "
 # only: no exact search can skip those, and any other pair a search may
 # cull
 K2_FLOPS_PER_PAIR, K3_FLOPS_PER_ROW_BASE = 12, 110
+# K2's pair epilogue, counted from csrc/extract_sorted.cu: per exact pair
+# (sqrt, compare, mass ratio, spring product, the two projections and
+# their sums) and per selected partner (separation, r2, crit, sqrt, r^2,
+# three projections, mass ratio, compare)
+K2_EPI_FLOPS_PER_EXACT, K2_EPI_FLOPS_PER_PARTNER = 14, 18
 # K2's chunk of staged candidates per instantiation (csrc/extract_sorted.cu
 # CH_OF), for the count of the pair tests its skip leaves
 K2_CHUNK = {False: 16, True: 32}
@@ -169,6 +187,46 @@ PERSTEP_PATHS = (
     ("fused3", K1_ROWS + ("extract_sorted", "segment_spread_sums")),
     ("fused", K1_ROWS + ("contact_prepass_sorted", "segment_spread_sums")),
     ("buckets", K1_ROWS + ("eval_pair_ia_kernel", "segment_spread_sums")))
+# phase 9: the options of ROADMAP item 15 on the headline world, each with
+# its configuration, make_multi_step's arguments and the kernels it must
+# launch (9a RK4 with K2's pair epilogue on the fast lane; 9b the fast
+# lane's transport knobs with the slot scatter spreading, whose per-cell
+# sums run in K3's pass-through entry; 9c the per-step fused3 path with
+# the XLA interpolation, the plain scatters and the class melt)
+ITEM15_PATHS = (
+    ("9a", "fast_lane_rk4_epilogue",
+     dict(Runge_not_Verlet=True, contact_epilogue=True), {},
+     K1_ROWS + ("permute_cols_u32", "extract_sorted/epilogue",
+                "segment_spread_sums")),
+    ("9b", "fast_lane_knobs_scatter",
+     dict(sort_packed_permute=False, pack_kernel=False,
+          starts_via_scatter=True, slot_sum_method="scatter"), {},
+     ("permute_cols_u32", "extract_sorted", "segment_spread_sums/assoc")),
+    ("9c", "perstep_fused3_xla_noreprod",
+     dict(interp_mode="xla", parallel_reprod=False),
+     dict(persistent=False, neighbor_mode="fused3", with_class_melt=True),
+     ("permute_cols_u32", "extract_sorted")))
+# 9b changes only the spreading's association against phase 5 (the slot
+# tree against K3's sequential sums, and the slot K-1 tail in dense
+# cells): the coupler accumulator of the first window within this
+# tolerance of phase 5's (rtol, and of its largest magnitude)
+ITEM15_ACC_RTOL, ITEM15_ACC_ATOL_SCALE = 1e-5, 1e-6
+
+
+class _Counter:
+    """A wrapper's second launch count (``attr``) with the ``launches``
+    interface the paths read and reset."""
+
+    def __init__(self, fn, attr):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, n):
+        setattr(self.fn, self.attr, n)
 
 
 def bound(nbytes: float, flops: float):
@@ -455,10 +513,13 @@ def k1_resources(pack):
         f"C={r['C']})" for k, r in pack.kernel_resources().items())
 
 
-def k2_resources(extract, block_n, radius, group, variant=None):
+def k2_resources(extract, block_n, radius, group, variant=None,
+                 epilogue=False):
     """The K2 instantiation a launch takes, its registers and spills and
     resident CTAs per SM, as one line."""
-    v, smem, ctas = extract.kernel_config(block_n, radius, group, variant)
+    v, smem, ctas = extract.kernel_config(
+        block_n, radius, group, variant,
+        **(dict(epilogue=True) if epilogue else {}))
     r = extract.kernel_resources().get(v, {})
     return (f"instantiation {v}: {r.get('registers')} registers, spill "
             f"stores/loads {r.get('spill_stores')}/{r.get('spill_loads')} B,"
@@ -530,6 +591,95 @@ def k2_case(torch, extract, PT, key_s, cs, grid, cfg, ab, **kw):
               f"the host {cuda_ms(torch, k2):.3f} ms; "
               f"{k2_resources(extract, bn, rad, group)}{gen}"))
     return row, outp, bad_block
+
+
+def k2_epi_case(torch, extract, PT, key_s, cs, grid, cfg):
+    """K2's pair-epilogue instantiation (``contact_epilogue``, BN 128, the
+    config's window) on the sorted slab against its plain version: every
+    row but the spring sums bitwise, the spring sums bitwise on the rows
+    with at most two exact pairs (the others are counted: the consumer
+    masks them as fallback rows), and two calls bitwise.  Its row of the
+    kernels line, or None for a package without the epilogue (``--ab`` on
+    an older commit)."""
+    if not hasattr(extract, "EX_IAX"):
+        return None
+    bn, win = 128, cfg.fused_window
+    cd, spring = float(cfg.contact_distance), float(
+        cfg.contact_spring_coef_eff)
+
+    def k2e():
+        return extract.extract_sorted(PT, key_s, cs, grid, cfg, block_n=bn,
+                                      window=win, epilogue=True)
+    out, _ = k2e()
+    require(torch.equal(out, k2e()[0]), "K2 epilogue: two calls differ")
+    c_lo, c_hi, bad = extract.block_tables(key_s, cs, grid.nx, grid.ny, bn,
+                                           win)
+
+    def k2p(counts=False):
+        return extract.extract_sorted_plain(
+            PT, cs, c_lo, c_hi, bad, bn, cd, epilogue=True, spring=spring,
+            exact_counts=counts)
+    outp, nexact = k2p(True)
+    sums = [extract.EX_IAX, extract.EX_IAY]
+    rest = [r for r in range(extract.EX_NOUT) if r not in sums]
+    require(torch.equal(out[rest], outp[rest]), "K2 epilogue: count, "
+            "slots, exactness or partner rows differ from the plain version")
+    few = nexact <= 2
+    require(torch.equal(out[sums][:, few], outp[sums][:, few]),
+            "K2 epilogue: spring sums differ from the plain version on rows "
+            "with at most two exact pairs")
+    cnt = outp[extract.EX_CNT]
+    engaged = float(cnt.double().sum())
+    exact = float(nexact.double().sum())
+    partners = float((cnt > 0).double().sum()) * 2
+    N = PT.shape[1]
+    # the rows the search and the epilogue read (lon, lat, u, v, mass,
+    # rad, alive, key, fl_k), the block tables, and the 24 rows written
+    need = 4 * 9 * N + nbytes(cs, c_lo, c_hi, bad, out)
+    flops = (K2_FLOPS_PER_PAIR * engaged + K2_EPI_FLOPS_PER_EXACT * exact
+             + K2_EPI_FLOPS_PER_PARTNER * partners)
+    return dict(
+        err=max_abs_err(torch, out, outp), ms=device_ms(torch, k2e),
+        plain_ms=cuda_ms(torch, k2p, reps=2), library_ms=None,
+        bound=bound(need, flops),
+        note=(f"N={N} BN {bn} window {win} engaged_pairs={engaged:.0f} "
+              f"exact_pairs={exact:.0f} rows_3plus_exact="
+              f"{int((~few).sum())} (bad rows, masked by the consumer; "
+              f"their spring sums within "
+              f"{max_abs_err(torch, out[sums][:, ~few], outp[sums][:, ~few]) if bool((~few).any()) else 0.0} "
+              f"of the plain version); with the host "
+              f"{cuda_ms(torch, k2e):.3f} ms; "
+              f"{k2_resources(extract, bn, 1, False, epilogue=True)}"))
+
+
+def k3_assoc_case(torch, ss, cols, cs, K):
+    """K3's pass-through entry (``segment_sums``) at the slot scatter
+    spreading's shape on the persistent lane (the 36 weighted products and
+    7 cell columns of the sorted headline slab, in three launches) in the
+    slot tree and sequentially, each bitwise to the plain version.  Its
+    row of the kernels line."""
+    S = ss.segment_sums(cols, cs, K, tree=True)
+    M = torch.stack(cols)
+    Sp = ss._sums_plain(M, cs, K, True)
+    require(torch.equal(S, Sp), "K3 pass-through tree sums differ from the "
+            "plain version")
+    Sq = ss.segment_sums(cols, cs, K, tree=False)
+    require(torch.equal(Sq, ss._sums_plain(M, cs, K, False)),
+            "K3 pass-through sequential sums differ from the plain version")
+    rows_in = int(cs[-1] - cs[0])
+    occ = cs[1:] - cs[:-1]
+    return dict(
+        err=max_abs_err(torch, S, Sp),
+        ms=device_ms(torch, lambda: ss.segment_sums(cols, cs, K, True)),
+        plain_ms=cuda_ms(torch, lambda: ss._sums_plain(M, cs, K, True),
+                         reps=2),
+        library_ms=None,
+        bound=bound(4 * rows_in * len(cols) + nbytes(cs, S),
+                    len(cols) * rows_in),
+        note=(f"{len(cols)} columns, rows={rows_in} K={K} cells over K="
+              f"{int((occ > K).sum())}; sequential "
+              f"{device_ms(torch, lambda: ss.segment_sums(cols, cs, K, False)):.4f}"
+              f" ms, bitwise"))
 
 
 def k2_tested_pairs(torch, extract, PT, cs, c_lo, c_hi, bad, block_n, ch,
@@ -738,6 +888,9 @@ def phase_kernels(ibp, torch, device, ab=False):
     res["extract_sorted"] = k2_case(torch, extract, PT, key_s, cs, grid, cfg,
                                     ab, block_n=128,
                                     window=cfg.fused_window)[0]
+    epi = k2_epi_case(torch, extract, PT, key_s, cs, grid, cfg)
+    if epi is not None:
+        res["extract_sorted/epilogue"] = epi
 
     # K3 on the sorted slab with the thermodynamics' melt columns: the
     # persistent lanes' width (3, the payload rows where they lie) and the
@@ -749,6 +902,14 @@ def phase_kernels(ibp, torch, device, ab=False):
                                 melt.deferred_cols[:ne], key_alive=st.alive)
         res.update(k3_case(torch, ss, rows, cs, tblc, cfg, ne, ab))
     del st_t, melt, rows
+    if not ab:
+        from icebergs_tpu_torch.ops import spread as sp
+        w9, vals = sp.spread_products(st, grid, frc, cfg)
+        cols = [wk * v for wk in w9 for v in vals] + sp.cell_columns(
+            st, grid, cfg)
+        res["segment_spread_sums/assoc"] = k3_assoc_case(
+            torch, ss, cols, cs, cfg.reprod_max_per_cell)
+        del w9, vals, cols
 
     # K5 on the sorted slab, as the persistent fused lane runs it
     from icebergs_tpu_torch.ops import interp_sorted as k6, prepass
@@ -1414,7 +1575,8 @@ def phase_path(ibp, torch, device, kernels, label, cfg_kw=None,
     changed by ``cfg_kw``): a warm-up that grows the fallback cap until
     nothing overflows, 3 timed windows of ``INNER`` steps with every
     kernel's launches counted over the first, one step under torch's
-    sync debug mode, and checks of the final state."""
+    sync debug mode, and checks of the final state.  Returns ``(result,
+    launches of the first window, coupler accumulator)``."""
     from icebergs_tpu_torch.diag import berg_chksum
 
     cfg, grid, frc, st = headline_world(ibp, torch, N_HEAD, NX_HEAD, device)
@@ -1508,7 +1670,7 @@ def phase_path(ibp, torch, device, kernels, label, cfg_kw=None,
                                   label)
         res.update(device_kernel_ms_per_step=busy / INNER,
                    kernels_per_step=nk / INNER)
-    return res, launches
+    return res, launches, acc
 
 
 def main(argv=None) -> int:
@@ -1600,15 +1762,18 @@ def main(argv=None) -> int:
                "dem_substeps": dem_substeps.part3_substeps_vmem,
                "contact_prepass_sorted": prepass.contact_prepass_sorted,
                "interp_sorted": interp_sorted.interp_sorted,
-               "eval_pair_ia_kernel": pairs.eval_pair_ia_kernel}
+               "eval_pair_ia_kernel": pairs.eval_pair_ia_kernel,
+               "extract_sorted/epilogue": _Counter(extract.extract_sorted,
+                                                   "epilogue_launches"),
+               "segment_spread_sums/assoc": segment_spread.segment_sums}
     # launches on each main path: every kernel's count is set to 0 just
     # before the path runs and read just after its first timed window;
     # each path must launch the kernels listed for it
     by_path = {}
 
     def run_path(tag, label, names, **kw):
-        res, launches = phase_path(ibp, torch, device, kernels, label,
-                                   profile_out=args.profile_out, **kw)
+        res, launches, acc = phase_path(ibp, torch, device, kernels, label,
+                                        profile_out=args.profile_out, **kw)
         for k, n in launches.items():
             if n:
                 by_path.setdefault(k, {})[label] = n
@@ -1618,8 +1783,9 @@ def main(argv=None) -> int:
                     f"{label} path")
         require(res["host_syncs_per_step"] == 0,
                 f"{label}: host syncs in a step: {res['sync_kinds']}")
+        return res, acc
 
-    run_path("5 slice", "fast_lane", K1_ROWS + (
+    fast, fast_acc = run_path("5 slice", "fast_lane", K1_ROWS + (
         "permute_cols_u32", "extract_sorted", "segment_spread_sums"))
     dres, dlaunches = phase_dem_slice(
         ibp, torch, device, kernels, (
@@ -1640,6 +1806,27 @@ def main(argv=None) -> int:
               "segment_spread_sums"),
              cfg_kw=dict(interp_mode="kernel"),
              multi_kw=dict(neighbor_mode="fused"))
+    # phase 9: ROADMAP item 15's options on the headline world, each also
+    # card against CPU on the cross-check world
+    for tag, label, ckw, mkw, names in ITEM15_PATHS:
+        r = phase_cross(ibp, torch, device, ckw, mkw)
+        print(f"[{tag} cross-check] {json.dumps(r)}")
+        require(r["overflow"] == 0, f"{tag} cross-check: contact_overflow "
+                f"{r['overflow']}")
+        res, acc = run_path(f"{tag} {label}", label, names, cfg_kw=ckw,
+                            multi_kw=mkw)
+        if tag == "9b":
+            require(res["berg_chksum"] == fast["berg_chksum"],
+                    f"9b: berg_chksum {res['berg_chksum']} != the fast "
+                    f"lane's {fast['berg_chksum']}")
+            tol = (ITEM15_ACC_RTOL * fast_acc.abs()
+                   + ITEM15_ACC_ATOL_SCALE * fast_acc.abs().max())
+            dev = (acc - fast_acc).abs()
+            require(bool((dev <= tol).all()), "9b: coupler fields beyond "
+                    "tolerance of the fast lane's")
+            print(f"[9b coupler vs phase 5] max |diff| / scale "
+                  f"{float(dev.max() / fast_acc.abs().max()):.3e}, cells "
+                  f"differing {int((dev > 0).sum())} of {dev.numel()}")
 
     source = {"permute_cols_u32": ("permute_cols.cu",
                                    "icebergs_tpu/ops/pallas_pack.py:30"),
@@ -1651,6 +1838,10 @@ def main(argv=None) -> int:
                                  "icebergs_tpu/ops/pallas_prepass.py:625"),
               "extract_sorted/grouped": (
                   "extract_sorted.cu", "icebergs_tpu/ops/pallas_prepass.py:625"),
+              "extract_sorted/epilogue": (
+                  "extract_sorted.cu", "icebergs_tpu/ops/pallas_prepass.py:625"),
+              "segment_spread_sums/assoc": (
+                  "segment_spread.cu", "icebergs_tpu/ops/pallas_spread.py:136"),
               "segment_spread_sums": ("segment_spread.cu",
                                       "icebergs_tpu/ops/pallas_spread.py:136"),
               "segment_spread_sums/extra14": (

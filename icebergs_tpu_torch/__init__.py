@@ -3,12 +3,20 @@
 A port of ``icebergs_tpu`` (the JAX package beside it, which stays the
 reference) to PyTorch, with the TPU's Pallas kernels rewritten as CUDA
 kernels for NVIDIA Hopper (``csrc/``, built by :mod:`.cuda_build` at
-first use).  Ported so far: the production fast lane (the
-persistent-sorted coupling step with contacts, thermodynamics and
-spreading) and the MTS/DEM step of bonded conglomerates (Part-1 fused
-search, force convergence, the substep loop as one kernel), both behind
-:func:`make_multi_step`.  Module names mirror the JAX package; each
-module names its counterpart.
+first use).  Ported so far, behind :func:`make_multi_step`: the
+production fast lane (the persistent-sorted coupling step with contacts,
+thermodynamics and spreading), the per-step path (``make_step``; the
+``fused3``, ``fused`` and ``buckets`` contact searches), the MTS/DEM step
+of bonded conglomerates (Part-1 fused search, force convergence, the
+substep loop as one kernel), and the options of those modules: Verlet
+and RK4 stepping, the table, sorted-frame and per-field (``interp_flds``)
+interpolations with coastal and tidal drift, K2's in-kernel pair
+epilogue, every slot-sum method of the reproducing spreading and the
+plain scatters without it, and the re-sort's transport knobs.  Lat-lon
+and curvilinear grids, calving, footloose, bonds outside MTS, the MTS
+scan substeps, I/O and the multi-device layer are not ported yet: their
+settings raise ``NotImplementedError`` naming the ROADMAP.md item.
+Module names mirror the JAX package; each module names its counterpart.
 
 Importing this package imports torch and never jax.  On CPU tensors
 every kernel runs as its plain PyTorch version; on CUDA tensors the

@@ -253,7 +253,8 @@ class IcebergsConfig:
     #   variadic payload sort)
     pack_kernel: bool = True         # block-transpose pack/unpack
     #   around packed row gathers (the port's K1 moves the columns in
-    #   one pass either way)
+    #   one pass; False: a stacked row gather and per-row inverse
+    #   gathers, the same bits)
     interp_mode: str = "table"       # table|kernel|xla: "table" = ONE
     #   packed (N, <=128-lane) row gather of a per-cell slot table +
     #   identical per-berg math (regular grids; falls back to "xla"
@@ -269,7 +270,7 @@ class IcebergsConfig:
     spread_impl: str = "manual"      # pallas spread kernel window feed:
     #   manual|gathered|pipelined
     starts_via_scatter: bool = False  # cell_starts: searchsorted vs
-    #   scatter-min + reverse cummin (the port has searchsorted only)
+    #   scatter-min + reverse cummin (the same values)
     contact_epilogue: bool = False   # run the velocity-independent pair
     #   precompute (geometry/spring/projections) INSIDE the extraction
     #   kernel instead of the XLA chain.  Engagement is then decided by
@@ -385,18 +386,13 @@ class IcebergsConfig:
 # Settings whose backend this package does not have yet, each with the
 # ROADMAP.md Queue 1 item that ports it.  Values not listed are served.
 _NOT_PORTED = (
-    ("Runge_not_Verlet", True, 15, "RK4 stepping"),
     ("grid_is_latlon", True, 11, "lat-lon grids"),
     ("grid_is_regular", False, 11, "curvilinear grids"),
-    ("A68_test", True, 15, "the A68 test's XLA interpolation"),
     ("footloose", True, 9, "footloose calving"),
     ("hexagonal_icebergs", True, 11, "hexagonal spreading"),
-    ("parallel_reprod", False, 15, "non-reproducing scatters"),
-    ("sort_packed_permute", False, 15, "the payload-sort re-sort transport"),
-    ("pack_kernel", False, 15, "the stack_cols gather transport"),
-    ("starts_via_scatter", True, 15, "scatter-min cell_starts"),
-    ("contact_epilogue", True, 15, "the in-kernel pair epilogue"),
 )
+_SLOT_SUM_METHODS = ("pallas", "scatter", "scatter_t", "gather",
+                     "gather_raw", "gather_mm")
 
 
 def check_ported(cfg: IcebergsConfig) -> None:
@@ -410,13 +406,10 @@ def check_ported(cfg: IcebergsConfig) -> None:
     for name, bad, item, what in _NOT_PORTED:
         if getattr(cfg, name) == bad:
             no(f"{what} ({name}={bad!r})", item)
-    if cfg.interp_mode not in ("table", "kernel"):
-        no(f"interp_mode={cfg.interp_mode!r} (the XLA interpolation "
-           "interp_flds)", 15)
-    if cfg.slot_sum_method != "pallas":
-        no(f"slot_sum_method={cfg.slot_sum_method!r}", 15)
-    if cfg.coastal_drift != 0. or cfg.tidal_drift != 0.:
-        no("coastal/tidal drift (the XLA interpolation)", 11)
+    if cfg.interp_mode not in ("table", "kernel", "xla"):
+        raise ValueError(f"interp_mode={cfg.interp_mode!r}")
+    if cfg.slot_sum_method not in _SLOT_SUM_METHODS:
+        raise ValueError(f"slot_sum_method={cfg.slot_sum_method!r}")
     if cfg.extract_impl not in ("gathered", "manual", "pipelined"):
         raise ValueError(f"extract_impl={cfg.extract_impl!r}")
     if cfg.spread_impl not in ("gathered", "manual", "pipelined"):

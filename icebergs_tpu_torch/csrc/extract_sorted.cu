@@ -13,6 +13,25 @@
 // With GROUP (the MTS Part-1 collision group) a candidate in the berg's
 // own conglomerate (equal PT_GRP row) is never engaged.
 //
+// With EPI (contact_extract_sorted_g(epilogue=True)) the kernel also runs
+// the velocity-independent pair precompute of the legacy contact group.
+// A candidate is staged with its mass in the fourth float (the slot GROUP
+// uses; EPI and GROUP are exclusive).  Every engaged pair is also tested
+// exactly, r = sqrtf(r2) < crit (the reference's sqrt-based test).  An
+// exact pair is engaged: the correctly rounded r < crit means sqrt(r2) <
+// crit, so r2 < crit^2, below crit * crit * slack whatever the rounding of
+// its two products (slack - 1 = 1e-6 is eight times their error); so the
+// chunk skip, which drops only chunks with no engaged pair, drops no exact
+// pair.  It adds the
+// spring acceleration spring * (min(M1, M2) / M1) * (crit - r) times
+// (rx / r, ry / r) to the berg's sums iax, iay in candidate order (a
+// fixed order; rows with at most two exact pairs equal any order's
+// bits).  The two selected partners' rows become u, v, P11, P12, P22 =
+// (rx rx, rx ry, ry ry) / r^2, the mass ratio and the exactness flag,
+// recomputed from the partner's PT rows with the same operations.  Rows
+// (EX_IAX = 3, EX_IAY = 20, 7 a partner from EX_F1 / EX_F2) as the TPU
+// kernel writes them.
+//
 // Bound: instruction issue.  At the 1M-berg headline a block of 128 bergs
 // meets ~400 candidates and every thread tests every one; the data are a
 // few KB in shared memory.  So the design cuts instructions per test and
@@ -72,10 +91,11 @@
 namespace {
 
 // PT feature rows (icebergs_tpu/ops/pallas_prepass.py:258-260)
-constexpr int PT_LON = 0, PT_LAT = 1, PT_RAD = 8, PT_ALIVE = 9, PT_KEY = 10,
-              PT_GRP = 11, PT_FLK = 12;
+constexpr int PT_LON = 0, PT_LAT = 1, PT_U = 2, PT_V = 3, PT_MASS = 5,
+              PT_RAD = 8, PT_ALIVE = 9, PT_KEY = 10, PT_GRP = 11, PT_FLK = 12;
 constexpr int NFEAT = 8;     // extracted rows per partner (6 eval + 2 spare)
 constexpr int EX_F1 = 4, EX_F2 = 12, EX_NOUT = 24;
+constexpr int EX_IAX = 3, EX_IAY = 20, EX_EPI_NP = 7;   // epilogue rows
 constexpr int MAX_STRIPS = 9;          // radius <= 4
 // staged candidates: 256 a warp, at most 2048 a block
 constexpr int CAND_PER_WARP = 256, MAX_CAND = 2048;
@@ -110,9 +130,30 @@ __device__ __forceinline__ float group_max(float v) {
   return v;
 }
 
+// One selected partner's epilogue rows from its PT rows (the operations
+// of the TPU kernel's per-candidate chain): P11, P12, P22, mass ratio,
+// exactness.  An engaged partner has r2 > 0, so rsafe = r.
+__device__ __forceinline__ void partner_rows(const float* __restrict__ PT,
+                                             long long N, int q, float lon1,
+                                             float lat1, float R1, float M1,
+                                             float cd, float* d) {
+  const float rx = lon1 - PT[PT_LON * N + q];
+  const float ry = lat1 - PT[PT_LAT * N + q];
+  const float r2 = rx * rx + ry * ry;
+  const float crit = fmaxf(R1 + PT[PT_RAD * N + q], cd);
+  const float r = sqrtf(r2);
+  const float rs2 = r * r;
+  d[0] = (rx * rx) / rs2;
+  d[1] = (rx * ry) / rs2;
+  d[2] = (ry * ry) / rs2;
+  d[3] = fminf(M1, PT[PT_MASS * N + q]) / M1;
+  d[4] = r < crit ? 1.f : 0.f;
+}
+
 // BN_T / NS_T: threads per block and strips, or 0 for run-time values;
-// CH: candidates per chunk (16 or 32), the grain of the warp's skip.
-template <int BN_T, int NS_T, bool GROUP, int CH>
+// CH: candidates per chunk (16 or 32), the grain of the warp's skip;
+// EPI: the pair epilogue (spring: the contact spring coefficient).
+template <int BN_T, int NS_T, bool GROUP, int CH, bool EPI>
 __global__ void __launch_bounds__(BN_T ? BN_T : 1024)
 extract_sorted_kernel(const float* __restrict__ PT, int n,
                       const int32_t* __restrict__ cell_starts,
@@ -120,7 +161,9 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
                       const int32_t* __restrict__ c_hi,
                       const uint8_t* __restrict__ bad,
                       float* __restrict__ out, int nstrips_rt, float cd,
-                      float slack) {
+                      float slack, float spring) {
+  static_assert(!(GROUP && EPI), "EPI stages the mass where GROUP stages "
+                                 "the group");
   const int bn = BN_T ? BN_T : (int)blockDim.x;
   const int ns = NS_T ? NS_T : nstrips_rt;
   constexpr int LPC = 32 / CH;                 // chunks a warp stages at once
@@ -141,8 +184,10 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
   const int gid = b * bn + t;
   const bool own = gid < n;
   const float qnan = __int_as_float(0x7fc00000);
-  float lon1 = qnan, lat1 = 0.f, R1 = 0.f, g1 = 0.f;
+  float lon1 = qnan, lat1 = 0.f, R1 = 0.f, g1 = 0.f, M1 = 1e-30f;
+  float iax = 0.f, iay = 0.f;
   if (own) {
+    if (EPI) M1 = fmaxf(PT[PT_MASS * N + gid], 1e-30f);
     const float al1 = PT[PT_ALIVE * N + gid];
     const float fl1 = PT[PT_FLK * N + gid];
     lat1 = PT[PT_LAT * N + gid];
@@ -208,6 +253,7 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
           c.y = PT[PT_LAT * N + slot];
           c.z = PT[PT_RAD * N + slot];
           if (GROUP) c.w = PT[PT_GRP * N + slot];
+          if (EPI) c.w = PT[PT_MASS * N + slot];
           if (v) c.x = PT[PT_LON * N + slot];
         }
         if (q < m) s_cand[q * CH + lane % CH] = c;
@@ -250,6 +296,15 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
               ++cnt;
               vmin = min(vmin, wid);
               vmax = max(vmax, wid);
+              if (EPI) {
+                const float r = sqrtf(r2);
+                if (r < crit) {
+                  const float aspr = spring * (fminf(M1, c.w) / M1) *
+                                     (crit - r);
+                  iax = iax + aspr * (rx / r);
+                  iay = iay + aspr * (ry / r);
+                }
+              }
             }
           }
         }
@@ -261,6 +316,32 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
   out[0 * N + gid] = (float)cnt;
   out[1 * N + gid] = (float)vmin;
   out[2 * N + gid] = (float)vmax;
+  if (EPI) {
+    // rows: cnt vmin vmax IAX | u v P11 P12 P22 mm ex 0 | (partner 2) |
+    // IAY 0 0 0
+    out[EX_IAX * N + gid] = iax;
+    out[EX_IAY * N + gid] = iay;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int q = p ? vmax : vmin;
+      const int base = p ? EX_F2 : EX_F1;
+      float d[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+      float u = 0.f, v = 0.f;
+      if (cnt > 0) {
+        partner_rows(PT, N, q, lon1, lat1, R1, M1, cd, d);
+        u = PT[PT_U * N + q];
+        v = PT[PT_V * N + q];
+      }
+      out[base * N + gid] = u;
+      out[(base + 1) * N + gid] = v;
+#pragma unroll
+      for (int k = 0; k < 5; ++k) out[(base + 2 + k) * N + gid] = d[k];
+      out[(base + EX_EPI_NP) * N + gid] = 0.f;
+    }
+#pragma unroll
+    for (int f = EX_IAY + 1; f < EX_NOUT; ++f) out[f * N + gid] = 0.f;
+    return;
+  }
   out[3 * N + gid] = 0.f;
 #pragma unroll
   for (int f = 0; f < NFEAT; ++f) {
@@ -273,28 +354,37 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
 
 // instantiations: 0 = BN 128 / 3 strips (chunks of 16), 1 = BN 256 / 5
 // strips / GROUP (chunks of 32), 2 = generic (16), 3 = generic / GROUP
-// (32).  Chunks of 16 against 32: 0.153 against 0.168 ms at BN 128, 0.298
-// against 0.271 at BN 256 (NVIDIA H100, chip_smoke.py --ab).
-enum { V_FUSED3 = 0, V_PART1 = 1, V_GENERIC = 2, V_GENERIC_GROUP = 3 };
-constexpr int CH_OF[4] = {16, 32, 16, 32};
+// (32), 4 = BN 128 / 3 strips / EPI (16), 5 = generic / EPI (16).  Chunks
+// of 16 against 32: 0.153 against 0.168 ms at BN 128, 0.298 against 0.271
+// at BN 256 (NVIDIA H100, chip_smoke.py --ab).
+enum {
+  V_FUSED3 = 0, V_PART1 = 1, V_GENERIC = 2, V_GENERIC_GROUP = 3,
+  V_FUSED3_EPI = 4, V_GENERIC_EPI = 5
+};
+constexpr int CH_OF[6] = {16, 32, 16, 32, 16, 16};
 
 typedef void (*KernelFn)(const float*, int, const int32_t*, const int32_t*,
                          const int32_t*, const uint8_t*, float*, int, float,
-                         float);
+                         float, float);
 
 KernelFn kernel_of(int variant) {
   switch (variant) {
-    case V_FUSED3: return extract_sorted_kernel<128, 3, false, 16>;
-    case V_PART1: return extract_sorted_kernel<256, 5, true, 32>;
-    case V_GENERIC: return extract_sorted_kernel<0, 0, false, 16>;
-    case V_GENERIC_GROUP: return extract_sorted_kernel<0, 0, true, 32>;
+    case V_FUSED3: return extract_sorted_kernel<128, 3, false, 16, false>;
+    case V_PART1: return extract_sorted_kernel<256, 5, true, 32, false>;
+    case V_GENERIC: return extract_sorted_kernel<0, 0, false, 16, false>;
+    case V_GENERIC_GROUP: return extract_sorted_kernel<0, 0, true, 32, false>;
+    case V_FUSED3_EPI: return extract_sorted_kernel<128, 3, false, 16, true>;
+    case V_GENERIC_EPI: return extract_sorted_kernel<0, 0, false, 16, true>;
     default: return nullptr;
   }
 }
 
-// generic != 0 forces the generic instantiation
-int variant_of(int block_n, int nstrips, int group, int generic) {
-  if (!generic && block_n == 128 && nstrips == 3 && !group) return V_FUSED3;
+// generic != 0 forces the generic instantiation; -1: no instantiation
+// (the epilogue with the group filter)
+int variant_of(int block_n, int nstrips, int group, int generic, int epi) {
+  const bool f3 = !generic && block_n == 128 && nstrips == 3 && !group;
+  if (epi) return group ? -1 : f3 ? V_FUSED3_EPI : V_GENERIC_EPI;
+  if (f3) return V_FUSED3;
   if (!generic && block_n == 256 && nstrips == 5 && group) return V_PART1;
   return group ? V_GENERIC_GROUP : V_GENERIC;
 }
@@ -305,30 +395,30 @@ extern "C" int ib_extract_sorted(const void* PT, int n, const void* cell_starts,
                                  const void* c_lo, const void* c_hi,
                                  const void* bad, void* out, int nblocks,
                                  int block_n, int nstrips, int group,
-                                 int generic, float cd, float slack,
-                                 void* stream) {
+                                 int generic, int epilogue, float cd,
+                                 float slack, float spring, void* stream) {
   if (nblocks == 0) return (int)cudaGetLastError();
+  const int v = variant_of(block_n, nstrips, group, generic, epilogue);
   if (block_n % 32 || block_n < 32 || block_n > 1024 || nstrips < 1 ||
-      nstrips > MAX_STRIPS)
+      nstrips > MAX_STRIPS || v < 0)
     return (int)cudaErrorInvalidValue;
-  const int v = variant_of(block_n, nstrips, group, generic);
   kernel_of(v)<<<nblocks, block_n, smem_bytes(block_n, CH_OF[v]),
                  (cudaStream_t)stream>>>(
       (const float*)PT, n, (const int32_t*)cell_starts, (const int32_t*)c_lo,
       (const int32_t*)c_hi, (const uint8_t*)bad, (float*)out, nstrips, cd,
-      slack);
+      slack, spring);
   return (int)cudaGetLastError();
 }
 
 // The instantiation a launch takes, its dynamic shared memory and its
 // resident CTAs per SM at block_n threads.
 extern "C" int ib_extract_config(int block_n, int nstrips, int group,
-                                 int generic, int* variant, int* smem,
-                                 int* ctas_per_sm) {
+                                 int generic, int epilogue, int* variant,
+                                 int* smem, int* ctas_per_sm) {
+  *variant = variant_of(block_n, nstrips, group, generic, epilogue);
   if (block_n % 32 || block_n < 32 || block_n > 1024 || nstrips < 1 ||
-      nstrips > MAX_STRIPS)
+      nstrips > MAX_STRIPS || *variant < 0)
     return (int)cudaErrorInvalidValue;
-  *variant = variant_of(block_n, nstrips, group, generic);
   *smem = (int)smem_bytes(block_n, CH_OF[*variant]);
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       ctas_per_sm, kernel_of(*variant), block_n, (size_t)*smem);

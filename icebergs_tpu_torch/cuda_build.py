@@ -39,10 +39,11 @@ _SIGNATURES = {
     "ib_gather_rows": (_P, _L, _I, _P, _P, _L, _L, _P),
     "ib_k1_config": (_I, _I, _P, _P, _P),
     "ib_extract_sorted": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _F, _F, _P),
-    "ib_extract_config": (_I, _I, _I, _I, _P, _P, _P),
+                          _I, _F, _F, _F, _P),
+    "ib_extract_config": (_I, _I, _I, _I, _I, _P, _P, _P),
     "ib_segment_spread_sums": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _P),
+    "ib_segment_sums_assoc": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "ib_spread_config": (_I, _I, _I, _P, _P, _P),
     "ib_max_spread_extra": (),
     "ib_max_spread_slots": (),

@@ -1,11 +1,11 @@
-"""Time stepping: Verlet evolution and position bookkeeping.
+"""Time stepping: Verlet and RK4 evolution and position bookkeeping.
 
-Counterpart of ``icebergs_tpu/dynamics.py`` on the fast lane's path:
-``verlet_step``, ``evolve_icebergs``, ``_advance_position``,
+Counterpart of ``icebergs_tpu/dynamics.py``: ``verlet_step``,
+``rk4_step``, ``evolve_icebergs``, ``_advance_position``,
 ``adjust_index_and_ground`` with the gather-free 9x9-anchor walk
 (``_walk4``, ``_walk4_compact``), ``_msk25_table`` and ``_msk81_rows``.
-Regular Cartesian grids only; RK4, lat-lon and curvilinear grids are
-later slices (ROADMAP.md Queue 1 items 11 and 15).
+Regular Cartesian grids only; lat-lon and curvilinear grids are a later
+slice (ROADMAP.md Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from .config import IcebergsConfig
 from .grid import Grid, cell_to_pos
 from .ops.accel import accel
-from .ops.interp import Env
+from .ops.interp import Env, interp_flds
 
 POSN_EPS = 0.05  # pushback after a coast bounce (icebergs.F90:7836)
 
@@ -268,14 +268,102 @@ def verlet_step(st, grid: Grid, frc, cfg: IcebergsConfig, ia_fn=None,
     return EvolveOut(st, tickets, nbounce)
 
 
+def rk4_step(st, grid: Grid, frc, cfg: IcebergsConfig, ia_fn=None,
+             m25_pre=None):
+    """Fourth-order Runge-Kutta step (Runge_Kutta_stepping,
+    icebergs.F90:7331).  Every stage reads the environment cached at the
+    step start, or with ``old_interp_flds_order`` re-interpolates it at
+    the stage position (:func:`.ops.interp.interp_flds`); every stage's
+    walk starts from the step's cell with the same anchors ``m25_pre``.
+    ``ia_fn`` is called at each stage's velocities."""
+    dt = cfg.dt
+    # dt / 6 in float64, then a tensor times a Python scalar, as the JAX
+    # weak-typed product rounds it; the stage combine divides by a 0-d
+    # float32 tensor, so the card divides rather than multiplying by a
+    # reciprocal
+    dt_2, dt_6 = 0.5 * dt, dt / 6.
+    env1 = _cached_env(st)
+    lon1, lat1 = st.lon, st.lat
+    uvel1, vvel1 = st.uvel, st.vvel
+    i1, j1 = st.ine, st.jne
+    axn_p, ayn_p = st.axn, st.ayn
+    moving = st.alive & (st.static_berg < 0.5)
+    six = st.lon.new_full((), 6.)
+
+    def stage_env(lon, lat, i, j, xi, yj):
+        if cfg.old_interp_flds_order:
+            return interp_flds(grid, frc, cfg, lon, lat, i, j, xi, yj)
+        return env1
+
+    def call_accel(envk, i, j, u, v, dtk):
+        return accel(cfg, grid, lat=st.lat, mass=st.mass,
+                     thickness=st.thickness, width=st.width,
+                     length=st.length, n_bonds=st.n_bonds, env=envk,
+                     uvel=u, vvel=v, uvel0=uvel1, vvel0=vvel1, dt=dtk,
+                     axn_in=axn_p, ayn_in=ayn_p, loc_dx=_loc_dx(grid, i, j),
+                     ia_fn=ia_fn)
+
+    def stage(u, v, dtk):
+        """X1 + dtk (u, v), walked from the step's cell."""
+        lon, lat = _advance_position(cfg, lon1, lat1, u, v, dtk)
+        return adjust_index_and_ground(grid, cfg, lon, lat, i1, j1, m25_pre)
+
+    # on a Cartesian grid the metric factors are 1: the stage velocities
+    # are the positions' rates
+    o1 = call_accel(env1, i1, j1, uvel1, vvel1, dt_2)
+    uvel2, vvel2 = uvel1 + dt_2 * o1.ax, vvel1 + dt_2 * o1.ay
+    lon2, lat2, i2, j2, xi2, yj2, b2 = stage(uvel1, vvel1, dt_2)
+    o2 = call_accel(stage_env(lon2, lat2, i2, j2, xi2, yj2), i2, j2,
+                    uvel2, vvel2, dt_2)
+    uvel3, vvel3 = uvel1 + dt_2 * o2.ax, vvel1 + dt_2 * o2.ay
+    lon3, lat3, i3, j3, xi3, yj3, b3 = stage(uvel2, vvel2, dt_2)
+    o3 = call_accel(stage_env(lon3, lat3, i3, j3, xi3, yj3), i3, j3,
+                    uvel3, vvel3, dt)
+    uvel4, vvel4 = uvel1 + dt * o3.ax, vvel1 + dt * o3.ay
+    lon4, lat4, i4, j4, xi4, yj4, b4 = stage(uvel3, vvel3, dt)
+    o4 = call_accel(stage_env(lon4, lat4, i4, j4, xi4, yj4), i4, j4,
+                    uvel4, vvel4, dt)
+
+    def comb(a1, a2, a3, a4):
+        return (a1 + a4) + 2. * (a2 + a3)
+
+    lonn = lon1 + dt_6 * comb(uvel1, uvel2, uvel3, uvel4)
+    latn = lat1 + dt_6 * comb(vvel1, vvel2, vvel3, vvel4)
+    uveln = uvel1 + dt_6 * comb(o1.ax, o2.ax, o3.ax, o4.ax)
+    vveln = vvel1 + dt_6 * comb(o1.ay, o2.ay, o3.ay, o4.ay)
+    axn = comb(o1.axn, o2.axn, o3.axn, o4.axn) / six
+    ayn = comb(o1.ayn, o2.ayn, o3.ayn, o4.ayn) / six
+    bxn = comb(o1.ax, o2.ax, o3.ax, o4.ax) / six - axn / 2.
+    byn = comb(o1.ay, o2.ay, o3.ay, o4.ay) / six - ayn / 2.
+    if cfg.override_iceberg_velocities:
+        uveln = torch.full_like(uveln, cfg.u_override)
+        vveln = torch.full_like(vveln, cfg.v_override)
+    lonn, latn, i, j, xi, yj, bn = adjust_index_and_ground(
+        grid, cfg, lonn, latn, i1, j1, m25_pre)
+
+    def sel(new, old):
+        return torch.where(moving, new, old)
+
+    st = st.replace(
+        axn=sel(axn, st.axn), ayn=sel(ayn, st.ayn),
+        bxn=sel(bxn, st.bxn), byn=sel(byn, st.byn),
+        uvel=sel(uveln, st.uvel), vvel=sel(vveln, st.vvel),
+        lon=sel(lonn, st.lon), lat=sel(latn, st.lat),
+        ine=torch.where(moving, i, st.ine),
+        jne=torch.where(moving, j, st.jne),
+        xi=sel(xi, st.xi), yj=sel(yj, st.yj))
+    tickets = ((o1.tickets | o2.tickets | o3.tickets | o4.tickets)
+               & moving).sum(dtype=torch.int32)
+    nbounce = ((b2 | b3 | b4 | bn) & moving).sum(dtype=torch.int32)
+    return EvolveOut(st, tickets, nbounce)
+
+
 def evolve_icebergs(st, grid: Grid, frc, cfg: IcebergsConfig, ia_fn=None,
                     m25_pre=None):
     """One dynamics step for all bergs (evolve_icebergs, icebergs.F90:7081),
     then the order-invariance copies (7185-7198)."""
-    if cfg.Runge_not_Verlet:
-        raise NotImplementedError("RK4 stepping (ROADMAP.md Queue 1 "
-                                  "item 15)")
-    out = verlet_step(st, grid, frc, cfg, ia_fn=ia_fn, m25_pre=m25_pre)
+    step = rk4_step if cfg.Runge_not_Verlet else verlet_step
+    out = step(st, grid, frc, cfg, ia_fn=ia_fn, m25_pre=m25_pre)
     st = out.state
     if cfg.interactive_icebergs_on:
         moving = st.alive & (st.static_berg < 0.5)

@@ -6,21 +6,29 @@ Counterpart of ``icebergs_tpu/model.py``'s ``StepDiags``, ``make_step``
 ``make_persistent_multi_step`` (``model.py:413-612``) and
 ``make_multi_step`` (``model.py:615-695``).  One fast-lane step:
 
-1. table interpolation of the forcing (one K1 read per berg), or with
-   ``interp_mode="kernel"`` the sorted-frame interpolation (K6);
-2. the contact search over the presorted slab — fused3 (K2), or
-   ``"fused"`` (K5) — and the Verlet step with the land-bounce walk;
-3. one (cell, id) re-sort of the whole state (K1), which serves the
-   thermodynamics, the spreading and the next step's search;
-4. thermodynamics with its melt columns deferred;
-5. the spreading segment sums (K3) and the coupler fields.
+1. table interpolation of the forcing (one K1 read per berg), with
+   ``interp_mode="kernel"`` the sorted-frame interpolation (K6), else
+   (``"xla"``, coastal or tidal drift) :func:`.ops.interp.interp_flds`;
+2. the contact search over the presorted slab — fused3 (K2, with
+   ``contact_epilogue`` its pair epilogue), or ``"fused"`` (K5) — and
+   the Verlet or RK4 step with the land-bounce walk;
+3. one (cell, id) re-sort of the whole state (K1, or the transport the
+   config's knobs pick), which serves the thermodynamics, the spreading
+   and the next step's search;
+4. thermodynamics, its melt columns deferred to the K3 pass, or summed
+   by their own scatters for the other slot-sum methods;
+5. the spreading segment sums (K3, or the slot sums of
+   ``slot_sum_method`` / the plain scatter of ``parallel_reprod=False``)
+   and the coupler fields.
 
 One per-step (``make_step``) step keeps the slot order: the table
-interpolation; the contact search on a sorted view — ``"fused3"`` (K2
+interpolation where the JAX ``make_step`` takes it, else
+``interp_flds``; the contact search on a sorted view — ``"fused3"`` (K2
 plus K1 transports), ``"fused"`` (K5) or the ``"buckets"`` tables with
-their pair evaluation through K7; Verlet;
-thermodynamics; K3 spreading behind a payload sort (K1) with all 14
-deferred melt fields.  An MTS step replaces the dynamics with
+their pair evaluation through K7; Verlet or RK4; thermodynamics; K3
+spreading behind a payload sort (K1) with all 14 deferred melt fields,
+or the method's slot sums, or the plain scatters.  An MTS step replaces
+the dynamics with
 :func:`.mts.evolve_icebergs_mts` (Part-1 search through K2 with the
 conglomerate filter, the force-convergence loop, the substep loop in
 K4) and reads the ocean depth through the quadratic stencil.
@@ -45,10 +53,11 @@ from .ops import spread as _spread
 from .ops import thermo as _thermo
 from .ops.fused_contact import (FusedContactStats, make_ia_fn_fused,
                                 make_ia_fn_fused2, make_ia_fn_fused3)
+from .ops.interp import interp_to_bergs, use_interp_table
 from .ops.interp_sorted import interp_to_bergs_sorted
 from .ops.interp_table import interp_to_bergs_table
 from .ops.segment_spread import cell_tables
-from .ops.sorted import sort_state_by_cell, uniform_state_fields
+from .ops.sorted import sort_kw, sort_state_by_cell, uniform_state_fields
 
 
 class StepDiags(NamedTuple):
@@ -75,6 +84,7 @@ class StepDiags(NamedTuple):
     mass_on_ocean: Optional[torch.Tensor] = None
     u_iceberg: Optional[torch.Tensor] = None
     v_iceberg: Optional[torch.Tensor] = None
+    melt_by_class: Optional[torch.Tensor] = None  # (nx+2, ny+2, classes)
 
 
 def _zero_spread(st, grid):
@@ -87,6 +97,7 @@ def _zero_spread(st, grid):
 def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
               with_interactions: Optional[bool] = None,
               with_spread: bool = True, with_calving: bool = False,
+              with_class_melt: bool = False,
               max_per_cell: int = 16, neighbor_mode: Optional[str] = None,
               neighbor_window: str = "full",
               contact_cap: Optional[int] = None,
@@ -105,7 +116,8 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
     ``max_per_cell``, ``neighbor_window`` and ``contact_cap``; the
     pair evaluation always goes through K7, whose wrapper takes the plain
     version for CPU tensors); ``with_interactions`` / ``with_thermo`` /
-    ``with_spread`` = False drop a phase.  MTS: ``mts_substep_kernel=
+    ``with_spread`` = False drop a phase; ``with_class_melt`` adds
+    ``StepDiags.melt_by_class``.  MTS: ``mts_substep_kernel=
     "vmem"`` with ``mts_vmem_deltas`` from
     :func:`.ops.dem_substeps.analyze_bond_deltas` on a
     :func:`~.ops.dem_substeps.pack_conglomerates_blocked` state runs the
@@ -114,10 +126,10 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
     check_ported(cfg)
     if with_calving:
         raise NotImplementedError("calving (ROADMAP.md Queue 1 item 9)")
-    if cfg.interp_mode != "table":
-        raise NotImplementedError(
-            f"interp_mode={cfg.interp_mode!r} on the per-step path (the XLA "
-            "interpolation interp_flds; ROADMAP.md Queue 1 item 15)")
+    table = use_interp_table(cfg)
+    # the pallas spread kernel pins the sort key's pre-thermodynamics
+    # aliveness; the other reproducing methods share one (cell, id) sort
+    spread_kernel = cfg.parallel_reprod and cfg.slot_sum_method == "pallas"
     if cfg.mts and mts_neighbor_mode not in (None, "fused"):
         raise NotImplementedError(f"mts_neighbor_mode={mts_neighbor_mode!r}"
                                   " (ROADMAP.md Queue 1 item 16)")
@@ -160,8 +172,12 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
         zero = torch.zeros((), dtype=torch.int32, device=st.device)
         # the per-step slab keeps the slots' order, random in cell; the
         # MTS slab is packed by conglomerate, local in cell (PERF.md)
-        st, m25_pre = interp_to_bergs_table(st, grid, frc, cfg,
-                                            via_rows=not cfg.mts)
+        m25_pre = None
+        if table:
+            st, m25_pre = interp_to_bergs_table(st, grid, frc, cfg,
+                                                via_rows=not cfg.mts)
+        else:
+            st = interp_to_bergs(st, grid, frc, cfg)
         fstats = mts_d = cap_ov = None
         if cfg.mts:
             st, mts_d = evolve_icebergs_mts(
@@ -176,25 +192,32 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
             out = evolve_icebergs(st, grid, frc, cfg, ia_fn=ia_fn,
                                   m25_pre=m25_pre)
             st, tickets, bounced = out.state, out.tickets, out.bounced
-        # the spreading's payload sort keys on the pre-thermodynamics
-        # aliveness: rows that die in thermodynamics keep their cell, so
-        # their deferred melt still lands
-        key_alive = st.alive
+        # the spreading's sort keys on the pre-thermodynamics aliveness:
+        # rows that die in thermodynamics keep their cell, so their
+        # deferred melt still lands
+        sort_ctx = key_alive = None
+        if spread_kernel:
+            key_alive = st.alive
+        elif cfg.parallel_reprod:
+            sort_ctx = _spread.make_sort_ctx(st, grid)
         melt = None
         if with_thermo:
-            st, melt = _thermo.thermodynamics(st, grid, frc, cfg,
-                                              defer_cell_cols=True)
-        melt_fields = [None] * 3
+            st, melt = _thermo.thermodynamics(
+                st, grid, frc, cfg, defer_cell_cols=cfg.parallel_reprod,
+                sort_ctx=sort_ctx, with_class_melt=with_class_melt)
+        deferred = melt.deferred_cols if melt is not None else None
+        melt_fields = ([None] * 3 if melt is None or deferred is not None
+                       else [melt.floating_melt, melt.calving_hflx,
+                             melt.berg_melt])
         if not with_spread:
             sp = _zero_spread(st, grid)
-        elif melt is not None:
-            sp, melt_fields = _spread.create_gridded_icebergs_fields(
-                st, grid, frc, cfg, key_alive=key_alive, cell_starts=None,
-                extra_cell_cols=melt.deferred_cols, cell_table=cell_table)
         else:
             sp = _spread.create_gridded_icebergs_fields(
                 st, grid, frc, cfg, key_alive=key_alive, cell_starts=None,
-                cell_table=cell_table)
+                extra_cell_cols=deferred, cell_table=cell_table,
+                sort_ctx=sort_ctx)
+            if deferred is not None:
+                sp, melt_fields = sp
         diags = StepDiags(
             nbergs=st.count(), tickets=tickets, bounced=bounced,
             total_mass=torch.where(st.alive, st.mass * st.mass_scaling,
@@ -208,7 +231,9 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
             spread_mass=sp.spread_mass, spread_area=sp.spread_area,
             spread_uvel=sp.spread_uvel, spread_vvel=sp.spread_vvel,
             ustar_iceberg=sp.ustar_iceberg, mass_on_ocean=sp.mass_on_ocean,
-            u_iceberg=sp.u_iceberg, v_iceberg=sp.v_iceberg)
+            u_iceberg=sp.u_iceberg, v_iceberg=sp.v_iceberg,
+            melt_by_class=(melt.melt_by_class if melt is not None
+                           else None))
         if mts_d is not None:
             diags = diags._replace(
                 p1_overflow=mts_d.p1_overflow, p1_fallback=mts_d.p1_fallback,
@@ -255,8 +280,18 @@ def make_persistent_multi_step(grid: Grid, cfg: IcebergsConfig,
     cap = (cfg.fused_fallback_cap if fused_fallback_cap is None
            else fused_fallback_cap)
     uniform = uniform_state_fields(cfg)
-    interp = (interp_to_bergs_sorted if cfg.interp_mode == "kernel"
-              else interp_to_bergs_table)
+    skw = sort_kw(cfg)
+    # the JAX lane's interpolation routing (model.py:470-476): K6, the
+    # table, or (interp_mode "xla", coastal or tidal drift) interp_flds
+    interp_ok = cfg.coastal_drift == 0. and cfg.tidal_drift == 0.
+    if cfg.interp_mode == "kernel" and interp_ok:
+        interp = interp_to_bergs_sorted
+    elif cfg.interp_mode == "table" and interp_ok:
+        interp = interp_to_bergs_table
+    else:
+        def interp(st, grid, frc, cfg):
+            return interp_to_bergs(st, grid, frc, cfg), None
+    spread_kernel = cfg.parallel_reprod and cfg.slot_sum_method == "pallas"
     nx, ny = grid.nx, grid.ny
     cell_table = cell_tables(grid) if with_spread else None
 
@@ -281,15 +316,26 @@ def make_persistent_multi_step(grid: Grid, cfg: IcebergsConfig,
         out = evolve_icebergs(st, grid, frc, cfg, ia_fn=ia_fn,
                               m25_pre=m25_pre)
         st, cell_starts = sort_state_by_cell(out.state, grid,
-                                             static_fields=uniform)
-        key_alive = st.alive           # pre-thermodynamics, for K3
-
+                                             static_fields=uniform, **skw)
+        # the slab is the (cell, id) frame: the reproducing sums need no
+        # order; key_alive / the keys are pre-thermodynamics
+        key_alive = st.alive
+        sort_ctx = None
+        if cfg.parallel_reprod and not spread_kernel:
+            key_s = torch.where(st.alive, st.jne * nx + st.ine,
+                                nx * ny).to(torch.int32)
+            sort_ctx = (None, key_s, _spread.sorted_ranks(key_s, nx * ny))
         melt = None
         if with_thermo:
-            st, melt = _thermo.thermodynamics(st, grid, frc, cfg,
-                                              defer_cell_cols=True)
+            st, melt = _thermo.thermodynamics(
+                st, grid, frc, cfg, defer_cell_cols=spread_kernel,
+                sort_ctx=sort_ctx)
         melt_fields = [None] * 3
-        if with_spread:
+        if melt is not None and melt.deferred_cols is None:
+            melt_fields = [melt.floating_melt, None, melt.berg_melt]
+        if not with_spread:
+            sp = _zero_spread(st, grid)
+        elif spread_kernel:
             # only floating_melt, calving_hflx and berg_melt of the 14
             # deferred melt columns are consumed by this step
             extra = melt.deferred_cols[:3] if melt is not None else None
@@ -300,7 +346,8 @@ def make_persistent_multi_step(grid: Grid, cfg: IcebergsConfig,
             if extra is not None:
                 sp, melt_fields = sp
         else:
-            sp = _zero_spread(st, grid)
+            sp = _spread.create_gridded_icebergs_fields(
+                st, grid, frc, cfg, sort_ctx=sort_ctx)
         diags = StepDiags(
             nbergs=st.count(), tickets=out.tickets, bounced=out.bounced,
             total_mass=torch.where(st.alive, st.mass * st.mass_scaling,
@@ -321,7 +368,7 @@ def make_persistent_multi_step(grid: Grid, cfg: IcebergsConfig,
         ov, fb = zero, zero
         acc = torch.zeros(nx + 2, ny + 2, dtype=st.dtype, device=st.device)
         # the slab's first order is random: K1's row route (PERF.md)
-        st, cs = sort_state_by_cell(st, grid, via_rows=True)
+        st, cs = sort_state_by_cell(st, grid, via_rows=True, **skw)
         for _ in range(n_inner):
             st, cs, d = step(st, cs, frc)
             ov = torch.maximum(ov, d.contact_overflow)

@@ -17,6 +17,15 @@ them as the JAX package does.
 candidates whose ``PT_GRP`` row (the conglomerate id) equals the berg's
 own (``pallas_prepass.py:709-710, 743-744``).
 
+``epilogue=True`` (``contact_epilogue``, ``pallas_prepass.py:776-830``)
+also runs the legacy contact group's velocity-independent pair
+precompute: the spring-acceleration sums over every exact pair (r <
+crit) of every strip in rows ``EX_IAX`` / ``EX_IAY``, and per selected
+partner ``EX_EPI_NP`` rows from ``EX_F1`` / ``EX_F2``: u, v, P11, P12,
+P22, the mass ratio min(M1, M2) / M1 and the exactness flag.  The sums
+run in candidate order; rows with at most two exact pairs have the same
+bits in any order (the others are bad rows that the caller masks).
+
 The kernel (``csrc/extract_sorted.cu``) has instantiations compiled for
 the two shapes the paths launch (:func:`kernel_config`): BN 128, radius 1
 (the fast lane and per-step ``fused3``) and BN 256, radius 2 with the
@@ -45,6 +54,9 @@ EX_CNT, EX_VMIN, EX_VMAX = 0, 1, 2
 EX_F1 = 4
 EX_F2 = 12
 EX_NOUT = 24
+# epilogue rows (pallas_prepass.py:268-273)
+EX_IAX, EX_IAY = 3, 20
+EX_EPI_NP = 7
 _NFEAT = 8                    # PT rows 0..7 copied per partner
 _SLACK = float(np.float32(1. + 1e-6))
 
@@ -91,11 +103,17 @@ def block_tables(key_s, cell_starts, nx: int, ny: int, block_n: int,
 
 def extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad, block_n: int,
                          contact_distance: float, chunk_rows: int = 65536,
-                         exclude_same_group: bool = False):
+                         exclude_same_group: bool = False,
+                         epilogue: bool = False, spring: float = 0.,
+                         exact_counts: bool = False):
     """Plain version: each row's candidates as a (rows, 2r+1, W) slab of
     strip slots ``cell_starts[c_lo] + k`` (W = the longest strip of a
     good block), engagement elementwise, count / min / max reductions,
-    features gathered by slot.  Processed in row chunks."""
+    features gathered by slot (with ``epilogue``, the spring sums masked
+    by exactness and summed over the slab, and the selected partners'
+    rows recomputed from their slots).  Processed in row chunks.
+    ``exact_counts`` (with ``epilogue``) also returns each row's number
+    of exact pairs, (N,) int32."""
     N = PT.shape[1]
     dev = PT.device
     nstrips = c_lo.shape[1]
@@ -107,6 +125,7 @@ def extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad, block_n: int,
     W = max(int(length.max()) if length.numel() else 0, 1)
     k = torch.arange(W, device=dev)
     out = torch.zeros(EX_NOUT, N, dtype=PT.dtype, device=dev)
+    nexact = torch.zeros(N, dtype=torch.int32, device=dev)
     for r0 in range(0, N, chunk_rows):
         rows = torch.arange(r0, min(N, r0 + chunk_rows), device=dev)
         blk = rows // block_n
@@ -140,14 +159,49 @@ def extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad, block_n: int,
         out[EX_VMIN, rows] = vmin.to(PT.dtype)
         out[EX_VMAX, rows] = vmax.to(PT.dtype)
         has = (cnt > 0)[None, :]
+        if epilogue:
+            r = torch.sqrt(r2)
+            rsafe = torch.where(r2 > 0., r, 1.)
+            exact = valid & (r2 > 0.) & (r < crit)
+            nexact[rows] = exact.sum(dim=(1, 2), dtype=torch.int32)
+            M1 = own(PT_MASS).clamp(min=1e-30)
+            aspr = spring * (torch.minimum(M1, cnd(PT_MASS)) / M1) \
+                * (crit - r)
+            out[EX_IAX, rows] = torch.where(exact, aspr * (rx / rsafe),
+                                            0.).sum(dim=(1, 2))
+            out[EX_IAY, rows] = torch.where(exact, aspr * (ry / rsafe),
+                                            0.).sum(dim=(1, 2))
+            for base, q in ((EX_F1, vmin.clamp(max=N - 1)),
+                            (EX_F2, vmax.clamp(min=0))):
+                d = _partner_rows(PT, rows, q, contact_distance)
+                out[base:base + EX_EPI_NP, rows] = torch.where(has, d, 0.)
+            continue
         out[EX_F1:EX_F1 + _NFEAT, rows] = torch.where(
             has, PT[:_NFEAT][:, vmin.clamp(max=N - 1)], 0.)
         out[EX_F2:EX_F2 + _NFEAT, rows] = torch.where(
             has, PT[:_NFEAT][:, vmax.clamp(min=0)], 0.)
-    return out
+    return (out, nexact) if exact_counts else out
 
 
-_VARIANTS = ("fused3", "part1", "generic", "generic_group")
+def _partner_rows(PT, rows, q, contact_distance: float):
+    """(7, n) epilogue rows of the partners in slots ``q``: u, v, P11,
+    P12, P22, min(M1, M2) / M1, exactness (an engaged partner has r2 >
+    0, so rsafe = r)."""
+    rx = PT[PT_LON, rows] - PT[PT_LON, q]
+    ry = PT[PT_LAT, rows] - PT[PT_LAT, q]
+    r2 = rx * rx + ry * ry
+    crit = (PT[PT_RAD, rows] + PT[PT_RAD, q]).clamp(min=contact_distance)
+    r = torch.sqrt(r2)
+    rs2 = r * r
+    M1 = PT[PT_MASS, rows].clamp(min=1e-30)
+    return torch.stack([PT[PT_U, q], PT[PT_V, q], (rx * rx) / rs2,
+                        (rx * ry) / rs2, (ry * ry) / rs2,
+                        torch.minimum(M1, PT[PT_MASS, q]) / M1,
+                        (r < crit).to(PT.dtype)])
+
+
+_VARIANTS = ("fused3", "part1", "generic", "generic_group", "fused3_epi",
+             "generic_epi")
 
 
 def _generic(variant) -> int:
@@ -157,17 +211,17 @@ def _generic(variant) -> int:
 
 
 def kernel_config(block_n: int, radius: int, exclude_same_group: bool,
-                  variant: str = None):
+                  variant: str = None, epilogue: bool = False):
     """``(instantiation, dynamic shared memory bytes, resident CTAs per
     SM)`` of the K2 launch at these settings on the current CUDA device:
     ``"fused3"`` (BN 128, radius 1), ``"part1"`` (BN 256, radius 2, the
-    conglomerate filter) or a generic one (also where ``variant ==
-    "generic"``)."""
+    conglomerate filter), ``"fused3_epi"`` (BN 128, radius 1, the pair
+    epilogue) or a generic one (also where ``variant == "generic"``)."""
     v, smem, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     cuda_build.check(cuda_build.library().ib_extract_config(
         block_n, 2 * radius + 1, int(exclude_same_group), _generic(variant),
-        ctypes.byref(v), ctypes.byref(smem), ctypes.byref(ctas)),
-        "extract_config")
+        int(epilogue), ctypes.byref(v), ctypes.byref(smem),
+        ctypes.byref(ctas)), "extract_config")
     return _VARIANTS[v.value], smem.value, ctas.value
 
 
@@ -176,23 +230,28 @@ def kernel_resources() -> dict:
     from the library's ``-Xptxas -v`` report."""
     out = {}
     for name, r in cuda_build.resource_report().items():
-        m = re.search(r"extract_sorted_kernelILi(\d+)ELi(\d+)ELb([01])E",
-                      name)
+        m = re.search(r"extract_sorted_kernelILi(\d+)ELi(\d+)ELb([01])ELi"
+                      r"\d+ELb([01])E", name)
         if m and "registers" in r:
-            bn, ns, g = m.groups()
+            bn, ns, g, e = m.groups()
             key = ({("128", "3", "0"): "fused3",
                     ("256", "5", "1"): "part1"}.get((bn, ns, g))
                    or ("generic_group" if g == "1" else "generic"))
+            if e == "1":
+                key = "fused3_epi" if key == "fused3" else "generic_epi"
             out[key] = r
     return out
 
 
 def extract_sorted(PT, key_s, cell_starts, grid, cfg, *, block_n: int = 128,
                    window: int = 160, radius: int = 1,
-                   exclude_same_group: bool = False, variant: str = None):
+                   exclude_same_group: bool = False, variant: str = None,
+                   epilogue: bool = False):
     """Contact search + extraction.  Returns ``(out (24, N) f32,
     bad_block (N,) bool)``.  ``variant="generic"`` launches the generic
-    instantiation whatever the shape (:func:`kernel_config`).
+    instantiation whatever the shape (:func:`kernel_config`);
+    ``epilogue`` runs the pair epilogue with the config's contact spring
+    (not with ``exclude_same_group``).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (counted in ``extract_sorted.launches``)."""
@@ -212,10 +271,15 @@ def extract_sorted(PT, key_s, cell_starts, grid, cfg, *, block_n: int = 128,
     # expand, not repeat_interleave: the latter reads its size on the host
     bad_block = bad[:, None].expand(-1, block_n).reshape(-1)[:N]
     cd = float(cfg.contact_distance)
+    if epilogue and exclude_same_group:
+        raise ValueError("the pair epilogue serves the legacy contact "
+                         "group only (no exclude_same_group)")
+    spring = float(cfg.contact_spring_coef_eff) if epilogue else 0.
     if PT.device.type == "cpu":
         return (extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad,
                                      block_n, cd,
-                                     exclude_same_group=exclude_same_group),
+                                     exclude_same_group=exclude_same_group,
+                                     epilogue=epilogue, spring=spring),
                 bad_block)
     if PT.device.type != "cuda":
         raise NotImplementedError(f"no K2 kernel for {PT.device}")
@@ -230,10 +294,15 @@ def extract_sorted(PT, key_s, cell_starts, grid, cfg, *, block_n: int = 128,
     cuda_build.check(lib.ib_extract_sorted(
         PT.data_ptr(), N, cell_starts.data_ptr(), c_lo.data_ptr(),
         c_hi.data_ptr(), badu8.data_ptr(), out.data_ptr(), bad.shape[0],
-        block_n, c_lo.shape[1], int(exclude_same_group), generic, cd,
-        _SLACK, cuda_build.stream_ptr(PT.device)), "extract_sorted")
-    extract_sorted.launches += 1
+        block_n, c_lo.shape[1], int(exclude_same_group), generic,
+        int(epilogue), cd, _SLACK, spring, cuda_build.stream_ptr(PT.device)),
+        "extract_sorted")
+    if epilogue:
+        extract_sorted.epilogue_launches += 1
+    else:
+        extract_sorted.launches += 1
     return out, bad_block
 
 
-extract_sorted.launches = 0
+extract_sorted.launches = 0            # the search alone
+extract_sorted.epilogue_launches = 0   # with the pair epilogue

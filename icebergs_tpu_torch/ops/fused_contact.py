@@ -25,6 +25,12 @@ and ``make_ia_fn_fused2``):
    with one small scatter per field (``make_ia_fn_fused``: one
    rank-table gather per field, as the JAX function folds them).
 
+With ``contact_epilogue`` (and ``extract_impl="gathered"``, as the JAX
+package runs it) K2 also runs the two-partner group's pair precompute
+and the pair data are assembled from its rows (``fused_contact.py:
+580-606``).  With ``pack_kernel=False`` the search's results come back
+to the origin frame by one gather per row instead of K1.
+
 Overflow (fallback rows beyond the cap, strips wider than the strip
 width) is counted in ``FusedContactStats.overflow``; a nonzero count
 means the result is not exact and the caller must grow the cap.
@@ -32,6 +38,7 @@ means the result is not exact and the caller must grow the cap.
 
 from __future__ import annotations
 
+import math
 from types import SimpleNamespace
 from typing import NamedTuple
 
@@ -40,10 +47,10 @@ import torch
 from ..config import IcebergsConfig
 from . import forces as _forces
 from .accel import IA
-from .extract import (EX_CNT, EX_F1, EX_F2, EX_VMAX, EX_VMIN, PT_ALIVE,
-                      PT_AREA, PT_FLK, PT_GRP, PT_KEY, PT_LAT, PT_LON,
-                      PT_MASS, PT_NEVAL, PT_NF, PT_RAD, PT_U, PT_V,
-                      extract_sorted)
+from .extract import (EX_CNT, EX_EPI_NP, EX_F1, EX_F2, EX_IAX, EX_IAY,
+                      EX_VMAX, EX_VMIN, PT_ALIVE, PT_AREA, PT_FLK, PT_GRP,
+                      PT_KEY, PT_LAT, PT_LON, PT_MASS, PT_NEVAL, PT_NF,
+                      PT_RAD, PT_U, PT_V, extract_sorted)
 from .pack import from_bits, permute_cols_u32, to_bits
 from .prepass import contact_prepass_sorted, prepass_features
 from .sorted import lex_cell_id_order, starts_from_sorted_key
@@ -163,7 +170,7 @@ def contact_feature_rows(st, grid, cfg: IcebergsConfig,
 def _extract_groups(st, grid, cfg: IcebergsConfig, *, block_n, window,
                     fallback_cap, fallback_strip_width, presorted,
                     cell_starts=None, radius=1, exclude_same_group=False,
-                    with_partner_slots=False):
+                    with_partner_slots=False, epilogue=False):
     """Search + pair data (``_origin_frame_groups_extract``).
 
     ``presorted``: ``st`` is the (cell, id)-sorted slab and everything
@@ -174,7 +181,8 @@ def _extract_groups(st, grid, cfg: IcebergsConfig, *, block_n, window,
     ``with_partner_slots`` keeps origin-frame partner slots in the pair
     data for :func:`forces.refresh_pair_velocities`.
 
-    Returns ``(pd_n, pd_f, sel_f, vrow_f, stats)``."""
+    ``epilogue``: K2's pair epilogue makes the two-partner group's pair
+    data.  Returns ``(pd_n, pd_f, sel_f, vrow_f, stats)``."""
     N = st.capacity
     ncells = grid.nx * grid.ny
     if presorted:
@@ -197,7 +205,8 @@ def _extract_groups(st, grid, cfg: IcebergsConfig, *, block_n, window,
     out, bad_block = extract_sorted(PT, key_s, cell_starts, grid, cfg,
                                     block_n=block_n, window=window,
                                     radius=radius,
-                                    exclude_same_group=exclude_same_group)
+                                    exclude_same_group=exclude_same_group,
+                                    epilogue=epilogue)
     cnt = out[EX_CNT].to(torch.int32)
     bad = (bad_block | (cnt > 2)) & (key_s < ncells)
     lanes = [cnt, bad.to(torch.int32)]
@@ -210,30 +219,66 @@ def _extract_groups(st, grid, cfg: IcebergsConfig, *, block_n, window,
         zero = torch.zeros_like(cnt)
         lanes += [torch.where(cnt >= 1, i1, zero),
                   torch.where(cnt >= 2, i2, zero)]
-    frows = ([out[EX_F1 + k] for k in range(PT_NEVAL)]
-             + [out[EX_F2 + k] for k in range(PT_NEVAL)])
-    if inv is not None:
+    npr = EX_EPI_NP if epilogue else PT_NEVAL
+    frows = ([out[EX_F1 + k] for k in range(npr)]
+             + [out[EX_F2 + k] for k in range(npr)])
+    if epilogue:
+        frows += [out[EX_IAX], out[EX_IAY]]
+    if inv is not None and cfg.pack_kernel:
         R = permute_cols_u32(lanes + [to_bits(f) for f in frows], inv)
         nl = len(lanes)
         lanes = list(R[:nl])
         frows = [from_bits(R[nl + k], out.dtype) for k in range(len(frows))]
+    elif inv is not None:
+        # the per-row origin-frame gathers (fused_contact.py:566-572)
+        il = inv.long()
+        lanes = [x[il] for x in lanes]
+        frows = [f[il] for f in frows]
     cnt, bad = lanes[0], lanes[1] > 0
     other_T = torch.stack(lanes[2:4]) if with_partner_slots else None
 
     normal = (cnt > 0) & ~bad & st.alive
     m_n = torch.stack([normal, normal & (cnt >= 2)])
-    names = ("lon2", "lat2", "u2", "v2", "A2g", "M2g")
-    partner_fields = {nm: torch.stack([frows[k], frows[PT_NEVAL + k]])
-                      for k, nm in enumerate(names)}
-    pd_n = _forces.precompute_pair_data_T(st, cfg, m_n,
-                                          partner_fields=partner_fields,
-                                          other_T=other_T)
+    if epilogue:
+        pd_n = _epilogue_pair_data(frows, m_n, normal, cfg)
+    else:
+        names = ("lon2", "lat2", "u2", "v2", "A2g", "M2g")
+        partner_fields = {nm: torch.stack([frows[k], frows[PT_NEVAL + k]])
+                          for k, nm in enumerate(names)}
+        pd_n = _forces.precompute_pair_data_T(
+            st, cfg, m_n, partner_fields=partner_fields, other_T=other_T)
     pd_f, sel_f, vrow_f, stats = _fallback_group(
         st, bad, order, key_s, cell_starts, grid, cfg,
         fallback_cap=fallback_cap,
         fallback_strip_width=fallback_strip_width, radius=radius,
         exclude_same_group=exclude_same_group)
     return pd_n, pd_f, sel_f, vrow_f, stats
+
+
+def _epilogue_pair_data(frows, m_n, normal, cfg: IcebergsConfig):
+    """(2, N) pair data from K2's epilogue rows (``fused_contact.py:
+    580-606``): the kernel already decided exact engagement and summed
+    the spring accelerations; damping coefficients scale its mass
+    ratios."""
+    def prow(k):
+        return torch.stack([frows[k], frows[EX_EPI_NP + k]])
+
+    # the JAX function takes these square roots in float64 (math.sqrt),
+    # rounded to float32 where they multiply
+    s = math.sqrt(cfg.contact_spring_coef_eff)
+    if cfg.critical_interaction_damping_on:
+        rad_d = 2. * s
+        tan_d = (2. * s / 4. if cfg.tang_crit_int_damp_on
+                 else cfg.tangental_damping_coef)
+    else:
+        rad_d, tan_d = cfg.radial_damping_coef, cfg.tangental_damping_coef
+    mm, ex = prow(5), prow(6)
+    return _forces.PairData(
+        active=m_n & (ex > 0.5),
+        IA_x=torch.where(normal, frows[2 * EX_EPI_NP], 0.),
+        IA_y=torch.where(normal, frows[2 * EX_EPI_NP + 1], 0.),
+        P11=prow(2), P12=prow(3), P22=prow(4),
+        crad=rad_d * mm, ctan=tan_d * mm, u2=prow(0), v2=prow(1))
 
 
 def _check_legacy(cfg: IcebergsConfig):
@@ -261,7 +306,8 @@ def make_ia_fn_fused3(st, grid, cfg: IcebergsConfig, *, block_n: int = 128,
         st, grid, cfg, block_n=block_n, window=window,
         fallback_cap=fallback_cap,
         fallback_strip_width=fallback_strip_width, presorted=presorted,
-        cell_starts=cell_starts)
+        cell_starts=cell_starts,
+        epilogue=cfg.contact_epilogue and cfg.extract_impl == "gathered")
     u0, v0 = st.uvel, st.vvel
     s = sel_f.long()
     fold = _scatter_fold(sel_f, vrow_f, st.capacity)

@@ -244,13 +244,11 @@ def interp_to_bergs_table(st, grid: Grid, frc, cfg: IcebergsConfig, *,
     5x5 anchor (N,) and 9x9 anchor rows (9, N), int32.  MTS configs take
     ``od`` from the quadratic stencil rows.  ``via_rows`` reads the table
     by K1's row route, for a slab whose cell keys are in random order."""
-    if cfg.coastal_drift != 0. or cfg.tidal_drift != 0.:
-        raise NotImplementedError(
-            "table interpolation with coastal/tidal drift (ROADMAP.md "
-            "Queue 1 item 11)")
-    if cfg.mts and cfg.A68_test:
-        raise NotImplementedError("the A68 test's XLA interpolation "
-                                  "(ROADMAP.md Queue 1 item 15)")
+    if (cfg.coastal_drift != 0. or cfg.tidal_drift != 0.
+            or (cfg.mts and cfg.A68_test)):
+        raise ValueError("the table holds no coastal / tidal drift and no "
+                         "A68 depth: such configs read interp_flds "
+                         "(ops.interp.use_interp_table)")
     ncells = grid.nx * grid.ny
     key = torch.where(st.alive, st.jne * grid.nx + st.ine,
                       ncells).to(torch.int32)

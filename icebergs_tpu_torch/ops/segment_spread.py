@@ -21,6 +21,10 @@ a clustered world's coupler fields then differ from the sequential sums
 by association.  Both versions here take the same switch: the CUDA kernel
 computes the window flags and their count on the device and reads the
 count there (no host sync); the plain version reads it on the host.
+
+:func:`segment_sums` is K3's pass-through entry: the per-cell sums of
+given columns in an association the caller fixes, for the other slot-sum
+methods of :mod:`.spread`.
 """
 
 from __future__ import annotations
@@ -161,8 +165,14 @@ def segment_spread_sums_plain(rows_s, cell_starts, tbl,
     one add per rank, in rank order.  Slot tree: ranks k < K-1 into slot
     k, the rest added into slot K-1 in rank order, then
     :func:`slot_tree` (``K = cfg.reprod_max_per_cell``)."""
-    N = rows_s.shape[1]
-    P = _row_products(rows_s, tbl, cfg)
+    return _sums_plain(_row_products(rows_s, tbl, cfg), cell_starts,
+                       cfg.reprod_max_per_cell, tree)
+
+
+def _sums_plain(P, cell_starts, K: int, tree: bool):
+    """:func:`segment_spread_sums_plain` on per-row summands ``P`` (F, N):
+    (ncells, F)."""
+    N = P.shape[1]
     cs = cell_starts.long()
     first, occ = cs[:-1], cs[1:] - cs[:-1]
     zero = torch.zeros(P.shape[0], first.shape[0], dtype=P.dtype,
@@ -176,12 +186,51 @@ def segment_spread_sums_plain(rows_s, cell_starts, tbl,
         for k in range(nmax):
             S = S + rank(k)
         return S.T.contiguous()
-    K = cfg.reprod_max_per_cell
     slots = [zero + rank(k) if k < nmax else zero for k in range(K - 1)]
     tail = zero
     for k in range(K - 1, nmax):
         tail = tail + rank(k)
     return slot_tree(torch.stack(slots + [tail], dim=-1)).T.contiguous()
+
+
+def segment_sums(cols, cell_starts, K: int, tree: bool):
+    """Per-cell sums of cell-sorted columns in a chosen association: K3's
+    pass-through instantiation, ``tree`` the slot tree over K slots, else
+    sequential in row order.  ``cols``: (N,) float32 columns in sorted
+    order; ``cell_starts``: (ncells + 1,) int32.  Returns (ncells,
+    len(cols)).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches K3 once
+    per 16 columns (counted in ``segment_sums.launches``), the
+    association fixed by a device flag (no host sync)."""
+    cols = list(cols)
+    dev = cols[0].device
+    ncells = cell_starts.shape[0] - 1
+    if dev.type == "cpu":
+        return _sums_plain(torch.stack(cols), cell_starts, K, tree)
+    if dev.type != "cuda":
+        raise NotImplementedError(f"no K3 kernel for {dev}")
+    lib = cuda_build.library()
+    if not 1 <= K <= lib.ib_max_spread_slots():
+        raise ValueError(f"K={K}: the K3 kernel takes 1 .. "
+                         f"{lib.ib_max_spread_slots()} slots")
+    cs = cell_starts.to(torch.int32).contiguous()
+    flag = torch.full((), int(tree), dtype=torch.int32, device=dev)
+    out = []
+    step = lib.ib_max_spread_extra()
+    for c0 in range(0, len(cols), step):
+        part = [c.contiguous() for c in cols[c0:c0 + step]]
+        S = torch.empty(ncells, len(part), dtype=torch.float32, device=dev)
+        # the payload's fixed rows and the cell table are not read
+        ptrs = array.array("Q", [0] * (R_NFIX - 1)
+                           + [r.data_ptr() for r in part])
+        cuda_build.check(lib.ib_segment_sums_assoc(
+            ptrs.buffer_info()[0], cs.data_ptr(), None, S.data_ptr(),
+            flag.data_ptr(), ncells, len(part), K,
+            cuda_build.stream_ptr(dev)), "segment_sums")
+        segment_sums.launches += 1
+        out.append(S)
+    return torch.cat(out, dim=1)
 
 
 _VARIANTS = ("extra3", "extra14", "generic")
@@ -281,6 +330,7 @@ def segment_spread_sums(rows_s, cell_starts, tbl, cfg: IcebergsConfig,
 
 
 segment_spread_sums.launches = 0
+segment_sums.launches = 0
 
 
 def kernel_config(n_extra: int, K: int, variant: str = None):
@@ -314,8 +364,7 @@ def build_rows(st, grid, frc, cfg: IcebergsConfig, extra_cols,
     ``pallas_spread.py:492-552``).  ``key_alive`` is the sort key's
     aliveness (pre-thermodynamics); value columns mask with the current
     ``st.alive``."""
-    from .spread import berg_spread_mass
-    from .thermo import fl_bits_dimensions
+    from .spread import berg_spread_mass, bits_areas
 
     nx = grid.nx
     alive = st.alive
@@ -324,29 +373,14 @@ def build_rows(st, grid, frc, cfg: IcebergsConfig, extra_cols,
     key = torch.where(key_alive, st.jne * nx + st.ine,
                       grid.nx * grid.ny).to(torch.int32)
     af = alive.to(st.lon.dtype)
-    L, W, T = st.length, st.width, st.thickness
+    L, W = st.length, st.width
     Area = L * W
     Mass = torch.where(alive, berg_spread_mass(st, grid, frc, cfg), 0.)
     LWms = Area * st.mass_scaling * af
     massms = st.mass * st.mass_scaling * af
     I, J = (st.ine + 1).long(), (st.jne + 1).long()
     area_c = grid.area[I, J].clamp(min=1e-30)
-    zeros = torch.zeros_like(L)
-    if cfg.bergy_bit_erosion_fraction > 0.:
-        Lbits = torch.minimum(torch.minimum(L, W),
-                              T.clamp(max=40.)).clamp(min=1e-30)
-        Abits = (st.mass_of_bits / cfg.rho_bergs) / Lbits
-    else:
-        Abits = zeros
-    Abits_fl = Abits_flb = zeros
-    if cfg.fl_style == 'fl_bits':
-        Lfl, Wfl, Tfl = fl_bits_dimensions(cfg, T)
-        Abits_fl = (st.mass_of_fl_bits / cfg.rho_bergs) \
-            / Tfl.clamp(min=1e-30)
-        if cfg.bergy_bit_erosion_fraction > 0.:
-            Lb2 = torch.minimum(torch.minimum(Lfl, Wfl),
-                                Tfl.clamp(max=40.)).clamp(min=1e-30)
-            Abits_flb = (st.mass_of_fl_bergy_bits / cfg.rho_bergs) / Lb2
+    Abits, Abits_fl, Abits_flb = bits_areas(st, cfg)
     virt = (W * L + Abits + Abits_fl + Abits_flb) * st.mass_scaling * af
     w_cell_grid = torch.where(alive, st.mass_scaling / area_c, 0.)
     bits = (st.mass_of_bits + st.mass_of_fl_bergy_bits) * w_cell_grid

@@ -1,10 +1,16 @@
 """Cell-sorted particle layout: the (cell, id) re-sort of the whole state.
 
-Counterpart of ``icebergs_tpu/ops/sorted.py`` on its production branch
-(``sort_state_by_cell`` with ``packed_permute=True, pack_kernel=True``,
-``sorted.py:83-143, 251-324``): a key-only sort, then every non-uniform
-state column moved by K1 (:func:`..ops.pack.permute_cols_u32`, which
-reads the columns in place, at most 128 a launch).
+Counterpart of ``icebergs_tpu/ops/sorted.py`` (``sort_state_by_cell``,
+``starts_from_sorted_key``, ``_payload_sort_state``,
+``_packed_permute_state``, ``uniform_state_fields``): a key-only sort,
+then every non-uniform state column moved by the permutation.  The
+production transport (``sort_packed_permute``, ``pack_kernel``) is K1
+(:func:`..ops.pack.permute_cols_u32`, which reads the columns in place,
+at most 128 a launch); ``pack_kernel=False`` moves the columns as one
+stacked (N, C) matrix by a row gather and ``sort_packed_permute=False``
+gathers each column by the order (the JAX variadic payload sort's
+result); ``starts_via_scatter`` takes the cell starts from a scatter-min
+and a reverse running minimum.  All give the same bits.
 """
 
 from __future__ import annotations
@@ -30,11 +36,26 @@ def lex_cell_id_order(key, id_cnt, id_ij):
     return order.to(torch.int32)
 
 
-def starts_from_sorted_key(sorted_key, ncells: int):
-    """``searchsorted(sorted_key, arange(ncells + 1))`` (left), int32."""
-    q = torch.arange(ncells + 1, dtype=sorted_key.dtype,
-                     device=sorted_key.device)
-    return torch.searchsorted(sorted_key, q).to(torch.int32)
+def starts_from_sorted_key(sorted_key, ncells: int, *,
+                           via_scatter: bool = False):
+    """``searchsorted(sorted_key, arange(ncells + 1))`` (left), int32; with
+    ``via_scatter`` the same values from a scatter-min of each present
+    key's first row into its slot and a reverse running minimum that
+    fills the absent keys (``sorted.py:146-168``)."""
+    dev = sorted_key.device
+    if not via_scatter:
+        q = torch.arange(ncells + 1, dtype=sorted_key.dtype, device=dev)
+        return torch.searchsorted(sorted_key, q).to(torch.int32)
+    N = sorted_key.shape[0]
+    first = torch.ones(N, dtype=torch.bool, device=dev)
+    first[1:] = sorted_key[1:] != sorted_key[:-1]
+    tgt = torch.where(first, sorted_key.to(torch.int64), ncells + 1)
+    tgt = tgt.clamp(max=ncells + 1)
+    starts = torch.full((ncells + 2,), N, dtype=torch.int32, device=dev)
+    starts.scatter_reduce_(0, tgt, torch.arange(N, dtype=torch.int32,
+                                                device=dev), reduce="amin")
+    starts = starts[:ncells + 1].flip(0).cummin(0).values.flip(0)
+    return starts.contiguous()
 
 
 def uniform_state_fields(cfg: IcebergsConfig):
@@ -55,8 +76,43 @@ def uniform_state_fields(cfg: IcebergsConfig):
     return tuple(out)
 
 
+def _state_columns(st, skip):
+    """The state's (N,) columns outside ``skip``, each bond-table column
+    on its own: ``[(field, bond column or None, tensor)]``."""
+    out = []
+    for f in dataclasses.fields(st):
+        if f.name in skip:
+            continue
+        leaf = getattr(st, f.name)
+        if leaf.dim() == 1:
+            out.append((f.name, None, leaf))
+        else:
+            out += [(f.name, b, leaf[:, b]) for b in range(leaf.shape[1])]
+    return out
+
+
+def _move_columns(cols, order, *, packed_permute: bool, pack_kernel: bool,
+                  via_rows: bool):
+    """The columns reordered by ``order``: K1 (``packed_permute`` and
+    ``pack_kernel``), a row gather of the stacked u32 matrix
+    (``pack_kernel=False``), or one gather per column
+    (``packed_permute=False``)."""
+    ol = order.long()
+    if not packed_permute:
+        return [c[ol] for c in cols]
+    lanes = [to_bits(c) for c in cols]
+    if pack_kernel:
+        moved = permute_cols_u32(lanes, order, via_rows=via_rows)
+    else:
+        # stack_cols (sorted.py:43-58) and one row gather
+        moved = torch.stack(lanes, dim=1)[ol].T.contiguous()
+    return [from_bits(m, c.dtype) for m, c in zip(moved, cols)]
+
+
 def sort_state_by_cell(st, grid: Grid, *, static_fields=(),
-                       via_rows: bool = False):
+                       via_rows: bool = False, packed_permute: bool = True,
+                       pack_kernel: bool = True,
+                       starts_via_scatter: bool = False):
     """Reorder every state leaf by (cell key, id_cnt, id_ij), dead bergs
     (key = ncells) last.  Returns ``(sorted_state, cell_starts)`` with
     ``cell_starts`` (ncells+1,) int32 the first sorted slot of each cell.
@@ -64,7 +120,9 @@ def sort_state_by_cell(st, grid: Grid, *, static_fields=(),
     ``static_fields`` (see :func:`uniform_state_fields`) are left in
     place.  Bond partner slots are remapped through the permutation.
     ``via_rows`` moves the columns by K1's row route (for a slab in
-    random order; bitwise the same)."""
+    random order); ``packed_permute``, ``pack_kernel`` and
+    ``starts_via_scatter`` are the config's transport knobs.  Every
+    choice gives the same bits."""
     nx, ny = grid.nx, grid.ny
     ncells = nx * ny
     N = st.capacity
@@ -75,24 +133,12 @@ def sort_state_by_cell(st, grid: Grid, *, static_fields=(),
     sorted_key = key[ol]
     new = {"id_cnt": st.id_cnt[ol], "id_ij": st.id_ij[ol],
            "alive": sorted_key < ncells}
-
-    skip = set(static_fields) | set(new)
-    cols = []                       # (field, bond column or None, dtype)
-    lanes = []
-    for f in dataclasses.fields(st):
-        if f.name in skip:
-            continue
-        leaf = getattr(st, f.name)
-        subs = ([(None, leaf)] if leaf.dim() == 1 else
-                [(b, leaf[:, b]) for b in range(leaf.shape[1])])
-        for b, col in subs:
-            cols.append((f.name, b, col.dtype))
-            lanes.append(to_bits(col))
+    cols = _state_columns(st, set(static_fields) | set(new))
+    moved = _move_columns([c for _, _, c in cols], order,
+                          packed_permute=packed_permute,
+                          pack_kernel=pack_kernel, via_rows=via_rows)
     packs = {}
-    # K1 reads the leaves' columns where they lie (no stack), 128 a launch
-    moved = permute_cols_u32(lanes, order, via_rows=via_rows)
-    for k, (nm, b, dt) in enumerate(cols):
-        col = from_bits(moved[k], dt)
+    for (nm, b, _), col in zip(cols, moved):
         if b is None:
             new[nm] = col
         else:
@@ -106,4 +152,12 @@ def sort_state_by_cell(st, grid: Grid, *, static_fields=(),
         bidx = new["bond_idx"]
         new["bond_idx"] = torch.where(
             bidx >= 0, inv[bidx.clamp(min=0).long()], -1).to(torch.int32)
-    return st.replace(**new), starts_from_sorted_key(sorted_key, ncells)
+    return st.replace(**new), starts_from_sorted_key(
+        sorted_key, ncells, via_scatter=starts_via_scatter)
+
+
+def sort_kw(cfg: IcebergsConfig) -> dict:
+    """:func:`sort_state_by_cell`'s transport knobs from the config."""
+    return dict(packed_permute=cfg.sort_packed_permute,
+                pack_kernel=cfg.pack_kernel,
+                starts_via_scatter=cfg.starts_via_scatter)

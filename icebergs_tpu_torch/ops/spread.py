@@ -1,13 +1,35 @@
 """Mass spreading of bergs onto the ocean grid + derived gridded fields.
 
-Counterpart of the kernel branch of ``icebergs_tpu/ops/spread.py``
-(``berg_spread_mass``, ``create_gridded_icebergs_fields``
-``spread.py:799-837``, ``sum_slots``, ``_gridded_epilogue``; port of
-``src/icebergs.F90:3390-3491, 3895-4243``): the per-cell sums come from
-K3 (:mod:`.segment_spread`, in the JAX package's association: the slot
-tree when a block overflows the TPU kernel's window, else sequential),
-are shifted into the 9 neighbour slots of each cell and summed in the
-reference's fixed slot order.
+Counterpart of ``icebergs_tpu/ops/spread.py`` (``berg_spread_mass``,
+``spread_weights``' rectangle branch, ``make_sort_ctx``,
+``scatter9_slots``, ``scatter_cell_deterministic``, ``_scatter9_packed``,
+``calculate_mass_on_ocean``, ``create_gridded_icebergs_fields``,
+``sum_slots``, ``_gridded_epilogue``; port of ``src/icebergs.F90:
+3390-3491, 3895-4243, 4970-5013``).  Every berg's 9 weighted products and
+its own cell's columns are summed per owning cell, shifted into the 9
+neighbour slots of each cell and summed in the reference's fixed slot
+order.  The per-cell sums take one of the JAX package's associations:
+
+- ``slot_sum_method="pallas"`` (with ``parallel_reprod``): K3
+  (:mod:`.segment_spread`) on its own payload, sequential in (cell, id)
+  order, or the slot tree when a block overflows the TPU kernel's window;
+- ``"scatter"``, and ``"scatter_t"`` on a presorted slab: the slot tree
+  (ranks k < K-1 in slot k, the rest added into slot K-1 in (cell, id)
+  order, a pairwise tree over K = ``reprod_max_per_cell``);
+- ``"scatter_t"`` on an unsorted slab: the same tree, slot K-1 adding its
+  rows in the slab's own order (the XLA scatter's update order);
+- ``"gather"`` and ``"gather_raw"`` (the same bits): a tree over each
+  block of K rows, the blocks added in order;
+- ``"gather_mm"``: each block's weight x value products contracted by
+  ``einsum`` (a different association, within a float tolerance of the
+  JAX package's matmul), its cell columns as ``"gather"``;
+- ``parallel_reprod=False``: one accumulating scatter, in no fixed order.
+
+Cells with at most K bergs get the same bits from every reproducing
+method.  No reproducing method uses atomics: the per-row products are
+PyTorch elementwise ops, the block trees and slot placements write each
+slot once, and the sequential sums run in K3 with the association fixed
+(:func:`.segment_spread.segment_sums`).
 """
 
 from __future__ import annotations
@@ -18,6 +40,9 @@ import torch
 
 from ..config import IcebergsConfig
 from . import segment_spread as ss
+from .accel import rdiv
+from .pack import from_bits, permute_cols_u32, to_bits
+from .sorted import lex_cell_id_order, starts_from_sorted_key
 from .thermo import fl_bits_dimensions
 
 
@@ -80,46 +105,328 @@ def sum_slots(out9):
     return [acc[..., f] for f in range(out9.shape[-1])]
 
 
-def create_gridded_icebergs_fields(st, grid, frc, cfg: IcebergsConfig, *,
-                                   key_alive, cell_starts,
-                                   extra_cell_cols=None, cell_table=None):
-    """The coupler fields from one K3 pass: over the presorted slab when
-    ``cell_starts`` is given, else behind a payload sort (K1).
-    ``cell_table`` is the grid's ``segment_spread.cell_tables`` (built
-    here when not given; a step keeps it).
+def spread_weights(st, grid, cfg: IcebergsConfig):
+    """Per-berg 3x3 rectangle spreading weights (9, N), (dj, di) row-major
+    (icebergs.F90:3960-4001)."""
+    x, y = st.xi, st.yj
+    I, J = (st.ine + 1).long(), (st.jne + 1).long()
+    msk = grid.msk
+    area_cell = grid.area[I, J]
+    m = {(di, dj): msk[I + di, J + dj]
+         for dj in (-1, 0, 1) for di in (-1, 0, 1)}
+    if cfg.use_old_spreading:
+        xL = (0.5 - x).clamp(min=0.).clamp(max=0.5)
+        xR = (x - 0.5).clamp(min=0.).clamp(max=0.5)
+        yD = (0.5 - y).clamp(min=0.).clamp(max=0.5)
+        yU = (y - 0.5).clamp(min=0.).clamp(max=0.5)
+    else:
+        Area = st.length * st.width
+        L = torch.where(area_cell > 0.,
+                        torch.sqrt(Area / area_cell.clamp(min=1e-30)
+                                   ).clamp(max=1.0), 1.0)
+        Ls = L.clamp(min=1e-30)
+        inv = rdiv(1., Ls)
+        xL = (0.5 - x / Ls).clamp(min=0.).clamp(max=0.5)
+        xR = (x / Ls + (0.5 - inv)).clamp(min=0.).clamp(max=0.5)
+        yD = (0.5 - y / Ls).clamp(min=0.).clamp(max=0.5)
+        yU = (y / Ls + (0.5 - inv)).clamp(min=0.).clamp(max=0.5)
+    xC = (1. - (xL + xR)).clamp(min=0.)
+    yC = (1. - (yD + yU)).clamp(min=0.)
+    yDxL = yD * xL * m[(-1, -1)]
+    yDxC = yD * xC * m[(0, -1)]
+    yDxR = yD * xR * m[(1, -1)]
+    yCxL = yC * xL * m[(-1, 0)]
+    yCxR = yC * xR * m[(1, 0)]
+    yUxL = yU * xL * m[(-1, 1)]
+    yUxC = yU * xC * m[(0, 1)]
+    yUxR = yU * xR * m[(1, 1)]
+    yCxC = 1. - (((yDxL + yUxR) + (yDxR + yUxL))
+                 + ((yCxL + yCxR) + (yDxC + yUxC)))
+    return torch.stack([yDxL, yDxC, yDxR, yCxL, yCxC, yCxR, yUxL, yUxC,
+                        yUxR])
 
-    ``key_alive`` is the sort key's aliveness (pre-thermodynamics: rows
-    that died in thermodynamics keep their cell, so their deferred melt
-    still lands); ``extra_cell_cols`` are per-berg columns summed per
-    owning cell in the same pass.  Returns ``SpreadDiags`` or, with extra
-    columns, ``(SpreadDiags, extra_fields)``."""
-    if not cfg.parallel_reprod or cfg.hexagonal_icebergs:
-        raise NotImplementedError("slot-scatter spreading (ROADMAP.md "
-                                  "Queue 1 item 15)")
-    nx, ny = grid.nx, grid.ny
-    FX = len(extra_cell_cols or [])
-    S, _ = ss.spread_cell_sums(st, grid, frc, cfg, extra_cell_cols,
-                               key_alive=key_alive, cell_starts=cell_starts,
-                               tbl=cell_table, cell_block=SPREAD_CB,
-                               window=SPREAD_WINDOW)
-    dt_ = S.dtype
-    Sg = S[:, :36].reshape(ny, nx, 9, 4).permute(1, 0, 2, 3)
-    out9 = torch.zeros(nx + 2, ny + 2, 9, 4, dtype=dt_, device=S.device)
+
+def make_sort_ctx(st, grid, alive=None):
+    """``(order, key_s, rank)`` of the reproducing scatters: the (cell,
+    id) order, the sorted cell keys (dead rows ncells, last) and each
+    sorted row's rank in its cell; int32."""
+    ncells = grid.nx * grid.ny
+    if alive is None:
+        alive = st.alive
+    key = torch.where(alive, st.jne * grid.nx + st.ine,
+                      ncells).to(torch.int32)
+    order = lex_cell_id_order(key, st.id_cnt, st.id_ij)
+    key_s = key[order.long()]
+    return order, key_s, sorted_ranks(key_s, ncells)
+
+
+def sorted_ranks(key_s, ncells: int):
+    """Each sorted row's rank in its cell (int32)."""
+    starts = starts_from_sorted_key(key_s, ncells)
+    return (torch.arange(key_s.shape[0], dtype=torch.int32,
+                         device=key_s.device)
+            - starts[key_s.clamp(max=ncells).long()])
+
+
+def _block_trees(cols_s, key_s, rank, ncells: int, K: int, mm_rows=None):
+    """Blocks of K consecutive rows of each cell (rank // K): each
+    block's tree over its K slots, zero-padded, in (cell, block) order;
+    with ``mm_rows = (w9, vals)`` (sorted rows) the block's 9 x F
+    products first, contracted over the block by ``einsum``.  Returns
+    ``(T (F, N + 1) block sums, block cell keys (N + 1,))``: unused
+    blocks carry the dead key ncells, so the keys stay sorted."""
+    N = key_s.shape[0]
+    dev = key_s.device
+    live = key_s < ncells
+    first = live & (rank % K == 0)
+    blk = torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1
+    blk = torch.where(live, blk, N).long()
+    p = torch.where(live, rank % K, 0).long()
+    bkey = torch.full((N + 1,), ncells, dtype=torch.int32, device=dev)
+    bkey.index_put_((blk,), key_s)
+    bkey[N] = ncells
+
+    def place(rows):                       # (F, N) -> (F, N + 1, K)
+        X = rows.new_zeros(rows.shape[0], N + 1, K)
+        X[:, blk, p] = rows
+        X[:, N] = 0.
+        return X
+    parts = []
+    if mm_rows is not None:
+        w9, vals = mm_rows
+        S9 = torch.einsum("wbk,fbk->wfb", place(w9), place(vals))
+        parts.append(S9.reshape(-1, N + 1))
+    for c0 in range(0, len(cols_s), 8):
+        parts.append(ss.slot_tree(place(torch.stack(cols_s[c0:c0 + 8]))))
+    return torch.cat(parts), bkey
+
+
+def _slot_sums(cols, sort_ctx, ncells: int, K: int, method: str,
+               mm=None):
+    """Per-cell sums (ncells, F) of the (N,) columns ``cols`` in the
+    association of ``method`` (the module docstring).  ``sort_ctx`` =
+    ``(order, key_s, rank)``, ``order`` None when the columns are already
+    in (cell, id) order.  ``mm = (w9, vals)``: ``"gather_mm"``'s weight
+    and value rows, whose products make the first 9 x F sums."""
+    order, key_s, rank = sort_ctx
+
+    def to_sorted(rows):
+        if order is None:
+            return list(rows)
+        moved = permute_cols_u32([to_bits(r) for r in rows], order)
+        return list(from_bits(moved, rows[0].dtype))
+
+    cols_s = to_sorted(cols)
+    if method in ("gather", "gather_raw", "gather_mm"):
+        mm_rows = None
+        if method == "gather_mm":
+            w9, vals = mm
+            mm_rows = (torch.stack(to_sorted(list(w9))),
+                       torch.stack(to_sorted(list(vals))))
+        T, bkey = _block_trees(cols_s, key_s, rank, ncells, K, mm_rows)
+        return ss.segment_sums(list(T), starts_from_sorted_key(bkey, ncells),
+                               K, tree=False)
+    if method == "scatter_t" and order is not None:
+        # slot K-1 adds its rows in the slab's own order: rows of rank
+        # >= K-1 move behind the first K-1 of their cell in origin order
+        N = key_s.shape[0]
+        t = torch.where(rank < K - 1, rank.long(), K - 1 + order.long())
+        perm = torch.argsort(key_s.long() * (N + K) + t, stable=True)
+        cols_s = [c[perm] for c in cols_s]
+    elif method not in ("scatter", "scatter_t"):
+        raise ValueError(f"slot_sum_method={method!r}")
+    return ss.segment_sums(cols_s, starts_from_sorted_key(key_s, ncells),
+                           K, tree=True)
+
+
+def _cell_grid(S, nx, ny):
+    """(ncells, F) cell sums -> F halo-padded (nx+2, ny+2) fields."""
+    F = S.shape[1]
+    out = S.new_zeros(nx + 2, ny + 2, F)
+    out[1:-1, 1:-1, :] = S.reshape(ny, nx, F).permute(1, 0, 2)
+    return list(out.unbind(-1))
+
+
+def _spread9(S9, nx, ny, F):
+    """(ncells, 9F) owning-cell products -> out9 (nx+2, ny+2, 9, F): slot
+    k of each cell holds its (dj, di) neighbour's k-th products."""
+    Sg = S9.reshape(ny, nx, 9, F).permute(1, 0, 2, 3)
+    out9 = S9.new_zeros(nx + 2, ny + 2, 9, F)
     k = 0
     for dj in (-1, 0, 1):
         for di in (-1, 0, 1):
             out9[1 + di:nx + 1 + di, 1 + dj:ny + 1 + dj, k] += Sg[:, :, k]
             k += 1
-    mass_on, area_on, U_on, V_on = sum_slots(out9)
+    return out9
 
-    def padded(cols):
-        F = cols.shape[1]
-        out = torch.zeros(nx + 2, ny + 2, F, dtype=dt_, device=S.device)
-        out[1:-1, 1:-1, :] = cols.reshape(ny, nx, F).permute(1, 0, 2)
-        return [out[..., f] for f in range(F)]
 
-    cell = padded(S[:, 36:43])
-    extra_fields = padded(S[:, 43:]) if FX else None
+def scatter_cell_deterministic(grid, st, value_list, alive, K: int = 16,
+                               sort_ctx=None, method: str = "scatter"):
+    """Reproducing owning-cell sums (no spreading) of ``value_list`` in
+    (cell, id) order: F (nx+2, ny+2) fields."""
+    if sort_ctx is None:
+        sort_ctx = make_sort_ctx(st, grid, alive)
+    S = _slot_sums(list(value_list), sort_ctx, grid.nx * grid.ny, K,
+                   "gather" if method == "gather_mm" else method)
+    return _cell_grid(S, grid.nx, grid.ny)
+
+
+def scatter_cells(grid, I, J, cols):
+    """One accumulating scatter of F per-berg columns at cells (I, J),
+    in no fixed order: F (nx+2, ny+2) fields (``.at[I, J].add``)."""
+    out = cols[0].new_zeros(grid.nx + 2, grid.ny + 2, len(cols))
+    out.index_put_((I, J), torch.stack(cols, dim=-1), accumulate=True)
+    return list(out.unbind(-1))
+
+
+def spread_products(st, grid, frc, cfg: IcebergsConfig):
+    """``(w9, vals)``: each berg's 9 spreading weights masked by
+    aliveness, and the 4 values they spread (mass, area, the two area
+    momenta), as ``calculate_mass_on_ocean`` forms them."""
+    w = spread_weights(st, grid, cfg)
+    Area = st.length * st.width
+    vals = [berg_spread_mass(st, grid, frc, cfg), Area * st.mass_scaling,
+            st.uvel * Area * st.mass_scaling,
+            st.vvel * Area * st.mass_scaling]
+    return w * torch.where(st.alive, 1., 0.)[None, :], vals
+
+
+def calculate_mass_on_ocean(st, grid, frc, cfg: IcebergsConfig,
+                            sort_ctx=None, extra_value_list=None):
+    """Mass, area and momentum on the grid (calculate_mass_on_ocean,
+    icebergs.F90:4970-5013): the 9-slot reproducing sums with
+    ``cfg.parallel_reprod`` (``extra_value_list`` summed per owning cell
+    in the same pass, returned as a fifth item), else one accumulating
+    scatter of the 9 footprints (``_scatter9_packed``)."""
+    nx, ny = grid.nx, grid.ny
+    w9, vals = spread_products(st, grid, frc, cfg)
+    F = len(vals)
+    if not cfg.parallel_reprod:
+        I, J = st.ine + 1, st.jne + 1
+        Ik, Jk, parts = [], [], []
+        k = 0
+        for dj in (-1, 0, 1):
+            for di in (-1, 0, 1):
+                Ik.append(I + di)
+                Jk.append(J + dj)
+                parts.append(torch.stack([v * w9[k] for v in vals], dim=-1))
+                k += 1
+        out = w9.new_zeros(nx + 2, ny + 2, F)
+        out.index_put_((torch.cat(Ik).long(), torch.cat(Jk).long()),
+                       torch.cat(parts), accumulate=True)
+        return list(out.unbind(-1))
+    method = cfg.slot_sum_method_eff
+    if sort_ctx is None:
+        sort_ctx = make_sort_ctx(st, grid)
+    extra = list(extra_value_list or [])
+    if method == "gather_mm":
+        cols, mm = extra, (list(w9), vals)
+    else:
+        cols = [wk * v for wk in w9 for v in vals] + extra
+        mm = None
+    S = _slot_sums(cols, sort_ctx, nx * ny, cfg.reprod_max_per_cell,
+                   method, mm=mm)
+    out = sum_slots(_spread9(S[:, :9 * F], nx, ny, F))
+    if extra_value_list is None:
+        return out
+    return out + [_cell_grid(S[:, 9 * F:], nx, ny)]
+
+
+def bits_areas(st, cfg: IcebergsConfig):
+    """The virtual areas of a berg's bergy bits, footloose bits and
+    footloose bergy bits (calculate_sum_over_bergs_diagnositcs,
+    icebergs.F90:5026-5070), zeros where the config has none."""
+    L, W, T = st.length, st.width, st.thickness
+    zeros = torch.zeros_like(L)
+    Abits = Abits_fl = Abits_flb = zeros
+    if cfg.bergy_bit_erosion_fraction > 0.:
+        Lbits = torch.minimum(torch.minimum(L, W),
+                              T.clamp(max=40.)).clamp(min=1e-30)
+        Abits = (st.mass_of_bits / cfg.rho_bergs) / Lbits
+    if cfg.fl_style == 'fl_bits':
+        Lfl, Wfl, Tfl = fl_bits_dimensions(cfg, T)
+        Abits_fl = (st.mass_of_fl_bits / cfg.rho_bergs) \
+            / Tfl.clamp(min=1e-30)
+        if cfg.bergy_bit_erosion_fraction > 0.:
+            Lb2 = torch.minimum(torch.minimum(Lfl, Wfl),
+                                Tfl.clamp(max=40.)).clamp(min=1e-30)
+            Abits_flb = (st.mass_of_fl_bergy_bits / cfg.rho_bergs) / Lb2
+    return Abits, Abits_fl, Abits_flb
+
+
+def cell_columns(st, grid, cfg: IcebergsConfig):
+    """The 7 per-berg columns of the per-cell sums
+    (calculate_sum_over_bergs_diagnositcs, icebergs.F90:5026-5070): mass,
+    the two momenta, virtual area, bergy mass, footloose-bits and
+    footloose-bergy-bits mass, masked by aliveness."""
+    alive = st.alive
+    I, J = (st.ine + 1).long(), (st.jne + 1).long()
+    area_c = grid.area[I, J].clamp(min=1e-30)
+    w_cell = torch.where(alive, st.mass_scaling / area_c, 0.)
+    L, W = st.length, st.width
+    Abits, Abits_fl, Abits_flb = bits_areas(st, cfg)
+    cols = [st.mass * w_cell, st.mass * w_cell * st.uvel,
+            st.mass * w_cell * st.vvel,
+            (W * L + Abits + Abits_fl + Abits_flb)
+            * torch.where(alive, st.mass_scaling, 0.),
+            (st.mass_of_bits + st.mass_of_fl_bergy_bits) * w_cell,
+            st.mass_of_fl_bits * w_cell,
+            st.mass_of_fl_bergy_bits * w_cell]
+    return [torch.where(alive, c, 0.) for c in cols]
+
+
+def create_gridded_icebergs_fields(st, grid, frc, cfg: IcebergsConfig, *,
+                                   key_alive=None, cell_starts=None,
+                                   extra_cell_cols=None, cell_table=None,
+                                   sort_ctx=None):
+    """The coupler fields.  With ``parallel_reprod`` and
+    ``slot_sum_method="pallas"``: one K3 pass over the presorted slab when
+    ``cell_starts`` is given, else behind a payload sort (K1);
+    ``cell_table`` is the grid's ``segment_spread.cell_tables`` (built
+    here when not given; a step keeps it) and ``key_alive`` the sort
+    key's aliveness (pre-thermodynamics: rows that died in
+    thermodynamics keep their cell, so their deferred melt still lands).
+    Other methods sum through ``sort_ctx`` (:func:`make_sort_ctx`, made
+    here when None; ``order`` None on a presorted slab); without
+    ``parallel_reprod`` every sum is an accumulating scatter.
+
+    ``extra_cell_cols`` (reproducing only) are per-berg columns summed per
+    owning cell in the same pass.  Returns ``SpreadDiags`` or, with extra
+    columns, ``(SpreadDiags, extra_fields)``."""
+    if cfg.hexagonal_icebergs:
+        raise NotImplementedError("hexagonal spreading (ROADMAP.md Queue 1 "
+                                  "item 11)")
+    nx, ny = grid.nx, grid.ny
+    if cfg.parallel_reprod and cfg.slot_sum_method == "pallas":
+        FX = len(extra_cell_cols or [])
+        S, _ = ss.spread_cell_sums(st, grid, frc, cfg, extra_cell_cols,
+                                   key_alive=key_alive,
+                                   cell_starts=cell_starts,
+                                   tbl=cell_table, cell_block=SPREAD_CB,
+                                   window=SPREAD_WINDOW)
+        mass_on, area_on, U_on, V_on = sum_slots(
+            _spread9(S[:, :36], nx, ny, 4))
+        cell = _cell_grid(S[:, 36:43], nx, ny)
+        extra_fields = _cell_grid(S[:, 43:], nx, ny) if FX else None
+        return _gridded_epilogue(grid, frc, cfg, mass_on, area_on, U_on,
+                                 V_on, *cell, extra_fields,
+                                 extra_cell_cols is not None)
+    if cfg.parallel_reprod and sort_ctx is None:
+        sort_ctx = make_sort_ctx(st, grid)
+    # per-cell sums, in the same pass as the spreading
+    cols = cell_columns(st, grid, cfg)
+    extra_fields = None
+    if cfg.parallel_reprod:
+        mass_on, area_on, U_on, V_on, cell_fields = \
+            calculate_mass_on_ocean(st, grid, frc, cfg, sort_ctx=sort_ctx,
+                                    extra_value_list=cols + list(
+                                        extra_cell_cols or []))
+        cell, extra_fields = cell_fields[:7], cell_fields[7:]
+    else:
+        mass_on, area_on, U_on, V_on = calculate_mass_on_ocean(
+            st, grid, frc, cfg)
+        cell = scatter_cells(grid, (st.ine + 1).long(), (st.jne + 1).long(),
+                             cols)
     return _gridded_epilogue(grid, frc, cfg, mass_on, area_on, U_on, V_on,
                              *cell, extra_fields,
                              extra_cell_cols is not None)

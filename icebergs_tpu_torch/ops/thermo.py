@@ -1,10 +1,14 @@
 """Thermodynamics: melt laws, basal-melt boundary-layer model, rolling.
 
 Counterpart of ``icebergs_tpu/ops/thermo.py`` (``thermodynamics``,
-``find_basal_melt``, ``rolling``, ``fl_bits_dimensions``; port of
-``src/icebergs.F90:2844-3389, 3492-3828``) on the fast lane's branch:
-the 14 per-berg melt columns are deferred to the spreading pass
-(``defer_cell_cols``), where they ride the K3 segment sums.  The
+``find_basal_melt``, ``rolling``, ``fl_bits_dimensions``,
+``melt_by_class_field``; port of ``src/icebergs.F90:2844-3389,
+3492-3828``).  The 14 per-berg melt columns are summed per cell in one of
+three ways, as the JAX package sums them: deferred to the spreading pass
+(``defer_cell_cols`` with ``parallel_reprod``), where they ride its
+segment sums; in (cell, id) order by the reproducing slot sums
+(``parallel_reprod`` alone, :func:`.spread.scatter_cell_deterministic`);
+or by a plain accumulating scatter (``parallel_reprod=False``).  The
 iterative 3-equation solve keeps its fixed trip counts (20 outer x 30
 inner masked iterations) as Python loops.
 """
@@ -21,14 +25,35 @@ from ..config import IcebergsConfig
 from .accel import coriolis, rdiv
 
 
+# the 14 gridded melt fields, in the order of the per-berg melt columns
+MELT_FIELDS = ("floating_melt", "calving_hflx", "berg_melt", "bergy_src",
+               "bergy_melt", "fl_bits_melt", "melt_buoy", "melt_eros",
+               "melt_conv", "fl_parent_melt", "fl_child_melt",
+               "melt_buoy_fl", "melt_eros_fl", "melt_conv_fl")
+
+
 class MeltDiags(NamedTuple):
     net_heat: torch.Tensor          # J into the ocean this step (0-dim)
     nbergs_melted: torch.Tensor
-    # the 14 per-berg melt columns (floating_melt, calving_hflx,
-    # berg_melt, bergy_src, bergy_melt, fl_bits_melt, melt_buoy,
-    # melt_eros, melt_conv, fl_parent_melt, fl_child_melt, melt_buoy_fl,
-    # melt_eros_fl, melt_conv_fl), reduced per cell by the caller
+    # the 14 per-berg melt columns (MELT_FIELDS), reduced per cell by the
+    # caller when deferred
     deferred_cols: Optional[list] = None
+    # the 14 gridded fields (nx+2, ny+2) when not deferred
+    floating_melt: Optional[torch.Tensor] = None
+    calving_hflx: Optional[torch.Tensor] = None
+    berg_melt: Optional[torch.Tensor] = None
+    bergy_src: Optional[torch.Tensor] = None
+    bergy_melt: Optional[torch.Tensor] = None
+    fl_bits_melt: Optional[torch.Tensor] = None
+    melt_buoy: Optional[torch.Tensor] = None
+    melt_eros: Optional[torch.Tensor] = None
+    melt_conv: Optional[torch.Tensor] = None
+    fl_parent_melt: Optional[torch.Tensor] = None
+    fl_child_melt: Optional[torch.Tensor] = None
+    melt_buoy_fl: Optional[torch.Tensor] = None
+    melt_eros_fl: Optional[torch.Tensor] = None
+    melt_conv_fl: Optional[torch.Tensor] = None
+    melt_by_class: Optional[torch.Tensor] = None   # (nx+2, ny+2, classes)
     bergy_src_kg: Optional[torch.Tensor] = None
     bergy_melt_kg: Optional[torch.Tensor] = None
     flb_bergy_melt_kg: Optional[torch.Tensor] = None
@@ -246,15 +271,43 @@ def fl_bits_dimensions(cfg: IcebergsConfig, thickness):
     return L_fl, W_fl, T_fl
 
 
+def melt_by_class_field(st, grid, cfg: IcebergsConfig, melt_rate_w, alive):
+    """Per-calving-class melt (id_melt_by_class, icebergs.F90:3147-3155):
+    each berg's class is the nearest initial mass to its start mass, from
+    the hemisphere's table (the first of equals, as argmin takes it);
+    (nx+2, ny+2, classes), an accumulating scatter.  The tables stay
+    Python floats: a device copy of them would be a host sync."""
+    ms = cfg.initial_mass
+    mn = (cfg.initial_mass_n if cfg.separate_distrib_for_n_hemisphere
+          else cfg.initial_mass)
+    south = st.lat < 0.
+    best = k = None
+    for c, (a, b) in enumerate(zip(ms, mn)):
+        d = torch.where(south, (a - st.start_mass).abs(),
+                        (b - st.start_mass).abs())
+        if best is None:
+            best, k = d, torch.zeros_like(d, dtype=torch.int64)
+        else:
+            closer = d < best
+            best = torch.where(closer, d, best)
+            k = torch.where(closer, c, k)
+    I, J = (st.ine + 1).long(), (st.jne + 1).long()
+    out = torch.zeros(grid.nx + 2, grid.ny + 2, len(ms), dtype=st.dtype,
+                      device=st.device)
+    return out.index_put_((I, J, k), torch.where(alive, melt_rate_w, 0.),
+                          accumulate=True)
+
+
 def thermodynamics(st, grid, frc, cfg: IcebergsConfig,
-                   defer_cell_cols: bool = True):
+                   defer_cell_cols: bool = True, *, sort_ctx=None,
+                   with_class_melt: bool = False):
     """Melt every berg, update its dimensions, roll, kill fully melted
-    bergs (icebergs.F90:2844-3306).  Returns ``(state, MeltDiags)`` with
-    the per-berg melt columns deferred to the spreading pass."""
-    if not (defer_cell_cols and cfg.parallel_reprod):
-        raise NotImplementedError(
-            "thermodynamics with its own melt scatters (ROADMAP.md "
-            "Queue 1 item 15)")
+    bergs (icebergs.F90:2844-3306).  Returns ``(state, MeltDiags)``: the
+    per-berg melt columns deferred to the spreading pass when
+    ``defer_cell_cols`` and ``cfg.parallel_reprod``, else the gridded
+    melt fields, summed in (cell, id) order through ``sort_ctx``
+    (:func:`.spread.make_sort_ctx`, made here when None) when
+    reproducing.  ``with_class_melt`` adds ``melt_by_class``."""
     if cfg.footloose:
         raise NotImplementedError("footloose calving (ROADMAP.md Queue 1 "
                                   "item 9)")
@@ -444,6 +497,18 @@ def thermodynamics(st, grid, frc, cfg: IcebergsConfig,
             torch.where(fl_gate, dMe_fl, torch.where(parent, 0., dMe)) * w,
             torch.where(fl_gate, dMv_fl, torch.where(parent, 0., dMv)) * w]
     cols = [torch.where(alive, v, 0.) for v in cols]
+    fields = {}
+    if not (defer_cell_cols and cfg.parallel_reprod):
+        if cfg.parallel_reprod:
+            from .spread import scatter_cell_deterministic
+            out = scatter_cell_deterministic(
+                grid, st, cols, alive, K=cfg.reprod_max_per_cell,
+                sort_ctx=sort_ctx, method=cfg.slot_sum_method_eff)
+        else:
+            from .spread import scatter_cells
+            out = scatter_cells(grid, I, J, cols)
+        fields = dict(zip(MELT_FIELDS, out))
+        cols = None
 
     if cfg.allow_bergs_to_roll:
         Tr, Wr, Lr = rolling(cfg, Tn, Wn, Ln)
@@ -468,6 +533,9 @@ def thermodynamics(st, grid, frc, cfg: IcebergsConfig,
         melted = torch.zeros_like(alive)
     kill = melted & ~(Mnew_fl > 0.)
     st = st.replace(alive=st.alive & ~kill)
+    if with_class_melt:
+        fields["melt_by_class"] = melt_by_class_field(
+            st, grid, cfg, melt_tot * w, alive)
     return st, MeltDiags(net_heat=net_heat,
                          nbergs_melted=melted.sum(dtype=torch.int32),
-                         deferred_cols=cols, **budget)
+                         deferred_cols=cols, **budget, **fields)

@@ -232,6 +232,106 @@ def test_extract_kernel_matches_plain(dev, window):
     assert int((out[extract.EX_CNT] > 0).sum()) > 0
 
 
+def _epi_inputs(dev, world):
+    """(PT, key_s, cell_starts, grid, cfg) for K2's epilogue: the sparse
+    sorted world of ``_world``, its first n rows, or the culling world
+    of ``_k2_world`` (dense, radii up to 1.5 cells, boundary pairs)."""
+    from types import SimpleNamespace
+    if world == "dense":
+        PT, key_s, cs, grid = _k2_world(dev)
+        cfg = SimpleNamespace(contact_distance=0.,
+                              contact_spring_coef_eff=1e-8)
+        return PT, key_s, cs, grid, cfg
+    cfg, grid, frc, st, cs = _world(dev)
+    PT, key_s = contact_features(st, grid, cfg)
+    if world != "sparse":
+        n = int(world)
+        PT, key_s = PT[:, :n].contiguous(), key_s[:n].contiguous()
+        cs = srt.starts_from_sorted_key(key_s, grid.nx * grid.ny)
+    return PT, key_s, cs, grid, cfg
+
+
+@pytest.mark.parametrize("world", ["0", "1", "1000", "sparse", "dense"])
+def test_extract_epilogue_kernel_matches_plain(dev, world):
+    """K2's pair-epilogue instantiation against its plain version: every
+    row but the spring sums bitwise, the spring sums bitwise on the rows
+    with at most two exact pairs and within 1e-5 + 1e-6 of scale on the
+    others, two calls bitwise, one launch a call counted apart from the
+    search alone."""
+    PT, key_s, cs, grid, cfg = _epi_inputs(dev, world)
+    before = (extract.extract_sorted.launches,
+              extract.extract_sorted.epilogue_launches)
+    out, bad_block = extract.extract_sorted(PT, key_s, cs, grid, cfg,
+                                            block_n=128, window=1024,
+                                            epilogue=True)
+    assert (extract.extract_sorted.launches,
+            extract.extract_sorted.epilogue_launches) == (
+        before[0], before[1] + 1)
+    again, _ = extract.extract_sorted(PT, key_s, cs, grid, cfg,
+                                      block_n=128, window=1024,
+                                      epilogue=True)
+    assert torch.equal(out, again)
+    c_lo, c_hi, bad = extract.block_tables(key_s, cs, grid.nx, grid.ny, 128,
+                                           1024)
+    plain, nexact = extract.extract_sorted_plain(
+        PT, cs, c_lo, c_hi, bad, 128, 0., epilogue=True,
+        spring=cfg.contact_spring_coef_eff, exact_counts=True)
+    sums = [extract.EX_IAX, extract.EX_IAY]
+    rest = [r for r in range(extract.EX_NOUT) if r not in sums]
+    assert torch.equal(out[rest], plain[rest])
+    few = nexact <= 2
+    assert torch.equal(out[sums][:, few], plain[sums][:, few])
+    a, b = out[sums][:, ~few], plain[sums][:, ~few]
+    if b.numel():
+        assert bool(((a - b).abs() <= 1e-5 * b.abs()
+                     + 1e-6 * plain[sums].abs().max()).all())
+    if world in ("sparse", "dense"):
+        ex = out[extract.EX_F1 + 6]
+        assert int((ex > 0).sum()) > 100
+        assert bool((out[extract.EX_IAX][few] != 0).any())
+    assert extract.kernel_config(128, 1, False, epilogue=True)[0] == (
+        "fused3_epi")
+
+
+@pytest.mark.parametrize("impl", ["gathered", "manual"])
+def test_epilogue_runs_with_gathered_extraction_only(dev, impl):
+    """``contact_epilogue`` launches the epilogue instantiation with the
+    gathered extraction window only; with ``"manual"`` the search alone
+    runs, as in the JAX package."""
+    from icebergs_tpu_torch.ops.fused_contact import make_ia_fn_fused3
+    cfg, grid, frc, st, cs = _world(dev)
+    cfg = cfg.replace(contact_epilogue=True, extract_impl=impl)
+    before = (extract.extract_sorted.launches,
+              extract.extract_sorted.epilogue_launches)
+    ia_fn, stats = make_ia_fn_fused3(st, grid, cfg, block_n=128,
+                                     cell_starts=cs, fallback_cap=8192)
+    ia = ia_fn(st.uvel, st.vvel)
+    epi = impl == "gathered"
+    assert (extract.extract_sorted.launches,
+            extract.extract_sorted.epilogue_launches) == (
+        before[0] + (not epi), before[1] + epi)
+    assert int(stats.overflow) == 0
+    assert bool(torch.isfinite(ia.IA_x).all())
+
+
+@pytest.mark.parametrize("ncols,K", [(43, 16), (16, 5), (7, 1)])
+@pytest.mark.parametrize("tree", [True, False])
+def test_segment_sums_assoc_kernel_matches_plain(dev, ncols, K, tree):
+    """K3's pass-through entry (``segment_sums``, the slot-sum
+    spreading's per-cell sums) bitwise against its plain version in the
+    slot tree and sequentially, on a world with a 700-berg cell and dead
+    rows, one launch per 16 columns."""
+    cfg, grid, frc, st, cs = _world(dev, cluster=700)
+    g = torch.Generator(device="cpu").manual_seed(ncols)
+    cols = [torch.randn(st.capacity, generator=g).to(dev)
+            for _ in range(ncols)]
+    before = ss.segment_sums.launches
+    S = ss.segment_sums(cols, cs, K, tree)
+    assert ss.segment_sums.launches == before + -(-ncols // 16)
+    assert torch.equal(S, ss._sums_plain(torch.stack(cols), cs, K, tree))
+    assert int((cs[1:] - cs[:-1]).max()) >= 700
+
+
 def test_segment_spread_kernel_matches_plain(dev):
     cfg, grid, frc, st, cs = _world(dev)
     st2, melt = thermo.thermodynamics(st, grid, frc, cfg)
@@ -471,8 +571,23 @@ def test_interp_sorted_kernel_matches_plain(dev):
                                                     cfg))
 
 
+_ITEM15 = {
+    "persistent_rk4_epilogue": (dict(Runge_not_Verlet=True,
+                                     contact_epilogue=True), {}),
+    "persistent_knobs_scatter": (dict(
+        sort_packed_permute=False, pack_kernel=False,
+        starts_via_scatter=True, slot_sum_method="scatter"), {}),
+    "fused3_xla_noreprod": (dict(interp_mode="xla", parallel_reprod=False),
+                            dict(persistent=False, neighbor_mode="fused3",
+                                 with_class_melt=True)),
+    "fused3_gather": (dict(slot_sum_method="gather",
+                           reprod_max_per_cell=5),
+                      dict(persistent=False, neighbor_mode="fused3"))}
+
+
 @pytest.mark.parametrize("path", ["persistent", "fused3", "fused",
-                                  "buckets", "persistent_fused_kernel"])
+                                  "buckets", "persistent_fused_kernel"]
+                         + sorted(_ITEM15))
 def test_step_on_card_matches_cpu(dev, path):
     """Two steps of each path on the card against the CPU (the plain
     versions): integers and counters exact, floats within the CPU parity
@@ -480,7 +595,10 @@ def test_step_on_card_matches_cpu(dev, path):
     cfg, grid, frc, st, _ = _world(dev, n=5000, nx=32)
     cfg = cfg.replace(fused_fallback_cap=8192)
     kw = {}
-    if path == "persistent_fused_kernel":
+    if path in _ITEM15:
+        cfg = cfg.replace(**_ITEM15[path][0])
+        kw = _ITEM15[path][1]
+    elif path == "persistent_fused_kernel":
         cfg = cfg.replace(interp_mode="kernel")
         kw = dict(neighbor_mode="fused")
     elif path != "persistent":

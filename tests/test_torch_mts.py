@@ -177,7 +177,7 @@ def test_config_normalized_matches_jax(extra):
     (dict(break_bonds_on_sub_steps=False), 16),
     (dict(fracture_criterion="none"), 16),
     (dict(dem_beam_test=2), 16),
-    (dict(A68_test=True), 15),
+    (dict(grid_is_latlon=True), 11),
 ])
 def test_unported_mts_settings_raise(kw, item):
     """The DEM flag set of the substep kernel is served; every MTS
@@ -430,5 +430,31 @@ def test_slice_matches_jax():
                                         interpret=True)[1])(st)
     assert int(d1.p1_fallback) == int(jstats.n_fallback) > 0
     assert [d.conv_iters for d in multi.step_diags] >= [1, 1]
+    _assert_state(tst, jst)
+    _close(tacc.numpy(), jacc, 0., STEP_ATOL_SCALE, "coupler accumulator")
+
+
+def test_slice_a68_matches_jax():
+    """One MTS coupling step with ``A68_test``: the step reads the
+    environment through ``interp_flds`` with the A68 test's analytic
+    depth (0 east of and above the displaced origin, 1000 m elsewhere),
+    as the JAX ``make_step`` does, instead of the table; tolerances of
+    ``test_slice_matches_jax``."""
+    cfg, grid, frc, st, (tcfg, tgrid, tfrc) = _world()
+    kw = dict(A68_test=True, A68_xdisp=float(np.median(np.asarray(
+        st.lon)[np.asarray(st.alive)])) - 360., A68_ydisp=0.)
+    cfg, tcfg = cfg.replace(**kw), tcfg.replace(**kw)
+    ibp.check_ported(tcfg)
+    deltas = jvmem.analyze_bond_deltas(st.bond_idx, BLOCK)
+    mkw = dict(mts_substep_kernel="vmem", mts_vmem_deltas=deltas,
+               mts_vmem_block_n=BLOCK)
+    jst, jov, jfb, jacc = jax_multi(grid, cfg, 1, with_stats=True,
+                                    mts_vmem_interpret=True, **mkw)(st, frc)
+    multi = ibp.make_multi_step(tgrid, tcfg, 1, with_stats=True, **mkw)
+    tst, tov, tfb, tacc = multi(_tstate(st), tfrc)
+    assert int(tov) == int(jov) == 0
+    assert int(tfb) == int(jfb)
+    od = tst.od.numpy()[tst.alive.numpy()]
+    assert (od == 0.).any() and (od == 1000.).any()
     _assert_state(tst, jst)
     _close(tacc.numpy(), jacc, 0., STEP_ATOL_SCALE, "coupler accumulator")

@@ -131,25 +131,48 @@ def test_port_imports_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
-def test_unported_settings_raise():
-    cfg = ibp.IcebergsConfig(grid_is_latlon=False, Runge_not_Verlet=False,
-                             interactive_icebergs_on=True)
+_CFG = dict(grid_is_latlon=False, Runge_not_Verlet=False,
+            interactive_icebergs_on=True)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(contact_mode="sorted"), dict(iceberg_bonds_on=True),
+    dict(mts=True), dict(grid_is_latlon=True),
+    dict(grid_is_regular=False), dict(footloose=True),
+    dict(hexagonal_icebergs=True)], ids=lambda kw: next(iter(kw)))
+def test_unported_settings_raise(kw):
+    """Settings of later slices raise and name their ROADMAP item."""
+    cfg = ibp.IcebergsConfig(**_CFG)
     ibp.check_ported(cfg)
-    for kw in (dict(interp_mode="xla"), dict(contact_mode="sorted"),
-               dict(iceberg_bonds_on=True), dict(contact_epilogue=True),
-               dict(Runge_not_Verlet=True), dict(slot_sum_method="scatter"),
-               dict(mts=True)):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 "
+                       "item (9|11|16)"):
+        ibp.check_ported(cfg.replace(**kw))
+    if kw == dict(contact_mode="sorted"):
+        grid = ibp.make_uniform_grid(4, 4, 0., 0., 1., 1.,
+                                     grid_is_latlon=False, device=CPU)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ibp.check_ported(cfg.replace(**kw))
+            ibp.make_multi_step(grid, cfg, 1, persistent=False,
+                                neighbor_mode="sorted")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(interp_mode="xla"), dict(interp_mode="kernel"),
+    dict(contact_epilogue=True), dict(Runge_not_Verlet=True),
+    dict(slot_sum_method="scatter"), dict(slot_sum_method="gather_mm"),
+    dict(parallel_reprod=False), dict(sort_packed_permute=False),
+    dict(pack_kernel=False), dict(starts_via_scatter=True),
+    dict(coastal_drift=0.1, tidal_drift=0.1)],
+    ids=lambda kw: next(iter(kw)))
+def test_ported_settings_accepted(kw):
+    """Settings ported by the slice of ROADMAP item 15: ``check_ported``
+    takes them and the per-step path builds (per-step ``interp_mode=
+    "kernel"`` reads ``interp_flds``, as the JAX ``make_step`` does)."""
+    cfg = ibp.IcebergsConfig(**_CFG).replace(**kw)
+    ibp.check_ported(cfg)
+    grid = ibp.make_uniform_grid(4, 4, 0., 0., 1., 1., grid_is_latlon=False,
+                                 device=CPU)
+    ibp.make_multi_step(grid, cfg, 1, persistent=False)
     for impl in ("gathered", "manual", "pipelined"):
         ibp.check_ported(cfg.replace(extract_impl=impl, spread_impl=impl))
     for mode in ("fused3", "fused", "buckets"):
-        ibp.check_ported(cfg.replace(contact_mode=mode, interp_mode="kernel"))
-    grid = ibp.make_uniform_grid(4, 4, 0., 0., 1., 1., grid_is_latlon=False,
-                                 device=CPU)
-    with pytest.raises(NotImplementedError, match="per-step"):
-        ibp.make_multi_step(grid, cfg.replace(interp_mode="kernel"), 1,
-                            persistent=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ibp.make_multi_step(grid, cfg, 1, persistent=False,
-                            neighbor_mode="sorted")
+        ibp.check_ported(cfg.replace(contact_mode=mode))
