@@ -75,7 +75,18 @@ Phases, one line each:
    spreading (its state after 8 steps must equal phase 5's bit for bit,
    its coupler fields within a stated tolerance); 9c the per-step fused3
    path with the XLA interpolation, ``parallel_reprod=False`` and the
-   class melt.
+   class melt;
+10. ROADMAP item 9: 10a the coupled entry ``IcebergsModel.run`` (calving
+   buckets and spawning, footloose children, the budgets) on the headline
+   world in a 2^20-slot slab with a calving ring, primed buckets and
+   primed tabular bergs: bucket and footloose spawns in every window,
+   every overflow counter 0, 0 host syncs per ``run``, the budgets
+   closed; 10b the per-step ``sorted`` neighbour mode (K1, K7) with the
+   largest cell within ``max_per_cell``; 10c the legacy bonded springs
+   outside MTS on phase 6's 999,944-element world (per-step fused3 with
+   the bond group through K7 at M = max_bonds, dt 60 s), every float
+   finite.  Each first runs card against CPU on a 50k-berg world, then is
+   timed as phase 5 is.
 
 The last two lines are a JSON object with each kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -211,6 +222,40 @@ ITEM15_PATHS = (
 # cells): the coupler accumulator of the first window within this
 # tolerance of phase 5's (rtol, and of its largest magnitude)
 ITEM15_ACC_RTOL, ITEM15_ACC_ATOL_SCALE = 1e-5, 1e-6
+# phase 10: ROADMAP item 9.  10a the coupled entry IcebergsModel.run on the
+# headline world in a 2^20-slot slab, with the footloose settings of
+# tests/test_footloose_pipeline.py:54-62 (dt stays the headline's 600 s),
+# a steady calving flux into each cell of the outermost interior ring,
+# buckets primed at random fractions of their thresholds, every 50th berg
+# a 600 x 400 x 100 m tabular berg with its foot primed past two foot
+# areas and every 997th berg holding footloose bits past the promotion
+# threshold: each window (which starts from the same state) calves from
+# the buckets and sheds footloose children
+COUPLED_CAP = 1 << 20
+COUPLED_FL = dict(footloose=True, fl_style="new_bergs", fl_youngs=1.e8,
+                  fl_strength=250., allow_bergs_to_roll=False)
+COUPLED_FLUX = 2e7                 # kg/s into each ring cell
+COUPLED_TABULAR_EVERY, COUPLED_PROMOTE_EVERY = 50, 997
+# the budget closure (berg mass + bits + stored ice against the start
+# plus the calving used less the melt, over one window): float32 sums of
+# ~1e15 kg over 1M bergs
+COUPLED_BUDGET_RTOL = 1e-4
+# card against CPU on the coupled cross world: the state within the
+# cross-check tolerance; the melt fields of the coupler within 2e-4 of
+# scale (a berg's footloose-bits melt is the float32 difference of two
+# nearly equal masses, so an ulp of the bits' size moves it by ~1e-4)
+COUPLED_MELT_ATOL_SCALE = 2e-4
+# 10b: the per-step sorted mode, strips of max_per_cell x 3 slots (M 216)
+SORTED_KW = dict(persistent=False, neighbor_mode="sorted",
+                 max_per_cell=MAX_PER_CELL)
+# 10c: the legacy KID bonds outside MTS on phase 6's world: per-step
+# fused3 with the bond group, dt 60 s (tests/test_interactions.py:75-82:
+# the spring is unstable at coupling dt); the cross-check world is 100
+# such conglomerates (48,400 elements) on a 128 x 128 grid
+BONDED_CFG = dict(iceberg_bonds_on=True, max_bonds=6, dt=60.,
+                  lat_ref=-55.0, allow_bergs_to_roll=False)
+BONDED_KW = dict(persistent=False, neighbor_mode="fused3")
+BONDED_CROSS_UNITS = 100
 
 
 class _Counter:
@@ -893,11 +938,12 @@ def phase_kernels(ibp, torch, device, ab=False):
         res["extract_sorted/epilogue"] = epi
 
     # K3 on the sorted slab with the thermodynamics' melt columns: the
-    # persistent lanes' width (3, the payload rows where they lie) and the
-    # per-step and DEM paths' (all 14)
+    # persistent lanes' width (3, the payload rows where they lie), the
+    # per-step and DEM paths' (all 14) and the coupled entry's (none: its
+    # thermodynamics sums its own melt; the generic instantiation)
     st_t, melt = thermo.thermodynamics(st, grid, frc, cfg)
     tblc = ss.cell_tables(grid)
-    for ne in (3, 14):
+    for ne in (3, 14, 0):
         _, rows = ss.build_rows(st_t, grid, frc, cfg,
                                 melt.deferred_cols[:ne], key_alive=st.alive)
         res.update(k3_case(torch, ss, rows, cs, tblc, cfg, ne, ab))
@@ -949,18 +995,20 @@ def phase_kernels(ibp, torch, device, ab=False):
     return res, k1
 
 
-def k7_case(torch, forces, pairs, st0, grid, cfg, ab):
+def k7_case(torch, forces, pairs, st0, grid, cfg, ab, pd=None):
     """K7 on the bucket tables of the per-step slice (the unsorted slab,
-    max_per_cell 24) with the pmag scaling on (the default, the row) and
+    max_per_cell 24), or on the pair data ``pd`` of ``st0`` (phase 10c:
+    the bond table), with the pmag scaling on (the default, the row) and
     off: within K7_RTOL + K7_ATOL_SCALE of scale of its plain version,
     bitwise on the rows with at most two active pairs and from run to
     run; outside ``--ab`` each instantiation's registers, spills, shared
     memory and CTAs per SM.  Its row of the kernels line."""
-    nbr = forces.build_neighbor_tables(st0, grid, cfg,
-                                       max_per_cell=MAX_PER_CELL)
-    pd = forces.precompute_pair_data(st0, cfg, nbr.cand_idx, nbr.cand_valid,
-                                     partner_st=st0)
-    del nbr
+    if pd is None:
+        nbr = forces.build_neighbor_tables(st0, grid, cfg,
+                                           max_per_cell=MAX_PER_CELL)
+        pd = forces.precompute_pair_data(st0, cfg, nbr.cand_idx,
+                                         nbr.cand_valid, partner_st=st0)
+        del nbr
     N, M = pd.P11.shape
     vel = (st0.uvel, st0.vvel, st0.uvel * 1.01 + 0.01, st0.vvel * 0.99)
     le2 = pd.active.sum(1) <= 2
@@ -990,15 +1038,20 @@ def k7_case(torch, forces, pairs, st0, grid, cfg, ab):
         out[pmag] = dict(err=err, worst=worst, ms=device_ms(
             torch, lambda: pairs.eval_pair_ia_kernel(pd, c, *vel)))
     on, off = out[True], out[False]
-    # the function needs the mask, the velocities, and of the seven slabs
-    # only the 32-byte sectors (8 floats) that hold an active pair: an
-    # inactive pair adds exact zeros
+    # the function needs the mask, and of the four velocities and the
+    # seven slabs only the 32-byte sectors (8 floats) that hold a row,
+    # or a pair, that is active: an inactive pair adds exact zeros
+    def n_sectors(flags):
+        flags = torch.cat([flags, flags.new_zeros(-flags.numel() % 8)])
+        return int(flags.reshape(-1, 8).any(1).sum())
     n_active = int(pd.active.sum())
-    sectors = int(pd.active.reshape(-1, 8).any(1).sum())
+    sectors = n_sectors(pd.active.reshape(-1))
+    row_sectors = n_sectors(pd.active.any(1))
     mask_ms = cuda_ms(torch, lambda: pd.active.view(torch.uint8).amax())
     host_ms = cuda_ms(torch, lambda: pairs.eval_pair_ia_kernel(pd, cfg,
                                                                *vel))
     note = (f"N={N} M={M} active_pairs={n_active} active_sectors={sectors} "
+            f"active_row_sectors={row_sectors} "
             f"rows_3plus={int((~le2).sum())} (within tolerance, worst "
             f"{on['worst']:.3e} of scale), rows_le2={int(le2.sum())} "
             f"bitwise, run to run bitwise; pmag off {off['ms']:.4f} ms "
@@ -1018,8 +1071,9 @@ def k7_case(torch, forces, pairs, st0, grid, cfg, ab):
         plain_ms=None if ab else cuda_ms(
             torch, lambda: forces.eval_pair_ia(pd, cfg, *vel), reps=3),
         library_ms=None,
-        bound=bound(nbytes(pd.active, *vel) + 7 * 32 * sectors
-                    + 5 * 4 * N, K7_FLOPS_PER_PAIR * n_active),
+        bound=bound(nbytes(pd.active) + 4 * 32 * row_sectors
+                    + 7 * 32 * sectors + 5 * 4 * N,
+                    K7_FLOPS_PER_PAIR * n_active),
         note=note)
     del pd
     torch.cuda.empty_cache()
@@ -1327,14 +1381,17 @@ def k4_resources(k4, nslots, block_n):
     return "; ".join(parts) or "no ptxas report"
 
 
-def phase_cross(ibp, torch, device, cfg_kw=None, multi_kw=None):
-    """2 steps of a mid-size world on the card and on a CPU copy, through
-    ``make_multi_step(**multi_kw)`` (config changed by ``cfg_kw``)."""
+def phase_cross(ibp, torch, device, cfg_kw=None, multi_kw=None,
+                world=None):
+    """2 steps of a mid-size world (``world``: (cfg, grid, frc, state),
+    the headline world at 50k bergs by default) on the card and on a CPU
+    copy, through ``make_multi_step(**multi_kw)`` (config changed by
+    ``cfg_kw``)."""
     import numpy as np
     from icebergs_tpu_torch.ops.sorted import starts_from_sorted_key
 
-    cfg, grid, frc, st = headline_world(ibp, torch, N_CROSS, NX_CROSS,
-                                        device, seed=1)
+    cfg, grid, frc, st = world or headline_world(ibp, torch, N_CROSS,
+                                                 NX_CROSS, device, seed=1)
     cfg = cfg.replace(**(cfg_kw or {}))
     cpu = torch.device("cpu")
     outs = {}
@@ -1370,7 +1427,7 @@ def phase_cross(ibp, torch, device, cfg_kw=None, multi_kw=None):
     acc_err = float(np.abs(gacc - cacc).max() / max(np.abs(cacc).max(),
                                                     1e-30))
     require(acc_err <= CROSS_ATOL_SCALE, f"coupler fields rel {acc_err}")
-    return dict(n=N_CROSS, overflow=gov, fallback=gfb,
+    return dict(n=int(st.alive.sum()), overflow=gov, fallback=gfb,
                 worst_scaled_err=worst, coupler_rel_err=acc_err)
 
 
@@ -1562,6 +1619,12 @@ def phase_dem_slice(ibp, torch, device, kernels, required, cfg, world,
     return res, launches
 
 
+def all_finite(torch, st):
+    """Every float field of the live bergs finite (bond tables too)."""
+    return all(bool(torch.isfinite(v[st.alive]).all())
+               for v in vars(st).values() if v.is_floating_point())
+
+
 def max_occupancy(torch, st, grid):
     """The most alive bergs in one cell (bin_bergs' counts before the
     max_per_cell cut)."""
@@ -1570,16 +1633,18 @@ def max_occupancy(torch, st, grid):
 
 
 def phase_path(ibp, torch, device, kernels, label, cfg_kw=None,
-               multi_kw=None, profile_out=None):
-    """The headline world through ``make_multi_step(**multi_kw)`` (config
-    changed by ``cfg_kw``): a warm-up that grows the fallback cap until
-    nothing overflows, 3 timed windows of ``INNER`` steps with every
-    kernel's launches counted over the first, one step under torch's
-    sync debug mode, and checks of the final state.  Returns ``(result,
-    launches of the first window, coupler accumulator)``."""
+               multi_kw=None, profile_out=None, world=None):
+    """The headline world (or ``world``: (cfg, grid, frc, state)) through
+    ``make_multi_step(**multi_kw)`` (config changed by ``cfg_kw``): a
+    warm-up that grows the fallback cap until nothing overflows, 3 timed
+    windows of ``INNER`` steps with every kernel's launches counted over
+    the first, one step under torch's sync debug mode, and checks of the
+    final state.  Returns ``(result, launches of the first window,
+    coupler accumulator)``."""
     from icebergs_tpu_torch.diag import berg_chksum
 
-    cfg, grid, frc, st = headline_world(ibp, torch, N_HEAD, NX_HEAD, device)
+    cfg, grid, frc, st = world or headline_world(ibp, torch, N_HEAD,
+                                                 NX_HEAD, device)
     cfg = cfg.replace(**(cfg_kw or {}))
     multi_kw = multi_kw or {}
     mpc = multi_kw.get("max_per_cell")
@@ -1601,7 +1666,7 @@ def phase_path(ibp, torch, device, kernels, label, cfg_kw=None,
         # at least 4x, and past the rows this run dropped
         cap = min(max(4 * cfg.fused_fallback_cap,
                       1 << (cfg.fused_fallback_cap
-                            + int(out[1])).bit_length()), N_HEAD)
+                            + int(out[1])).bit_length()), st.capacity)
         print(f"{label}: fallback cap overran (dropped={int(out[1])}); "
               f"growing to {cap}")
         cfg = cfg.replace(fused_fallback_cap=cap)
@@ -1641,11 +1706,7 @@ def phase_path(ibp, torch, device, kernels, label, cfg_kw=None,
     torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
 
-    floats = [getattr(s, f) for f in ("lon", "lat", "uvel", "vvel", "mass",
-                                       "thickness", "width", "length",
-                                       "xi", "yj")]
-    finite = all(bool(torch.isfinite(x[s.alive]).all()) for x in floats)
-    require(finite, f"{label}: non-finite state")
+    require(all_finite(torch, s), f"{label}: non-finite state")
     require(bool(torch.isfinite(acc).all()),
             f"{label}: non-finite coupler fields")
     mass1 = float(torch.where(s.alive, s.mass * s.mass_scaling,
@@ -1673,6 +1734,240 @@ def phase_path(ibp, torch, device, kernels, label, cfg_kw=None,
     return res, launches, acc
 
 
+def coupled_world(ibp, torch, n, nx, cap, device, seed=0):
+    """Phase 10a's world (COUPLED_* above): ``(cfg, grid, frc, state,
+    calving flux, primed stored ice)``."""
+    from icebergs_tpu_torch.calving import class_grids
+    from icebergs_tpu_torch.state import grow_capacity
+
+    cfg, grid, frc, st = headline_world(ibp, torch, n, nx, device, seed)
+    cfg = cfg.replace(**COUPLED_FL)
+    st = grow_capacity(st, cap)
+    k = torch.arange(cap, device=device)
+    tab = st.alive & (k % COUPLED_TABULAR_EVERY == 0)
+    prom = st.alive & (k % COUPLED_PROMOTE_EVERY == 1)
+
+    def put(f, mask, v):
+        return torch.where(mask, v, getattr(st, f))
+    st = st.replace(thickness=put("thickness", tab, 100.),
+                    width=put("width", tab, 400.),
+                    length=put("length", tab, 600.),
+                    mass=put("mass", tab, 850. * 100. * 400. * 600.),
+                    fl_k=put("fl_k", tab, 1e5),
+                    mass_of_fl_bits=put("mass_of_fl_bits", prom, 1.2e12))
+    ring = torch.zeros(nx + 2, nx + 2, dtype=torch.bool, device=device)
+    ring[1:-1, 1:-1] = True
+    ring[2:-2, 2:-2] = False
+    calving = torch.where(ring, COUPLED_FLUX, 0.).to(torch.float32)
+    tb = class_grids(grid, cfg)
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = torch.rand(tb["mass"].shape, generator=g, device=device)
+    stored = torch.where(ring[:, :, None], tb["mass"] * tb["scal"] * u, 0.)
+    return cfg, grid, frc, st, calving, stored
+
+
+def coupled_state(model, st, stored, seed=0):
+    s = model.init_state(st, seed=seed)
+    return s.replace(calving=s.calving.replace(stored_ice=stored))
+
+
+_COUPLED_COUNTS = ("nbergs", "nbergs_calved", "nbergs_calved_fl",
+                   "spawn_overflow", "fl_spawn_overflow", "contact_overflow",
+                   "contact_fallback", "nbergs_melted", "nbergs_deleted_fl",
+                   "tickets")
+_COUPLED_FIELDS = ("spread_mass", "spread_area", "spread_uvel",
+                   "spread_vvel", "ustar_iceberg", "mass_on_ocean",
+                   "berg_melt", "fl_bits_src")
+_COUPLED_MELT = ("calving", "calving_hflx", "floating_melt")
+
+
+def phase_coupled_cross(ibp, torch, device):
+    """2 steps of ``IcebergsModel.run`` on the coupled world at 50k bergs
+    (a 65,536-slot slab) on the card and on a CPU copy: every counter and
+    the integers exact, floats within the cross-check tolerance (the
+    coupler's melt fields within COUPLED_MELT_ATOL_SCALE)."""
+    import numpy as np
+
+    cfg, grid, frc, st, calving, stored = coupled_world(
+        ibp, torch, N_CROSS, NX_CROSS, 1 << 16, device, seed=1)
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        model = ibp.IcebergsModel(grid, cfg, device=dev)
+        s = coupled_state(model, st.to(dev), stored.to(dev))
+        counts = []
+        for _ in range(2):
+            s, o = model.run(s, frc.to(dev), calving.to(dev))
+            counts.append({f: int(getattr(o, f)) for f in _COUPLED_COUNTS})
+        outs.append((ibp.to_numpy(s.bergs), counts, {
+            f: getattr(o, f).cpu().numpy()
+            for f in _COUPLED_FIELDS + _COUPLED_MELT}))
+    (g, gc, gf), (c, cc, cf) = outs
+    require(gc == cc, f"coupled counters differ: card {gc} cpu {cc}")
+    for name in ("alive", "id_cnt", "id_ij", "ine", "jne", "fl_k"):
+        if name == "fl_k":
+            # the footloose states (-1, -2, -3) exactly
+            require(np.array_equal(g[name] < 0, c[name] < 0)
+                    and np.array_equal(g[name][g[name] < 0],
+                                       c[name][c[name] < 0]),
+                    "footloose states differ between the card and the CPU")
+            continue
+        require(np.array_equal(g[name], c[name]),
+                f"{name} differs between the card and the CPU")
+    alive = g["alive"]
+    worst = {}
+    for name, gv in g.items():
+        if gv.dtype.kind != "f" or gv.ndim != 1:
+            continue
+        a, b = gv[alive].astype(np.float64), c[name][alive]
+        scale = max(np.abs(b).max(), 1e-30)
+        require(np.all(np.abs(a - b) <= CROSS_RTOL * np.abs(b)
+                       + CROSS_ATOL_SCALE * scale),
+                f"coupled {name} beyond tolerance")
+        worst[name] = float(np.abs(a - b).max() / scale)
+    for name in _COUPLED_FIELDS + _COUPLED_MELT:
+        a, b = gf[name].astype(np.float64), cf[name]
+        scale = max(np.abs(b).max(), 1e-30)
+        atol = (COUPLED_MELT_ATOL_SCALE if name in _COUPLED_MELT
+                else CROSS_ATOL_SCALE)
+        require(np.all(np.abs(a - b) <= CROSS_RTOL * np.abs(b)
+                       + atol * scale), f"coupled {name} beyond tolerance")
+        worst[name] = float(np.abs(a - b).max() / scale)
+    w = max(worst, key=worst.get)
+    return dict(n=int(alive.sum()), capacity=st.capacity, steps=gc,
+                worst_field=w, worst_scaled_err=worst[w])
+
+
+def phase_coupled(ibp, torch, device, kernels, profile_out=None):
+    """Phase 10a: ``IcebergsModel.run`` on the coupled world at 1M bergs:
+    a warm-up that grows the slab or the fallback cap until no counter
+    overflows, 3 timed windows of ``INNER`` steps from the same state
+    with every kernel's launches counted over the first, bucket and
+    footloose spawns required in each window, one ``run`` under torch's
+    sync debug mode, and the budgets' closure.  Returns ``(result,
+    launches of the first window)``."""
+    from icebergs_tpu_torch.diag import berg_chksum, compute_budgets
+    from icebergs_tpu_torch.state import grow_capacity
+
+    cfg, grid, frc, st, calving, stored = coupled_world(
+        ibp, torch, N_HEAD, NX_HEAD, COUPLED_CAP, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def window(model):
+        s = coupled_state(model, st, stored)
+        outs = []
+        for _ in range(INNER):
+            s, o = model.run(s, frc, calving)
+            outs.append(o)
+        return s, outs
+
+    def peak(outs, f):
+        return max(int(getattr(o, f)) for o in outs)
+
+    for _ in range(4):
+        model = ibp.IcebergsModel(grid, cfg, device=device)
+        s, outs = window(model)
+        torch.cuda.synchronize()
+        ov = {f: peak(outs, f) for f in ("spawn_overflow",
+                                         "fl_spawn_overflow",
+                                         "contact_overflow")}
+        if not any(ov.values()):
+            break
+        if ov["contact_overflow"]:
+            cap = min(4 * cfg.fused_fallback_cap, st.capacity)
+            print(f"coupled: fallback cap overran ({ov}); growing to {cap}")
+            cfg = cfg.replace(fused_fallback_cap=cap)
+        if ov["spawn_overflow"] or ov["fl_spawn_overflow"]:
+            print(f"coupled: slab full ({ov}); growing it to "
+                  f"{2 * st.capacity} slots")
+            st = grow_capacity(st, 2 * st.capacity)
+    require(not any(ov.values()), f"coupled: overflow {ov}")
+
+    b0 = compute_budgets(st, coupled_state(model, st, stored).calving)
+    for fn in kernels.values():
+        fn.launches = 0
+    times, per_window = [], []
+    for w in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, outs = window(model)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / INNER)
+        if w == 0:
+            launches = {k: fn.launches for k, fn in kernels.items()}
+        per_window.append({f: sum(int(getattr(o, f)) for o in outs)
+                           for f in ("nbergs_calved", "nbergs_calved_fl")})
+    for w, c in enumerate(per_window):
+        require(c["nbergs_calved"] > 0 and c["nbergs_calved_fl"] > 0,
+                f"coupled window {w}: no bucket or no footloose spawn {c}")
+    ov = {f: peak(outs, f) for f in ("spawn_overflow", "fl_spawn_overflow",
+                                     "contact_overflow")}
+    require(not any(ov.values()), f"coupled: overflow {ov}")
+
+    # the budgets close over the last window
+    b1 = outs[-1].budgets
+    used = sum(float(o.net_calving_used) for o in outs)
+    melt = sum(float(o.net_melt_kg) for o in outs)
+    start = float(b0.mass) + float(b0.mass_of_bits) + float(b0.stored_ice)
+    end = float(b1.mass) + float(b1.mass_of_bits) + float(b1.stored_ice)
+    budget_rel = abs(end - (start + used - melt)) / end
+    require(budget_rel <= COUPLED_BUDGET_RTOL,
+            f"coupled: the budgets do not close (rel {budget_rel:.3e})")
+
+    # host syncs inside one run (torch's sync debug mode warns on each)
+    s0 = coupled_state(model, st, stored)
+    s1, _ = model.run(s0, frc, calving)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        model.run(s1, frc, calving)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    fin = s.bergs
+    require(all_finite(torch, fin), "coupled: non-finite state")
+    o = outs[-1]
+    require(all(bool(torch.isfinite(getattr(o, f)).all())
+                for f in _COUPLED_FIELDS + _COUPLED_MELT),
+            "coupled: non-finite coupler fields")
+    chk, n_alive = berg_chksum(fin)
+    syncs = sorted({f"{pathlib.Path(r.filename).name}:{r.lineno}"
+                    for r in rec})
+    require(not rec, f"coupled: host syncs in a run: {syncs}")
+    res = dict(ms_per_step=statistics.median(times), windows_ms=times,
+               capacity=st.capacity, alive0=int(st.alive.sum()),
+               alive=int(n_alive), berg_chksum=int(chk),
+               spawns_per_window=per_window, overflow=ov,
+               contact_fallback=peak(outs, "contact_fallback"),
+               fallback_cap=cfg.fused_fallback_cap,
+               budget_rel_err=budget_rel, host_syncs_per_run=len(rec),
+               sync_kinds=syncs,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches)
+    if profile_out:
+        busy, nk = profile_window(torch, lambda: window(model), profile_out,
+                                  "coupled_run")
+        res.update(device_kernel_ms_per_step=busy / INNER,
+                   kernels_per_step=nk / INNER)
+    return res, launches
+
+
+def bonded_world(ibp, torch, device, dem=None):
+    """Phase 10c's configuration (the headline config with BONDED_CFG) on
+    phase 6's world ``dem`` (grid, frc, state, ...) or, without it, on
+    the cross-check world of BONDED_CROSS_UNITS conglomerates."""
+    cfg = headline_world(ibp, torch, 1, 4, device)[0].replace(**BONDED_CFG)
+    if dem is None:
+        dem = dem_world(ibp, torch, dem_config(ibp), BONDED_CROSS_UNITS,
+                        NX_CROSS, device, seed=2)
+        # the cross-check grows no cap: most elements take the fallback
+        # (their neighbours sit at the contact distance, an ulp either
+        # side)
+        cfg = cfg.replace(fused_fallback_cap=dem[2].capacity)
+    return cfg, dem[0], dem[1], dem[2]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-out", default=None,
@@ -1697,7 +1992,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(root))
     import icebergs_tpu_torch as ibp
     from icebergs_tpu_torch import cuda_build
-    from icebergs_tpu_torch.ops import (dem_substeps, extract,
+    from icebergs_tpu_torch.ops import (dem_substeps, extract, forces,
                                        interp_sorted, pack, pairs, prepass,
                                        segment_spread)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1828,6 +2123,54 @@ def main(argv=None) -> int:
                   f"{float(dev.max() / fast_acc.abs().max()):.3e}, cells "
                   f"differing {int((dev > 0).sum())} of {dev.numel()}")
 
+    # phase 10: ROADMAP item 9 on the headline and DEM worlds, each also
+    # card against CPU on a 50k-berg world
+    r = phase_coupled_cross(ibp, torch, device)
+    print(f"[10a cross-check] {json.dumps(r)}")
+    res, launches = phase_coupled(ibp, torch, device, kernels,
+                                  args.profile_out)
+    for k, n in launches.items():
+        if n:
+            by_path.setdefault(k, {})["coupled_run"] = n
+    print(f"[10a coupled run] {json.dumps(res)}")
+    for k in ("permute_cols_u32", "extract_sorted", "segment_spread_sums"):
+        require(launches[k] > 0, f"kernel {k} was not launched by the "
+                "coupled run")
+    r = phase_cross(ibp, torch, device, None, SORTED_KW)
+    print(f"[10b cross-check] {json.dumps(r)}")
+    require(r["overflow"] == 0, f"10b cross-check: contact_overflow "
+            f"{r['overflow']}")
+    run_path("10b per-step sorted", "perstep_sorted",
+             ("permute_cols_u32", "eval_pair_ia_kernel",
+              "segment_spread_sums"), multi_kw=SORTED_KW)
+    r = phase_cross(ibp, torch, device, None, BONDED_KW,
+                    world=bonded_world(ibp, torch, device))
+    print(f"[10c cross-check] {json.dumps(r)}")
+    require(r["overflow"] == 0, f"10c cross-check: contact_overflow "
+            f"{r['overflow']}")
+    bworld = bonded_world(ibp, torch, device, dem)
+    bcfg, bst = bworld[0], bworld[3]
+    # K7 on the bond table (M = max_bonds).  At rest every bond sits at
+    # its rest length and none pulls; each element moved by up to 2 m (as
+    # a few steps of drift move them) over-stretches about half
+    g = torch.Generator(device=device).manual_seed(3)
+
+    def moved(x):
+        return x + (torch.rand(x.shape, generator=g, device=device) - .5) * 4.
+    kst = bst.replace(lon_old=moved(bst.lon_old), lat_old=moved(bst.lat_old))
+    kres["eval_pair_ia_kernel/bonds"] = k7_case(
+        torch, forces, pairs, kst, bworld[1], bcfg, False,
+        pd=forces.precompute_pair_data(
+            kst, bcfg, *forces.bond_partner_table(kst), bonded=True))
+    del kst
+    r = kres["eval_pair_ia_kernel/bonds"]
+    print(f"[10c kernel] eval_pair_ia_kernel/bonds: kernel {r['ms']:.4f} "
+          f"ms, plain {fmt(r['plain_ms'])}, bound {r['bound'][0]:.4f} ms "
+          f"({r['bound'][1]}), max_abs_err {r['err']} ({r['note']})")
+    run_path("10c bonded fused3", "bonded_fused3",
+             ("permute_cols_u32", "extract_sorted", "eval_pair_ia_kernel",
+              "segment_spread_sums"), multi_kw=BONDED_KW, world=bworld)
+
     source = {"permute_cols_u32": ("permute_cols.cu",
                                    "icebergs_tpu/ops/pallas_pack.py:30"),
               "pack_rows_u32": ("permute_cols.cu",
@@ -1846,6 +2189,10 @@ def main(argv=None) -> int:
                                       "icebergs_tpu/ops/pallas_spread.py:136"),
               "segment_spread_sums/extra14": (
                   "segment_spread.cu", "icebergs_tpu/ops/pallas_spread.py:136"),
+              "segment_spread_sums/extra0": (
+                  "segment_spread.cu", "icebergs_tpu/ops/pallas_spread.py:136"),
+              "eval_pair_ia_kernel/bonds": (
+                  "pair_eval.cu", "icebergs_tpu/ops/pallas_pairs.py:108"),
               "dem_substeps": ("dem_substeps.cu",
                                "icebergs_tpu/ops/dem_vmem.py:691"),
               "contact_prepass_sorted": (
@@ -1862,7 +2209,13 @@ def main(argv=None) -> int:
     k3 = by_path.get("segment_spread_sums", {})
     by_path["segment_spread_sums/extra14"] = {
         p: k3.pop(p) for p in list(k3)
-        if p == "dem" or p.startswith("perstep_")}
+        if p in ("dem", "bonded_fused3") or p.startswith("perstep_")}
+    by_path["segment_spread_sums/extra0"] = {
+        p: k3.pop(p) for p in list(k3) if p == "coupled_run"}
+    # the bonded path's K7 launches are the bond table's (M = max_bonds)
+    k7 = by_path.get("eval_pair_ia_kernel", {})
+    by_path["eval_pair_ia_kernel/bonds"] = {
+        p: k7.pop(p) for p in list(k7) if p == "bonded_fused3"}
     rows = [{"name": k, "route": "cuda",
              "source": f"icebergs_tpu_torch/csrc/{source[k][0]}",
              "replaces": source[k][1],

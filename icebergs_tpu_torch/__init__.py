@@ -3,19 +3,22 @@
 A port of ``icebergs_tpu`` (the JAX package beside it, which stays the
 reference) to PyTorch, with the TPU's Pallas kernels rewritten as CUDA
 kernels for NVIDIA Hopper (``csrc/``, built by :mod:`.cuda_build` at
-first use).  Ported so far, behind :func:`make_multi_step`: the
-production fast lane (the persistent-sorted coupling step with contacts,
-thermodynamics and spreading), the per-step path (``make_step``; the
-``fused3``, ``fused`` and ``buckets`` contact searches), the MTS/DEM step
-of bonded conglomerates (Part-1 fused search, force convergence, the
-substep loop as one kernel), and the options of those modules: Verlet
-and RK4 stepping, the table, sorted-frame and per-field (``interp_flds``)
-interpolations with coastal and tidal drift, K2's in-kernel pair
-epilogue, every slot-sum method of the reproducing spreading and the
-plain scatters without it, and the re-sort's transport knobs.  Lat-lon
-and curvilinear grids, calving, footloose, bonds outside MTS, the MTS
-scan substeps, I/O and the multi-device layer are not ported yet: their
-settings raise ``NotImplementedError`` naming the ROADMAP.md item.
+first use).  Ported so far: the coupled entry
+:class:`~.api.IcebergsModel` (``icebergs_run``: calving buckets and
+spawning, footloose calving, the budgets and checksums of :mod:`.diag`);
+behind :func:`make_multi_step` the production fast lane (the
+persistent-sorted coupling step with contacts, thermodynamics and
+spreading), the per-step path (``make_step``; the ``fused3``, ``fused``,
+``buckets`` and ``sorted`` contact searches, bonded springs, footloose),
+the MTS/DEM step of bonded conglomerates (Part-1 fused search, force
+convergence, the substep loop as one kernel), and the options of those
+modules: Verlet and RK4 stepping, the table, sorted-frame and per-field
+(``interp_flds``) interpolations with coastal and tidal drift, K2's
+in-kernel pair epilogue, every slot-sum method of the reproducing
+spreading and the plain scatters without it, and the re-sort's transport
+knobs.  Lat-lon and curvilinear grids, the MTS scan substeps, I/O and
+the multi-device layer are not ported yet: their settings raise
+``NotImplementedError`` naming the ROADMAP.md item.
 Module names mirror the JAX package; each module names its counterpart.
 
 Importing this package imports torch and never jax.  On CPU tensors
@@ -23,6 +26,7 @@ every kernel runs as its plain PyTorch version; on CUDA tensors the
 kernels launch.
 """
 
+from .api import IcebergsModel, ModelState, RunOutputs, prepare_forcing
 from .config import IcebergsConfig, check_ported
 from .convert import (config_from_dict, forcing_from_numpy,
                       grid_from_numpy, state_from_numpy, to_numpy)
@@ -33,6 +37,7 @@ from .model import (StepDiags, make_multi_step, make_persistent_multi_step,
 from .state import BergState, create_bergs, empty_state
 
 __all__ = [
+    "IcebergsModel", "ModelState", "RunOutputs", "prepare_forcing",
     "IcebergsConfig", "check_ported", "config_from_dict",
     "forcing_from_numpy", "grid_from_numpy", "state_from_numpy",
     "to_numpy", "Forcing", "swirl_forcing", "uniform_forcing", "Grid",

@@ -388,7 +388,6 @@ class IcebergsConfig:
 _NOT_PORTED = (
     ("grid_is_latlon", True, 11, "lat-lon grids"),
     ("grid_is_regular", False, 11, "curvilinear grids"),
-    ("footloose", True, 9, "footloose calving"),
     ("hexagonal_icebergs", True, 11, "hexagonal spreading"),
 )
 _SLOT_SUM_METHODS = ("pallas", "scatter", "scatter_t", "gather",
@@ -416,11 +415,6 @@ def check_ported(cfg: IcebergsConfig) -> None:
         raise ValueError(f"spread_impl={cfg.spread_impl!r}")
     if cfg.mts:
         _check_mts(cfg, no)
-        return
-    if cfg.iceberg_bonds_on:
-        no("bonded springs outside MTS (make_ia_fn's bond group)", 9)
-    if cfg.resolved_contact_mode() == "sorted":
-        no("contact_mode='sorted' (strip_neighbor_tables)", 9)
 
 
 def _check_mts(cfg: IcebergsConfig, no) -> None:

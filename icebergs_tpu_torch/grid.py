@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``icebergs_tpu/grid.py`` (``Grid``,
 ``make_uniform_grid``, ``pos_to_cell``, ``cell_to_pos``,
-``bilin_corner``), with the same layout conventions: corner arrays
+``bilin_corner``, and the Cartesian branch of
+``convert_from_grid_to_meters`` / ``convert_from_meters_to_grid``), with the same layout conventions: corner arrays
 ``(nx+1, ny+1)``, halo-padded center arrays ``(nx+2, ny+2)`` with cell
 ``(i, j)`` at ``[i+1, j+1]``, and 0-dim float32 tensors for the
 regular-grid metadata.
@@ -129,6 +130,24 @@ def cell_to_pos(grid: Grid, i, j, xi, yj):
     lon = grid.lon0 + (i.to(xi.dtype) + xi) * grid.dlon
     lat = grid.lat0 + (j.to(yj.dtype) + yj) * grid.dlat
     return lon, lat
+
+
+def convert_from_grid_to_meters(lat_ref, grid_is_latlon: bool,
+                                Rearth: float):
+    """Metric factors (dx/dlon, dy/dlat) at a latitude
+    (icebergs.F90:443-460): ones on a Cartesian grid."""
+    if grid_is_latlon:
+        raise NotImplementedError("lat-lon metric factors (ROADMAP.md Queue "
+                                  "1 item 11)")
+    one = torch.ones_like(lat_ref)
+    return one, one
+
+
+def convert_from_meters_to_grid(lat_ref, grid_is_latlon: bool,
+                                Rearth: float):
+    """Metric factors (dlon/dx, dlat/dy) at a latitude
+    (icebergs.F90:462-478): ones on a Cartesian grid."""
+    return convert_from_grid_to_meters(lat_ref, grid_is_latlon, Rearth)
 
 
 def bilin_corner(fld_c, i, j, xi, yj, old_bug_bilin: bool):

@@ -2,7 +2,7 @@
 slab, the per-step path, and the MTS/DEM step of bonded conglomerates.
 
 Counterpart of ``icebergs_tpu/model.py``'s ``StepDiags``, ``make_step``
-(``model.py:110-406`` without calving and footloose),
+(``model.py:110-406``),
 ``make_persistent_multi_step`` (``model.py:413-612``) and
 ``make_multi_step`` (``model.py:615-695``).  One fast-lane step:
 
@@ -25,9 +25,13 @@ One per-step (``make_step``) step keeps the slot order: the table
 interpolation where the JAX ``make_step`` takes it, else
 ``interp_flds``; the contact search on a sorted view — ``"fused3"`` (K2
 plus K1 transports), ``"fused"`` (K5) or the ``"buckets"`` tables with
-their pair evaluation through K7; Verlet or RK4; thermodynamics; K3
+their pair evaluation through K7; Verlet or RK4; footloose calving
+(its children's interactivity over the bucket tables); thermodynamics; K3
 spreading behind a payload sort (K1) with all 14 deferred melt fields,
-or the method's slot sums, or the plain scatters.  An MTS step replaces
+or the method's slot sums, or the plain scatters.  ``neighbor_mode=
+"sorted"`` first re-sorts the whole state by (cell, id) (K1) and searches
+the sorted strips (K7 evaluates the pairs); its state comes back in that
+order.  An MTS step replaces
 the dynamics with
 :func:`.mts.evolve_icebergs_mts` (Part-1 search through K2 with the
 conglomerate filter, the force-convergence loop, the substep loop in
@@ -46,6 +50,8 @@ import torch
 
 from .config import IcebergsConfig, check_ported
 from .dynamics import evolve_icebergs
+from .footloose import (adjust_fl_berg_interactivity,
+                        delete_fully_fl_calved, footloose_calving)
 from .grid import Grid
 from .mts import evolve_icebergs_mts
 from .ops import forces as _forces
@@ -57,7 +63,8 @@ from .ops.interp import interp_to_bergs, use_interp_table
 from .ops.interp_sorted import interp_to_bergs_sorted
 from .ops.interp_table import interp_to_bergs_table
 from .ops.segment_spread import cell_tables
-from .ops.sorted import sort_kw, sort_state_by_cell, uniform_state_fields
+from .ops.sorted import (sort_kw, sort_state_by_cell, strip_neighbor_tables,
+                         uniform_state_fields)
 
 
 class StepDiags(NamedTuple):
@@ -85,6 +92,23 @@ class StepDiags(NamedTuple):
     u_iceberg: Optional[torch.Tensor] = None
     v_iceberg: Optional[torch.Tensor] = None
     melt_by_class: Optional[torch.Tensor] = None  # (nx+2, ny+2, classes)
+    # footloose (FootlooseDiags) and the interval-budget scalars (kg this
+    # step; diag.IntervalBudget reads them)
+    nbergs_calved_fl: Optional[torch.Tensor] = None
+    fl_spawn_overflow: Optional[torch.Tensor] = None
+    nbergs_deleted_fl: Optional[torch.Tensor] = None
+    fl_bits_src: Optional[torch.Tensor] = None     # (nx+2, ny+2) kg/m2/s
+    fl_to_berg_kg: Optional[torch.Tensor] = None
+    flb_to_bergy_kg: Optional[torch.Tensor] = None
+    nbergs_melted: Optional[torch.Tensor] = None
+    net_melt_kg: Optional[torch.Tensor] = None
+    berg_melt_kg: Optional[torch.Tensor] = None
+    bergy_src_kg: Optional[torch.Tensor] = None
+    bergy_melt_kg: Optional[torch.Tensor] = None
+    fl_bits_melt_kg: Optional[torch.Tensor] = None
+    flb_bergy_melt_kg: Optional[torch.Tensor] = None
+    flb_internal_eros_kg: Optional[torch.Tensor] = None
+    net_melt_heat: Optional[torch.Tensor] = None
 
 
 def _zero_spread(st, grid):
@@ -107,25 +131,30 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
               fused_window: Optional[int] = None,
               fused_fallback_cap: Optional[int] = None,
               fused_fallback_strip_width: int = 64):
-    """The per-step coupling path: returns
-    ``step(state, forcing) -> (state, StepDiags)``, the state in slot
-    order.
+    """The per-step coupling path: returns ``step(state, forcing, *,
+    fl_uniforms=None, current_year=0, current_yearday=0.) -> (state,
+    StepDiags)``, the state in slot order
+    (in (cell, id) order with ``neighbor_mode="sorted"``).
 
     Non-MTS: ``neighbor_mode`` ``"fused3"`` (the default of an
-    interactive legacy config), ``"fused"`` or ``"buckets"`` (with
-    ``max_per_cell``, ``neighbor_window`` and ``contact_cap``; the
-    pair evaluation always goes through K7, whose wrapper takes the plain
-    version for CPU tensors); ``with_interactions`` / ``with_thermo`` /
-    ``with_spread`` = False drop a phase; ``with_class_melt`` adds
-    ``StepDiags.melt_by_class``.  MTS: ``mts_substep_kernel=
+    interactive legacy config), ``"fused"``, ``"buckets"`` (with
+    ``max_per_cell``, ``neighbor_window`` and ``contact_cap``) or
+    ``"sorted"`` (strips of ``max_per_cell`` x (2r+1) slots); the bucket
+    and strip tables' pair evaluation always goes through K7, whose
+    wrapper takes the plain version for CPU tensors; ``with_interactions``
+    / ``with_thermo`` / ``with_spread`` = False drop a phase;
+    ``with_class_melt`` adds ``StepDiags.melt_by_class``.  Footloose
+    children take their places from ``fl_uniforms`` (``(stream, state)
+    -> (N,)``), by default :func:`.footloose.id_hash_uniforms` of
+    (0, 0).  ``with_calving`` only routes
+    :func:`make_multi_step`, as in the JAX package: the step does not
+    calve (:class:`.api.IcebergsModel` does).  MTS: ``mts_substep_kernel=
     "vmem"`` with ``mts_vmem_deltas`` from
     :func:`.ops.dem_substeps.analyze_bond_deltas` on a
     :func:`~.ops.dem_substeps.pack_conglomerates_blocked` state runs the
     substeps in K4.  What is not ported raises ``NotImplementedError``
     naming its ROADMAP.md item."""
     check_ported(cfg)
-    if with_calving:
-        raise NotImplementedError("calving (ROADMAP.md Queue 1 item 9)")
     table = use_interp_table(cfg)
     # the pallas spread kernel pins the sort key's pre-thermodynamics
     # aliveness; the other reproducing methods share one (cell, id) sort
@@ -138,19 +167,16 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
     if neighbor_mode is None:
         neighbor_mode = (cfg.resolved_contact_mode() if interactive
                          else "buckets")
-    if neighbor_mode == "sorted":
-        raise NotImplementedError("neighbor_mode='sorted' "
-                                  "(strip_neighbor_tables; ROADMAP.md Queue "
-                                  "1 item 9)")
-    if neighbor_mode not in ("fused", "fused3", "buckets"):
+    if neighbor_mode not in ("fused", "fused3", "buckets", "sorted"):
         raise ValueError(f"neighbor_mode={neighbor_mode!r}")
     window = cfg.fused_window if fused_window is None else fused_window
     cap = (cfg.fused_fallback_cap if fused_fallback_cap is None
            else fused_fallback_cap)
     radius = _forces.neighbor_radius(grid, cfg) if interactive else 1
     cell_table = cell_tables(grid) if with_spread else None
+    sorted_mode = interactive and neighbor_mode == "sorted"
 
-    def contacts(st):
+    def contacts(st, cell_starts):
         """(ia_fn, FusedContactStats or None, contact_cap overflow)."""
         if neighbor_mode in ("fused", "fused3"):
             mk = make_ia_fn_fused3 if neighbor_mode == "fused3" \
@@ -161,21 +187,31 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
                                fallback_strip_width=fused_fallback_strip_width,
                                **kw)
             return ia_fn, fstats, None
-        nbr = _forces.build_neighbor_tables(st, grid, cfg,
-                                            max_per_cell=max_per_cell,
-                                            ncells_radius=radius,
-                                            window=neighbor_window)
+        if neighbor_mode == "sorted":
+            nbr = strip_neighbor_tables(
+                st, grid, cfg, cell_starts,
+                strip_width=max_per_cell * (2 * radius + 1),
+                ncells_radius=radius)
+        else:
+            nbr = _forces.build_neighbor_tables(st, grid, cfg,
+                                                max_per_cell=max_per_cell,
+                                                ncells_radius=radius,
+                                                window=neighbor_window)
         ia_fn = _forces.make_ia_fn(st, nbr, cfg, contact_cap=contact_cap)
         return ia_fn, None, ia_fn.overflow
 
-    def step(st, frc):
+    def step(st, frc, *, fl_uniforms=None, current_year=0,
+             current_yearday=0.):
         zero = torch.zeros((), dtype=torch.int32, device=st.device)
+        cell_starts = None
+        if sorted_mode:
+            st, cell_starts = sort_state_by_cell(st, grid, **sort_kw(cfg))
         # the per-step slab keeps the slots' order, random in cell; the
         # MTS slab is packed by conglomerate, local in cell (PERF.md)
         m25_pre = None
         if table:
-            st, m25_pre = interp_to_bergs_table(st, grid, frc, cfg,
-                                                via_rows=not cfg.mts)
+            st, m25_pre = interp_to_bergs_table(
+                st, grid, frc, cfg, via_rows=not (cfg.mts or sorted_mode))
         else:
             st = interp_to_bergs(st, grid, frc, cfg)
         fstats = mts_d = cap_ov = None
@@ -188,10 +224,25 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
         else:
             ia_fn = None
             if interactive:
-                ia_fn, fstats, cap_ov = contacts(st)
+                ia_fn, fstats, cap_ov = contacts(st, cell_starts)
             out = evolve_icebergs(st, grid, frc, cfg, ia_fn=ia_fn,
                                   m25_pre=m25_pre)
             st, tickets, bounced = out.state, out.tickets, out.bounced
+        fl_d = fl_deleted = None
+        if cfg.footloose:
+            # footloose calving, then the deletion of fully calved edge
+            # elements and the children's interactivity (icebergs.F90:
+            # 5453-5488)
+            st, fl_d = footloose_calving(
+                st, grid, cfg, uniforms=fl_uniforms,
+                current_year=current_year,
+                current_yearday=current_yearday)
+            st, fl_deleted = delete_fully_fl_calved(st)
+            if interactive:
+                nbr2 = _forces.build_neighbor_tables(
+                    st, grid, cfg, ncells_radius=radius,
+                    max_per_cell=max_per_cell)
+                st = adjust_fl_berg_interactivity(st, nbr2, cfg)
         # the spreading's sort keys on the pre-thermodynamics aliveness:
         # rows that die in thermodynamics keep their cell, so their
         # deferred melt still lands
@@ -234,6 +285,21 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
             u_iceberg=sp.u_iceberg, v_iceberg=sp.v_iceberg,
             melt_by_class=(melt.melt_by_class if melt is not None
                            else None))
+        if fl_d is not None:
+            diags = diags._replace(
+                nbergs_calved_fl=fl_d.nbergs_calved_fl,
+                fl_spawn_overflow=fl_d.spawn_overflow,
+                nbergs_deleted_fl=fl_deleted, fl_bits_src=fl_d.fl_bits_src,
+                fl_to_berg_kg=fl_d.fl_to_berg_kg,
+                flb_to_bergy_kg=fl_d.flb_to_bergy_kg)
+        if melt is not None:
+            diags = diags._replace(
+                nbergs_melted=melt.nbergs_melted,
+                net_melt_heat=melt.net_heat,
+                **{f: getattr(melt, f) for f in (
+                    "net_melt_kg", "berg_melt_kg", "bergy_src_kg",
+                    "bergy_melt_kg", "fl_bits_melt_kg", "flb_bergy_melt_kg",
+                    "flb_internal_eros_kg")})
         if mts_d is not None:
             diags = diags._replace(
                 p1_overflow=mts_d.p1_overflow, p1_fallback=mts_d.p1_fallback,

@@ -53,6 +53,13 @@ def rdiv(c: float, x):
     return torch.div(x.new_full((), c), x)
 
 
+def divc(x, c: float):
+    """``x / c`` for a Python scalar ``c``, correctly rounded on any
+    device (the card turns a Python-scalar divisor into a product with
+    ``1 / c``; a 0-dim divisor keeps the division)."""
+    return torch.div(x, x.new_full((), c))
+
+
 def f32_scalar(fn, x: float) -> float:
     """``fn`` of a Python scalar evaluated in float32 on the host (a JAX
     weak-typed scalar op); the result is exact as a Python float, so no

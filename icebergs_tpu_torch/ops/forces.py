@@ -6,13 +6,15 @@ Counterpart of ``icebergs_tpu/ops/forces.py``: ``NeighborTables``,
 (``forces.py:25-140``); ``_interaction_radius``, ``PairData``,
 ``precompute_pair_data``, ``precompute_pair_data_T``,
 ``refresh_pair_velocities``, ``eval_pair_ia`` and ``eval_pair_ia_T``
-(port of ``calculate_force``, ``src/icebergs.F90:611-804``) for the
-non-bonded contact group on a Cartesian grid (metric factors 1) — the
-legacy dispatch and the modern one (``contact_distance`` crit, separate
-contact spring, ``use_c_crit_dist=False``); the ``contact_cap``
-compaction (``active_contact_bergs``, ``compacted_contact_pairdata``,
+(port of ``calculate_force``, ``src/icebergs.F90:611-804``) on a
+Cartesian grid (metric factors 1): the contact groups of the legacy and
+the modern dispatch (``contact_distance`` crit, separate contact spring,
+``use_c_crit_dist``) and the bonded springs (legacy bonds pull only when
+over-stretched); the ``contact_cap`` compaction
+(``active_contact_bergs``, ``compacted_contact_pairdata``,
 ``scatter_ia``), ``bond_partner_table`` and ``make_ia_fn`` outside MTS
-without bonds (``forces.py:559-763``); and ``initialize_bonds_host``,
+with its bond and same-conglomerate groups (``forces.py:559-769``);
+``check_bond_reciprocity``; and ``initialize_bonds_host``,
 ``compute_conglom_ids_host`` and ``count_bonds`` (numpy).
 
 ``*_T`` functions hold pair slabs as (M, N) with the partner axis first
@@ -179,26 +181,43 @@ def _legacy(cfg: IcebergsConfig) -> bool:
 
 
 def _pair_terms(cfg, lon1, lat1, A1, M1, lon2, lat2, A2, M2, mask, u2,
-                v2, axis, other=None):
-    """The shared geometry / spring / projection chain of both layouts
-    for the non-bonded contact group with ``use_c_crit_dist=False``:
-    crit = max(R1 + R2, contact_distance) with the contact spring, which
-    is the legacy dispatch too (``contact_distance`` 0, contact spring =
-    spring).  ``constant_interaction_LW`` enters only bonded pairs.
-    ``axis`` is the partner axis the spring sums reduce over."""
+                v2, axis, other=None, bonded=False, use_c_crit_dist=False):
+    """The shared geometry / spring / projection chain of both layouts.
+    Contact pairs: crit = max(R1 + R2, contact_distance) with the contact
+    spring (the legacy dispatch too: ``contact_distance`` 0, contact
+    spring = spring), engaged below crit.  Bonded pairs and
+    ``use_c_crit_dist``: crit = R1 + R2 with the bond spring; a bond is
+    engaged when over-stretched on the legacy dispatch, always on the
+    modern one (icebergs.F90:698-703).  ``constant_interaction_LW``
+    enters only MTS bonds (the DEM step's K4).  ``axis`` is the partner
+    axis the spring sums reduce over."""
     if cfg.grid_is_latlon:
         raise NotImplementedError("lat-lon pair metrics (ROADMAP.md Queue "
                                   "1 item 11)")
+    if bonded and cfg.mts and cfg.constant_interaction_LW:
+        raise NotImplementedError("constant_interaction_LW bonds outside "
+                                  "the substep kernel (ROADMAP.md Queue 1 "
+                                  "item 16)")
     r_dist_x = lon1 - lon2
     r_dist_y = lat1 - lat2
     r_dist = torch.sqrt(r_dist_x * r_dist_x + r_dist_y * r_dist_y)
     R1 = _interaction_radius(cfg, A1)
     R2 = _interaction_radius(cfg, A2)
     M_min = torch.minimum(M1, M2)
-    crit_dist = (R1 + R2).clamp(min=cfg.contact_distance)
-    spring_coef = cfg.contact_spring_coef_eff
+    if bonded or use_c_crit_dist:
+        crit_dist = R1 + R2
+        spring_coef = cfg.spring_coef
+    else:
+        crit_dist = (R1 + R2).clamp(min=cfg.contact_distance)
+        spring_coef = cfg.contact_spring_coef_eff
     radial_damping, tangental_damping = _damping(cfg, spring_coef)
-    active = mask & (r_dist > 0.) & (r_dist < crit_dist)
+    if bonded and _legacy(cfg):
+        engaged = r_dist > crit_dist
+    elif bonded:
+        engaged = torch.ones_like(mask)
+    else:
+        engaged = r_dist < crit_dist
+    active = mask & (r_dist > 0.) & engaged
 
     rsafe = torch.where(r_dist > 0., r_dist, 1.)
     accel_spring = spring_coef * (M_min / M1) * (crit_dist - r_dist)
@@ -217,10 +236,15 @@ def _pair_terms(cfg, lon1, lat1, A1, M1, lon2, lat2, A2, M2, mask, u2,
 
 
 def precompute_pair_data(st, cfg: IcebergsConfig, other, mask, *,
-                         partner_st) -> PairData:
+                         bonded: bool = False, use_c_crit_dist: bool = False,
+                         partner_st=None) -> PairData:
     """(N, M) pair data of primaries ``st`` (any object with the fields
-    read here) against ``partner_st`` rows ``other`` (N, M) int32,
-    which the result keeps for :func:`refresh_pair_velocities`."""
+    read here) against ``partner_st`` rows (``st`` by default) ``other``
+    (N, M) int32, which the result keeps for
+    :func:`refresh_pair_velocities`; ``bonded`` / ``use_c_crit_dist`` as
+    the JAX function's."""
+    if partner_st is None:
+        partner_st = st
     o = other.long()
     fl_k2 = partner_st.fl_k[o]
     mask = mask & (st.fl_k[:, None] != -1.) & (fl_k2 != -1.)
@@ -230,11 +254,13 @@ def precompute_pair_data(st, cfg: IcebergsConfig, other, mask, *,
         partner_st.lon_old[o], partner_st.lat_old[o],
         partner_st.length[o] * partner_st.width[o], partner_st.mass[o],
         mask, partner_st.uvel_old[o], partner_st.vvel_old[o], -1,
-        other=other)
+        other=other, bonded=bonded, use_c_crit_dist=use_c_crit_dist)
 
 
 def precompute_pair_data_T(st, cfg: IcebergsConfig, mask_T, *,
-                           partner_fields=None, other_T=None) -> PairData:
+                           partner_fields=None, other_T=None,
+                           bonded: bool = False,
+                           use_c_crit_dist: bool = False) -> PairData:
     """(M, N) pair data with the partners' fields handed in
     (``partner_fields``: (M, N) lon2, lat2, u2, v2, A2g, M2g — the
     extraction kernel's output, whose engagement test already excluded
@@ -253,7 +279,8 @@ def precompute_pair_data_T(st, cfg: IcebergsConfig, mask_T, *,
         cfg, st.lon_old[None, :], st.lat_old[None, :],
         (st.length * st.width)[None, :], st.mass[None, :],
         pf["lon2"], pf["lat2"], pf["A2g"], pf["M2g"], mask_T,
-        pf["u2"], pf["v2"], 0, other=other_T)
+        pf["u2"], pf["v2"], 0, other=other_T, bonded=bonded,
+        use_c_crit_dist=use_c_crit_dist)
 
 
 def refresh_pair_velocities(pd: PairData, st) -> PairData:
@@ -313,10 +340,12 @@ def eval_pair_ia_T(pd: PairData, cfg: IcebergsConfig, u0, v0, u1,
                  v1[None, :], 0)
 
 
-def active_contact_bergs(st, cfg: IcebergsConfig, other, mask):
+def active_contact_bergs(st, cfg: IcebergsConfig, other, mask,
+                         use_c_crit_dist: bool = False):
     """Which bergs have any engaged (r < crit) candidate: the cheap pass
     in front of the ``contact_cap`` compaction (r^2 against crit^2, crit
-    = max(R1 + R2, contact_distance))."""
+    = max(R1 + R2, contact_distance), or R1 + R2 with
+    ``use_c_crit_dist``)."""
     if cfg.grid_is_latlon:
         raise NotImplementedError("lat-lon pair metrics (ROADMAP.md Queue "
                                   "1 item 11)")
@@ -327,7 +356,9 @@ def active_contact_bergs(st, cfg: IcebergsConfig, other, mask):
     r2 = rx * rx + ry * ry
     R1 = _interaction_radius(cfg, (st.length * st.width)[:, None])
     R2 = _interaction_radius(cfg, st.length[o] * st.width[o])
-    crit = (R1 + R2).clamp(min=cfg.contact_distance)
+    crit = R1 + R2
+    if not use_c_crit_dist:
+        crit = crit.clamp(min=cfg.contact_distance)
     return (mask & (r2 > 0.) & (r2 < crit * crit)).any(dim=1)
 
 
@@ -358,16 +389,18 @@ def compact_rows(flag, cap: int):
 
 
 def compacted_contact_pairdata(st, cfg: IcebergsConfig, other, mask, *,
-                               cap: int):
+                               cap: int, use_c_crit_dist: bool = False):
     """Pair data of the bergs with an engaged candidate, rank-compacted
     into ``cap`` rows.  Returns ``(pd, sel, valid_row, overflow)``:
     ``sel`` maps compact rows to slots, ``overflow`` counts the engaged
     bergs beyond the cap (dropped)."""
     sel, valid_row, overflow = compact_rows(
-        active_contact_bergs(st, cfg, other, mask), cap)
+        active_contact_bergs(st, cfg, other, mask, use_c_crit_dist), cap)
     s = sel.long()
     pd = precompute_pair_data(take_rows(st, sel), cfg, other[s],
-                              mask[s] & valid_row[:, None], partner_st=st)
+                              mask[s] & valid_row[:, None],
+                              use_c_crit_dist=use_c_crit_dist,
+                              partner_st=st)
     return pd, sel, valid_row, overflow
 
 
@@ -392,45 +425,84 @@ def bond_partner_table(st):
 
 def make_ia_fn(st, nbr: NeighborTables, cfg: IcebergsConfig, *,
                contact_cap: Optional[int] = None):
-    """The interactive-force closure ``ia_fn(u1, v1) -> IA`` over the
-    bucket tables, outside MTS and without bonds: the legacy dispatch's
-    all-pairs contact group, or the modern dispatch's cross-conglomerate
-    contact group (``interactive_force``, icebergs.F90:479-607).
-    Every group is evaluated through K7
-    (:func:`.pairs.eval_pair_ia_kernel`, the plain :func:`eval_pair_ia`
-    for CPU tensors); ``contact_cap`` first compacts
-    the bergs with an engaged candidate into that many rows, and
-    ``ia_fn.overflow`` then counts the engaged bergs it dropped (the JAX
-    package drops them uncounted)."""
+    """The interactive-force closure ``ia_fn(u1, v1) -> IA`` over
+    candidate tables, outside MTS, with the dispatch of
+    ``interactive_force`` (icebergs.F90:479-607): on the legacy dispatch
+    the all-pairs contact group, then the bond group; on the modern one
+    the bond group and the same-conglomerate non-bonded contact group
+    (``use_c_crit_dist``), then the cross-conglomerate contact group.
+    The groups are summed in that order, each evaluated through K7
+    (:func:`.pairs.eval_pair_ia_kernel`; the bond group at M =
+    ``max_bonds``; the plain :func:`eval_pair_ia` for CPU tensors).
+    ``contact_cap`` first compacts each contact group's bergs with an
+    engaged candidate into that many rows, and ``ia_fn.overflow`` then
+    counts the engaged bergs it dropped (the JAX package drops them
+    uncounted)."""
     if cfg.mts:
         raise NotImplementedError("the MTS Part-1 tables search (ROADMAP.md "
                                   "Queue 1 item 16)")
-    if cfg.iceberg_bonds_on:
-        raise NotImplementedError("bonded springs outside MTS (ROADMAP.md "
-                                  "Queue 1 item 9)")
     from .pairs import eval_pair_ia_kernel as ev
     u0, v0 = st.uvel, st.vvel
     N = st.capacity
-    m = nbr.cand_valid
-    if not _legacy(cfg):
-        cong = st.conglom_id
-        m = m & (cong[:, None] != cong[nbr.cand_idx.long()])
-    overflow = None
-    if contact_cap is None:
-        pd = precompute_pair_data(st, cfg, nbr.cand_idx, m, partner_st=st)
+    groups = []          # (pd, sel or None, valid_row)
+    overflow = []
 
-        def ia_fn(u1, v1):
-            return ev(pd, cfg, u0, v0, u1, v1)
+    def add_contact(m, c_crit):
+        if contact_cap is None:
+            groups.append((precompute_pair_data(
+                st, cfg, nbr.cand_idx, m, use_c_crit_dist=c_crit), None,
+                None))
+            return
+        pd, sel, vrow, ov = compacted_contact_pairdata(
+            st, cfg, nbr.cand_idx, m, cap=contact_cap,
+            use_c_crit_dist=c_crit)
+        groups.append((pd, sel, vrow))
+        overflow.append(ov)
+
+    def add_bonds():
+        other, valid = bond_partner_table(st)
+        groups.append((precompute_pair_data(st, cfg, other, valid,
+                                            bonded=True), None, None))
+
+    if _legacy(cfg):
+        add_contact(nbr.cand_valid, False)
+        if cfg.iceberg_bonds_on:
+            add_bonds()
     else:
-        pd, sel, vrow, overflow = compacted_contact_pairdata(
-            st, cfg, nbr.cand_idx, m, cap=contact_cap)
-        s = sel.long()
+        cong = st.conglom_id
+        same = cong[:, None] == cong[nbr.cand_idx.long()]
+        if cfg.iceberg_bonds_on:
+            add_bonds()
+            add_contact(nbr.cand_valid & same & ~nbr.is_bond_partner, True)
+        add_contact(nbr.cand_valid & ~same, False)
 
-        def ia_fn(u1, v1):
-            return scatter_ia(ev(pd, cfg, u0[s], v0[s], u1[s], v1[s]), sel,
-                              vrow, N)
-    ia_fn.overflow = overflow
+    def ia_fn(u1, v1):
+        total = None
+        for pd, sel, vrow in groups:
+            if sel is None:
+                b = ev(pd, cfg, u0, v0, u1, v1)
+            else:
+                s = sel.long()
+                b = scatter_ia(ev(pd, cfg, u0[s], v0[s], u1[s], v1[s]), sel,
+                               vrow, N)
+            total = b if total is None else IA(*(x + y for x, y
+                                                 in zip(total, b)))
+        return total
+    ia_fn.overflow = (None if not overflow
+                      else torch.stack(overflow).sum(dtype=torch.int32))
     return ia_fn
+
+
+def check_bond_reciprocity(st):
+    """The number of live directed bonds whose partner holds no bond back
+    (count_bonds' check_bond_quality branch,
+    icebergs_framework.F90:4860-4941); 0 is healthy.  A 0-dim int32."""
+    hasb = st.bond_idx >= 0
+    other = st.bond_idx.clamp(min=0).long()
+    me = torch.arange(st.capacity, dtype=st.bond_idx.dtype,
+                      device=st.device)[:, None, None]
+    back = (st.bond_idx[other] == me).any(-1)
+    return (hasb & ~back & st.alive[:, None]).sum(dtype=torch.int32)
 
 
 # --------------------------------------------------------------------------

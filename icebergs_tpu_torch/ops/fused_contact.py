@@ -1,7 +1,8 @@
 """Fused interactive-force closures over the contact searches (K2, K5).
 
 Counterpart of ``icebergs_tpu/ops/fused_contact.py``
-(``FusedContactStats``, ``_subset_strip_tables``,
+(``FusedContactStats``, ``_subset_strip_tables`` (as
+:func:`.sorted.strip_tables`),
 ``_fallback_group``, ``_scatter_fold``,
 ``_origin_frame_groups_extract``, ``make_ia_fn_fused3``,
 ``make_ia_fn_fused_mts1``; ``_sorted_contact_groups`` and
@@ -53,43 +54,12 @@ from .extract import (EX_CNT, EX_EPI_NP, EX_F1, EX_F2, EX_IAX, EX_IAY,
                       PT_RAD, PT_U, PT_V, extract_sorted)
 from .pack import from_bits, permute_cols_u32, to_bits
 from .prepass import contact_prepass_sorted, prepass_features
-from .sorted import lex_cell_id_order, starts_from_sorted_key
+from .sorted import lex_cell_id_order, starts_from_sorted_key, strip_tables
 
 
 class FusedContactStats(NamedTuple):
     overflow: torch.Tensor      # engaged bergs dropped by cap overflow
     n_fallback: torch.Tensor    # bergs routed through the exact fallback
-
-
-def _subset_strip_tables(sub, self_ids, full_alive, capacity, cell_starts,
-                         grid, strip_width: int, radius: int = 1):
-    """(2r+1) row strips of candidate sorted slots for a compacted subset:
-    ``(cand_idx, valid, truncated)``."""
-    nx, ny = grid.nx, grid.ny
-    ncells = nx * ny
-    cs = cell_starts.long()
-    offs = torch.arange(strip_width, device=cs.device)
-    cands, valids = [], []
-    truncated = torch.zeros((), dtype=torch.int64, device=cs.device)
-    for dj in range(-radius, radius + 1):
-        jrow = sub.jne + dj
-        ilo = (sub.ine - radius).clamp(0, nx - 1)
-        ihi = (sub.ine + radius).clamp(0, nx - 1)
-        ok_row = (jrow >= 0) & (jrow < ny) & sub.alive
-        jrow_c = jrow.clamp(0, ny - 1)
-        s = cs[torch.where(ok_row, jrow_c * nx + ilo, ncells).long()]
-        e = cs[torch.where(ok_row, jrow_c * nx + ihi + 1, ncells).long()]
-        idx = s[:, None] + offs[None, :]
-        valid = ok_row[:, None] & (idx < e[:, None])
-        truncated = truncated + torch.where(
-            ok_row, (e - s - strip_width).clamp(min=0), 0).sum()
-        cands.append(torch.where(valid, idx, 0))
-        valids.append(valid)
-    cand_idx = torch.cat(cands, dim=1)
-    valid = torch.cat(valids, dim=1)
-    valid = valid & (cand_idx != self_ids[:, None])
-    valid = valid & full_alive[cand_idx.clamp(max=capacity - 1)]
-    return cand_idx, valid, truncated.to(torch.int32)
 
 
 def _fallback_group(st, bad, order, key_s, cell_starts, grid, cfg, *,
@@ -104,7 +74,7 @@ def _fallback_group(st, bad, order, key_s, cell_starts, grid, cfg, *,
     s = sel_f.long()
     sub_f = SimpleNamespace(ine=st.ine[s], jne=st.jne[s],
                             alive=st.alive[s] & vrow_f)
-    cand_s, valid_f, trunc_f = _subset_strip_tables(
+    cand_s, valid_f, trunc_f = strip_tables(
         sub_f, torch.full_like(sel_f, -1), key_s < grid.nx * grid.ny, N,
         cell_starts, grid, fallback_strip_width, radius=radius)
     cand_f = cand_s.clamp(max=N - 1)
@@ -286,9 +256,29 @@ def _check_legacy(cfg: IcebergsConfig):
         raise ValueError("the fused contact searches cover the legacy "
                          "contact dispatch only (no MTS, contact_distance "
                          "or separate contact spring)")
-    if cfg.iceberg_bonds_on:
-        raise NotImplementedError("bonded springs outside MTS (ROADMAP.md "
-                                  "Queue 1 item 9)")
+
+
+def _bond_group(st, cfg: IcebergsConfig):
+    """The bonded spring group over the (N, max_bonds) bond table
+    (``fused_contact.py:382-395, 669-680, 836-840``), or None without
+    bonds: ``ia(u0, v0, u1, v1) -> IA`` through K7 at M = max_bonds.  The
+    JAX fused2 / fused3 closures hold it transposed as (B, N); the sums
+    over a row's few over-stretched bonds are the same terms."""
+    if not cfg.iceberg_bonds_on:
+        return None
+    from .pairs import eval_pair_ia_kernel
+    other, valid = _forces.bond_partner_table(st)
+    pd_b = _forces.precompute_pair_data(st, cfg, other, valid, bonded=True)
+
+    def ia(u0, v0, u1, v1):
+        return eval_pair_ia_kernel(pd_b, cfg, u0, v0, u1, v1)
+    return ia
+
+
+def _add(total, bond, u0, v0, u1, v1):
+    if bond is None:
+        return total
+    return IA(*(x + y for x, y in zip(total, bond(u0, v0, u1, v1))))
 
 
 def make_ia_fn_fused3(st, grid, cfg: IcebergsConfig, *, block_n: int = 128,
@@ -299,8 +289,8 @@ def make_ia_fn_fused3(st, grid, cfg: IcebergsConfig, *, block_n: int = 128,
     extraction search, plus its ``FusedContactStats``: on a slab that is
     physically (cell, id) sorted (``presorted``), or on a sorted view of
     any slab with the results in its own frame.  Legacy contact dispatch
-    only (no MTS, contact_distance or separate contact spring; no
-    bonds)."""
+    only (no MTS, contact_distance or separate contact spring); the
+    bonded springs, if any, are added through the bond table."""
     _check_legacy(cfg)
     pd_n, pd_f, sel_f, vrow_f, stats = _extract_groups(
         st, grid, cfg, block_n=block_n, window=window,
@@ -311,11 +301,13 @@ def make_ia_fn_fused3(st, grid, cfg: IcebergsConfig, *, block_n: int = 128,
     u0, v0 = st.uvel, st.vvel
     s = sel_f.long()
     fold = _scatter_fold(sel_f, vrow_f, st.capacity)
+    bond = _bond_group(st, cfg)
 
     def ia_fn(u1, v1):
         bn = _forces.eval_pair_ia_T(pd_n, cfg, u0, v0, u1, v1)
         bf = _forces.eval_pair_ia(pd_f, cfg, u0[s], v0[s], u1[s], v1[s])
-        return IA(*(fold(x, f) for x, f in zip(bn, bf)))
+        return _add(IA(*(fold(x, f) for x, f in zip(bn, bf))), bond, u0,
+                    v0, u1, v1)
 
     return ia_fn, stats
 
@@ -385,8 +377,9 @@ def make_ia_fn_fused(ss, cell_starts, grid, cfg: IcebergsConfig, *,
     slab ``ss`` through K5 (``_sorted_contact_groups``): bergs with 1-2
     engaged partners on an (N, 2) partner table {pmin, pmax} whose
     fields are gathered from the slab, the rest through the exact strip
-    fallback, folded back through a rank table.  Returns ``(ia_fn,
-    FusedContactStats)``; legacy contact dispatch only, no bonds."""
+    fallback, folded back through a rank table, plus the bonded springs
+    through the bond table.  Returns ``(ia_fn, FusedContactStats)``;
+    legacy contact dispatch only."""
     _check_legacy(cfg)
     N = ss.capacity
     nx = grid.nx
@@ -411,7 +404,7 @@ def make_ia_fn_fused(ss, cell_starts, grid, cfg: IcebergsConfig, *,
                             jne=torch.div(key_s, nx,
                                           rounding_mode="floor")[s],
                             alive=alive_s[s])
-    cand_f, valid_f, trunc_f = _subset_strip_tables(
+    cand_f, valid_f, trunc_f = strip_tables(
         sub_f, sel_f, alive_s, N, cell_starts, grid, fallback_strip_width)
     pd_f = _forces.precompute_pair_data(
         _forces.take_rows(ss, sel_f), cfg, cand_f.to(torch.int32),
@@ -420,11 +413,13 @@ def make_ia_fn_fused(ss, cell_starts, grid, cfg: IcebergsConfig, *,
                               n_fallback=bad.sum(dtype=torch.int32))
     fold = _rank_fold(bad, vrow_f, fallback_cap)
     u0, v0 = ss.uvel, ss.vvel
+    bond = _bond_group(ss, cfg)
 
     def ia_fn(u1, v1):
         bn = _forces.eval_pair_ia(pd_n, cfg, u0, v0, u1, v1)
         bf = _forces.eval_pair_ia(pd_f, cfg, u0[s], v0[s], u1[s], v1[s])
-        return IA(*(fold(x, f) for x, f in zip(bn, bf)))
+        return _add(IA(*(fold(x, f) for x, f in zip(bn, bf))), bond, u0,
+                    v0, u1, v1)
 
     return ia_fn, stats
 
@@ -478,7 +473,7 @@ def make_ia_fn_fused2(st, grid, cfg: IcebergsConfig, *, block_n: int = 128,
     back once, and the pair evaluation runs on the origin frame.
     Per-berg results equal :func:`make_ia_fn_fused3`'s bit for bit (the
     same partners, the same values, the same arithmetic).  Legacy
-    contact dispatch only, no bonds."""
+    contact dispatch only; bonded springs through the bond table."""
     _check_legacy(cfg)
     pd_n, pd_f, sel_f, vrow_f, stats = _origin_frame_groups(
         st, grid, cfg, block_n=block_n, window=window,
@@ -487,10 +482,12 @@ def make_ia_fn_fused2(st, grid, cfg: IcebergsConfig, *, block_n: int = 128,
     u0, v0 = st.uvel, st.vvel
     s = sel_f.long()
     fold = _scatter_fold(sel_f, vrow_f, st.capacity)
+    bond = _bond_group(st, cfg)
 
     def ia_fn(u1, v1):
         bn = _forces.eval_pair_ia_T(pd_n, cfg, u0, v0, u1, v1)
         bf = _forces.eval_pair_ia(pd_f, cfg, u0[s], v0[s], u1[s], v1[s])
-        return IA(*(fold(x, f) for x, f in zip(bn, bf)))
+        return _add(IA(*(fold(x, f) for x, f in zip(bn, bf))), bond, u0,
+                    v0, u1, v1)
 
     return ia_fn, stats

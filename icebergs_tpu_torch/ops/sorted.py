@@ -2,7 +2,9 @@
 
 Counterpart of ``icebergs_tpu/ops/sorted.py`` (``sort_state_by_cell``,
 ``starts_from_sorted_key``, ``_payload_sort_state``,
-``_packed_permute_state``, ``uniform_state_fields``): a key-only sort,
+``_packed_permute_state``, ``uniform_state_fields``,
+``strip_neighbor_tables``, and the strips of the fused searches'
+fallback): a key-only sort,
 then every non-uniform state column moved by the permutation.  The
 production transport (``sort_packed_permute``, ``pack_kernel``) is K1
 (:func:`..ops.pack.permute_cols_u32`, which reads the columns in place,
@@ -21,6 +23,7 @@ import torch
 
 from ..config import IcebergsConfig
 from ..grid import Grid
+from .forces import NeighborTables
 from .pack import from_bits, permute_cols_u32, to_bits
 
 
@@ -161,3 +164,61 @@ def sort_kw(cfg: IcebergsConfig) -> dict:
     return dict(packed_permute=cfg.sort_packed_permute,
                 pack_kernel=cfg.pack_kernel,
                 starts_via_scatter=cfg.starts_via_scatter)
+
+
+def strip_tables(sub, self_ids, full_alive, capacity, cell_starts, grid,
+                 strip_width: int, radius: int = 1):
+    """(2r+1) row strips of candidate slots of a (cell, id)-sorted slab
+    for the rows ``sub`` (``ine``, ``jne``, ``alive``: the slab itself,
+    ``self_ids`` its slots, or a compacted subset): row j' of rows
+    j-r..j+r holds the slots of cells (i-r..i+r, j') in ``[start(j',
+    i-r), end(j', i+r))``, capped at ``strip_width``.  Returns
+    ``(cand_idx (int64), valid, truncated)``, ``truncated`` the
+    candidates beyond the caps (int32)."""
+    nx, ny = grid.nx, grid.ny
+    ncells = nx * ny
+    cs = cell_starts.long()
+    offs = torch.arange(strip_width, device=cs.device)
+    cands, valids = [], []
+    truncated = torch.zeros((), dtype=torch.int64, device=cs.device)
+    for dj in range(-radius, radius + 1):
+        jrow = sub.jne + dj
+        ilo = (sub.ine - radius).clamp(0, nx - 1)
+        ihi = (sub.ine + radius).clamp(0, nx - 1)
+        ok_row = (jrow >= 0) & (jrow < ny) & sub.alive
+        jrow_c = jrow.clamp(0, ny - 1)
+        s = cs[torch.where(ok_row, jrow_c * nx + ilo, ncells).long()]
+        e = cs[torch.where(ok_row, jrow_c * nx + ihi + 1, ncells).long()]
+        idx = s[:, None] + offs[None, :]
+        valid = ok_row[:, None] & (idx < e[:, None])
+        truncated = truncated + torch.where(
+            ok_row, (e - s - strip_width).clamp(min=0), 0).sum()
+        cands.append(torch.where(valid, idx, 0))
+        valids.append(valid)
+    cand_idx = torch.cat(cands, dim=1)
+    valid = torch.cat(valids, dim=1)
+    valid = valid & (cand_idx != self_ids[:, None])
+    valid = valid & full_alive[cand_idx.clamp(max=capacity - 1)]
+    return cand_idx, valid, truncated.to(torch.int32)
+
+
+def strip_neighbor_tables(st, grid: Grid, cfg: IcebergsConfig, cell_starts,
+                          strip_width: int = 16,
+                          ncells_radius: int = 1) -> NeighborTables:
+    """Candidate partners of each berg of a (cell, id)-sorted slab as
+    2r+1 contiguous strips (:func:`strip_tables`), (N, (2r+1) *
+    strip_width) int32, with the bond-partner flag under
+    ``iceberg_bonds_on``."""
+    N = st.capacity
+    cand_idx, valid, _ = strip_tables(
+        st, torch.arange(N, dtype=torch.int32, device=st.device), st.alive,
+        N, cell_starts, grid, strip_width, radius=ncells_radius)
+    cand_idx = cand_idx.to(torch.int32)
+    if cfg.iceberg_bonds_on:
+        bonds = torch.where(st.bond_idx >= 0, st.bond_idx, -2)
+        is_bonded = (cand_idx[:, :, None] == bonds[:, None, :]).any(-1) \
+            & valid
+    else:
+        is_bonded = torch.zeros_like(valid)
+    return NeighborTables(cand_idx=cand_idx, cand_valid=valid,
+                          is_bond_partner=is_bonded)

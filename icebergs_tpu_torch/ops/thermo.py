@@ -3,7 +3,8 @@
 Counterpart of ``icebergs_tpu/ops/thermo.py`` (``thermodynamics``,
 ``find_basal_melt``, ``rolling``, ``fl_bits_dimensions``,
 ``melt_by_class_field``; port of ``src/icebergs.F90:2844-3389,
-3492-3828``).  The 14 per-berg melt columns are summed per cell in one of
+3492-3828``), footloose's foot accumulation and the promotion of a
+melted parent's footloose bits included.  The 14 per-berg melt columns are summed per cell in one of
 three ways, as the JAX package sums them: deferred to the spreading pass
 (``defer_cell_cols`` with ``parallel_reprod``), where they ride its
 segment sums; in (cell, id) order by the reproducing slot sums
@@ -22,7 +23,7 @@ import torch
 
 from .. import constants as C
 from ..config import IcebergsConfig
-from .accel import coriolis, rdiv
+from .accel import coriolis, divc, rdiv
 
 
 # the 14 gridded melt fields, in the order of the per-berg melt columns
@@ -308,9 +309,6 @@ def thermodynamics(st, grid, frc, cfg: IcebergsConfig,
     melt fields, summed in (cell, id) order through ``sort_ctx``
     (:func:`.spread.make_sort_ctx`, made here when None) when
     reproducing.  ``with_class_melt`` adds ``melt_by_class``."""
-    if cfg.footloose:
-        raise NotImplementedError("footloose calving (ROADMAP.md Queue 1 "
-                                  "item 9)")
     perday = 1. / 86400.
     dt = cfg.dt
     alive = st.alive
@@ -390,6 +388,7 @@ def thermodynamics(st, grid, frc, cfg: IcebergsConfig,
     else:
         Ln = (L - (Mv + Me) * dt).clamp(min=0.)
         Wn = (W - (Mv + Me) * dt).clamp(min=0.)
+        Ln1, Wn1 = Ln, Wn
         Tn = (T - Mb * dt).clamp(min=0.)
         Mnew = (Tn * Wn * Ln / Vsafe) * M
         dM = M - Mnew
@@ -397,6 +396,21 @@ def thermodynamics(st, grid, frc, cfg: IcebergsConfig,
         dMe = (M / Vsafe) * (T * (W + L)) * Me * dt
         dMv = (M / Vsafe) * (T * (W + L)) * Mv * dt
     fl_k = st.fl_k
+    if cfg.footloose:
+        # the foot's area accumulates on fl_k (icebergs.F90:3016-3036)
+        l_b3 = 3. * _L_C * (_LW_C * cfg.fl_youngs * _B_C
+                            * (Tn * Tn * Tn)) ** 0.25
+        fb = Tn * (1. - cfg.rho_bergs / C.RHO_SEAWATER)
+        kd = Tn - fb
+        fbs = fb.clamp(min=1e-30)
+        kds = kd.clamp(min=1e-30)
+        dk_wide = divc(dMe / fbs - dMv / kds, cfg.rho_bergs)
+        dMv_l = dMv * (Wn1 + W) / (2. * (Ln1 + W)).clamp(min=1e-30)
+        dMe_l = dMe * (Wn + Wn1) / (2. * (Ln + Wn1)).clamp(min=1e-30)
+        dk_narrow = divc(dMe_l / fbs - dMv_l / kds, cfg.rho_bergs)
+        dk = torch.where(W > l_b3, dk_wide, dk_narrow)
+        apply = (fl_k >= 0) & (L > l_b3)
+        fl_k = torch.where(apply, (fl_k + dk).clamp(min=0.), fl_k)
 
     # footloose bits melt (icebergs.F90:3039-3082)
     has_fl = st.mass_of_fl_bits > 0.
@@ -531,7 +545,27 @@ def thermodynamics(st, grid, frc, cfg: IcebergsConfig,
         melted = alive & (Mnew <= 0.)
     else:
         melted = torch.zeros_like(alive)
-    kill = melted & ~(Mnew_fl > 0.)
+    promote = melted & (Mnew_fl > 0.)
+    kill = melted & ~promote
+    if cfg.footloose:
+        # a melted parent's footloose bits become a berg
+        # (icebergs.F90:3225-3262)
+        new_mass = Lnfl * Wnfl * Tnfl * cfg.rho_bergs
+        new_scaling = Mnew_fl * st.mass_scaling / new_mass.clamp(min=1e-30)
+        nMbits_fl_scaled = nMbits_fl * st.mass_scaling / new_scaling.clamp(
+            min=1e-30)
+        st = st.replace(
+            mass=torch.where(promote, new_mass, st.mass),
+            length=torch.where(promote, Lnfl, st.length),
+            width=torch.where(promote, Wnfl, st.width),
+            thickness=torch.where(promote, Tnfl, st.thickness),
+            mass_scaling=torch.where(promote, new_scaling, st.mass_scaling),
+            mass_of_bits=torch.where(promote, nMbits_fl_scaled,
+                                     st.mass_of_bits),
+            mass_of_fl_bits=torch.where(promote, 0., st.mass_of_fl_bits),
+            mass_of_fl_bergy_bits=torch.where(promote, 0.,
+                                              st.mass_of_fl_bergy_bits),
+            fl_k=torch.where(promote, -1., st.fl_k))
     st = st.replace(alive=st.alive & ~kill)
     if with_class_melt:
         fields["melt_by_class"] = melt_by_class_field(

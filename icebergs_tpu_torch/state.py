@@ -208,6 +208,49 @@ def create_bergs(capacity: int, *, lon, lat, uvel=None, vvel=None,
     return st.replace(**kw)
 
 
+def allocate_slots(alive, want):
+    """Pack spawn requests into dead slots (the prefix-sum allocator of
+    ``icebergs_tpu.state.allocate_slots``, which replaces the reference's
+    ``add_new_berg_to_list``).
+
+    ``want`` is a boolean request vector of any length.  Returns
+    ``(granted, slots)``: request r got a slot iff ``granted[r]``, the
+    ``slots[r]``-th (int32; -1 otherwise), the requests taking the dead
+    slots in ascending order by rank.  On the device, no host sync."""
+    capacity = alive.shape[0]
+    dev = alive.device
+    dead = ~alive
+    order = torch.cumsum(want.to(torch.int32), 0, dtype=torch.int32) - 1
+    dead_rank = torch.cumsum(dead.to(torch.int32), 0, dtype=torch.int32) - 1
+    # row `capacity` takes the live slots' writes and is dropped
+    slot_of_rank = torch.zeros(capacity + 1, dtype=torch.int32, device=dev)
+    slot_of_rank.index_copy_(0, torch.where(dead, dead_rank,
+                                            capacity).long(),
+                             torch.arange(capacity, dtype=torch.int32,
+                                          device=dev))
+    nfree = dead.sum(dtype=torch.int32)
+    granted = want & (order < nfree)
+    slots = torch.where(granted,
+                        slot_of_rank[order.clamp(0, capacity - 1).long()],
+                        -1)
+    return granted, slots
+
+
+def grow_capacity(st: BergState, new_capacity: int) -> BergState:
+    """A copy of ``st`` with a larger slot pool (host side, between
+    steps: ``icebergs_tpu.state.grow_capacity``).  Slot indices, and so
+    the bond partner slots, are kept; the new slots are dead with empty
+    bonds."""
+    if new_capacity < st.capacity:
+        raise ValueError(f"cannot shrink: {new_capacity} < {st.capacity}")
+    if new_capacity == st.capacity:
+        return st
+    pad = empty_state(new_capacity - st.capacity, max_bonds=st.max_bonds,
+                      dtype=st.dtype, device=st.device)
+    return BergState(**{f: torch.cat([getattr(st, f), getattr(pad, f)])
+                        for f in ALL_FIELDS})
+
+
 def pack_id(id_cnt, id_ij):
     """The 64-bit id ``cnt * 2^32 + ij`` as a float32 (the JAX package's
     value without x64)."""

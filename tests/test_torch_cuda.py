@@ -484,8 +484,10 @@ def _k7_pairs(dev, n, m, mask, seed=0):
     normals, positive damping coefficients, partner velocities; every
     slot finite.  ``mask``: "le2" (at most two active pairs a row, at
     random slots), "all" (every pair active), "mixed" (rows of 0 to 12
-    active pairs) or "offset" ("mixed" with the mask stored one byte past
-    a 16-byte boundary)."""
+    active pairs), "offset" ("mixed" with the mask stored one byte past
+    a 16-byte boundary) or "bonds" (a bond table: a row's first 0 to m
+    slots hold bonds, each active, as an over-stretched legacy bond is,
+    with probability 1/2)."""
     rng = np.random.RandomState(seed)
     th = rng.uniform(0., 2 * np.pi, (n, m))
     nx, ny = np.cos(th), np.sin(th)
@@ -495,6 +497,9 @@ def _k7_pairs(dev, n, m, mask, seed=0):
             "u2": rng.randn(n, m) * 0.2, "v2": rng.randn(n, m) * 0.2}
     if mask == "all":
         act = np.ones((n, m), bool)
+    elif mask == "bonds":
+        nb = rng.randint(0, m + 1, n)
+        act = (np.arange(m)[None, :] < nb[:, None]) & (rng.rand(n, m) < .5)
     else:
         k = rng.randint(0, 3 if mask == "le2" else 13, n)
         act = rng.rand(n, m).argsort(1) < k[:, None]
@@ -556,6 +561,33 @@ def test_pair_eval_kernel_shapes(dev, n, m, mask, pmag):
         assert int((~le2).sum()) > 500
 
 
+@pytest.mark.parametrize("pmag", [True, False])
+@pytest.mark.parametrize("m", [4, 6, 8])
+@pytest.mark.parametrize("n", [1, 1000, 50_000])
+def test_pair_eval_kernel_bond_widths(dev, n, m, pmag):
+    """K7 at the bond table's widths (M = max_bonds: 4, 6 or 8) with bond
+    masks: bitwise on rows with at most two active pairs, within 1e-5
+    relative plus 1e-6 of each field's scale elsewhere, bitwise from run
+    to run, one launch a call."""
+    cfg = ibp.IcebergsConfig(scale_damping_by_pmag=pmag)
+    pd, vel = _k7_pairs(dev, n, m, "bonds", seed=m)
+    before = eval_pair_ia_kernel.launches
+    got = eval_pair_ia_kernel(pd, cfg, *vel)
+    again = eval_pair_ia_kernel(pd, cfg, *vel)
+    assert eval_pair_ia_kernel.launches == before + 2
+    ref = forces.eval_pair_ia(pd, cfg, *vel)
+    le2 = pd.active.sum(1) <= 2
+    for f in K7_SUMS:
+        a, b = getattr(got, f), getattr(ref, f)
+        assert torch.equal(a, getattr(again, f)), f
+        assert torch.equal(a[le2], b[le2]), f
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        np.testing.assert_allclose(a, b, rtol=1e-5,
+                                   atol=1e-6 * np.abs(b).max(), err_msg=f)
+    if n == 50_000:
+        assert int((~le2).sum()) > 1000
+
+
 def test_interp_sorted_kernel_matches_plain(dev):
     """K6 against its plain version: bitwise (the same expressions, each
     operation rounded once on both sides)."""
@@ -585,8 +617,34 @@ _ITEM15 = {
                       dict(persistent=False, neighbor_mode="fused3"))}
 
 
+def _bonded_world(dev, nx=32, dxy=2000., seed=5):
+    """100 rafts of 4x4 bergs 140 m apart, bonded by radius
+    (``initialize_bonds_host``, on the host), among 400 loose bergs, on
+    the grid of :func:`_world`; dt 60 s for the legacy springs."""
+    cfg, grid, frc, _, _ = _world(dev, n=16, nx=nx, dxy=dxy)
+    cfg = cfg.replace(iceberg_bonds_on=True, dt=60.,
+                      manually_initialize_bonds=True,
+                      manually_initialize_bonds_from_radii=True)
+    rng = np.random.RandomState(seed)
+    org = rng.uniform(3 * dxy, (nx - 3) * dxy, (100, 2))
+    k = np.arange(16)
+    rafts = (org[:, None, :] + np.stack([k % 4, k // 4], 1)[None] * 140.
+             ).reshape(-1, 2)
+    pos = np.concatenate([rafts, rng.uniform(2 * dxy, (nx - 2) * dxy,
+                                             (400, 2))])
+    st = ibp.create_bergs(2560, lon=pos[:, 0], lat=pos[:, 1], mass=3.4e8,
+                          thickness=40., width=100., length=100.,
+                          uvel=rng.uniform(-.1, .1, len(pos)),
+                          device=torch.device("cpu"))
+    st = forces.initialize_bonds_host(st, cfg)
+    i, j, xi, yj = ibp.pos_to_cell(grid.to("cpu"), st.lon, st.lat, -1.0)
+    return cfg, grid, frc, st.replace(ine=i, jne=j, xi=xi, yj=yj).to(dev)
+
+
 @pytest.mark.parametrize("path", ["persistent", "fused3", "fused",
-                                  "buckets", "persistent_fused_kernel"]
+                                  "buckets", "persistent_fused_kernel",
+                                  "sorted", "bonded_fused3",
+                                  "bonded_persistent", "footloose_fused3"]
                          + sorted(_ITEM15))
 def test_step_on_card_matches_cpu(dev, path):
     """Two steps of each path on the card against the CPU (the plain
@@ -595,7 +653,27 @@ def test_step_on_card_matches_cpu(dev, path):
     cfg, grid, frc, st, _ = _world(dev, n=5000, nx=32)
     cfg = cfg.replace(fused_fallback_cap=8192)
     kw = {}
-    if path in _ITEM15:
+    if path == "sorted":
+        kw = dict(persistent=False, neighbor_mode="sorted", max_per_cell=24)
+    elif path in ("bonded_fused3", "bonded_persistent"):
+        # per-step fused3, or the default route: the persistent lane,
+        # which re-sorts the slab and remaps bond_idx every step
+        cfg, grid, frc, st = _bonded_world(dev)
+        cfg = cfg.replace(fused_fallback_cap=8192)
+        kw = dict(neighbor_mode="fused3")
+        if path == "bonded_fused3":
+            kw.update(persistent=False)
+    elif path == "footloose_fused3":
+        # make_step's footloose branch (the default hash uniforms): the
+        # primed bits become bergs, whose interactivity is then adjusted
+        cfg = cfg.replace(footloose=True, fl_style="new_bergs",
+                          fl_youngs=1.e8)
+        k = torch.arange(st.capacity, device=dev)
+        st = ibp.state.grow_capacity(st.replace(
+            fl_k=torch.where(k % 3 == 0, 5e5, 0.),
+            mass_of_fl_bits=torch.where(k % 7 == 1, 1.3e12, 0.)), 8192)
+        kw = dict(persistent=False, neighbor_mode="fused3")
+    elif path in _ITEM15:
         cfg = cfg.replace(**_ITEM15[path][0])
         kw = _ITEM15[path][1]
     elif path == "persistent_fused_kernel":
@@ -616,6 +694,8 @@ def test_step_on_card_matches_cpu(dev, path):
     for name in ("alive", "id_cnt", "ine", "jne"):
         np.testing.assert_array_equal(g[name], c[name])
     live = g["alive"]
+    if path == "footloose_fused3":
+        assert live.sum() > int(st.count()), "no footloose berg was born"
     for name in ("lon", "lat", "uvel", "vvel", "mass"):
         a, b = g[name][live], c[name][live]
         np.testing.assert_allclose(a, b, rtol=1e-5,
@@ -791,3 +871,43 @@ def test_dem_step_on_card_matches_cpu(dev):
         a, b = g[name][live], c[name][live]
         np.testing.assert_allclose(a, b, rtol=1e-4,
                                    atol=2e-3 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("style", ["new_bergs", "fl_bits"])
+def test_coupled_run_on_card_matches_cpu(dev, style):
+    """``IcebergsModel.run`` with calving and footloose (fused3 contacts,
+    the default hash uniforms) for 3 steps on the card against the CPU:
+    slots, ids, cells and every counter exact, floats within the CPU
+    parity tolerance; both spawn paths run."""
+    cfg, grid, frc, st, _ = _world(torch.device("cpu"), n=5000, nx=32)
+    cfg = cfg.replace(footloose=True, fl_style=style, fl_youngs=1.e8,
+                      fused_fallback_cap=8192)
+    k = torch.arange(st.capacity)
+    st = st.replace(fl_k=torch.where(k % 3 == 0, 5e5, 0.),
+                    mass_of_fl_bits=torch.where(k % 7 == 1, 1.3e12, 0.))
+    st = ibp.state.grow_capacity(st, 8192)
+    calving = torch.zeros(grid.nx + 2, grid.ny + 2)
+    calving[3, 3:29] = 3e9
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        m = ibp.IcebergsModel(grid, cfg, device=d)
+        s = m.init_state(st, seed=4)
+        counts = []
+        for _ in range(3):
+            s, o = m.run(s, frc.to(d), calving.to(d))
+            counts.append(tuple(int(getattr(o, f)) for f in (
+                "nbergs", "nbergs_calved", "nbergs_calved_fl",
+                "spawn_overflow", "fl_spawn_overflow", "contact_overflow",
+                "nbergs_melted")))
+        outs.append((ibp.to_numpy(s.bergs), counts))
+    (g, gc), (c, cc) = outs
+    assert gc == cc
+    assert sum(x[1] for x in gc) > 0 and sum(x[2] for x in gc) > 0
+    for name in ("alive", "id_cnt", "id_ij", "ine", "jne"):
+        np.testing.assert_array_equal(g[name], c[name])
+    live = g["alive"]
+    for name in ("lon", "lat", "uvel", "vvel", "mass", "fl_k",
+                 "mass_of_fl_bits"):
+        a, b = g[name][live], c[name][live]
+        np.testing.assert_allclose(a, b, rtol=1e-5,
+                                   atol=2e-5 * np.abs(b).max())

@@ -123,7 +123,10 @@ def test_berg_chksum_matches_jax(seed):
 
 def test_port_imports_no_jax():
     code = ("import sys, icebergs_tpu_torch, icebergs_tpu_torch.model, "
-            "icebergs_tpu_torch.cuda_build\n"
+            "icebergs_tpu_torch.cuda_build, icebergs_tpu_torch.api, "
+            "icebergs_tpu_torch.calving, icebergs_tpu_torch.footloose, "
+            "icebergs_tpu_torch.diag, icebergs_tpu_torch.ids, "
+            "icebergs_tpu_torch.timeutils\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m.startswith('icebergs_tpu.') "
             "or m == 'icebergs_tpu']\n"
@@ -136,23 +139,16 @@ _CFG = dict(grid_is_latlon=False, Runge_not_Verlet=False,
 
 
 @pytest.mark.parametrize("kw", [
-    dict(contact_mode="sorted"), dict(iceberg_bonds_on=True),
     dict(mts=True), dict(grid_is_latlon=True),
-    dict(grid_is_regular=False), dict(footloose=True),
-    dict(hexagonal_icebergs=True)], ids=lambda kw: next(iter(kw)))
+    dict(grid_is_regular=False), dict(hexagonal_icebergs=True)],
+    ids=lambda kw: next(iter(kw)))
 def test_unported_settings_raise(kw):
     """Settings of later slices raise and name their ROADMAP item."""
     cfg = ibp.IcebergsConfig(**_CFG)
     ibp.check_ported(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 "
-                       "item (9|11|16)"):
+                       "item (11|12|13|16)"):
         ibp.check_ported(cfg.replace(**kw))
-    if kw == dict(contact_mode="sorted"):
-        grid = ibp.make_uniform_grid(4, 4, 0., 0., 1., 1.,
-                                     grid_is_latlon=False, device=CPU)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ibp.make_multi_step(grid, cfg, 1, persistent=False,
-                                neighbor_mode="sorted")
 
 
 @pytest.mark.parametrize("kw", [
@@ -161,18 +157,31 @@ def test_unported_settings_raise(kw):
     dict(slot_sum_method="scatter"), dict(slot_sum_method="gather_mm"),
     dict(parallel_reprod=False), dict(sort_packed_permute=False),
     dict(pack_kernel=False), dict(starts_via_scatter=True),
-    dict(coastal_drift=0.1, tidal_drift=0.1)],
+    dict(coastal_drift=0.1, tidal_drift=0.1), dict(contact_mode="sorted"),
+    dict(iceberg_bonds_on=True), dict(footloose=True),
+    dict(with_calving=True)],
     ids=lambda kw: next(iter(kw)))
 def test_ported_settings_accepted(kw):
-    """Settings ported by the slice of ROADMAP item 15: ``check_ported``
-    takes them and the per-step path builds (per-step ``interp_mode=
-    "kernel"`` reads ``interp_flds``, as the JAX ``make_step`` does)."""
+    """Settings ported by the slices of ROADMAP items 15 and 9:
+    ``check_ported`` takes them and the per-step path builds (per-step
+    ``interp_mode="kernel"`` reads ``interp_flds``, as the JAX
+    ``make_step`` does; ``with_calving`` is a ``make_step`` argument that
+    routes ``make_multi_step`` off the persistent lane, as in the JAX
+    package); the ``sorted`` mode builds through ``make_multi_step`` too,
+    and the coupled entry takes the configuration."""
+    kw = dict(kw)
+    step_kw = {k: kw.pop(k) for k in list(kw) if k == "with_calving"}
     cfg = ibp.IcebergsConfig(**_CFG).replace(**kw)
     ibp.check_ported(cfg)
     grid = ibp.make_uniform_grid(4, 4, 0., 0., 1., 1., grid_is_latlon=False,
                                  device=CPU)
-    ibp.make_multi_step(grid, cfg, 1, persistent=False)
+    ibp.make_multi_step(grid, cfg, 1, persistent=False, **step_kw)
+    ibp.make_step(grid, cfg, **step_kw)
+    if cfg.contact_mode == "sorted":
+        ibp.make_multi_step(grid, cfg, 1, persistent=False,
+                            neighbor_mode="sorted")
+    ibp.IcebergsModel(grid, cfg, device=CPU)
     for impl in ("gathered", "manual", "pipelined"):
         ibp.check_ported(cfg.replace(extract_impl=impl, spread_impl=impl))
-    for mode in ("fused3", "fused", "buckets"):
+    for mode in ("fused3", "fused", "buckets", "sorted"):
         ibp.check_ported(cfg.replace(contact_mode=mode))
