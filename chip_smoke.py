@@ -86,7 +86,24 @@ Phases, one line each:
    outside MTS on phase 6's 999,944-element world (per-step fused3 with
    the bond group through K7 at M = max_bonds, dt 60 s), every float
    finite.  Each first runs card against CPU on a 50k-berg world, then is
-   timed as phase 5 is.
+   timed as phase 5 is;
+11. ROADMAP item 16, the MTS scan substep path on phase 6's world, each
+   timed as phase 6 is with a profiled outer step: 11a the scan on K4's
+   flag set (fused Part 1: K1, grouped K2; K3 spreading), beside the
+   scan against K4 after one outer step field by field; 11b the
+   reference's substep contact (no per-substep fracture, the frozen pair
+   list sized by ``auto_pair_cap`` and doubled while it overflows); 11c
+   ``IcebergsModel.run`` with MTS (Part 1 on the candidate tables: K7
+   at M = 400), budgets closed, on K4's flags and on the reference's
+   defaults (11c dense: the substep contact over the (N, 400)
+   candidates, as the entry passes no pair cap; windows of one run);
+   then K7 at M = 400 on the same conglomerates packed 2.5 km apart,
+   and K1 at the Part-1 refresh's shape; 11d card against CPU on phase
+   4b's world (11a-11c, the pair list itself, its contact sums bit for
+   bit from run to run, one substep's forces within 1e-5, the scan
+   against K4 within 5e-6 of scale) and on the input_MTS_KID.nml world
+   (substeps without DEM, explicit and implicit; one host sync per
+   convergence iteration).
 
 The last two lines are a JSON object with each kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -104,6 +121,7 @@ stack and the column kernel on the matrix).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import pathlib
@@ -256,6 +274,39 @@ BONDED_CFG = dict(iceberg_bonds_on=True, max_bonds=6, dt=60.,
                   lat_ref=-55.0, allow_bergs_to_roll=False)
 BONDED_KW = dict(persistent=False, neighbor_mode="fused3")
 BONDED_CROSS_UNITS = 100
+# phase 11: ROADMAP item 16, the MTS scan substep path.  11a the scan on
+# K4's flag set; 11b the reference's substep-contact regime (no
+# per-substep fracture, the same-conglomerate candidates frozen into a
+# pair list sized by auto_pair_cap and doubled while it overflows, as
+# icebergs_tpu/driver.py:259-271 and :381-416 size it); 11c the coupled
+# entry with MTS (Part 1 on the candidate tables, K7 at M = 400); 11d card
+# against CPU on phase 4b's world and the input_MTS_KID.nml flag set
+SCAN_KW = dict(mts_substep_kernel="scan")
+PAIR_REGIME = dict(use_broken_bonds_for_substep_contact=False,
+                   break_bonds_on_sub_steps=False, fracture_criterion="none")
+# the scan against K4 after one outer step from one state:
+# tests/test_dem_vmem.py:92-109's fields, within 5e-6 of scale
+SCAN_FIELDS = ("lon", "lat", "uvel", "vvel", "ang_vel", "ang_accel", "rot",
+               "axn_fast", "ayn_fast", "uvel_old", "vvel_old",
+               "bond_length", "bond_tangd1", "bond_tangd2",
+               "bond_rel_rotation", "bond_nstress", "bond_sstress",
+               "bond_broken", "n_bonds")
+SCAN_K4_TOL = 5e-6
+# one substep's forces, card against CPU: the CPU tests' bound against
+# the JAX package (tests/test_torch_mts_scan.py), widened to 1e-5
+# relative for the card's library sin (the bonds' rotation term)
+SUBSTEP_RTOL, SUBSTEP_ATOL_SCALE = 1e-5, 2e-6
+MTS_MAX_PER_CELL = 16        # the JAX entry's candidate tables
+# tests/test_mts_collision.py's input_MTS_KID.nml values, square elements
+KID_CFG = dict(
+    grid_is_latlon=False, Lx=20000., use_f_plane=True, lat_ref=0.,
+    dt=3600.0, Runge_not_Verlet=False, mts=True, mts_sub_steps=60,
+    explicit_inner_mts=True, force_convergence=True,
+    convergence_tolerance=1e-8, contact_distance=1.75e3,
+    contact_spring_coef=1.e-7, hexagonal_icebergs=False,
+    interactive_icebergs_on=True, iceberg_bonds_on=True, spring_coef=1.e-5,
+    critical_interaction_damping_on=True, allow_bergs_to_roll=False,
+    set_melt_rates_to_zero=True, max_bonds=6)
 
 
 class _Counter:
@@ -272,6 +323,23 @@ class _Counter:
     @launches.setter
     def launches(self, n):
         setattr(self.fn, self.attr, n)
+
+
+class _ByM:
+    """K7's launches at one M (``launches_by_m``: the m400 row splits
+    the candidate tables' M = 400 from the bond table's M = max_bonds),
+    with the ``launches`` interface the paths read and reset."""
+
+    def __init__(self, fn, m):
+        self.fn, self.m = fn, m
+
+    @property
+    def launches(self):
+        return self.fn.launches_by_m.get(self.m, 0)
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches_by_m[self.m] = n
 
 
 def bound(nbytes: float, flops: float):
@@ -492,7 +560,6 @@ def max_abs_err(torch, x, y):
 def state_columns(torch, pack, st, skip):
     """Every state column outside ``skip`` as K1's re-sort hands it over:
     1-D leaves whole, 2-D leaves column by column, as int32 bits."""
-    import dataclasses
     cols = []
     for f in dataclasses.fields(st):
         if f.name in skip:
@@ -1438,34 +1505,46 @@ def dem_multi(ibp, grid, cfg, n_inner, deltas):
                                mts_vmem_block_n=DEM_BLOCK)
 
 
-def phase_dem_cross(ibp, torch, device):
-    """One MTS outer step of a 20-conglomerate world on the card and on a
-    CPU copy (every kernel's plain version)."""
-    import numpy as np
+def dem_cross_world(ibp, torch, device, cfg):
+    """Phase 4b's world: 20 conglomerates in two rows of ten.  A grid row
+    then holds enough elements that some 256-row search blocks stay
+    inside it (good blocks, the normal group); blocks across grid rows
+    take the exact fallback, which the cap covers whole.  A 3 m jitter
+    keeps the bonds elastic: once bonds fracture, one ulp of a library
+    sin decides which break first and the two runs part (fracture is
+    held bitwise in phase 3 instead)."""
+    return dem_world(ibp, torch, cfg, DEM_CROSS_UNITS, NX_DEM_CROSS, device,
+                     gaps=(2.5e3, 3.5e3), cols=10, jitter=3.0,
+                     vel_spread=0.05, seed=1)
 
-    # two rows of ten: a grid row then holds enough elements that some
-    # 256-row search blocks stay inside it (good blocks, the normal
-    # group); blocks across grid rows take the exact fallback, which the
-    # cap covers whole.  A 3 m jitter keeps the bonds elastic: once bonds
-    # fracture, one ulp of a library sin decides which break first and
-    # the two runs part (fracture is held bitwise in phase 3 instead)
-    cfg = dem_config(ibp, fused_fallback_cap=16384)
-    grid, frc, st, deltas, n = dem_world(
-        ibp, torch, cfg, DEM_CROSS_UNITS, NX_DEM_CROSS, device,
-        gaps=(2.5e3, 3.5e3), cols=10, jitter=3.0, vel_spread=0.05, seed=1)
+
+def mts_counters(d):
+    """An MTS step's counters (StepDiags or MtsDiags) as host ints."""
+    out = {}
+    for f in ("p1_overflow", "contact_overflow", "contact_fallback",
+              "p1_fallback", "broken_bonds", "conv_iters", "skin_dropped",
+              "pair_overflow", "inner_conv_iters"):
+        v = getattr(d, f, None)
+        if v is not None:
+            out[f] = int(v)
+    return out
+
+
+def cross_yardstick(ibp, torch, label, st, run):
+    """``run(device, state) -> (state, coupler fields, counters)`` on the
+    card, on a CPU copy and on a CPU copy with every velocity one ulp
+    faster: counters and integers exact, each float field of the card
+    within DEM_CROSS_ULP_FACTOR times the CPU's own one-ulp response or
+    DEM_CROSS_FLOOR of scale."""
+    import numpy as np
     cpu = torch.device("cpu")
     up = torch.nextafter(st.uvel, torch.full_like(st.uvel, float("inf")))
     nudged = st.replace(uvel=up, uvel_old=up)     # one ulp faster
     outs = {}
-    for key, dev, s0 in (("cuda", device, st), ("cpu", cpu, st),
+    for key, dev, s0 in (("cuda", st.device, st), ("cpu", cpu, st),
                          ("ulp", cpu, nudged)):
-        multi = dem_multi(ibp, grid.to(dev), cfg, 1, deltas)
-        s, ov, fb, acc = multi(s0.to(dev), frc.to(dev))
-        d = multi.step_diags[0]
-        outs[key] = (ibp.to_numpy(s), acc.cpu().numpy(), dict(
-            p1_overflow=int(ov), contact_fallback=int(fb),
-            p1_fallback=int(d.p1_fallback),
-            broken_bonds=int(d.broken_bonds), conv_iters=d.conv_iters))
+        s, acc, counters = run(dev, s0.to(dev))
+        outs[key] = (ibp.to_numpy(s), acc.cpu().numpy(), counters)
     (g, gacc, gc), (c, cacc, cc), (p, pacc, _) = (outs["cuda"], outs["cpu"],
                                                   outs["ulp"])
     alive = g["alive"]
@@ -1482,66 +1561,105 @@ def phase_dem_cross(ibp, torch, device):
     beyond = {k: e for k, e in errs.items()
               if e[0] > max(DEM_CROSS_ULP_FACTOR * e[1], DEM_CROSS_FLOOR)}
     if gc != cc or any(differ.values()) or beyond:
-        print(f"[4b dem cross-check] card {gc} cpu {cc} differing "
-              f"integers {differ} (card, one-ulp) scaled float errors "
-              f"beyond {beyond}")
-    require(gc == cc, f"MTS counters differ: card {gc} cpu {cc}")
-    require(gc["p1_overflow"] == 0, f"p1_overflow {gc['p1_overflow']}")
+        print(f"[{label}] card {gc} cpu {cc} differing integers {differ} "
+              f"(card, one-ulp) scaled float errors beyond {beyond}")
+    require(gc == cc, f"{label}: counters differ: card {gc} cpu {cc}")
+    require(gc.get("p1_overflow", 0) == 0
+            and gc.get("contact_overflow", 0) == 0,
+            f"{label}: overflow {gc}")
     for name in ints:
         require(differ[name] == 0,
-                f"{name} differs between the card and the CPU")
-    require(not beyond, f"floats beyond the one-ulp yardstick: "
+                f"{label}: {name} differs between the card and the CPU")
+    require(not beyond, f"{label}: floats beyond the one-ulp yardstick: "
             f"{sorted(beyond)}")
     worst = max(errs, key=lambda k: errs[k][0])
     ratio = max(errs, key=lambda k: errs[k][0] / max(errs[k][1], 1e-30))
     bitwise = all(np.array_equal(g[k], c[k]) for k in g)
-    return dict(elements=n, capacity=st.capacity, **gc,
-                worst_field=worst, worst_scaled_err=errs[worst][0],
+    return dict(capacity=st.capacity, **gc, worst_field=worst,
+                worst_scaled_err=errs[worst][0],
                 its_one_ulp_response=errs[worst][1],
                 worst_ratio_field=ratio, worst_ratio_errs=errs[ratio],
                 coupler_rel_err=errs["coupler"][0], state_bitwise=bitwise)
 
 
+def multi_run(ibp, grid, frc, make):
+    """A ``cross_yardstick`` run of one ``make(grid)`` multi-step call."""
+    def run(dev, s0):
+        multi = make(grid.to(dev))
+        s, ov, fb, acc = multi(s0, frc.to(dev))
+        counters = mts_counters(multi.step_diags[0])
+        counters.update(max_overflow=int(ov), max_fallback=int(fb))
+        return s, acc, counters
+    return run
+
+
+def phase_dem_cross(ibp, torch, device):
+    """One MTS outer step of a 20-conglomerate world on the card and on a
+    CPU copy (every kernel's plain version), substeps in K4."""
+    cfg = dem_config(ibp, fused_fallback_cap=16384)
+    grid, frc, st, deltas, n = dem_cross_world(ibp, torch, device, cfg)
+    r = cross_yardstick(ibp, torch, "4b dem cross-check", st, multi_run(
+        ibp, grid, frc, lambda g: dem_multi(ibp, g, cfg, 1, deltas)))
+    return dict(elements=n, **r)
+
+
 def profile_window(torch, fn, profile_out, stem):
     """Profile fn() once: writes the kernel table and trace under
-    profile_out; returns device kernel time (ms) and kernel count."""
+    profile_out (when given); returns device kernel time (ms) and kernel
+    count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    out = pathlib.Path(profile_out)
-    out.mkdir(parents=True, exist_ok=True)
-    (out / f"{stem}_profile.txt").write_text(prof.key_averages().table(
-        sort_by="cuda_time_total", row_limit=40))
-    prof.export_chrome_trace(str(out / f"{stem}_trace.json.gz"))
+    if profile_out:
+        out = pathlib.Path(profile_out)
+        out.mkdir(parents=True, exist_ok=True)
+        (out / f"{stem}_profile.txt").write_text(prof.key_averages().table(
+            sort_by="cuda_time_total", row_limit=40))
+        prof.export_chrome_trace(str(out / f"{stem}_trace.json.gz"))
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     return (sum(e.time_range.elapsed_us() for e in kern) / 1e3, len(kern))
 
 
 def phase_dem_slice(ibp, torch, device, kernels, required, cfg, world,
-                    profile_out=None):
-    """The bench_dem_1m world through make_multi_step with K4; each of
-    the ``required`` kernels must launch."""
+                    profile_out=None, make=None, label="dem slice",
+                    profile=False):
+    """The bench_dem_1m world through make_multi_step, with K4 or as
+    ``make(cfg, n_inner)`` builds it; each of the ``required`` kernels
+    must launch, the Part-1 and pair-list overflows stay 0 (the Part-1
+    fallback cap grows on evidence first) and one outer step makes one
+    host sync per convergence iteration."""
     from icebergs_tpu_torch.diag import berg_chksum
     from icebergs_tpu_torch.ops import segment_spread as ss, sorted as srt
 
     grid, frc, st, deltas, n = world
+    if make is None:
+        def make(c, n_inner):
+            return dem_multi(ibp, grid, c, n_inner, deltas)
+
+    def peak(diags, f):
+        return max(int(getattr(d, f)) if getattr(d, f) is not None else 0
+                   for d in diags)
     mass0 = float(torch.where(st.alive, st.mass * st.mass_scaling,
                               0.).double().sum())
     torch.cuda.reset_peak_memory_stats()
     for _ in range(5):
-        multi = dem_multi(ibp, grid, cfg, DEM_INNER, deltas)
+        multi = make(cfg, DEM_INNER)
         out = multi(st, frc)                        # warm-up
         torch.cuda.synchronize()
-        if int(out[1]) == 0:
+        p1 = peak(multi.step_diags, "p1_overflow")
+        if p1 == 0:
             break
         cap = min(4 * cfg.fused_fallback_cap, st.capacity)
-        print(f"dem slice: Part-1 fallback cap overran (dropped="
-              f"{int(out[1])}); growing to {cap}")
+        print(f"{label}: Part-1 fallback cap overran (dropped={p1}); "
+              f"growing to {cap}")
         cfg = cfg.replace(fused_fallback_cap=cap)
-    require(int(out[1]) == 0, f"p1_overflow {int(out[1])} != 0")
+    require(p1 == 0, f"{label}: p1_overflow {p1} != 0")
+    require(peak(multi.step_diags, "contact_overflow") == 0,
+            f"{label}: pair_overflow "
+            f"{peak(multi.step_diags, 'contact_overflow')} != 0")
 
     for fn in kernels.values():
         fn.launches = 0
@@ -1556,12 +1674,15 @@ def phase_dem_slice(ibp, torch, device, kernels, required, cfg, world,
             launches = {k: fn.launches for k, fn in kernels.items()}
             diags = list(multi.step_diags)
     s, ov, fb, acc = out
+    require(peak(diags, "p1_overflow") == 0
+            and peak(diags, "contact_overflow") == 0,
+            f"{label}: overflow in a timed window")
     for k in required:
-        require(launches[k] > 0, f"kernel {k} was not launched by the DEM "
-                "path")
+        require(launches[k] > 0, f"kernel {k} was not launched by the "
+                f"{label} path")
 
     # host syncs in one outer step
-    step = dem_multi(ibp, grid, cfg, 1, deltas)
+    step = make(cfg, 1)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as rec:
@@ -1570,13 +1691,20 @@ def phase_dem_slice(ibp, torch, device, kernels, required, cfg, world,
     torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
 
+    syncs = sorted({f"{pathlib.Path(r.filename).name}:{r.lineno}"
+                    for r in rec})
+    require(len(rec) == step.step_diags[0].conv_iters
+            + (step.step_diags[0].inner_conv_iters or 0),
+            f"{label}: {len(rec)} host syncs in an outer step of "
+            f"{step.step_diags[0].conv_iters} convergence iterations: "
+            f"{syncs}")
     floats = [getattr(s, f) for f in ("lon", "lat", "uvel", "vvel", "mass",
                                        "thickness", "ang_vel", "rot",
                                        "xi", "yj")]
     finite = all(bool(torch.isfinite(x[s.alive]).all()) for x in floats)
     finite = finite and bool(torch.isfinite(
         s.bond_nstress[s.alive]).all())
-    require(finite, "non-finite DEM state")
+    require(finite, f"{label}: non-finite DEM state")
     require(bool(torch.isfinite(acc).all()), "non-finite coupler fields")
     mass1 = float(torch.where(s.alive, s.mass * s.mass_scaling,
                               0.).double().sum())
@@ -1591,8 +1719,6 @@ def phase_dem_slice(ibp, torch, device, kernels, required, cfg, world,
     order = srt.lex_cell_id_order(key, s.id_cnt, s.id_ij)
     nbad = int(ss.window_bad(srt.starts_from_sorted_key(
         key[order.long()], ncells), ncells, s.capacity).sum())
-    syncs = sorted({f"{pathlib.Path(r.filename).name}:{r.lineno}"
-                    for r in rec})
     res = dict(
         elements=n, capacity=st.capacity, substeps=cfg.n_sub_steps,
         s_per_outer_step=s_step,
@@ -1605,14 +1731,18 @@ def phase_dem_slice(ibp, torch, device, kernels, required, cfg, world,
         berg_chksum=int(chk), alive=int(n_alive), mass0=mass0, mass1=mass1,
         host_syncs_per_outer_step=len(rec), sync_kinds=syncs,
         conv_iters_sync_step=step.step_diags[0].conv_iters,
+        skin_dropped=[int(d.skin_dropped) for d in diags
+                      if d.skin_dropped is not None],
+        pair_overflow=[int(d.contact_overflow) for d in diags
+                       if d.contact_overflow is not None],
         spread_window_bad=nbad,
         spread_association="tree" if nbad else "sequential",
         fallback_cap=cfg.fused_fallback_cap,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    if profile_out:
+    if profile_out or profile:
         t0 = time.perf_counter()
         busy, nk = profile_window(torch, lambda: step(s, frc), profile_out,
-                                  "dem_slice")
+                                  label.replace(" ", "_"))
         res.update(profiled_outer_step_s=time.perf_counter() - t0,
                    device_kernel_ms_per_outer_step=busy,
                    kernels_per_outer_step=nk)
@@ -1968,6 +2098,516 @@ def bonded_world(ibp, torch, device, dem=None):
     return cfg, dem[0], dem[1], dem[2]
 
 
+def scan_vs_k4(ibp, torch, grid, frc, st, cfg, deltas):
+    """One outer step from ``st`` through the scan and through K4 (the
+    dynamics alone): the largest |scan - K4| / scale of each of
+    SCAN_FIELDS (scale: the scan's largest magnitude) and both
+    broken-bond counts."""
+    outs = []
+    for kw in (SCAN_KW, dict(mts_substep_kernel="vmem",
+                             mts_vmem_deltas=deltas,
+                             mts_vmem_block_n=DEM_BLOCK)):
+        step = ibp.make_step(grid, cfg, with_thermo=False, with_spread=False,
+                             **kw)
+        s, d = step(st, frc)
+        outs.append((s, int(d.broken_bonds)))
+    (a, na), (b, nb) = outs
+    errs = {}
+    for f in SCAN_FIELDS:
+        x, y = getattr(a, f).double(), getattr(b, f).double()
+        errs[f] = float((x - y).abs().max() / max(float(x.abs().max()),
+                                                  1e-30))
+    return errs, na, nb
+
+
+def pair_cap_on_evidence(ibp, torch, st, grid, cfg):
+    """The frozen pair list's capacity as the JAX driver sizes it:
+    ``auto_pair_cap`` on the state, doubled while
+    ``compact_conglom_pairs`` overflows.  Returns (cap, auto cap, pairs,
+    skin_dropped, overflow at the auto cap)."""
+    from icebergs_tpu_torch import mts
+    from icebergs_tpu_torch.ops import forces
+    nbr = forces.build_neighbor_tables(
+        st, grid, cfg, max_per_cell=MTS_MAX_PER_CELL,
+        ncells_radius=forces.neighbor_radius(grid, cfg))
+    cap0 = cap = mts.auto_pair_cap(st, nbr, cfg)
+    limit = nbr.cand_idx.numel()
+    ov0 = None
+    while True:
+        me, ot, pv, ov, sd = mts.compact_conglom_pairs(st, nbr, cap, cfg=cfg,
+                                                       dt=cfg.dt)
+        ov = int(ov)
+        ov0 = ov if ov0 is None else ov0
+        if ov == 0 or cap >= limit:
+            break
+        cap = min(2 * cap, limit)
+    npair = int(pv.sum())
+    del nbr, me, ot, pv
+    torch.cuda.empty_cache()
+    require(ov == 0, f"pair list overflows at the slab's size {cap}")
+    return cap, cap0, npair, int(sd), ov0
+
+
+def phase_mts_coupled(ibp, torch, device, kernels, cfg, world,
+                      profile_out=None, label="11c", inner=DEM_INNER,
+                      stem="mts_coupled_run", profile=True):
+    """Phase 11c: ``IcebergsModel.run`` with MTS on phase 6's world
+    (Part 1 on the candidate tables, K7 at M = 400, the scan substeps,
+    ``interp_flds``, thermodynamics, the spreading): a warm-up, 3 timed
+    windows of ``inner`` runs from one state with every kernel's launches
+    counted over the first, every overflow 0, the largest cell within
+    the tables' MTS_MAX_PER_CELL, the budgets closed over a window, one
+    host sync per Part-1 convergence iteration in a run, a profiled
+    window when ``profile``.  Returns ``(result, launches of the first
+    window)``."""
+    from icebergs_tpu_torch.diag import berg_chksum, compute_budgets
+
+    grid, frc, st, deltas, n = world
+    occ = max_occupancy(torch, st, grid)
+    require(occ <= MTS_MAX_PER_CELL, f"{label}: {occ} elements in a cell "
+            f"> max_per_cell {MTS_MAX_PER_CELL}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = ibp.IcebergsModel(grid, cfg, device=device)
+
+    def window():
+        s = model.init_state(st)
+        outs = []
+        for _ in range(inner):
+            s, o = model.run(s, frc)
+            outs.append(o)
+        return s, outs
+
+    def overflow(outs):
+        ov = {f: max(int(getattr(o, f)) for o in outs)
+              for f in ("contact_overflow", "spawn_overflow",
+                        "fl_spawn_overflow")}
+        ov["p1_overflow"] = max(int(o.mts.p1_overflow or 0) for o in outs)
+        return ov
+
+    s, outs = window()                                 # warm-up
+    torch.cuda.synchronize()
+    require(not any(overflow(outs).values()),
+            f"{label}: overflow {overflow(outs)}")
+    b0 = compute_budgets(st, model.init_state(st).calving)
+    for fn in kernels.values():
+        fn.launches = 0
+    times = []
+    for w in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, outs = window()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / inner)
+        if w == 0:
+            launches = {k: fn.launches for k, fn in kernels.items()}
+        require(not any(overflow(outs).values()),
+                f"{label} window {w}: overflow {overflow(outs)}")
+    b1 = outs[-1].budgets
+    used = sum(float(o.net_calving_used) for o in outs)
+    melt = sum(float(o.net_melt_kg) for o in outs)
+    start = float(b0.mass) + float(b0.mass_of_bits) + float(b0.stored_ice)
+    end = float(b1.mass) + float(b1.mass_of_bits) + float(b1.stored_ice)
+    budget_rel = abs(end - (start + used - melt)) / end
+    require(budget_rel <= COUPLED_BUDGET_RTOL,
+            f"{label}: the budgets do not close (rel {budget_rel:.3e})")
+
+    require(all_finite(torch, s.bergs), f"{label}: non-finite state")
+    require(all(bool(torch.isfinite(getattr(outs[-1], f)).all())
+                for f in _COUPLED_FIELDS[:-1] + _COUPLED_MELT),
+            f"{label}: non-finite coupler fields")
+    chk, n_alive = berg_chksum(s.bergs)
+    # one more run from the last window's state, its host syncs counted
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        _, o = model.run(s, frc)
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = sorted({f"{pathlib.Path(r.filename).name}:{r.lineno}"
+                    for r in rec})
+    require(len(rec) == o.mts.conv_iters, f"{label}: {len(rec)} host syncs "
+            f"in a run of {o.mts.conv_iters} convergence iterations: {syncs}")
+    res = dict(elements=n, capacity=st.capacity, substeps=cfg.n_sub_steps,
+               s_per_outer_step=statistics.median(times), windows_s=times,
+               conv_iters=[o.mts.conv_iters for o in outs],
+               broken_bonds=[int(o.mts.broken_bonds) for o in outs],
+               overflow=overflow(outs), max_occupancy=occ,
+               budget_rel_err=budget_rel, alive=int(n_alive),
+               berg_chksum=int(chk), host_syncs_per_run=len(rec),
+               conv_iters_sync_run=o.mts.conv_iters, sync_kinds=syncs,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if profile:
+        t0 = time.perf_counter()
+        busy, nk = profile_window(torch, window, profile_out, stem)
+        res.update(profiled_window_s=time.perf_counter() - t0,
+                   device_kernel_ms_per_outer_step=busy / inner,
+                   kernels_per_outer_step=nk / inner)
+    return res, launches
+
+
+def k7_tables_case(ibp, torch, forces, pairs, pack, cfg, device):
+    """K7 at the tables Part 1's M = 400 (the cross-conglomerate group
+    over the (N, 25 x 16) candidate tables) on phase 6's 2066
+    conglomerates packed 2.5 km apart in rows of 46, 3.5 km between rows,
+    so that the group has pairs (phase 6's own world has none): held to
+    its plain version as phase 3 holds it; and K1 at the Part-1 refresh's
+    shape (both partner velocities by the (N x 400) partner slots).
+    Returns (K7 row, K1 line)."""
+    from icebergs_tpu_torch.ops.pack import to_bits
+    grid, frc, st, _, n = dem_world(ibp, torch, cfg, DEM_UNITS, NX_DEM,
+                                    device, gaps=(2.5e3, 3.5e3), cols=46,
+                                    vel_spread=0.05, seed=4)
+    nbr = forces.build_neighbor_tables(
+        st, grid, cfg, max_per_cell=MTS_MAX_PER_CELL,
+        ncells_radius=forces.neighbor_radius(grid, cfg))
+    same = st.conglom_id[:, None] == st.conglom_id[nbr.cand_idx.long()]
+    mask = nbr.cand_valid & ~same
+    del same
+    pd = forces.precompute_pair_data(st, cfg, nbr.cand_idx, mask)
+    del nbr, mask
+    torch.cuda.empty_cache()
+    k1 = k1_case(torch, pack, "mts tables refresh",
+                 [to_bits(st.uvel_old), to_bits(st.vvel_old)],
+                 pd.other.reshape(-1))
+    row = k7_case(torch, forces, pairs, st, grid, cfg, False, pd=pd)
+    del pd
+    torch.cuda.empty_cache()
+    row["note"] = f"elements={n}; " + row["note"]
+    return row, k1
+
+
+def pair_list_check(ibp, torch, st, grid, cfg, cap):
+    """The frozen pair list on the card and on a CPU copy (every
+    integer exact), and the pair-list contact sums twice on the card from
+    one state, bit for bit."""
+    from icebergs_tpu_torch import mts
+    from icebergs_tpu_torch.ops import dem, forces
+    lists = []
+    for dev in (st.device, torch.device("cpu")):
+        s = st.to(dev)
+        g = grid.to(dev)
+        nbr = forces.build_neighbor_tables(
+            s, g, cfg, max_per_cell=MTS_MAX_PER_CELL,
+            ncells_radius=forces.neighbor_radius(g, cfg))
+        lists.append([x.cpu() for x in mts.compact_conglom_pairs(
+            s, nbr, cap, cfg=cfg, dt=cfg.dt)])
+    for name, a, b in zip(("me", "other", "pvalid", "overflow",
+                           "skin_dropped"), *lists):
+        require(torch.equal(a, b), f"11d: the pair list's {name} differs "
+                "between the card and the CPU")
+    me, ot, pv = (x.to(st.device) for x in lists[0][:3])
+    # every bond broken and the elements moved up to 600 m (a shattered
+    # raft): the listed partners come into contact
+    g = torch.Generator(device=st.device).manual_seed(6)
+
+    def moved(x):
+        return x + (torch.rand(x.shape, generator=g, device=st.device)
+                    - .5) * 1200.
+    sm = st.replace(lon_old=moved(st.lon_old), lat_old=moved(st.lat_old),
+                    bond_broken=(st.bond_idx >= 0).to(st.bond_broken.dtype))
+    m = mts._pair_contact_masks(sm, me, ot, pv, cfg)
+    runs = [dem.dem_contact_forces_pairs(sm, cfg, me, ot, m, valid=pv)
+            for _ in range(2)]
+    require(all(torch.equal(a, b) for a, b in zip(*runs)),
+            "11d: the pair-list contact sums differ from run to run")
+    return dict(pairs=int(pv.sum()), cap=cap,
+                overflow=int(lists[0][3]), skin_dropped=int(lists[0][4]),
+                engaged_rows=int((runs[0][0] != 0).sum())), (me, ot, pv)
+
+
+def substep_forces_check(torch, st, grid, cfg, pcfg, pairs):
+    """One substep's accelerations and bond stresses (``_substep_forces``)
+    on the card and on a CPU copy, each within SUBSTEP_RTOL plus
+    SUBSTEP_ATOL_SCALE of scale: where the outer step is chaotic, this
+    holds the forces themselves.  Two states of the world: its bonds
+    strained by moving each element up to 400 m (as the CPU tests move
+    them; at a few metres of stretch one ulp of a 3 km bond length,
+    where the card's and the CPU's sqrt may part, is ~1e-4 of the
+    stretch), and every bond broken with the elements moved up
+    to 600 m (the listed partners in contact), read on the live slots.  Three regimes: the pair list, the
+    dense candidate tables (``pcfg``, no pair list) and contact through
+    broken bonds only (``cfg``, K4's flags).  Returns the worst scaled
+    error of each."""
+    from icebergs_tpu_torch import mts
+    from icebergs_tpu_torch.ops import forces
+    cpu = torch.device("cpu")
+    g = torch.Generator(device=st.device).manual_seed(7)
+
+    def moved(x, r):
+        return x + (torch.rand(x.shape, generator=g, device=st.device)
+                    - .5) * (2. * r)
+    states = {
+        "strained": st.replace(lon_old=moved(st.lon_old, 400.),
+                               lat_old=moved(st.lat_old, 400.)),
+        "shattered": st.replace(
+            lon_old=moved(st.lon_old, 600.), lat_old=moved(st.lat_old, 600.),
+            bond_broken=(st.bond_idx >= 0).to(st.bond_broken.dtype))}
+    regimes = (("pairs", pcfg, pairs), ("dense", pcfg, None),
+               ("broken_bonds", cfg, None))
+    out = {}
+    for sname, s0 in states.items():
+        for rname, c, pr in regimes:
+            res = []
+            for dev in (st.device, cpu):
+                s = s0.to(dev)
+                gd = grid.to(dev)
+                nbr = forces.build_neighbor_tables(
+                    s, gd, c, max_per_cell=MTS_MAX_PER_CELL,
+                    ncells_radius=forces.neighbor_radius(gd, c))
+                p = None if pr is None else tuple(x.to(dev) for x in pr)
+                a = mts._substep_forces(s, nbr, c, c.dt / c.n_sub_steps,
+                                        pairs=p)
+                live = s.alive
+                res.append([x[live].cpu() for x in (*a[:3], a[3].nstress,
+                                                   a[3].sstress)])
+            worst = 0.
+            for name, x, y in zip(("axn", "ayn", "ang_accel", "nstress",
+                                   "sstress"), *res):
+                scale = max(float(y.abs().max()), 1e-30)
+                require(bool(((x - y).abs() <= SUBSTEP_RTOL * y.abs()
+                              + SUBSTEP_ATOL_SCALE * scale).all()),
+                        f"11d: one substep's {name} ({sname}, {rname}) "
+                        "differs between the card and the CPU")
+                worst = max(worst, float((x - y).abs().max()) / scale)
+            require(float(res[1][0].abs().max()) > 0,
+                    f"11d: no substep force ({sname}, {rname})")
+            out[f"{sname}_{rname}"] = worst
+    return out
+
+
+def kid_world(ibp, torch, device):
+    """tests/test_mts_collision.py's world: two bonded 2x2 conglomerates
+    of 400 m bergs in a converging jet on a 20 x 20 grid of 1 km cells."""
+    import numpy as np
+    from icebergs_tpu_torch.ops import forces
+    cfg = ibp.IcebergsConfig(**KID_CFG)
+    grid = ibp.make_uniform_grid(20, 20, 0., 0., 1000., 1000.,
+                                 grid_is_latlon=False, device=device)
+    xc = 1000. * np.arange(21)[:, None] * np.ones((1, 21))
+    yc = 1000. * np.arange(21)[None, :] * np.ones((21, 1))
+    vo = np.where((xc > 10e3) | (xc <= 0.) | (yc == 10e3), 0.,
+                  np.where(yc > 10e3, -0.2, 0.2))
+    frc = ibp.uniform_forcing(20, 20, sst=-2.0, device=device)
+    frc = dataclasses.replace(frc, vo=torch.as_tensor(
+        vo, dtype=torch.float32, device=device))
+    side = 400.0
+    lon, lat = [], []
+    for cx, cy in ((5000., 8000.), (5000., 12000.)):
+        for dx in (-side / 2, side / 2):
+            for dy in (-side / 2, side / 2):
+                lon.append(cx + dx)
+                lat.append(cy + dy)
+    st = ibp.create_bergs(32, lon=lon, lat=lat, mass=850. * 100 * side * side,
+                          thickness=100., width=side, length=side,
+                          mass_scaling=1., id_cnt=np.arange(len(lon)) + 1,
+                          device=device)
+    i, j, xi, yj = ibp.pos_to_cell(grid, st.lon, st.lat, -1.0)
+    st = forces.initialize_bonds_host(
+        st.replace(ine=i, jne=j, xi=xi, yj=yj),
+        cfg.replace(length_for_manually_initialize_bonds=side * 1.2))
+    require(int((st.bond_idx >= 0).sum()) == 16, "KID world: 16 bonds")
+    return cfg, grid, frc, st
+
+
+def phase_mts_cross(ibp, torch, device, kernels, by_path):
+    """Phase 11d: card against CPU.  On phase 4b's world: 11a's scan, 11b's
+    pair-list regime (the pair list itself exact, its contact sums bit for
+    bit from run to run, one substep's forces within SUBSTEP_RTOL), 11c's
+    coupled entry on K4's flags and on the reference's defaults, and the
+    scan against K4 on the card within SCAN_K4_TOL with broken_bonds
+    equal; on the
+    input_MTS_KID.nml world: explicit substeps without DEM and implicit
+    ones with force convergence (2 outer steps; its host syncs counted).
+    Every path's kernel launches go to ``by_path``."""
+    out = {}
+
+    def counted(label, fn):
+        for k in kernels.values():
+            k.launches = 0
+        r = fn()
+        for k, fn_ in kernels.items():
+            if fn_.launches:
+                by_path.setdefault(k, {})[label] = fn_.launches
+        return r
+
+    cfg = dem_config(ibp, fused_fallback_cap=16384)
+    grid, frc, st, deltas, n = dem_cross_world(ibp, torch, device, cfg)
+    cpu = torch.device("cpu")
+
+    def yard(label, make):
+        return counted(label, lambda: cross_yardstick(
+            ibp, torch, f"11d {label}", st, multi_run(ibp, grid, frc,
+                                                      make)))
+    out["11a_scan"] = yard("mts_cross_scan", lambda g: ibp.make_multi_step(
+        g, cfg, 1, with_stats=True, **SCAN_KW))
+    errs, na, nb = scan_vs_k4(ibp, torch, grid, frc, st, cfg, deltas)
+    worst = max(errs, key=errs.get)
+    require(na == nb, f"11d: broken_bonds scan {na} != K4 {nb}")
+    require(errs[worst] <= SCAN_K4_TOL, f"11d: scan against K4: {worst} "
+            f"{errs[worst]:.3e} of scale > {SCAN_K4_TOL}")
+    out["scan_vs_k4"] = dict(broken_bonds=[na, nb], worst_field=worst,
+                             worst_scaled_err=errs[worst], errs=errs)
+
+    pcfg = cfg.replace(**PAIR_REGIME)
+    cap, cap0, npair, sd, ov0 = pair_cap_on_evidence(
+        ibp, torch, st.to(cpu), grid.to(cpu), pcfg)
+    out["11b_pairs"] = yard("mts_cross_pairs",
+                            lambda g: ibp.make_multi_step(
+                                g, pcfg, 1, with_stats=True,
+                                mts_pair_cap=cap, **SCAN_KW))
+    plist, pairs = pair_list_check(ibp, torch, st, grid, pcfg, cap)
+    out["pair_list"] = dict(plist, auto_cap=cap0, overflow_at_auto_cap=ov0)
+    out["substep_forces"] = substep_forces_check(torch, st, grid, cfg, pcfg,
+                                                 pairs)
+    # two whole outer steps of the pair-list regime from one state
+    step = ibp.make_step(grid, pcfg, mts_pair_cap=cap, **SCAN_KW)
+    a, b = step(st, frc)[0], step(st, frc)[0]
+    require(all(torch.equal(getattr(a, f), getattr(b, f))
+                for f in SCAN_FIELDS + ("xi", "yj")),
+            "11d: the pair-list outer step differs from run to run")
+
+    def coupled(c):
+        def run(dev, s0):
+            model = ibp.IcebergsModel(grid.to(dev), c, device=dev)
+            s, o = model.run(model.init_state(s0), frc.to(dev))
+            return s.bergs, o.spread_mass, dict(
+                mts_counters(o.mts), contact_overflow=int(o.contact_overflow),
+                nbergs=int(o.nbergs))
+        return run
+    out["11c_coupled"] = counted("mts_cross_coupled", lambda: cross_yardstick(
+        ibp, torch, "11d coupled", st, coupled(cfg)))
+    # the reference's defaults through the entry: dense substep contact
+    out["11c_dense_coupled"] = counted(
+        "mts_cross_coupled_dense", lambda: cross_yardstick(
+            ibp, torch, "11d coupled dense", st, coupled(pcfg)))
+
+    kcfg, kgrid, kfrc, kst = kid_world(ibp, torch, device)
+    for form, explicit in (("kid_explicit", True), ("kid_implicit", False)):
+        c = kcfg.replace(explicit_inner_mts=explicit)
+        out[form] = counted(f"mts_cross_{form}", lambda: cross_yardstick(
+            ibp, torch, f"11d {form}", kst, multi_run(
+                ibp, kgrid, kfrc, lambda g: ibp.make_multi_step(
+                    g, c, 2, with_stats=True, with_thermo=False))))
+        step = ibp.make_step(kgrid, c, with_thermo=False)
+        s1, _ = step(kst, kfrc)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            _, d = step(s1, kfrc)
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        out[form].update(host_syncs_per_outer_step=len(rec),
+                         conv_iters_sync_step=d.conv_iters,
+                         inner_conv_iters_sync_step=d.inner_conv_iters)
+        require(len(rec) == d.conv_iters + d.inner_conv_iters,
+                f"11d {form}: {len(rec)} host syncs, {d.conv_iters} + "
+                f"{d.inner_conv_iters} convergence iterations: " + str(sorted(
+                    {f"{pathlib.Path(r.filename).name}:{r.lineno}"
+                     for r in rec})))
+    return out
+
+
+def phase11(ibp, torch, device, kernels, by_path, kres, dcfg, dem,
+            dem_s_per_step, profile_out=None):
+    """Phase 11, ROADMAP item 16: the MTS scan substep path on phase 6's
+    world ``dem`` (11a-11c), K7 at the candidate tables' M = 400, and the
+    card-against-CPU checks (11d).  K7's launches at M = 400 are counted
+    apart from its others; each path's launches go to ``by_path`` and
+    the K7 row to ``kres``."""
+    from icebergs_tpu_torch.ops import forces, pack, pairs
+
+    def fmt(x):
+        return "-" if x is None else f"{x:.3f} ms"
+    kernels["eval_pair_ia_kernel/m400"] = _ByM(
+        pairs.eval_pair_ia_kernel, 25 * MTS_MAX_PER_CELL)
+    grid6, frc6, st6 = dem[0], dem[1], dem[2]
+    mts_k = ("permute_cols_u32", "extract_sorted", "segment_spread_sums")
+
+    def mts_slice(label, cfg, **kw):
+        res, launches = phase_dem_slice(
+            ibp, torch, device, kernels, mts_k, cfg, dem, profile_out,
+            make=lambda c, n_: ibp.make_multi_step(
+                grid6, c, n_, with_stats=True, **SCAN_KW, **kw),
+            label=label, profile=True)
+        for k, n_ in launches.items():
+            if n_:
+                by_path.setdefault(k, {})[label.replace(" ", "_")] = n_
+        return res
+
+    res = mts_slice("mts scan", dcfg)
+    errs, na, nb = scan_vs_k4(ibp, torch, grid6, frc6, st6, dcfg, dem[3])
+    res.update(phase6_s_per_outer_step=dem_s_per_step,
+               scan_vs_k4_scaled=errs, broken_bonds_scan_k4=[na, nb])
+    print(f"[11a mts scan] {json.dumps(res)}")
+    pcfg = dcfg.replace(**PAIR_REGIME)
+    cap, cap0, npair, sd, ov0 = pair_cap_on_evidence(ibp, torch, st6,
+                                                     grid6, pcfg)
+    res = mts_slice("mts pairs", pcfg, mts_pair_cap=cap)
+    res.update(pair_cap=cap, auto_pair_cap=cap0, pairs=npair,
+               skin_dropped_at_start=sd, overflow_at_auto_cap=ov0,
+               pair_list_bytes=cap * (4 + 4 + 1))
+    print(f"[11b mts pairs] {json.dumps(res)}")
+    torch.cuda.empty_cache()
+    res, launches = phase_mts_coupled(ibp, torch, device, kernels, dcfg, dem,
+                                      profile_out)
+    for k, n_ in launches.items():
+        if n_:
+            by_path.setdefault(k, {})["mts_coupled_run"] = n_
+    require(launches["eval_pair_ia_kernel/m400"] > 0
+            and launches["segment_spread_sums"] > 0,
+            "11c: K7 at M = 400 or K3 was not launched")
+    print(f"[11c mts coupled run] {json.dumps(res)}")
+    torch.cuda.empty_cache()
+    # the reference's defaults through the entry, which passes no pair
+    # cap: the substep contact over the dense (N, 400) candidates.  Its
+    # profiled run (~240,000 kernels) takes ~150 s: only with
+    # --profile-out
+    res, launches = phase_mts_coupled(
+        ibp, torch, device, kernels, dcfg.replace(**PAIR_REGIME), dem,
+        profile_out, label="11c dense", inner=1, stem="mts_coupled_dense",
+        profile=profile_out is not None)
+    for k, n_ in launches.items():
+        if n_:
+            by_path.setdefault(k, {})["mts_coupled_dense"] = n_
+    require(launches["eval_pair_ia_kernel/m400"] > 0
+            and launches["segment_spread_sums"] > 0,
+            "11c dense: K7 at M = 400 or K3 was not launched")
+    print(f"[11c dense mts coupled run] {json.dumps(res)}")
+    torch.cuda.empty_cache()
+    kres["eval_pair_ia_kernel/m400"], k1t = k7_tables_case(
+        ibp, torch, forces, pairs, pack, dcfg, device)
+    print(f"[11 k1] {json.dumps(k1t)}")
+    r = kres["eval_pair_ia_kernel/m400"]
+    print(f"[11 kernel] eval_pair_ia_kernel/m400: kernel {r['ms']:.4f} "
+          f"ms, plain {fmt(r['plain_ms'])}, bound {r['bound'][0]:.4f} ms "
+          f"({r['bound'][1]}), max_abs_err {r['err']} ({r['note']})")
+    for tag, r in phase_mts_cross(ibp, torch, device, kernels,
+                                  by_path).items():
+        print(f"[11d cross-check {tag}] {json.dumps(r)}")
+
+
+def kernel_counters():
+    """Every kernel wrapper (or second count) by its row's name: the
+    ``launches`` each path reads and resets."""
+    from icebergs_tpu_torch.ops import (dem_substeps, extract, interp_sorted,
+                                       pack, pairs, prepass, segment_spread)
+    return {"permute_cols_u32": pack.permute_cols_u32,
+            "pack_rows_u32": pack.pack_rows_u32,
+            "gather_rows_u32": pack.gather_rows_u32,
+            "extract_sorted": extract.extract_sorted,
+            "segment_spread_sums": segment_spread.segment_spread_sums,
+            "dem_substeps": dem_substeps.part3_substeps_vmem,
+            "contact_prepass_sorted": prepass.contact_prepass_sorted,
+            "interp_sorted": interp_sorted.interp_sorted,
+            "eval_pair_ia_kernel": pairs.eval_pair_ia_kernel,
+            "extract_sorted/epilogue": _Counter(extract.extract_sorted,
+                                                "epilogue_launches"),
+            "segment_spread_sums/assoc": segment_spread.segment_sums}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-out", default=None,
@@ -2049,18 +2689,7 @@ def main(argv=None) -> int:
         require(r["overflow"] == 0, f"4c {name}: contact_overflow "
                 f"{r['overflow']}")
 
-    kernels = {"permute_cols_u32": pack.permute_cols_u32,
-               "pack_rows_u32": pack.pack_rows_u32,
-               "gather_rows_u32": pack.gather_rows_u32,
-               "extract_sorted": extract.extract_sorted,
-               "segment_spread_sums": segment_spread.segment_spread_sums,
-               "dem_substeps": dem_substeps.part3_substeps_vmem,
-               "contact_prepass_sorted": prepass.contact_prepass_sorted,
-               "interp_sorted": interp_sorted.interp_sorted,
-               "eval_pair_ia_kernel": pairs.eval_pair_ia_kernel,
-               "extract_sorted/epilogue": _Counter(extract.extract_sorted,
-                                                   "epilogue_launches"),
-               "segment_spread_sums/assoc": segment_spread.segment_sums}
+    kernels = kernel_counters()
     # launches on each main path: every kernel's count is set to 0 just
     # before the path runs and read just after its first timed window;
     # each path must launch the kernels listed for it
@@ -2087,6 +2716,7 @@ def main(argv=None) -> int:
             "permute_cols_u32", "extract_sorted", "segment_spread_sums",
             "dem_substeps"), dcfg, dem, args.profile_out)
     print(f"[6 dem slice] {json.dumps(dres)}")
+    dem_s_per_step = dres["s_per_outer_step"]
     for k, n in dlaunches.items():
         if n:
             by_path.setdefault(k, {})["dem"] = n
@@ -2170,6 +2800,11 @@ def main(argv=None) -> int:
     run_path("10c bonded fused3", "bonded_fused3",
              ("permute_cols_u32", "extract_sorted", "eval_pair_ia_kernel",
               "segment_spread_sums"), multi_kw=BONDED_KW, world=bworld)
+    del bworld, bst
+    torch.cuda.empty_cache()
+
+    phase11(ibp, torch, device, kernels, by_path, kres, dcfg, dem,
+            dem_s_per_step, args.profile_out)
 
     source = {"permute_cols_u32": ("permute_cols.cu",
                                    "icebergs_tpu/ops/pallas_pack.py:30"),
@@ -2200,22 +2835,38 @@ def main(argv=None) -> int:
               "interp_sorted": ("interp_sorted.cu",
                                 "icebergs_tpu/ops/pallas_interp.py:275"),
               "eval_pair_ia_kernel": ("pair_eval.cu",
-                                      "icebergs_tpu/ops/pallas_pairs.py:108")}
+                                      "icebergs_tpu/ops/pallas_pairs.py:108"),
+              "eval_pair_ia_kernel/m400": (
+                  "pair_eval.cu", "icebergs_tpu/ops/pallas_pairs.py:108")}
     # the grouped K2 row is the DEM path's K2, the plain row the others';
     # K3's 14-column row is the per-step and DEM paths', the plain row the
     # persistent lanes' (3 columns)
+    # the MTS paths' K2 is the grouped one (Part 1); their K3 takes 14
+    # columns but on the coupled entry and the KID paths (no melt columns)
     k2 = by_path.get("extract_sorted", {})
-    by_path["extract_sorted/grouped"] = {"dem": k2.pop("dem", 0)}
+    by_path["extract_sorted/grouped"] = {
+        p: k2.pop(p) for p in list(k2) if p == "dem" or p.startswith("mts_")}
     k3 = by_path.get("segment_spread_sums", {})
     by_path["segment_spread_sums/extra14"] = {
         p: k3.pop(p) for p in list(k3)
-        if p in ("dem", "bonded_fused3") or p.startswith("perstep_")}
+        if p in ("dem", "bonded_fused3", "mts_scan", "mts_pairs",
+                 "mts_cross_scan", "mts_cross_pairs")
+        or p.startswith("perstep_")}
     by_path["segment_spread_sums/extra0"] = {
-        p: k3.pop(p) for p in list(k3) if p == "coupled_run"}
-    # the bonded path's K7 launches are the bond table's (M = max_bonds)
+        p: k3.pop(p) for p in list(k3)
+        if p == "coupled_run" or p.startswith("mts_")}
+    # K7: the launches at M = 400 are the m400 row's (the tables Part 1
+    # of 11c and 11c-dense, and the same-conglomerate contact group of the
+    # KID paths); of the rest, the bonded and MTS paths' are the bond
+    # table's (M = max_bonds)
     k7 = by_path.get("eval_pair_ia_kernel", {})
+    for p, nt in by_path.get("eval_pair_ia_kernel/m400", {}).items():
+        k7[p] -= nt
+        if not k7[p]:
+            del k7[p]
     by_path["eval_pair_ia_kernel/bonds"] = {
-        p: k7.pop(p) for p in list(k7) if p == "bonded_fused3"}
+        p: k7.pop(p) for p in list(k7)
+        if p == "bonded_fused3" or p.startswith("mts_")}
     rows = [{"name": k, "route": "cuda",
              "source": f"icebergs_tpu_torch/csrc/{source[k][0]}",
              "replaces": source[k][1],
@@ -2227,8 +2878,12 @@ def main(argv=None) -> int:
             for k, r in kres.items()]
     # the rule-2 order of the redesigns: launches x (ms - bound_ms) over
     # every path's first timed window (K1's row times one shape, the
-    # re-sort; its [3 k1] lines give the others)
-    cost = sorted(((r["launches"] * (r["ms"] - r["bound_ms"]), r["name"])
+    # re-sort; its [3 k1] lines give the others); phase 11d's small
+    # cross-check worlds are not timed windows
+    def timed(r):
+        return sum(n for p, n in r["launches_by_path"].items()
+                   if not p.startswith("mts_cross_"))
+    cost = sorted(((timed(r) * (r["ms"] - r["bound_ms"]), r["name"])
                    for r in rows), reverse=True)
     print("[rule2] launches x (ms - bound_ms): " + ", ".join(
         f"{n} {c:.2f}" for c, n in cost))

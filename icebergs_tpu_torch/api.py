@@ -11,7 +11,8 @@ reference's sequence (icebergs_run, icebergs.F90:5074-5889):
 1. the interface (:func:`prepare_forcing`, called by the host model);
 2. the calving buckets, then the spawn from full buckets;
 3. the interpolation onto the bergs (``interp_flds``, with tidal drift);
-4. evolve (Verlet or RK4 with the contact search of the config);
+4. evolve (Verlet or RK4 with the contact search of the config, or the
+   MTS outer step);
 5. footloose calving and its children's interactivity;
 6. thermodynamics;
 7. the gridded fields (K3 behind a payload sort);
@@ -20,9 +21,12 @@ reference's sequence (icebergs_run, icebergs.F90:5074-5889):
 Randomness: the tidal drift's uniforms come from a ``torch.Generator``
 on the state's device seeded from (seed, step), the footloose uniforms
 from :func:`.footloose.id_hash_uniforms` of (seed, step); both plug in
-per call.  MTS (the JAX entry runs its scan substeps) raises, naming
-ROADMAP.md Queue 1 item 16; restarts and the end-of-run trajectories,
-item 12.  A step makes no host sync.
+per call.  An MTS configuration evolves by
+:func:`.mts.evolve_icebergs_mts` as the JAX entry calls it: Part 1 on the
+candidate tables (K7), the scan substeps; its diagnostics come back in
+``RunOutputs.mts``.  Restarts and the end-of-run trajectories raise,
+naming ROADMAP.md Queue 1 item 12.  A step makes no host sync but the
+MTS force-convergence reads (one a Part-1 iteration).
 """
 
 from __future__ import annotations
@@ -38,12 +42,13 @@ from .calving import (CalvingState, accumulate_calving, calve_icebergs,
                       init_calving_state)
 from .config import IcebergsConfig, check_ported
 from .diag import Budgets, compute_budgets
-from .dynamics import evolve_icebergs
+from .dynamics import EvolveOut, evolve_icebergs
 from .footloose import (adjust_fl_berg_interactivity,
                         delete_fully_fl_calved, footloose_calving,
                         id_hash_uniforms)
 from .forcing import Forcing
 from .grid import Grid
+from .mts import MtsDiags, evolve_icebergs_mts
 from .ops import forces as _forces
 from .ops import spread as _spread
 from .ops import thermo as _thermo
@@ -113,6 +118,8 @@ class RunOutputs(NamedTuple):
     fl_bits_src: Optional[torch.Tensor] = None         # kg/m2/s
     fl_to_berg_kg: Optional[torch.Tensor] = None
     flb_to_bergy_kg: Optional[torch.Tensor] = None
+    # the MTS outer step's diagnostics (not in the JAX RunOutputs)
+    mts: Optional[MtsDiags] = None
 
 
 def _edge_pad(u, d0: int, d1: int):
@@ -207,10 +214,6 @@ def run_coupling_sequence(cfg: IcebergsConfig, grid: Grid,
     config alone (built here when not given); ``tidal_uniforms`` a (2, N)
     tensor on [-1, 1) and ``fl_uniforms`` a ``(stream, state) -> (N,)``
     callable replace the default random sources."""
-    if cfg.mts:
-        raise NotImplementedError("MTS through the coupled entry runs the "
-                                  "scan substeps (ROADMAP.md Queue 1 item "
-                                  "16)")
     st, calv = state.bergs, state.calving
     if neighbor_mode is None:
         neighbor_mode = (cfg.resolved_contact_mode()
@@ -239,9 +242,9 @@ def run_coupling_sequence(cfg: IcebergsConfig, grid: Grid,
 
     # 5. evolve
     zi = torch.zeros((), dtype=torch.int32, device=st.device)
-    fstats = None
+    fstats = mts_d = None
     ia_fn = None
-    if cfg.interactive_icebergs_on:
+    if cfg.interactive_icebergs_on and not cfg.mts:
         if neighbor_mode in ("fused", "fused3"):
             kw = dict(block_n=128, window=cfg.fused_window,
                       fallback_cap=cfg.fused_fallback_cap,
@@ -263,7 +266,12 @@ def run_coupling_sequence(cfg: IcebergsConfig, grid: Grid,
                     st, grid, cfg, ncells_radius=nbr_radius,
                     max_per_cell=max_per_cell)
             ia_fn = _forces.make_ia_fn(st, nbr, cfg)
-    out = evolve_icebergs(st, grid, frc, cfg, ia_fn=ia_fn)
+    if cfg.mts:
+        st, mts_d = evolve_icebergs_mts(st, grid, frc, cfg,
+                                        ncells_radius=nbr_radius)
+        out = EvolveOut(st, zi, zi)
+    else:
+        out = evolve_icebergs(st, grid, frc, cfg, ia_fn=ia_fn)
     st = out.state
 
     # 6. footloose calving and the children's interactivity
@@ -344,7 +352,7 @@ def run_coupling_sequence(cfg: IcebergsConfig, grid: Grid,
         fl_to_berg_kg=(fl_diag.fl_to_berg_kg if fl_diag is not None
                        else None),
         flb_to_bergy_kg=(fl_diag.flb_to_bergy_kg if fl_diag is not None
-                         else None))
+                         else None), mts=mts_d)
     state = state.replace(bergs=st, calving=calv, step=state.step + 1,
                           current_yearday=yday + cfg.dt / 86400.,
                           spread_mass_old=sp.spread_mass)
@@ -362,10 +370,6 @@ class IcebergsModel:
                  neighbor_mode: Optional[str] = None,
                  fused_kw: Optional[dict] = None, device=None):
         check_ported(cfg)
-        if cfg.mts:
-            raise NotImplementedError("MTS through the coupled entry runs "
-                                      "the scan substeps (ROADMAP.md Queue "
-                                      "1 item 16)")
         self.device = torch.device("cuda" if device is None else device)
         self.grid = grid.to(self.device)
         self.cfg = cfg

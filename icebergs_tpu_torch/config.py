@@ -413,27 +413,3 @@ def check_ported(cfg: IcebergsConfig) -> None:
         raise ValueError(f"extract_impl={cfg.extract_impl!r}")
     if cfg.spread_impl not in ("gathered", "manual", "pipelined"):
         raise ValueError(f"spread_impl={cfg.spread_impl!r}")
-    if cfg.mts:
-        _check_mts(cfg, no)
-
-
-def _check_mts(cfg: IcebergsConfig, no) -> None:
-    """The MTS settings served: the DEM flag set of the substep kernel
-    (K4) with the fused Part-1 search; the rest is the scan substep
-    path (ROADMAP.md Queue 1 item 16)."""
-    if not cfg.dem:
-        no("MTS without DEM (implicit inner substeps)"
-           if not cfg.explicit_inner_mts
-           else "MTS without DEM (calculate_force bond substeps)", 16)
-    if not cfg.use_broken_bonds_for_substep_contact:
-        no("pair-list substep contacts (mts.compact_conglom_pairs, "
-           "use_broken_bonds_for_substep_contact=False)", 16)
-    if not cfg.break_bonds_on_sub_steps:
-        no("outer-step fracture (dem.break_bonds_dem, "
-           "break_bonds_on_sub_steps=False)", 16)
-    if cfg.fracture_criterion != "stress":
-        no(f"fracture_criterion={cfg.fracture_criterion!r}", 16)
-    if cfg.dem_beam_test > 0:
-        no(f"dem_beam_test={cfg.dem_beam_test}", 16)
-    if cfg.grid_is_latlon:
-        no("lat-lon grids", 11)

@@ -33,13 +33,15 @@ or the method's slot sums, or the plain scatters.  ``neighbor_mode=
 the sorted strips (K7 evaluates the pairs); its state comes back in that
 order.  An MTS step replaces
 the dynamics with
-:func:`.mts.evolve_icebergs_mts` (Part-1 search through K2 with the
-conglomerate filter, the force-convergence loop, the substep loop in
-K4) and reads the ocean depth through the quadratic stencil.
+:func:`.mts.evolve_icebergs_mts` (the Part-1 search through K2 with the
+conglomerate filter or the candidate tables through K7, the
+force-convergence loop, the substep loop in K4 or as the scan) and
+reads the ocean depth through the quadratic stencil.
 
 The JAX ``lax.scan`` becomes a Python loop over ``n_inner`` steps that
 keeps the same coupler-field accumulator.  A non-MTS step makes no host
-syncs; an MTS step makes one per force-convergence iteration.
+syncs; an MTS step makes one per force-convergence iteration (Part 1's
+and the implicit inner substeps').
 """
 
 from __future__ import annotations
@@ -76,10 +78,13 @@ class StepDiags(NamedTuple):
     contact_fallback: Optional[torch.Tensor] = None  # exact-fallback bergs
     p1_overflow: Optional[torch.Tensor] = None  # MTS Part-1 fallback drops
     # not in the JAX StepDiags: the MTS step's Part-1 fallback rows, newly
-    # broken bonds and force-convergence iterations (MtsDiags)
+    # broken bonds, force-convergence iterations, the pair list's skin
+    # drops and the implicit inner substeps' iterations (MtsDiags)
     p1_fallback: Optional[torch.Tensor] = None
     broken_bonds: Optional[torch.Tensor] = None
     conv_iters: Optional[int] = None
+    skin_dropped: Optional[torch.Tensor] = None
+    inner_conv_iters: Optional[int] = None
     floating_melt: Optional[torch.Tensor] = None   # (nx+2, ny+2) kg/m2/s
     calving_hflx: Optional[torch.Tensor] = None
     berg_melt: Optional[torch.Tensor] = None
@@ -125,6 +130,7 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
               max_per_cell: int = 16, neighbor_mode: Optional[str] = None,
               neighbor_window: str = "full",
               contact_cap: Optional[int] = None,
+              mts_pair_cap: Optional[int] = None,
               mts_neighbor_mode: Optional[str] = None,
               mts_substep_kernel: str = "scan", mts_vmem_deltas=None,
               mts_vmem_block_n: int = 512, fused_block_n: int = 128,
@@ -148,20 +154,22 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
     -> (N,)``), by default :func:`.footloose.id_hash_uniforms` of
     (0, 0).  ``with_calving`` only routes
     :func:`make_multi_step`, as in the JAX package: the step does not
-    calve (:class:`.api.IcebergsModel` does).  MTS: ``mts_substep_kernel=
-    "vmem"`` with ``mts_vmem_deltas`` from
+    calve (:class:`.api.IcebergsModel` does).  MTS: Part 1's collision
+    group from the fused search (``mts_neighbor_mode`` None or
+    ``"fused"``) or the candidate tables (any other mode, with
+    ``max_per_cell`` and ``contact_cap``); ``mts_substep_kernel="vmem"``
+    with ``mts_vmem_deltas`` from
     :func:`.ops.dem_substeps.analyze_bond_deltas` on a
     :func:`~.ops.dem_substeps.pack_conglomerates_blocked` state runs the
-    substeps in K4.  What is not ported raises ``NotImplementedError``
-    naming its ROADMAP.md item."""
+    substeps in K4, otherwise they run as the scan, with the frozen pair
+    list of ``mts_pair_cap`` pairs where it applies (its overflow is
+    ``StepDiags.contact_overflow``).  What is not ported raises
+    ``NotImplementedError`` naming its ROADMAP.md item."""
     check_ported(cfg)
     table = use_interp_table(cfg)
     # the pallas spread kernel pins the sort key's pre-thermodynamics
     # aliveness; the other reproducing methods share one (cell, id) sort
     spread_kernel = cfg.parallel_reprod and cfg.slot_sum_method == "pallas"
-    if cfg.mts and mts_neighbor_mode not in (None, "fused"):
-        raise NotImplementedError(f"mts_neighbor_mode={mts_neighbor_mode!r}"
-                                  " (ROADMAP.md Queue 1 item 16)")
     interactive = (cfg.interactive_icebergs_on if with_interactions is None
                    else with_interactions)
     if neighbor_mode is None:
@@ -173,6 +181,8 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
     cap = (cfg.fused_fallback_cap if fused_fallback_cap is None
            else fused_fallback_cap)
     radius = _forces.neighbor_radius(grid, cfg) if interactive else 1
+    # the MTS search radius, read off the grid once here (a host read)
+    mts_radius = _forces.neighbor_radius(grid, cfg) if cfg.mts else None
     cell_table = cell_tables(grid) if with_spread else None
     sorted_mode = interactive and neighbor_mode == "sorted"
 
@@ -217,10 +227,15 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
         fstats = mts_d = cap_ov = None
         if cfg.mts:
             st, mts_d = evolve_icebergs_mts(
-                st, grid, frc, cfg, fused_kw={"fallback_cap": cap},
-                ncells_radius=radius, substep_kernel=mts_substep_kernel,
+                st, grid, frc, cfg, pair_cap=mts_pair_cap,
+                contact_cap=contact_cap, max_per_cell=max_per_cell,
+                ncells_radius=mts_radius,
+                neighbor_mode=mts_neighbor_mode or "fused",
+                fused_kw={"fallback_cap": cap},
+                substep_kernel=mts_substep_kernel,
                 vmem_deltas=mts_vmem_deltas, vmem_block_n=mts_vmem_block_n)
             tickets = bounced = zero
+            cap_ov = mts_d.pair_overflow
         else:
             ia_fn = None
             if interactive:
@@ -303,7 +318,9 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
         if mts_d is not None:
             diags = diags._replace(
                 p1_overflow=mts_d.p1_overflow, p1_fallback=mts_d.p1_fallback,
-                broken_bonds=mts_d.broken_bonds, conv_iters=mts_d.conv_iters)
+                broken_bonds=mts_d.broken_bonds, conv_iters=mts_d.conv_iters,
+                skin_dropped=mts_d.skin_dropped,
+                inner_conv_iters=mts_d.inner_conv_iters)
         return st, diags
 
     return step

@@ -1,47 +1,72 @@
 """Multiple-time-stepping velocity Verlet (MTS) with the iKID DEM loop.
 
-Counterpart of ``icebergs_tpu/mts.py`` (``MtsDiags``, ``_slow_accel_mts``,
-``evolve_icebergs_mts``; ``_grounding_drag_coeff`` is
-:func:`.ops.dem.grounding_drag_coeff`; port of
-``evolve_icebergs_mts``, ``src/icebergs.F90:6576-7078``) on the route of
-the DEM flag set:
+Counterpart of ``icebergs_tpu/mts.py`` (port of ``evolve_icebergs_mts``,
+``src/icebergs.F90:6576-7078``, ``accel_mts`` 1277-1708 and
+``accel_explicit_inner_mts`` 1709-1947):
 
 * **Part 1** — V_{n+1} from the slow forces plus the cross-conglomerate
-  collision group (:func:`.ops.fused_contact.make_ia_fn_fused_mts1`, K2
-  with the conglomerate filter), iterated to ``force_convergence``;
-* **Part 2** — the half-kick by the slow acceleration;
-* **Part 3** — all ``n_sub_steps`` explicit DEM substeps in one launch
-  of K4 (:mod:`.ops.dem_substeps`) on the conglomerate-blocked layout.
+  collision group, iterated to ``force_convergence``.  The group comes
+  from the fused search (``neighbor_mode="fused"``,
+  :func:`.ops.fused_contact.make_ia_fn_fused_mts1`: K2 with the
+  conglomerate filter) or from the candidate tables (any other mode:
+  :func:`.ops.forces.make_ia_fn` with ``mts_part=1``, evaluated by K7);
+* **Part 2** — the half-kick by the slow acceleration, after the
+  outer-step fracture (``break_bonds_dem``) when the substeps do not
+  break bonds themselves;
+* **Part 3** — ``n_sub_steps`` fast substeps over bond and contact
+  forces: in one launch of K4 (:mod:`.ops.dem_substeps`) on the
+  conglomerate-blocked layout (``substep_kernel="vmem"`` with its
+  deltas), or as a Python loop over substeps in plain PyTorch (``"scan"``:
+  drift, DEM bond forces with per-substep fracture, broken-bond and
+  same-conglomerate contact from the frozen candidate set or its
+  compacted pair list, torque and angular update; MTS without DEM:
+  ``calculate_force`` bonds and contacts through K7, explicit or with
+  the implicit solve of ``accel_mts(mts_part=3)``).
 
-The convergence ``lax.while_loop`` is a Python loop that reads its
-``done`` flag on the host once per iteration (one sync each).  The scan
-substep path (``substep_kernel="scan"``: ``ops/dem.py``'s bond and contact
-forces, ``break_bonds_dem``, ``compact_conglom_pairs``, implicit inner
-substeps) is ROADMAP.md Queue 1 item 16.
+Host syncs: the Part-1 convergence loop reads its ``done`` flag once per
+iteration (``MtsDiags.conv_iters``), and the implicit inner substeps'
+``force_convergence`` loop once per iteration
+(``MtsDiags.inner_conv_iters``, summed over substeps); nothing else
+reads the card.  The per-substep broken-bond counts stay on the device.
+``substep_sync`` (the multi-device ring hook) is ROADMAP.md Queue 1
+item 13.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
 from . import constants as C
 from .config import IcebergsConfig
-from .dynamics import adjust_index_and_ground
+from .dynamics import _advance_position, adjust_index_and_ground
 from .grid import Grid
+from .ops import dem as _dem
+from .ops import forces as _forces
 from .ops.accel import coriolis, rdiv
 from .ops.dem import tdiv
 from .ops.dem_substeps import part3_substeps_vmem, supports_vmem_substeps
+from .ops.forces import compact_rows
 from .ops.fused_contact import make_ia_fn_fused_mts1
 
 
 class MtsDiags(NamedTuple):
     broken_bonds: torch.Tensor       # 0-dim int32
     conv_iters: int                  # Part-1 iterations run (host count)
-    p1_overflow: Optional[torch.Tensor] = None  # Part-1 fallback drops
+    p1_overflow: Optional[torch.Tensor] = None  # Part-1 drops
     # Part-1 rows on the exact fallback (not in the JAX MtsDiags)
     p1_fallback: Optional[torch.Tensor] = None
+    # same-conglomerate candidates the skin prefilter kept out of the
+    # frozen substep pair list (0-dim int32; 0 without one)
+    skin_dropped: Optional[torch.Tensor] = None
+    # candidates beyond the pair list's capacity (None without a list):
+    # nonzero means the substep contacts missed pairs, grow the cap
+    pair_overflow: Optional[torch.Tensor] = None
+    # the implicit inner substeps' convergence iterations, summed over
+    # substeps (host count; not in the JAX MtsDiags)
+    inner_conv_iters: int = 0
 
 
 def _slow_accel_mts(st, cfg: IcebergsConfig, ia_fn):
@@ -186,46 +211,463 @@ def _slow_accel_mts(st, cfg: IcebergsConfig, ia_fn):
     return ax, ay, axn, ayn, bxn, byn, Fdc_x.abs() + Fdc_y.abs()
 
 
+# --------------------------------------------------------------------------
+# the frozen substep contact candidates
+# --------------------------------------------------------------------------
+
+def _contact_masks(st, nbr, cfg: IcebergsConfig):
+    """Substep contact candidates: same conglomerate, not bonded by an
+    unbroken bond, both ends with open bond slots (the contact rules of
+    accel_explicit_inner_mts, icebergs.F90:1817-1855)."""
+    other = nbr.cand_idx.long()
+    same = st.conglom_id[:, None] == st.conglom_id[other]
+    bonds = torch.where(st.bond_idx >= 0, st.bond_idx, -2)
+    unbroken_partner = ((nbr.cand_idx[:, :, None] == bonds[:, None, :])
+                        & (st.bond_broken[:, None, :] != 1)).any(-1)
+    m = nbr.cand_valid & same & ~unbroken_partner \
+        & (st.n_bonds[other] < cfg.max_bonds)
+    if cfg.dem:
+        m = m & (st.n_bonds < cfg.max_bonds)[:, None]
+    return m
+
+
+def _ordered_bin_sums(vals, bins, nbins: int):
+    """``zeros(nbins).at[bins].add(vals)`` of the JAX package (each bin's
+    values added in slot order from +0, bins outside [0, nbins)
+    dropped), by a stable sort and :func:`.ops.dem.segment_sum_sorted`:
+    no atomics.  ``vals`` (N, F) -> (nbins, F)."""
+    order = torch.argsort(bins, stable=True)
+    return _dem.segment_sum_sorted(vals[order], bins[order], nbins)
+
+
+def _pair_keep_mask(st, nbr, cfg: Optional[IcebergsConfig] = None,
+                    dt=None):
+    """The frozen substep contact candidates (N, M) shared by
+    :func:`compact_conglom_pairs` and :func:`auto_pair_cap`: valid
+    same-conglomerate candidates, less the velocity/acceleration skin
+    prefilter when ``cfg.mts_pair_skin > 0``.  Returns ``(keepM,
+    skin_dropped)``."""
+    other = nbr.cand_idx.long()
+    keepM = nbr.cand_valid & (st.conglom_id[:, None]
+                              == st.conglom_id[other])
+    skin_dropped = torch.zeros((), dtype=torch.int32, device=st.device)
+    if cfg is None or dt is None or cfg.mts_pair_skin <= 0.:
+        return keepM, skin_dropped
+    if cfg.grid_is_latlon:
+        raise NotImplementedError("lat-lon pair metrics (ROADMAP.md Queue "
+                                  "1 item 11)")
+    rx = st.lon[:, None] - st.lon[other]
+    ry = st.lat[:, None] - st.lat[other]
+    r2 = rx * rx + ry * ry
+    if cfg.constant_interaction_LW:
+        A1 = torch.full_like(st.lon, cfg.constant_length
+                             * cfg.constant_width)
+    else:
+        A1 = st.length * st.width
+    rad = _forces._interaction_radius(cfg, A1)
+    # contact engages at r < R1 + R2 (contact_distance does not enter);
+    # the skin is mts_pair_skin x the worst internal speed (against the
+    # own conglomerate's mean velocity) over the outer step, plus a
+    # fracture-release acceleration term
+    crit = rad[:, None] + rad[other]
+    cid = st.conglom_id.clamp(min=0)
+    ncid = st.capacity                 # ids bounded by the slot count
+    w = torch.where(st.alive, 1., 0.).to(st.dtype)
+    sums = _ordered_bin_sums(torch.stack([w * st.uvel, w * st.vvel, w], -1),
+                             cid, ncid)
+    g = sums[cid.clamp(max=ncid - 1).long()]
+    n = g[:, 2].clamp(min=1.)
+    mu = g[:, 0] / n
+    mv = g[:, 1] / n
+    du, dv = st.uvel - mu, st.vvel - mv
+    vint = torch.sqrt(du * du + dv * dv)
+    vint_max = torch.where(st.alive, vint, 0.).max()
+    # a bond fracturing mid-step releases at most its threshold force
+    # over its area ~2R*T, so a fragment of a raft at rest closes at most
+    # ~a_rel*dt^2 within the step
+    a_rel = torch.zeros((), dtype=rad.dtype, device=st.device)
+    if cfg.dem and cfg.fracture_criterion != "none":
+        sig = max(cfg.frac_thres_n, cfg.frac_thres_t) \
+            * cfg.frac_thres_scaling
+        if cfg.constant_interaction_LW:
+            Mb = (cfg.constant_length * cfg.constant_width * st.thickness
+                  * cfg.rho_bergs)
+        else:
+            Mb = st.mass
+        a_berg = sig * 2. * rad * st.thickness / Mb.clamp(min=1.)
+        a_rel = torch.where(st.alive, a_berg, 0.).max()
+    reach = 1.05 * crit + cfg.mts_pair_skin * vint_max * dt \
+        + a_rel * dt * dt
+    drop = keepM & (r2 > reach * reach)
+    return keepM & ~drop, drop.sum(dtype=torch.int32)
+
+
+def compact_conglom_pairs(st, nbr, cap: int,
+                          cfg: Optional[IcebergsConfig] = None, dt=None):
+    """The frozen substep contact candidates compacted into a (cap,) pair
+    list, row-major: first the rows with a candidate into ``max(1024,
+    cap // 64)`` rows, then their candidates into ``cap`` pairs.  The
+    set is fixed for the outer step (cells are not re-binned inside the
+    substeps, as in the reference); the dynamic masks (breakage, open
+    slots) are applied per substep (:func:`_pair_contact_masks`).  With
+    ``cfg`` and ``dt`` the skin prefilter of :func:`_pair_keep_mask`
+    applies.  Returns ``(me, other, pvalid, overflow, skin_dropped)``:
+    ``me`` ascends over ``pvalid``; ``overflow`` counts the candidates of
+    rows beyond the row stage (M each) and those beyond ``cap``."""
+    M = nbr.cand_idx.shape[1]
+    keepM, skin_dropped = _pair_keep_mask(st, nbr, cfg, dt)
+    act_cap = max(1024, cap // 64)
+    rsel, rvalid, row_overflow = compact_rows(keepM.any(dim=1), act_cap)
+    rs = rsel.long()
+    keep2 = keepM[rs] & rvalid[:, None]
+    sel, pvalid, dropped = compact_rows(keep2.reshape(-1), cap)
+    me = rsel[(sel // M).clamp(max=act_cap - 1).long()]
+    other = nbr.cand_idx[rs].reshape(-1)[sel.long()]
+    return me, other, pvalid, row_overflow * M + dropped, skin_dropped
+
+
+def auto_pair_cap(st, nbr, cfg: IcebergsConfig, *, safety: float = 4.0,
+                  minimum: int = 2048, multiple: int = 1024) -> int:
+    """Host-side size of the frozen pair list from the state before a
+    run: ``safety`` x the skin-filtered candidate count rounded up to a
+    ``multiple``, at least ``minimum``, at most N x M.  One host read;
+    overflow is still counted every step (``MtsDiags.pair_overflow``)."""
+    keepM, _ = _pair_keep_mask(st, nbr, cfg, cfg.dt)
+    n = int(keepM.sum())
+    cap = max(minimum, math.ceil(safety * max(n, 1) / multiple) * multiple)
+    return min(cap, keepM.shape[0] * keepM.shape[1])
+
+
+def _pair_contact_masks(st, me, other, pvalid, cfg: IcebergsConfig):
+    """The per-substep part of :func:`_contact_masks` on the pair
+    list."""
+    m_ = me.long()
+    unbroken = ((st.bond_idx[m_] == other[:, None])
+                & (st.bond_broken[m_] != 1)).any(-1)
+    m = pvalid & ~unbroken & (st.n_bonds[other.long()] < cfg.max_bonds)
+    if cfg.dem:
+        m = m & (st.n_bonds[m_] < cfg.max_bonds)
+    return m
+
+
+# --------------------------------------------------------------------------
+# one substep's forces
+# --------------------------------------------------------------------------
+
+def _broken_bond_contact(st, cfg: IcebergsConfig, part):
+    """Contact through broken bonds (icebergs.F90:1789-1792), on the bond
+    table's partner fields."""
+    bo = st.bond_idx.clamp(min=0)
+    bm = (st.bond_idx >= 0) & (st.bond_broken == 1) \
+        & st.alive[:, None] & st.alive[bo.long()]
+    return _dem.dem_contact_forces(st, cfg, bo, bm, part=part)
+
+
+def _substep_forces(st, nbr, cfg: IcebergsConfig, dt, pairs=None,
+                    part_static=None):
+    """One substep's bond and contact accelerations (explicit inner MTS).
+    Returns ``(axn, ayn, ang_accel, DemOut or None)``."""
+    if cfg.dem:
+        part = _dem.bond_partner_fields(st, static=part_static)
+        out = _dem.dem_bond_forces(st, cfg, dt, part=part)
+        zero = torch.zeros_like(st.uvel)
+        IA_x = IA_y = IAd_x = IAd_y = zero
+        if cfg.use_broken_bonds_for_substep_contact:
+            # contact through broken-bond pairs only, on the bond forces'
+            # partner fields
+            c = _broken_bond_contact(st, cfg, part)
+        else:
+            if pairs is not None:
+                me, po, pvalid = pairs
+                pm = _pair_contact_masks(st, me, po, pvalid, cfg)
+                c = _dem.dem_contact_forces_pairs(st, cfg, me, po, pm,
+                                                  valid=pvalid)
+            else:
+                c = _dem.dem_contact_forces(st, cfg, nbr.cand_idx,
+                                            _contact_masks(st, nbr, cfg))
+            # broken-bond pairs collide too (icebergs.F90:1789-1792)
+            b = _broken_bond_contact(st, cfg, part)
+            c = tuple(x + y for x, y in zip(c, b))
+        IA_x, IA_y = IA_x + c[0], IA_y + c[1]
+        IAd_x, IAd_y = IAd_x + c[2], IAd_y + c[3]
+        if cfg.constant_interaction_LW:
+            M = cfg.constant_length * cfg.constant_width * st.thickness \
+                * cfg.rho_bergs
+        else:
+            M = st.mass
+        F_x, F_y, Fd_y = out.F_x, out.F_y, out.Fd_y
+        if cfg.dem_beam_test > 0:
+            F_x, F_y, Fd_y = _apply_beam_loads(st, cfg, F_x, F_y, Fd_y)
+        IA_x = IA_x + F_x / M
+        IA_y = IA_y + F_y / M
+        IAd_x = IAd_x + out.Fd_x / M
+        IAd_y = IAd_y + Fd_y / M
+        ang_accel = (out.T + out.T_d) / (0.5 * M
+                                         * _dem.moment_radius_sq(cfg, st))
+        bond_updates = out
+    else:
+        # MTS without DEM: bond springs by calculate_force (bonded)
+        bo, bv = _forces.bond_partner_table(st)
+        uv = dict(u0=st.uvel, v0=st.vvel, u1=st.uvel, v1=st.vvel)
+        ia_b = _forces.pair_forces(st, cfg, bo, bv, bonded=True,
+                                   use_c_crit_dist=False, **uv)
+        ia_c = _forces.pair_forces(st, cfg, nbr.cand_idx,
+                                   _contact_masks(st, nbr, cfg),
+                                   bonded=False, use_c_crit_dist=True, **uv)
+        du, dv = st.uvel_old, st.vvel_old
+
+        def damp(ia):
+            # explicit damping IAd = P (u_other_old - u_self_old): the
+            # matrix form folds u_self in via Pu - P u_self
+            return (ia.Pu_x - (ia.P11 * du + ia.P12 * dv),
+                    ia.Pu_y - (ia.P21 * du + ia.P22 * dv))
+
+        bdx, bdy = damp(ia_b)
+        cdx, cdy = damp(ia_c)
+        IA_x = ia_b.IA_x + ia_c.IA_x
+        IA_y = ia_b.IA_y + ia_c.IA_y
+        IAd_x, IAd_y = bdx + cdx, bdy + cdy
+        ang_accel = torch.zeros_like(IA_x)
+        bond_updates = None
+    return IA_x + IAd_x, IA_y + IAd_y, ang_accel, bond_updates
+
+
+def _inner_accel_implicit(s, nbr, cfg: IcebergsConfig, dtf, axn_in,
+                          ayn_in):
+    """Implicit inner substep acceleration (accel_mts with mts_part=3 and
+    only interactive forces, icebergs.F90:1480-1547): the springs in
+    axn, the damping projections solved implicitly with scaling 0.5.
+    Returns ``(ax, ay, axn, ayn, bxn, byn)``."""
+    scaling = 0.5
+    ia_fn = _forces.make_ia_fn(s, nbr, cfg, mts_part=3)
+    u_star = s.uvel + 0.5 * dtf * axn_in
+    v_star = s.vvel + 0.5 * dtf * ayn_in
+    uveln, vveln = s.uvel, s.vvel
+    ax = ay = torch.zeros_like(u_star)
+    for itloop in (1, 2):
+        ia = ia_fn(uveln, vveln)
+        RHS_x = (ia.IA_x / 2.) - scaling * (
+            (ia.P11 * u_star + ia.P12 * v_star) - ia.Pu_x)
+        RHS_y = (ia.IA_y / 2.) - scaling * (
+            (ia.P21 * u_star + ia.P22 * v_star) - ia.Pu_y)
+        A11 = 1. + scaling * dtf * ia.P11
+        A22 = 1. + scaling * dtf * ia.P22
+        A12 = scaling * dtf * ia.P12
+        A21 = scaling * dtf * ia.P21
+        detA = rdiv(1., A11 * A22 - A12 * A21)
+        ax = detA * (A22 * RHS_x - A12 * RHS_y)
+        ay = detA * (A11 * RHS_y - A21 * RHS_x)
+        uveln = u_star + dtf * ax
+        vveln = v_star + dtf * ay
+    axn, ayn = ia.IA_x, ia.IA_y
+    return ax, ay, axn, ayn, 2. * ax - axn, 2. * ay - ayn
+
+
+def _apply_beam_loads(st, cfg: IcebergsConfig, F_x, F_y, Fd_y):
+    """DEM beam-test loads (icebergs.F90:1861-1877): a simply supported
+    beam (pinned ends, centre load) or a cantilever (end load); the ends
+    are the extreme live ``start_lon``, as dem_tests_init finds them."""
+    start = torch.where(st.alive, st.start_lon, float("inf")).min()
+    end = torch.where(st.alive, st.start_lon, float("-inf")).max()
+    if cfg.dem_beam_test == 1:
+        is_end = (st.start_lon == start) | (st.start_lon == end)
+        is_mid = st.start_lon == 0.5 * (start + end)
+        F_y = torch.where(is_end, 0., F_y)
+        Fd_y = torch.where(is_end, 0., Fd_y)
+        F_y = torch.where(is_mid, F_y - 1.5e5, F_y)
+    elif cfg.dem_beam_test == 2:
+        F_y = torch.where(st.start_lon == end, F_y - 1.5e10 / 3., F_y)
+    return F_x, F_y, Fd_y
+
+
+def _msum(moving, x):
+    return torch.where(moving, x, 0.).sum()
+
+
+def _substeps_scan(st, cfg: IcebergsConfig, nbr, pairs, moving,
+                   broken_total):
+    """All ``n_sub_steps`` fast substeps as a Python loop (the JAX
+    package's ``lax.scan``).  Returns ``(state, broken_total,
+    inner_conv_iters)``."""
+    def sel(new, old):
+        return torch.where(moving, new, old)
+
+    dtf = cfg.dt / max(cfg.n_sub_steps, 1)
+    dtf_2 = 0.5 * dtf
+    # partner columns constant across substeps: one gather an outer step
+    part_static = _dem.bond_partner_static(st) if cfg.dem else None
+    explicit_inner = cfg.explicit_inner_mts or cfg.dem
+    bm = moving[:, None]
+    inner_iters = 0
+    s = st
+    for _ in range(cfg.n_sub_steps):
+        # drift (icebergs.F90:6790-6831)
+        uvel2 = s.uvel + dtf_2 * (s.axn_fast + s.bxn_fast)
+        vvel2 = s.vvel + dtf_2 * (s.ayn_fast + s.byn_fast)
+        lonn, latn = _advance_position(cfg, s.lon, s.lat, uvel2, vvel2, dtf)
+        # u_old <- u* for the interactions; the v component reads
+        # bxn_fast, as the reference does (icebergs.F90:6826-6827)
+        s = s.replace(lon=sel(lonn, s.lon), lat=sel(latn, s.lat),
+                      lon_old=sel(lonn, s.lon_old),
+                      lat_old=sel(latn, s.lat_old),
+                      uvel_old=sel(s.uvel + dtf_2 * (s.axn_fast
+                                                     + s.bxn_fast),
+                                   s.uvel_old),
+                      vvel_old=sel(s.vvel + dtf_2 * (s.ayn_fast
+                                                     + s.bxn_fast),
+                                   s.vvel_old))
+        # kick
+        axn_in = s.axn_fast + s.bxn_fast
+        ayn_in = s.ayn_fast + s.byn_fast
+        uvel3 = s.uvel + dtf_2 * axn_in
+        vvel3 = s.vvel + dtf_2 * ayn_in
+        if explicit_inner:
+            axn, ayn, ang_accel, bu = _substep_forces(
+                s, nbr, cfg, dtf, pairs=pairs, part_static=part_static)
+            if cfg.short_step_mts_grounding:
+                gdrag = _dem.grounding_drag_coeff(
+                    cfg, s.thickness, s.od, s.mass, s.length, s.width,
+                    "rect")
+                axn = axn + s.uvel * gdrag
+                ayn = ayn + s.vvel * gdrag
+            bxn = torch.zeros_like(axn)
+            byn = torch.zeros_like(ayn)
+            uveln = uvel3 + dtf * (0.5 * axn)
+            vveln = vvel3 + dtf * (0.5 * ayn)
+        else:
+            # implicit inner substeps (accel_mts), optionally iterated to
+            # convergence (icebergs.F90:6833-6974): one host read of the
+            # done flag per iteration
+            bu = None
+            ang_accel = s.ang_accel
+
+            def kick(sv):
+                ax, ay, axn, ayn, bxn, byn = _inner_accel_implicit(
+                    sv, nbr, cfg, dtf, axn_in, ayn_in)
+                return (uvel3 + dtf * ax, vvel3 + dtf * ay, axn, ayn, bxn,
+                        byn)
+
+            uveln, vveln, axn, ayn, bxn, byn = kick(s)
+            if cfg.force_convergence:
+                sv, it, done = s, 0, False
+                while not done and it < 30:
+                    sv = sv.replace(uvel_old=sel(uveln, sv.uvel_old),
+                                    vvel_old=sel(vveln, sv.vvel_old))
+                    un2, vn2, axn, ayn, bxn, byn = kick(sv)
+                    usum = _msum(moving, uveln * uveln + vveln * vveln)
+                    usum1 = _msum(moving, un2 * un2 + vn2 * vn2)
+                    d1, d2 = un2 - uveln, vn2 - vveln
+                    usum2 = _msum(moving, d1 * d1 + d2 * d2)
+                    den = torch.sqrt(usum) + torch.sqrt(usum1)
+                    nc = torch.where(den > 0., 2. * torch.sqrt(usum2) / den,
+                                     0.)
+                    uveln, vveln = un2, vn2
+                    it += 1
+                    done = bool(nc < cfg.convergence_tolerance)
+                inner_iters += it
+        s = s.replace(
+            axn_fast=sel(axn, s.axn_fast), ayn_fast=sel(ayn, s.ayn_fast),
+            bxn_fast=sel(bxn, s.bxn_fast), byn_fast=sel(byn, s.byn_fast),
+            uvel=sel(uveln, s.uvel), vvel=sel(vveln, s.vvel),
+            uvel_old=sel(uveln, s.uvel_old),
+            vvel_old=sel(vveln, s.vvel_old),
+            ang_accel=sel(ang_accel, s.ang_accel))
+        if bu is not None:
+            s = s.replace(
+                bond_length=torch.where(bm, bu.bond_length, s.bond_length),
+                bond_tangd1=torch.where(bm, bu.tangd1, s.bond_tangd1),
+                bond_tangd2=torch.where(bm, bu.tangd2, s.bond_tangd2),
+                bond_rel_rotation=torch.where(bm, bu.rel_rotation,
+                                              s.bond_rel_rotation),
+                bond_nstress=torch.where(bm, bu.nstress, s.bond_nstress),
+                bond_sstress=torch.where(bm, bu.sstress, s.bond_sstress))
+            if bu.broken is not None:
+                # the in-kernel per-substep fracture (icebergs.F90:
+                # 1140-1199)
+                newly = bm & (bu.broken == 1) & (s.bond_broken != 1)
+                broken_total = broken_total + newly.sum(dtype=torch.int32)
+                brok = torch.where(bm, bu.broken, s.bond_broken)
+                s = s.replace(bond_broken=brok, n_bonds=(
+                    (s.bond_idx >= 0) & (brok != 1)).sum(dim=1).to(s.dtype))
+        if cfg.dem:
+            if cfg.use_grounding_torque:
+                gdrag = _dem.grounding_drag_coeff(
+                    cfg, s.thickness, s.od, s.mass, s.length, s.width,
+                    "disk")
+            else:
+                gdrag = torch.zeros_like(s.ang_vel)
+            av = (s.ang_vel + dtf * s.ang_accel) / (1. - gdrag * dtf)
+            s = s.replace(ang_vel=sel(av, s.ang_vel),
+                          rot=sel(s.rot + dtf * av, s.rot))
+            if cfg.break_bonds_on_sub_steps \
+                    and not cfg.use_broken_bonds_for_substep_contact:
+                # the idempotent partner pass (the in-kernel break above
+                # already marked both directed lanes)
+                s, nb2 = _dem.break_bonds_dem(s, cfg)
+                broken_total = broken_total + nb2
+    return s, broken_total, inner_iters
+
+
+# --------------------------------------------------------------------------
+# the outer step
+# --------------------------------------------------------------------------
+
 def evolve_icebergs_mts(st, grid: Grid, frc, cfg: IcebergsConfig, *,
-                        neighbor_mode: str = "fused",
-                        fused_kw: Optional[dict] = None,
+                        pair_cap: Optional[int] = None,
+                        contact_cap: Optional[int] = None,
                         ncells_radius: Optional[int] = None,
-                        substep_kernel: str = "vmem",
+                        max_per_cell: int = 16,
+                        neighbor_mode: str = "tables",
+                        fused_kw: Optional[dict] = None,
+                        substep_kernel: str = "scan",
                         vmem_deltas=None, vmem_block_n: int = 512):
     """Full MTS cycle: Part 1 slow solve, Part 2 half-kick, Part 3
-    substeps (K4), then re-localization on the grid.
+    substeps, then re-localization on the grid.  Returns ``(state,
+    MtsDiags)``.
 
-    ``vmem_deltas`` come from :func:`.ops.dem_substeps.analyze_bond_deltas`
-    on the state's bond table (host side, before the run).  Returns
-    ``(state, MtsDiags)``."""
-    if neighbor_mode != "fused" or not (
-            cfg.dem and cfg.use_broken_bonds_for_substep_contact):
-        raise NotImplementedError(
-            f"neighbor_mode={neighbor_mode!r} / the substep pair lists "
-            "(ROADMAP.md Queue 1 item 16)")
-    if cfg.n_sub_steps > 0 and (substep_kernel != "vmem"
-                                or vmem_deltas is None):
-        raise NotImplementedError(
-            f"substep_kernel={substep_kernel!r} with deltas "
-            f"{vmem_deltas!r}: the scan substep path (ROADMAP.md Queue 1 "
-            "item 16)")
-    if not supports_vmem_substeps(cfg):
-        raise NotImplementedError("substep flag set outside K4 (ROADMAP.md "
-                                  "Queue 1 item 16)")
+    ``neighbor_mode="fused"`` searches Part 1's collision group with K2;
+    any other mode builds the candidate tables (``max_per_cell``,
+    ``ncells_radius``) and evaluates the group through K7, compacted to
+    ``contact_cap`` rows when given.  The tables are also the substep
+    contact candidates of DEM without
+    ``use_broken_bonds_for_substep_contact`` and of MTS without DEM;
+    ``pair_cap`` then compacts the DEM candidates into a frozen pair list
+    of that capacity (:func:`compact_conglom_pairs`; size it with
+    :func:`auto_pair_cap`).  ``substep_kernel="vmem"`` with
+    ``vmem_deltas`` from :func:`.ops.dem_substeps.analyze_bond_deltas`
+    runs the substeps in K4; otherwise they run as the scan."""
     dt = cfg.dt
     dt_2 = 0.5 * dt
     moving = st.alive & (st.static_berg < 0.5)
+    radius = (ncells_radius if ncells_radius is not None
+              else _forces.neighbor_radius(grid, cfg))
 
     def sel(new, old):
         return torch.where(moving, new, old)
 
+    # the candidate tables: Part 1's collision group off the fused search,
+    # and the substep contact candidates off the broken-bond table
+    need_nbr = neighbor_mode != "fused" or not (
+        cfg.dem and cfg.use_broken_bonds_for_substep_contact)
+    nbr = _forces.build_neighbor_tables(
+        st, grid, cfg, max_per_cell=max_per_cell,
+        ncells_radius=radius) if need_nbr else None
+
     # ---- PART 1: slow forces --------------------------------------------
     # pair search and geometry once: positions are frozen during the
     # convergence loop, only the *_old velocities iterate
-    fkw = dict(fallback_cap=cfg.fused_fallback_cap)
-    fkw.update(fused_kw or {})
-    part1_refresh, p1stats = make_ia_fn_fused_mts1(
-        st, grid, cfg, radius=ncells_radius, **fkw)
+    p1_fallback = None
+    if neighbor_mode == "fused":
+        fkw = dict(fallback_cap=cfg.fused_fallback_cap)
+        fkw.update(fused_kw or {})
+        part1_refresh, p1stats = make_ia_fn_fused_mts1(
+            st, grid, cfg, radius=radius, **fkw)
+        p1_overflow, p1_fallback = p1stats.overflow, p1stats.n_fallback
+    else:
+        part1_refresh = _forces.make_ia_fn(st, nbr, cfg, mts_part=1,
+                                           contact_cap=contact_cap,
+                                           return_refresh=True)
+        p1_overflow = part1_refresh.overflow
 
     def part1_once(s):
         return _slow_accel_mts(s, cfg, part1_refresh(s))
@@ -241,14 +683,11 @@ def evolve_icebergs_mts(st, grid: Grid, frc, cfg: IcebergsConfig, *,
                 ax, ay, axn, ayn, bxn, byn, fdc = part1_once(st)
                 up = sel(st.uvel + dt * ax, st.uvel_prev)
                 vp = sel(st.vvel + dt * ay, st.vvel_prev)
-
-                def msum(x):
-                    return torch.where(moving, x, 0.).sum()
-                usum = msum(st.uvel_old * st.uvel_old
-                            + st.vvel_old * st.vvel_old)
-                usum1 = msum(up * up + vp * vp)
+                usum = _msum(moving, st.uvel_old * st.uvel_old
+                             + st.vvel_old * st.vvel_old)
+                usum1 = _msum(moving, up * up + vp * vp)
                 du, dv = up - st.uvel_old, vp - st.vvel_old
-                usum2 = msum(du * du + dv * dv)
+                usum2 = _msum(moving, du * du + dv * dv)
                 denom = torch.sqrt(usum) + torch.sqrt(usum1)
                 normchange = torch.where(
                     denom > 0., 2. * torch.sqrt(usum2) / denom, 0.)
@@ -272,6 +711,11 @@ def evolve_icebergs_mts(st, grid: Grid, frc, cfg: IcebergsConfig, *,
             st = st.replace(uvel_prev=sel(st.uvel, st.uvel_prev),
                             vvel_prev=sel(st.vvel, st.vvel_prev))
 
+        # outer-step fracture when the substeps do not break bonds
+        if cfg.dem and not cfg.break_bonds_on_sub_steps:
+            st, nb = _dem.break_bonds_dem(st, cfg)
+            broken_total = broken_total + nb
+
         # ---- PART 2: half-kick by the slow acceleration ------------------
         u0 = st.uvel_prev + dt_2 * (st.axn + st.bxn)
         v0 = st.vvel_prev + dt_2 * (st.ayn + st.byn)
@@ -284,11 +728,28 @@ def evolve_icebergs_mts(st, grid: Grid, frc, cfg: IcebergsConfig, *,
                             bxn=sel(st.bxn_fast, st.bxn),
                             byn=sel(st.byn_fast, st.byn))
 
-    # ---- PART 3: fast substeps, one K4 launch ---------------------------
-    if cfg.n_sub_steps > 0:
+    # ---- PART 3: fast substeps ------------------------------------------
+    skin_dropped = torch.zeros((), dtype=torch.int32, device=st.device)
+    pair_overflow = None
+    inner_iters = 0
+    if substep_kernel == "vmem" and cfg.n_sub_steps > 0:
+        if not supports_vmem_substeps(cfg):
+            raise ValueError("substep kernel: unsupported flag set")
+        if vmem_deltas is None:
+            raise ValueError("substep kernel 'vmem' needs vmem_deltas "
+                             "(analyze_bond_deltas)")
         st, nb = part3_substeps_vmem(st, cfg, vmem_deltas,
                                      block_n=vmem_block_n)
         broken_total = broken_total + nb
+    elif cfg.n_sub_steps > 0:
+        pairs = None
+        if (pair_cap is not None and cfg.dem
+                and not cfg.use_broken_bonds_for_substep_contact):
+            me, ot, pv, pair_overflow, skin_dropped = compact_conglom_pairs(
+                st, nbr, pair_cap, cfg=cfg, dt=cfg.dt)
+            pairs = (me, ot, pv)
+        st, broken_total, inner_iters = _substeps_scan(
+            st, cfg, nbr, pairs, moving, broken_total)
 
     # finalize: re-localize on the grid (icebergs.F90:7056-7075)
     st = st.replace(uvel_old=sel(st.uvel, st.uvel_old),
@@ -302,5 +763,7 @@ def evolve_icebergs_mts(st, grid: Grid, frc, cfg: IcebergsConfig, *,
                     jne=torch.where(moving, j, st.jne),
                     xi=sel(xi, st.xi), yj=sel(yj, st.yj))
     return st, MtsDiags(broken_bonds=broken_total, conv_iters=conv_iters,
-                        p1_overflow=p1stats.overflow,
-                        p1_fallback=p1stats.n_fallback)
+                        p1_overflow=p1_overflow, p1_fallback=p1_fallback,
+                        skin_dropped=skin_dropped,
+                        pair_overflow=pair_overflow,
+                        inner_conv_iters=inner_iters)

@@ -227,8 +227,8 @@ def _check(st, cfg: IcebergsConfig, deltas, block_n: int):
     if not supports_vmem_substeps(cfg):
         raise ValueError("substep kernel: unsupported flag set")
     if not deltas:
-        raise ValueError("empty delta set: no bonds (the scan path, "
-                         "ROADMAP.md Queue 1 item 16)")
+        raise ValueError("empty delta set: no bonds (run the scan "
+                         "substeps)")
     if len(deltas) > MAX_DELTAS:
         raise ValueError(f"{len(deltas)} deltas > {MAX_DELTAS}")
     if st.capacity % block_n or block_n % 128:

@@ -12,8 +12,10 @@ the modern dispatch (``contact_distance`` crit, separate contact spring,
 ``use_c_crit_dist``) and the bonded springs (legacy bonds pull only when
 over-stretched); the ``contact_cap`` compaction
 (``active_contact_bergs``, ``compacted_contact_pairdata``,
-``scatter_ia``), ``bond_partner_table`` and ``make_ia_fn`` outside MTS
-with its bond and same-conglomerate groups (``forces.py:559-769``);
+``scatter_ia``), ``pair_forces``, ``bond_partner_table`` and
+``make_ia_fn`` with its bond, same-conglomerate and cross-conglomerate
+groups, their MTS parts and the Part-1 velocity refresh
+(``forces.py:559-769``); the constant interaction area of MTS bonds;
 ``check_bond_reciprocity``; and ``initialize_bonds_host``,
 ``compute_conglom_ids_host`` and ``count_bonds`` (numpy).
 
@@ -32,7 +34,7 @@ import torch
 
 from .. import constants as C
 from ..config import IcebergsConfig
-from .accel import IA, f32_scalar
+from .accel import IA, f32_scalar, zero_ia
 from .pack import from_bits, permute_cols_u32, to_bits
 
 
@@ -188,16 +190,12 @@ def _pair_terms(cfg, lon1, lat1, A1, M1, lon2, lat2, A2, M2, mask, u2,
     spring = spring), engaged below crit.  Bonded pairs and
     ``use_c_crit_dist``: crit = R1 + R2 with the bond spring; a bond is
     engaged when over-stretched on the legacy dispatch, always on the
-    modern one (icebergs.F90:698-703).  ``constant_interaction_LW``
-    enters only MTS bonds (the DEM step's K4).  ``axis`` is the partner
-    axis the spring sums reduce over."""
+    modern one (icebergs.F90:698-703).  The caller gives the areas and
+    masses (:func:`_areas_masses`).  ``axis`` is the partner axis the
+    spring sums reduce over."""
     if cfg.grid_is_latlon:
         raise NotImplementedError("lat-lon pair metrics (ROADMAP.md Queue "
                                   "1 item 11)")
-    if bonded and cfg.mts and cfg.constant_interaction_LW:
-        raise NotImplementedError("constant_interaction_LW bonds outside "
-                                  "the substep kernel (ROADMAP.md Queue 1 "
-                                  "item 16)")
     r_dist_x = lon1 - lon2
     r_dist_y = lat1 - lat2
     r_dist = torch.sqrt(r_dist_x * r_dist_x + r_dist_y * r_dist_y)
@@ -235,6 +233,18 @@ def _pair_terms(cfg, lon1, lat1, A1, M1, lon2, lat2, A2, M2, mask, u2,
                     u2=u2, v2=v2, other=other)
 
 
+def _areas_masses(cfg: IcebergsConfig, bonded: bool, T1, A1, M1, T2,
+                  A2g, M2g):
+    """``(A1, M1, A2, M2)`` of a pair slab: the elements' own, or for MTS
+    bonds with ``constant_interaction_LW`` the constant interaction
+    area and its mass (``precompute_pair_data``'s ``const_LW``)."""
+    if not (cfg.constant_interaction_LW and cfg.mts and bonded):
+        return A1, M1, A2g, M2g
+    A1 = cfg.constant_length * cfg.constant_width * torch.ones_like(T1)
+    A2 = A1.expand(T2.shape)
+    return A1, A1 * T1 * cfg.rho_bergs, A2, A2 * T2 * cfg.rho_bergs
+
+
 def precompute_pair_data(st, cfg: IcebergsConfig, other, mask, *,
                          bonded: bool = False, use_c_crit_dist: bool = False,
                          partner_st=None) -> PairData:
@@ -248,11 +258,14 @@ def precompute_pair_data(st, cfg: IcebergsConfig, other, mask, *,
     o = other.long()
     fl_k2 = partner_st.fl_k[o]
     mask = mask & (st.fl_k[:, None] != -1.) & (fl_k2 != -1.)
+    T1 = st.thickness[:, None]
+    A1, M1, A2, M2 = _areas_masses(
+        cfg, bonded, T1, (st.length * st.width)[:, None], st.mass[:, None],
+        partner_st.thickness[o] if bonded else T1,
+        partner_st.length[o] * partner_st.width[o], partner_st.mass[o])
     return _pair_terms(
-        cfg, st.lon_old[:, None], st.lat_old[:, None],
-        (st.length * st.width)[:, None], st.mass[:, None],
-        partner_st.lon_old[o], partner_st.lat_old[o],
-        partner_st.length[o] * partner_st.width[o], partner_st.mass[o],
+        cfg, st.lon_old[:, None], st.lat_old[:, None], A1, M1,
+        partner_st.lon_old[o], partner_st.lat_old[o], A2, M2,
         mask, partner_st.uvel_old[o], partner_st.vvel_old[o], -1,
         other=other, bonded=bonded, use_c_crit_dist=use_c_crit_dist)
 
@@ -267,6 +280,8 @@ def precompute_pair_data_T(st, cfg: IcebergsConfig, mask_T, *,
     fl_k == -1 on both sides), or without them gathered from ``st`` at
     the (M, N) partner slots ``other_T`` with the fl_k == -1 mask.
     ``other_T`` is kept for :func:`refresh_pair_velocities`."""
+    T1 = st.thickness[None, :]
+    T2 = T1
     if partner_fields is None:
         o = other_T.long()
         mask_T = mask_T & (st.fl_k[None, :] != -1.) & (st.fl_k[o] != -1.)
@@ -274,11 +289,18 @@ def precompute_pair_data_T(st, cfg: IcebergsConfig, mask_T, *,
             lon2=st.lon_old[o], lat2=st.lat_old[o], u2=st.uvel_old[o],
             v2=st.vvel_old[o], A2g=st.length[o] * st.width[o],
             M2g=st.mass[o])
+        if bonded:
+            T2 = st.thickness[o]
+    elif cfg.constant_interaction_LW and cfg.mts and bonded:
+        raise ValueError("constant_interaction_LW bonds read the partners' "
+                         "thickness: gather them (partner_fields=None)")
     pf = partner_fields
+    A1, M1, A2, M2 = _areas_masses(
+        cfg, bonded, T1, (st.length * st.width)[None, :], st.mass[None, :],
+        T2, pf["A2g"], pf["M2g"])
     return _pair_terms(
-        cfg, st.lon_old[None, :], st.lat_old[None, :],
-        (st.length * st.width)[None, :], st.mass[None, :],
-        pf["lon2"], pf["lat2"], pf["A2g"], pf["M2g"], mask_T,
+        cfg, st.lon_old[None, :], st.lat_old[None, :], A1, M1,
+        pf["lon2"], pf["lat2"], A2, M2, mask_T,
         pf["u2"], pf["v2"], 0, other=other_T, bonded=bonded,
         use_c_crit_dist=use_c_crit_dist)
 
@@ -423,24 +445,40 @@ def bond_partner_table(st):
     return other, valid
 
 
+def pair_forces(st, cfg: IcebergsConfig, other, mask, *, bonded: bool,
+                use_c_crit_dist: bool, u0, v0, u1, v1) -> IA:
+    """Vectorized ``calculate_force`` (icebergs.F90:610-804): spring and
+    damping sums over (N, M) candidate pairs, evaluated through K7 (the
+    plain :func:`eval_pair_ia` for CPU tensors)."""
+    from .pairs import eval_pair_ia_kernel
+    pd = precompute_pair_data(st, cfg, other, mask, bonded=bonded,
+                              use_c_crit_dist=use_c_crit_dist)
+    return eval_pair_ia_kernel(pd, cfg, u0, v0, u1, v1)
+
+
 def make_ia_fn(st, nbr: NeighborTables, cfg: IcebergsConfig, *,
-               contact_cap: Optional[int] = None):
+               mts_part: int = 0, contact_cap: Optional[int] = None,
+               return_refresh: bool = False):
     """The interactive-force closure ``ia_fn(u1, v1) -> IA`` over
-    candidate tables, outside MTS, with the dispatch of
-    ``interactive_force`` (icebergs.F90:479-607): on the legacy dispatch
-    the all-pairs contact group, then the bond group; on the modern one
-    the bond group and the same-conglomerate non-bonded contact group
-    (``use_c_crit_dist``), then the cross-conglomerate contact group.
-    The groups are summed in that order, each evaluated through K7
+    candidate tables, with the dispatch of ``interactive_force``
+    (icebergs.F90:479-607): on the legacy dispatch the all-pairs contact
+    group, then the bond group; on the modern one the bond group and the
+    same-conglomerate non-bonded contact group (``use_c_crit_dist``),
+    then the cross-conglomerate contact group.  Under MTS ``mts_part``
+    picks: 3 the bond and same-conglomerate groups (the inner substeps),
+    1 the cross-conglomerate group (Part 1), 0 none (a zero IA).  The
+    groups are summed in that order, each evaluated through K7
     (:func:`.pairs.eval_pair_ia_kernel`; the bond group at M =
     ``max_bonds``; the plain :func:`eval_pair_ia` for CPU tensors).
     ``contact_cap`` first compacts each contact group's bergs with an
-    engaged candidate into that many rows, and ``ia_fn.overflow`` then
-    counts the engaged bergs it dropped (the JAX package drops them
-    uncounted)."""
-    if cfg.mts:
-        raise NotImplementedError("the MTS Part-1 tables search (ROADMAP.md "
-                                  "Queue 1 item 16)")
+    engaged candidate into that many rows, and the result's ``overflow``
+    then counts the engaged bergs it dropped (the JAX package drops them
+    uncounted).
+
+    ``return_refresh=True`` returns ``refresh(s) -> ia_fn`` instead: the
+    pair geometry is computed here (positions frozen) and each call
+    regathers only the partners' ``*_old`` velocities from ``s`` (the
+    MTS Part-1 convergence loop, icebergs.F90:6663-6743)."""
     from .pairs import eval_pair_ia_kernel as ev
     u0, v0 = st.uvel, st.vvel
     N = st.capacity
@@ -471,26 +509,36 @@ def make_ia_fn(st, nbr: NeighborTables, cfg: IcebergsConfig, *,
     else:
         cong = st.conglom_id
         same = cong[:, None] == cong[nbr.cand_idx.long()]
-        if cfg.iceberg_bonds_on:
+        if (not cfg.mts or mts_part == 3) and cfg.iceberg_bonds_on:
             add_bonds()
             add_contact(nbr.cand_valid & same & ~nbr.is_bond_partner, True)
-        add_contact(nbr.cand_valid & ~same, False)
+        if not cfg.mts or mts_part == 1:
+            add_contact(nbr.cand_valid & ~same, False)
 
-    def ia_fn(u1, v1):
-        total = None
-        for pd, sel, vrow in groups:
-            if sel is None:
-                b = ev(pd, cfg, u0, v0, u1, v1)
-            else:
-                s = sel.long()
-                b = scatter_ia(ev(pd, cfg, u0[s], v0[s], u1[s], v1[s]), sel,
-                               vrow, N)
-            total = b if total is None else IA(*(x + y for x, y
-                                                 in zip(total, b)))
-        return total
-    ia_fn.overflow = (None if not overflow
-                      else torch.stack(overflow).sum(dtype=torch.int32))
-    return ia_fn
+    def make(gs):
+        def ia_fn(u1, v1):
+            total = None
+            for pd, sel, vrow in gs:
+                if sel is None:
+                    b = ev(pd, cfg, u0, v0, u1, v1)
+                else:
+                    s = sel.long()
+                    b = scatter_ia(ev(pd, cfg, u0[s], v0[s], u1[s], v1[s]),
+                                   sel, vrow, N)
+                total = b if total is None else IA(*(x + y for x, y
+                                                     in zip(total, b)))
+            return zero_ia(u0) if total is None else total
+        return ia_fn
+
+    if return_refresh:
+        def out(s):
+            return make([(refresh_pair_velocities(pd, s), sel, vrow)
+                         for pd, sel, vrow in groups])
+    else:
+        out = make(groups)
+    out.overflow = (None if not overflow
+                    else torch.stack(overflow).sum(dtype=torch.int32))
+    return out
 
 
 def check_bond_reciprocity(st):

@@ -35,7 +35,8 @@ def eval_pair_ia_kernel(pd: PairData, cfg: IcebergsConfig, u0, v0, u1,
                         v1) -> IA:
     """:func:`.forces.eval_pair_ia` through K7.  A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel (counted in
-    ``eval_pair_ia_kernel.launches``; N = 0 launches nothing)."""
+    ``eval_pair_ia_kernel.launches``, and by M in ``.launches_by_m``; N =
+    0 launches nothing)."""
     if pd.P11.device.type == "cpu":
         return eval_pair_ia(pd, cfg, u0, v0, u1, v1)
     if pd.P11.device.type != "cuda":
@@ -61,12 +62,15 @@ def eval_pair_ia_kernel(pd: PairData, cfg: IcebergsConfig, u0, v0, u1,
             int(cfg.scale_damping_by_pmag), out.data_ptr(),
             cuda_build.stream_ptr(out.device)), "eval_pair_ia_kernel")
         eval_pair_ia_kernel.launches += 1
+        by_m = eval_pair_ia_kernel.launches_by_m
+        by_m[M] = by_m.get(M, 0) + 1
     s11, s12, s22, sux, suy = out.unbind(0)
     return IA(IA_x=pd.IA_x, IA_y=pd.IA_y, P11=s11, P12=s12, P21=s12,
               P22=s22, Pu_x=sux, Pu_y=suy)
 
 
 eval_pair_ia_kernel.launches = 0
+eval_pair_ia_kernel.launches_by_m = {}     # the same launches by M
 
 
 def kernel_config(m: int, pmag: bool):

@@ -413,8 +413,9 @@ def test_check_state_ids_and_dates():
 
 
 def test_unported_entry_points_raise():
-    """What the entry cannot serve yet names its ROADMAP.md item: MTS
-    (the scan substeps, item 16), restarts and icebergs_end (item 12)."""
+    """What the entry cannot serve yet names its ROADMAP.md item:
+    restarts and icebergs_end (item 12), the halo dump (item 13); MTS
+    (item 16) runs through the entry."""
     cfg, grid, frc, st, _, _ = _world("new_bergs")
     tgrid = ibp.grid_from_numpy(_leaves(grid), device=CPU)
     tcfg = ibp.config_from_dict(dataclasses.asdict(cfg))
@@ -428,13 +429,60 @@ def test_unported_entry_points_raise():
         tdiag.debug_write_and_stop(ts.bergs, tcfg)
     with pytest.raises(NotImplementedError, match="item 13"):
         tdiag.dump_halo_state(ts.bergs)
+    # MTS (item 16, served): an outer step runs through the entry
     mts = tcfg.replace(mts=True, dem=True, iceberg_bonds_on=True,
-                       interactive_icebergs_on=True)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tapi.IcebergsModel(tgrid, mts, device=CPU)
+                       interactive_icebergs_on=True, footloose=False)
+    mm = tapi.IcebergsModel(tgrid, mts, device=CPU)
+    _, mo = mm.run(mm.init_state(ibp.state_from_numpy(_leaves(st),
+                                                      device=CPU)),
+                   ibp.forcing_from_numpy(_leaves(frc), device=CPU))
+    assert mo.mts is not None and mo.mts.conv_iters == 0
+    assert int(mo.mts.broken_bonds) == 0 and int(mo.nbergs) > 0
     # the entry runs on the card unless told otherwise
     if torch.cuda.is_available():
         assert tapi.IcebergsModel(tgrid, tcfg).device.type == "cuda"
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             tapi.IcebergsModel(tgrid, tcfg)
+
+
+def test_run_mts_matches_jax():
+    """Two MTS coupling steps of ``IcebergsModel.run`` against the JAX
+    entry, which evolves by ``evolve_icebergs_mts(st, grid, frc, cfg)``:
+    Part 1 on the candidate tables (K7's plain version at M = 400), the
+    scan substeps, ``interp_flds``, thermodynamics and the spreading, on
+    ``tests/test_torch_dem_forces.py``'s three conglomerates with the iKID
+    flag set.  Counts exact; the state and the coupler fields within the
+    whole-MTS-step tolerance of ``tests/test_torch_mts.py`` (rtol 1e-4 and
+    2e-3 of scale: XLA:CPU's multiply-adds in the interpolation and the
+    pair terms, grown over 12 stiff substeps)."""
+    from test_torch_dem_forces import jax_cfg, world
+    cfg = jax_cfg()
+    grid, frc, st = world()
+    jm = japi.IcebergsModel(grid, cfg)
+    tm = tapi.IcebergsModel(ibp.grid_from_numpy(_leaves(grid), device=CPU),
+                            ibp.config_from_dict(dataclasses.asdict(cfg)),
+                            device=CPU)
+    js = jm.init_state(st, seed=1)
+    ts = tm.init_state(ibp.state_from_numpy(_leaves(st), device=CPU),
+                       seed=1)
+    tf = ibp.forcing_from_numpy(_leaves(frc), device=CPU)
+    for _ in range(2):
+        js, jo = jm.run(js, frc)
+        ts, to = tm.run(ts, tf)
+        for f in ("nbergs", "contact_overflow", "spawn_overflow",
+                  "nbergs_melted"):
+            assert int(getattr(to, f)) == int(getattr(jo, f)), f
+        assert to.mts.conv_iters >= 1 and to.mts.p1_overflow is None
+    J, T = _leaves(js.bergs), ibp.to_numpy(ts.bergs)
+    live = J["alive"]
+    for name, t in T.items():
+        if name in INTS + ("n_bonds",):
+            np.testing.assert_array_equal(t, J[name], err_msg=name)
+        elif t.dtype.kind == "f":
+            np.testing.assert_allclose(
+                t[live], J[name][live], rtol=1e-4,
+                atol=2e-3 * max(np.abs(J[name][live]).max(), 1e-30),
+                err_msg=name)
+    for f in _OUT_FIELDS[:-1] + ("floating_melt",):
+        _close(getattr(to, f).numpy(), getattr(jo, f), f, 2e-3)

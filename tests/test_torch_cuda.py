@@ -911,3 +911,231 @@ def test_coupled_run_on_card_matches_cpu(dev, style):
         a, b = g[name][live], c[name][live]
         np.testing.assert_allclose(a, b, rtol=1e-5,
                                    atol=2e-5 * np.abs(b).max())
+
+
+# --------------------------------------------------------------------------
+# the MTS scan substep path (ROADMAP item 16)
+# --------------------------------------------------------------------------
+
+_PAIR_REGIME = dict(use_broken_bonds_for_substep_contact=False,
+                    break_bonds_on_sub_steps=False, fracture_criterion="none")
+
+
+def _mts_on_card_and_cpu(dev, cfg, st, grid, frc, **kw):
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        multi = ibp.make_multi_step(grid.to(d), cfg, 1, with_stats=True,
+                                    **kw)
+        s, ov, fb, _ = multi(st.to(d), frc.to(d))
+        sd = multi.step_diags[0]
+        outs.append((ibp.to_numpy(s), int(ov), sd.conv_iters,
+                     int(sd.broken_bonds), int(sd.skin_dropped),
+                     None if sd.contact_overflow is None
+                     else int(sd.contact_overflow)))
+    return outs
+
+
+@pytest.mark.parametrize("regime", ["k4_flags", "pair_list", "dense"])
+def test_mts_scan_step_on_card_matches_cpu(dev, regime):
+    """One MTS outer step through the scan substeps (Part 1 through K1/K2,
+    the DEM forces in PyTorch, K1/K3 spreading) on the card against the
+    CPU: on K4's flag set, and in the reference's substep-contact regime
+    through the frozen pair list and through the dense candidates.
+    Integers and the MTS counters exact, floats within 2e-3 of scale
+    (``test_dem_step_on_card_matches_cpu``'s bound)."""
+    cfg = _dem_cfg() if regime == "k4_flags" else _dem_cfg(**_PAIR_REGIME)
+    grid, frc, st, _ = _dem_world(cfg, 8.0)
+    kw = dict(mts_substep_kernel="scan")
+    if regime == "pair_list":
+        kw["mts_pair_cap"] = 65536
+    (g, *gc), (c, *cc) = _mts_on_card_and_cpu(dev, cfg, st, grid, frc, **kw)
+    assert gc == cc and gc[0] == 0
+    if regime == "pair_list":
+        assert gc[4] == 0 and gc[3] > 0
+    for name in ("alive", "id_cnt", "ine", "jne", "bond_broken", "n_bonds"):
+        np.testing.assert_array_equal(g[name], c[name])
+    live = g["alive"]
+    for name in ("lon", "lat", "uvel", "vvel", "ang_vel", "axn_fast",
+                 "bond_nstress"):
+        a, b = g[name][live], c[name][live]
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=2e-3 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("jitter", [40.0, 2.0])
+def test_mts_scan_matches_k4_on_card(dev, jitter):
+    """The scan against K4 on the card after one outer step from one
+    state: within 5e-6 of scale on ``tests/test_dem_vmem.py:92-109``'s
+    fields, broken-bond counts equal."""
+    cfg = _dem_cfg()
+    grid, frc, st, deltas = _dem_world(cfg, jitter)
+    grid, frc, st = grid.to(dev), frc.to(dev), st.to(dev)
+    outs = []
+    for kw in (dict(mts_substep_kernel="scan"),
+               dict(mts_substep_kernel="vmem", mts_vmem_deltas=deltas,
+                    mts_vmem_block_n=128)):
+        s, d = ibp.make_step(grid, cfg, with_thermo=False,
+                             with_spread=False, **kw)(st, frc)
+        outs.append((s, int(d.broken_bonds)))
+    (a, na), (b, nb) = outs
+    assert na == nb
+    for f in ("lon", "lat", "uvel", "vvel", "ang_vel", "ang_accel", "rot",
+              "axn_fast", "ayn_fast", "uvel_old", "vvel_old",
+              "bond_length", "bond_tangd1", "bond_tangd2",
+              "bond_rel_rotation", "bond_nstress", "bond_sstress",
+              "bond_broken", "n_bonds"):
+        x, y = getattr(a, f).double(), getattr(b, f).double()
+        assert float((x - y).abs().max()) <= 5e-6 * max(
+            float(x.abs().max()), 1e-30), f
+
+
+def test_pair_list_on_card_matches_cpu(dev):
+    """The frozen pair list (every integer) on the card against the CPU,
+    and the pair-list contact sums: twice on the card bit for bit, the
+    ordered reduction equal to the CPU's sequential one on the same
+    terms."""
+    from icebergs_tpu_torch import mts
+    from icebergs_tpu_torch.ops import dem
+    cfg = _dem_cfg(**_PAIR_REGIME)
+    grid, frc, st, _ = _dem_world(cfg, 8.0)
+    lists = []
+    for d in (dev, torch.device("cpu")):
+        s, g = st.to(d), grid.to(d)
+        nbr = forces.build_neighbor_tables(s, g, cfg, max_per_cell=16,
+                                           ncells_radius=2)
+        lists.append([x.cpu() for x in mts.compact_conglom_pairs(
+            s, nbr, 65536, cfg=cfg, dt=cfg.dt)])
+    for a, b in zip(*lists):
+        assert torch.equal(a, b)
+    assert int(lists[0][2].sum()) > 0 and int(lists[0][3]) == 0
+    gen = torch.Generator().manual_seed(1)
+    # every bond broken and the elements moved up to 600 m: the listed
+    # partners come into contact
+    sm = st.replace(lon_old=st.lon_old + (torch.rand(
+        st.capacity, generator=gen) - .5) * 1200.,
+        bond_broken=(st.bond_idx >= 0).to(st.bond_broken.dtype))
+    sums = []
+    for d in (dev, dev, torch.device("cpu")):
+        s = sm.to(d)
+        me, ot, pv = (x.to(d) for x in lists[0][:3])
+        m = mts._pair_contact_masks(s, me, ot, pv, cfg)
+        sums.append([x.cpu() for x in dem.dem_contact_forces_pairs(
+            s, cfg, me, ot, m, valid=pv)])
+    assert all(torch.equal(a, b) for a, b in zip(sums[0], sums[1]))
+    assert int((sums[0][0] != 0).sum()) > 0
+    rng = np.random.RandomState(2)
+    key = torch.as_tensor(np.sort(rng.randint(0, 300, 5000)),
+                          dtype=torch.int32)
+    vals = torch.as_tensor((rng.standard_normal((5000, 4))
+                            * 10. ** rng.uniform(-6, 6, (5000, 1))
+                            ).astype(np.float32))
+    on = dem.segment_sum_sorted(vals.to(dev), key.to(dev), 300).cpu()
+    assert torch.equal(on, dem.segment_sum_sorted(vals, key, 300))
+
+
+@pytest.mark.parametrize("regime", ["pairs", "dense", "broken_bonds"])
+def test_substep_forces_on_card_match_cpu(dev, regime):
+    """One substep's accelerations and bond stresses on the card against
+    the CPU, every bond broken and the elements moved up to 600 m (the
+    candidates in contact): within 1e-5 relative plus 2e-6 of scale (the
+    CPU's float32 sqrt 1 ulp low near halfway, the card's library
+    sin)."""
+    from icebergs_tpu_torch import mts
+    cfg = _dem_cfg(**({} if regime == "broken_bonds" else _PAIR_REGIME))
+    grid, frc, st, _ = _dem_world(cfg, 8.0)
+    gen = torch.Generator().manual_seed(1)
+    st = st.replace(lon_old=st.lon_old + (torch.rand(
+        st.capacity, generator=gen) - .5) * 1200.,
+        bond_broken=(st.bond_idx >= 0).to(st.bond_broken.dtype))
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        s, g = st.to(d), grid.to(d)
+        nbr = forces.build_neighbor_tables(s, g, cfg, max_per_cell=16,
+                                           ncells_radius=2)
+        pairs = None
+        if regime == "pairs":
+            pairs = mts.compact_conglom_pairs(s, nbr, 65536, cfg=cfg,
+                                              dt=cfg.dt)[:3]
+        a = mts._substep_forces(s, nbr, cfg, cfg.dt / cfg.n_sub_steps,
+                                pairs=pairs)
+        live = s.alive
+        outs.append([x[live].cpu().double() for x in (
+            *a[:3], a[3].nstress, a[3].sstress)])
+    assert float(outs[1][0].abs().max()) > 0
+    for x, y in zip(*outs):
+        scale = max(float(y.abs().max()), 1e-30)
+        assert bool(((x - y).abs() <= 1e-5 * y.abs() + 2e-6 * scale).all())
+
+
+def test_mts_coupled_run_on_card_matches_cpu(dev):
+    """``IcebergsModel.run`` with MTS (Part 1 on the candidate tables
+    through K7 at M = 400, the scan substeps) for 2 steps on the card
+    against the CPU: integers and counters exact, floats within 2e-3 of
+    scale."""
+    cfg = _dem_cfg()
+    grid, frc, st, _ = _dem_world(cfg, 8.0)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        model = ibp.IcebergsModel(grid, cfg, device=d)
+        s = model.init_state(st)
+        counts = []
+        for _ in range(2):
+            s, o = model.run(s, frc.to(d))
+            counts.append((o.mts.conv_iters, int(o.mts.broken_bonds),
+                           int(o.contact_overflow), int(o.nbergs)))
+        outs.append((ibp.to_numpy(s.bergs), counts))
+    (g, gc), (c, cc) = outs
+    assert gc == cc
+    for name in ("alive", "id_cnt", "ine", "jne", "bond_broken", "n_bonds"):
+        np.testing.assert_array_equal(g[name], c[name])
+    live = g["alive"]
+    for name in ("lon", "lat", "uvel", "vvel", "mass", "ang_vel"):
+        np.testing.assert_allclose(g[name][live], c[name][live], rtol=1e-4,
+                                   atol=2e-3 * np.abs(c[name][live]).max())
+
+
+@pytest.mark.parametrize("explicit", [True, False],
+                         ids=["explicit", "implicit"])
+def test_mts_without_dem_on_card_matches_cpu(dev, explicit):
+    """The input_MTS_KID.nml flag set (square elements, 12 substeps) on
+    tests/test_mts_collision.py's world for 2 outer steps on the card
+    against the CPU: bonds and contacts through K7 at M = max_bonds and
+    400; counters and integers exact, floats within 1e-4 of scale."""
+    cfg = ibp.IcebergsConfig(
+        grid_is_latlon=False, Lx=20000., use_f_plane=True, lat_ref=0.,
+        dt=600.0, Runge_not_Verlet=False, mts=True, mts_sub_steps=12,
+        explicit_inner_mts=explicit, force_convergence=True,
+        convergence_tolerance=1e-8, contact_distance=1.75e3,
+        contact_spring_coef=1.e-7, interactive_icebergs_on=True,
+        iceberg_bonds_on=True, spring_coef=1.e-5,
+        allow_bergs_to_roll=False, set_melt_rates_to_zero=True)
+    cpu = torch.device("cpu")
+    grid = ibp.make_uniform_grid(20, 20, 0., 0., 1000., 1000.,
+                                 grid_is_latlon=False, device=cpu)
+    frc = ibp.uniform_forcing(20, 20, vo=0.1, sst=-2.0, device=cpu)
+    lon = [4800., 4800., 5200., 5200., 4800., 4800., 5200., 5200.]
+    lat = [9100., 9500., 9100., 9500., 10500., 10900., 10500., 10900.]
+    st = ibp.create_bergs(32, lon=lon, lat=lat, mass=1.36e10,
+                          thickness=100., width=400., length=400.,
+                          vvel=[.1] * 4 + [-.1] * 4, mass_scaling=1.,
+                          id_cnt=np.arange(8) + 1, device=cpu)
+    i, j, xi, yj = ibp.pos_to_cell(grid, st.lon, st.lat, -1.0)
+    st = forces.initialize_bonds_host(
+        st.replace(ine=i, jne=j, xi=xi, yj=yj),
+        cfg.replace(length_for_manually_initialize_bonds=480.))
+    outs = []
+    for d in (dev, cpu):
+        multi = ibp.make_multi_step(grid.to(d), cfg, 2, with_stats=True,
+                                    with_thermo=False)
+        s, ov, _, _ = multi(st.to(d), frc.to(d))
+        outs.append((ibp.to_numpy(s), int(ov), [
+            (x.conv_iters, x.inner_conv_iters) for x in multi.step_diags]))
+    (g, *gc), (c, *cc) = outs
+    assert gc == cc
+    assert (gc[1][0][1] > 0) == (not explicit)
+    for name in ("alive", "id_cnt", "ine", "jne", "bond_idx"):
+        np.testing.assert_array_equal(g[name], c[name])
+    live = g["alive"]
+    for name in ("lon", "lat", "uvel", "vvel", "axn_fast", "ayn_fast"):
+        np.testing.assert_allclose(g[name][live], c[name][live], rtol=1e-4,
+                                   atol=1e-4 * np.abs(c[name][live]).max())

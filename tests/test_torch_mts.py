@@ -175,17 +175,29 @@ def test_config_normalized_matches_jax(extra):
     (dict(dem=False, explicit_inner_mts=False), 16),
     (dict(use_broken_bonds_for_substep_contact=False), 16),
     (dict(break_bonds_on_sub_steps=False), 16),
-    (dict(fracture_criterion="none"), 16),
+    (dict(fracture_criterion="none", break_bonds_on_sub_steps=False), 16),
     (dict(dem_beam_test=2), 16),
     (dict(grid_is_latlon=True), 11),
 ])
 def test_unported_mts_settings_raise(kw, item):
-    """The DEM flag set of the substep kernel is served; every MTS
-    setting outside it names its ROADMAP.md item."""
-    tcfg = _world()[4][0]
+    """Every MTS setting that was ROADMAP.md item 16's is served: it
+    passes ``check_ported`` and one outer step runs on the CPU through
+    the scan substeps (Part 1 on the candidate tables), every live float
+    finite; a lat-lon grid still names item 11."""
+    cfg, grid, frc, st, (tcfg, tgrid, tfrc) = _world()
     ibp.check_ported(tcfg)
-    with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-        ibp.check_ported(tcfg.replace(**kw))
+    tcfg = tcfg.replace(**kw)
+    if item == 11:
+        with pytest.raises(NotImplementedError, match="item 11\\)"):
+            ibp.check_ported(tcfg)
+        return
+    ibp.check_ported(tcfg)
+    ts, d = tmts.evolve_icebergs_mts(_tstate(st), tgrid, tfrc, tcfg)
+    assert d.conv_iters >= 1 and int(d.broken_bonds) >= 0
+    live = ts.alive
+    for name in ("lon", "lat", "uvel", "vvel", "axn_fast", "ang_vel"):
+        assert bool(torch.isfinite(getattr(ts, name)[live]).all()), name
+    assert int(live.sum()) == int(np.asarray(st.alive).sum())
 
 
 def test_world_layout():
@@ -398,6 +410,7 @@ def test_evolve_mts_matches_jax(converge):
         substep_kernel="vmem", vmem_deltas=deltas, vmem_block_n=BLOCK,
         vmem_interpret=True))(js)
     tst, td = tmts.evolve_icebergs_mts(_tstate(js), tgrid, tfrc, tcfg,
+                                       neighbor_mode="fused",
                                        substep_kernel="vmem",
                                        vmem_deltas=deltas,
                                        vmem_block_n=BLOCK)
