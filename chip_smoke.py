@@ -103,7 +103,19 @@ Phases, one line each:
    bit from run to run, one substep's forces within 1e-5, the scan
    against K4 within 5e-6 of scale) and on the input_MTS_KID.nml world
    (substeps without DEM, explicit and implicit; one host sync per
-   convergence iteration).
+   convergence iteration);
+12. ROADMAP item 11, lat-lon and curvilinear grids at full width, each
+   timed as its Cartesian counterpart with a profiled window: 12a the
+   fast lane (K2 lat-lon) and the persistent ``fused`` lane with K6 (K5
+   lat-lon) on a 0.25-degree lat-lon grid of 1440 x 160 cells with 1M
+   bergs; 12b ``IcebergsModel.run`` on the 1440 x 1080 tripolar grid
+   (OM4's), every live berg inside its cell after the last window; 12c
+   phase 6's world on a lat-lon grid through K4's lat-lon form (grouped
+   K2 lat-lon in Part 1) and one outer step of the scan against K4; the
+   lat-lon forms of K2, K5 and K4 each against its plain version (bit
+   for bit); 12d card against CPU on small worlds of each (the tripolar
+   and DEM ones on one-ulp yardsticks, cells flipped only across an
+   edge between the two positions).
 
 The last two lines are a JSON object with each kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -168,6 +180,10 @@ FP32_FLOPS_PER_S = 67e12
 # (sqrt, division and sin as one each): per bond slot per substep, and per
 # element per substep (drift, assembly, kick, angular update)
 K4_FLOPS_PER_SLOT, K4_FLOPS_PER_ELEMENT = 185, 40
+# and on a lat-lon grid: the pair metric per slot (csrc/latlon.cuh's six)
+# and the drift's metric per element (cos, two products, the division,
+# the latitude's product)
+K4_LL_FLOPS_PER_SLOT, K4_LL_FLOPS_PER_ELEMENT = 6, 5
 K4_BOUND_NOTE = ("the bound counts each division, sqrt and sin as one "
                  "operation, and the 67 TFLOP/s peak counts an FMA as two, "
                  "while -fmad=false emits none: the card cannot reach it")
@@ -176,6 +192,10 @@ K4_BOUND_NOTE = ("the bound counts each division, sqrt and sin as one "
 # only: no exact search can skip those, and any other pair a search may
 # cull
 K2_FLOPS_PER_PAIR, K3_FLOPS_PER_ROW_BASE = 12, 110
+# the lat-lon metric's operations per pair test (csrc/latlon.cuh: the
+# mean latitude's sum and half, the angle, cos as one, the two factors'
+# products), on top of K2_FLOPS_PER_PAIR
+K2_LL_FLOPS_PER_PAIR = 6
 # K2's pair epilogue, counted from csrc/extract_sorted.cu: per exact pair
 # (sqrt, compare, mass ratio, spring product, the two projections and
 # their sums) and per selected partner (separation, r2, crit, sqrt, r^2,
@@ -309,6 +329,28 @@ KID_CFG = dict(
     set_melt_rates_to_zero=True, max_bonds=6)
 
 
+# phase 12: ROADMAP item 11, lat-lon, curvilinear and tripolar grids at
+# full width.  12a the fast lanes on a regular 0.25-degree lat-lon grid of
+# 1440 x 160 cells, 80 S - 40 S, periodic in longitude (the headline
+# flags with Coriolis by latitude, 1M bergs, ~4.3 a cell, the swirl on
+# the index grid); 12b the coupled entry on GFDL OM4's nominal
+# 0.25-degree tripolar grid (1440 x 1080 cells, Adcroft et al. 2019,
+# JAMES) from 80 S, land south of 70 S and on the cap's polar cells,
+# calving into the ocean cells along the Antarctic coast, 1M bergs in
+# 2^20 slots over the ocean from 70 S to 50 S, phase 10a's footloose
+# settings; 12c phase 6's DEM world on a lat-lon grid of 512 x 512 cells
+# of 0.125 x 0.0625 degrees (0-64 E, 76 S - 44 S: ~7 km cells near 60 S,
+# as phase 6's); 12d card against CPU on small worlds of each
+LL_NX, LL_NY, LL_DEG, LL_LAT0 = 1440, 160, 0.25, -80.
+LL_CROSS_NX, LL_CROSS_NY = 360, 40
+LL_K = 3.141592653589793 / 180. * 6360000.   # metres a degree (Rearth)
+TRI_NX, TRI_NY, TRI_LAT0, TRI_LAND, TRI_SEED = 1440, 1080, -80., -70., -50.
+TRI_CROSS_NX, TRI_CROSS_NY, TRI_CROSS_CAP, TRI_CROSS_N = 180, 120, 1 << 16, \
+    12000
+LLDEM_LON0, LLDEM_LAT0, LLDEM_DLON, LLDEM_DLAT = 0., -76., 0.125, 0.0625
+LL_CFG = dict(grid_is_latlon=True, Lx=360., use_f_plane=False)
+
+
 class _Counter:
     """A wrapper's second launch count (``attr``) with the ``launches``
     interface the paths read and reset."""
@@ -410,7 +452,7 @@ def dem_config(ibp, **kw):
 
 
 def dem_world(ibp, torch, cfg, n_units, nx, device, *, gaps=None,
-              cols=None, jitter=0.0, vel_spread=0.0, seed=0):
+              cols=None, jitter=0.0, vel_spread=0.0, seed=0, latlon=False):
     """tools/bench_dem_1m.py:50-112 made with the port's numpy functions:
     square 22x22 conglomerates at 2r spacing, bonded once as a prototype
     and replicated with slot offsets, then packed one conglomerate per
@@ -418,7 +460,9 @@ def dem_world(ibp, torch, cfg, n_units, nx, device, *, gaps=None,
     at those gaps, ``cols`` to a row, instead of spreading them over the
     grid in a square array; ``jitter``
     (m) moves each element and ``vel_spread`` (m/s) gives each unit its
-    own velocity, from ``seed``.  Returns (grid, frc, state, deltas, n)."""
+    own velocity, from ``seed``.  ``latlon`` builds the world on phase
+    12c's lat-lon grid instead (:func:`ll_dem_place`).  Returns (grid,
+    frc, state, deltas, n)."""
     import numpy as np
     from icebergs_tpu_torch.ops import forces
     from icebergs_tpu_torch.ops.dem_substeps import (
@@ -438,17 +482,30 @@ def dem_world(ibp, torch, cfg, n_units, nx, device, *, gaps=None,
         ext = 2 * r * (side - 1)
         pitch_x, pitch_y = ext + gaps[0], ext + gaps[1]
     u = np.arange(n_units)
-    lon = (px[None] + 2 * DXY_DEM + (u % uside)[:, None] * pitch_x).ravel()
-    lat = (py[None] + 2 * DXY_DEM + (u // uside)[:, None] * pitch_y).ravel()
     rng = np.random.RandomState(seed)
+    if latlon:
+        ux, uy = ll_dem_units(n_units, nx, gaps, uside, pitch_x, pitch_y)
+    else:
+        ux = 2 * DXY_DEM + (u % uside) * pitch_x
+        uy = 2 * DXY_DEM + (u // uside) * pitch_y
+    lon = (px[None] + ux[:, None]).ravel()
+    lat = (py[None] + uy[:, None]).ravel()
     lon = lon + rng.uniform(-jitter, jitter, n)
     lat = lat + rng.uniform(-jitter, jitter, n)
+    if latlon:
+        lon, lat = ll_dem_place(lon, lat, np.repeat(ux, per),
+                                np.repeat(uy, per))
     uvel = np.repeat(0.22 + rng.uniform(-vel_spread, vel_spread, n_units),
                      per)
     vvel = np.repeat(rng.uniform(-vel_spread, vel_spread, n_units), per)
 
-    grid = ibp.make_uniform_grid(nx, nx, 0., 0., DXY_DEM, DXY_DEM,
-                                 grid_is_latlon=False, device=device)
+    if latlon:
+        grid = ibp.make_uniform_grid(nx, nx, LLDEM_LON0, LLDEM_LAT0,
+                                     LLDEM_DLON, LLDEM_DLAT,
+                                     grid_is_latlon=True, device=device)
+    else:
+        grid = ibp.make_uniform_grid(nx, nx, 0., 0., DXY_DEM, DXY_DEM,
+                                     grid_is_latlon=False, device=device)
     frc = ibp.uniform_forcing(nx, nx, uo=0.25, vo=0.05, ua=5.0, sst=-2.0,
                               sss=34.0, device=device)
     st = ibp.create_bergs(cap, lon=lon, lat=lat, uvel=uvel, vvel=vvel,
@@ -456,14 +513,17 @@ def dem_world(ibp, torch, cfg, n_units, nx, device, *, gaps=None,
                           width=2 * r, length=2 * r, mass_scaling=1.0,
                           id_cnt=np.arange(n) + 1, max_bonds=6,
                           device=device)
-    i, j, xi, yj = ibp.pos_to_cell(grid, st.lon, st.lat, -1.0)
+    i, j, xi, yj = ibp.pos_to_cell(grid, st.lon, st.lat,
+                                   360. if latlon else -1.0)
     st = st.replace(ine=i, jne=j, xi=xi, yj=yj)
 
     proto = ibp.create_bergs(1 << int(np.ceil(np.log2(per + 1))), lon=px,
                              lat=py, mass=1., thickness=200., width=2 * r,
                              length=2 * r, mass_scaling=1., max_bonds=6,
                              device=torch.device("cpu"))
-    proto = forces.initialize_bonds_host(proto, cfg)
+    # the prototype's positions are metres whatever the world's grid
+    proto = forces.initialize_bonds_host(proto, cfg.replace(
+        grid_is_latlon=False))
     pbond = proto.bond_idx.numpy()[:per]
     pblen = proto.bond_length.numpy()[:per]
     bond_idx = np.full((cap, 6), -1, np.int32)
@@ -483,6 +543,56 @@ def dem_world(ibp, torch, cfg, n_units, nx, device, *, gaps=None,
     deltas = analyze_bond_deltas(st.bond_idx, DEM_BLOCK)
     require(deltas, "the DEM world is not block-closed")
     return grid, frc, st, deltas, n
+
+
+def ll_dem_units(n_units, nx, gaps, uside, pitch_x, pitch_y):
+    """Phase 12c's unit origins, in metres east and north of the lat-lon
+    DEM grid's corner 2 cells in from its south-west one (the zonal
+    metres at each unit's latitude, :func:`ll_dem_place`).  With
+    ``gaps`` the units sit ``uside`` to a row at those pitches, as phase
+    4b's; else rows at phase 6's pitch fill each latitude band as far as
+    its zonal width in metres allows, the pitch cut by 0.5% steps until
+    all ``n_units`` fit."""
+    import numpy as np
+    u = np.arange(n_units)
+    if gaps is not None:
+        return (u % uside) * pitch_x, (u // uside) * pitch_y
+    ext = 2 * DEM_R * (DEM_SIDE - 1)
+    width = (nx - 4) * LLDEM_DLON
+    top = (nx - 4) * LLDEM_DLAT * LL_K
+    lat_s = LLDEM_LAT0 + 2 * LLDEM_DLAT
+    pitch = pitch_x
+    while True:
+        ox, oy = [], []
+        y = 0.
+        while y + ext <= top and len(ox) < n_units:
+            room = width * LL_K * np.cos(np.radians(lat_s + y / LL_K))
+            k = int((room - ext) // pitch) + 1
+            ox += list(np.arange(k) * pitch)
+            oy += [y] * k
+            y += pitch
+        if len(ox) >= n_units:
+            return np.array(ox[:n_units]), np.array(oy[:n_units])
+        pitch *= 0.995
+
+
+def ll_dem_place(x, y, ux, uy):
+    """Metres (``x``, ``y``; each element's unit origin ``ux``, ``uy``)
+    to degrees on phase 12c's grid: latitude by PI_180 Rearth; a unit's
+    centre column east of the western margin through the metric at the
+    unit's centre latitude, each element's offset from that column
+    through the metric at its own latitude, so that every bond along a
+    latitude keeps its length and the bonds across one shear by at most
+    ~25 m at the unit's edge (float64 on the host)."""
+    import numpy as np
+    ext = 2 * DEM_R * (DEM_SIDE - 1)
+    lat_s = LLDEM_LAT0 + 2 * LLDEM_DLAT
+    lat = lat_s + y / LL_K
+    latc = lat_s + (uy + 0.5 * ext) / LL_K
+    lon0 = LLDEM_LON0 + 2 * LLDEM_DLON
+    lonc = lon0 + (ux + 0.5 * ext) / (LL_K * np.cos(np.radians(latc)))
+    lon = lonc + (x - ux - 0.5 * ext) / (LL_K * np.cos(np.radians(lat)))
+    return lon, lat
 
 
 def cuda_ms(torch, fn, reps=20):
@@ -626,12 +736,13 @@ def k1_resources(pack):
 
 
 def k2_resources(extract, block_n, radius, group, variant=None,
-                 epilogue=False):
+                 latlon=False, epilogue=False):
     """The K2 instantiation a launch takes, its registers and spills and
     resident CTAs per SM, as one line."""
     v, smem, ctas = extract.kernel_config(
         block_n, radius, group, variant,
-        **(dict(epilogue=True) if epilogue else {}))
+        **(dict(epilogue=True) if epilogue else {}),
+        **(dict(latlon=True) if latlon else {}))
     r = extract.kernel_resources().get(v, {})
     return (f"instantiation {v}: {r.get('registers')} registers, spill "
             f"stores/loads {r.get('spill_stores')}/{r.get('spill_loads')} B,"
@@ -643,10 +754,17 @@ def k2_case(torch, extract, PT, key_s, cs, grid, cfg, ab, **kw):
     exclude_same_group), held bitwise to its plain version (the features
     of the good blocks); its row of the kernels line.  Outside ``--ab``
     the generic instantiation is timed on the same inputs, alternating
-    with the compiled one.  Returns (row, plain output, bad_block)."""
+    with the compiled one.  A lat-lon ``cfg`` takes the lat-lon
+    instantiations, and its bound counts the metric's operations too.
+    Returns (row, plain output, bad_block)."""
     bn, win = kw["block_n"], kw["window"]
     rad, group = kw.get("radius", 1), kw.get("exclude_same_group", False)
     cd = float(cfg.contact_distance)
+    ll = bool(cfg.grid_is_latlon)
+    rearth = float(cfg.Rearth) if ll else None
+    # (only on a lat-lon grid: a parent package under --ab has no metric)
+    metric_kw = dict(rearth=rearth) if ll else {}
+    flops_pair = K2_FLOPS_PER_PAIR + (K2_LL_FLOPS_PER_PAIR if ll else 0)
     N = PT.shape[1]
 
     def k2(**v):
@@ -657,7 +775,8 @@ def k2_case(torch, extract, PT, key_s, cs, grid, cfg, ab, **kw):
 
     def k2p():
         return extract.extract_sorted_plain(PT, cs, c_lo, c_hi, bad, bn, cd,
-                                            exclude_same_group=group)
+                                            exclude_same_group=group,
+                                            **metric_kw)
     outp = k2p()
     ints = [extract.EX_CNT, extract.EX_VMIN, extract.EX_VMAX]
     require(torch.equal(out[ints], outp[ints]),
@@ -673,8 +792,8 @@ def k2_case(torch, extract, PT, key_s, cs, grid, cfg, ab, **kw):
     rows += [extract.PT_GRP] if group else []
     need = nbytes(PT[:8], cs, c_lo, c_hi, bad, out) + 4 * len(rows) * N
     tested = k2_tested_pairs(torch, extract, PT, cs, c_lo, c_hi, bad, bn,
-                             K2_CHUNK[group], cd)
-    t_ops = K2_FLOPS_PER_PAIR * engaged / FP32_FLOPS_PER_S * 1e3
+                             K2_CHUNK[group], cd, rearth)
+    t_ops = flops_pair * engaged / FP32_FLOPS_PER_S * 1e3
     t_bytes = need / HBM_BYTES_PER_S * 1e3
     ms = device_ms(torch, k2)
     gen = ""
@@ -688,12 +807,12 @@ def k2_case(torch, extract, PT, key_s, cs, grid, cfg, ab, **kw):
         gen = (f"; generic instantiation on these inputs {t[0]:.4f}, "
                f"{t[1]:.4f} ms against {ms:.4f} (compiled, median of 2; "
                f"order compiled, generic, generic, compiled), bitwise; "
-               f"{k2_resources(extract, bn, rad, group, 'generic')}")
+               f"{k2_resources(extract, bn, rad, group, 'generic', ll)}")
     row = dict(
         err=max_abs_err(torch, out, outp), ms=ms,
         plain_ms=None if ab else cuda_ms(torch, k2p, reps=2),
         library_ms=None,
-        bound=bound(need, K2_FLOPS_PER_PAIR * engaged),
+        bound=bound(need, flops_pair * engaged),
         note=(f"N={PT.shape[1]} radius {rad} BN {bn} window {win} "
               f"bad_blocks={int(bad.sum())}/{bad.numel()} engaged_pairs="
               f"{engaged:.0f} engaged_rows={int((cnt > 0).sum())} "
@@ -701,7 +820,7 @@ def k2_case(torch, extract, PT, key_s, cs, grid, cfg, ab, **kw):
               f"chunk skip leaves {tested:.0f} (bound: the engaged pairs' "
               f"tests {t_ops:.4f} ms, the bytes {t_bytes:.4f} ms); with "
               f"the host {cuda_ms(torch, k2):.3f} ms; "
-              f"{k2_resources(extract, bn, rad, group)}{gen}"))
+              f"{k2_resources(extract, bn, rad, group, latlon=ll)}{gen}"))
     return row, outp, bad_block
 
 
@@ -795,10 +914,11 @@ def k3_assoc_case(torch, ss, cols, cs, K):
 
 
 def k2_tested_pairs(torch, extract, PT, cs, c_lo, c_hi, bad, block_n, ch,
-                    cd):
+                    cd, rearth=None):
     """Pair tests K2 makes on these inputs: each warp tests all ``ch``
     slots of every chunk of staged candidates that its box test keeps
-    (csrc/extract_sorted.cu), in float32 as the kernel computes it."""
+    (csrc/extract_sorted.cu; on a lat-lon grid, ``rearth``, the bound of
+    csrc/latlon.cuh), in float32 as the kernel computes it."""
     from icebergs_tpu_torch.ops.extract import _SLACK
     N = PT.shape[1]
     nb = bad.numel()
@@ -847,7 +967,20 @@ def k2_tested_pairs(torch, extract, PT, cs, c_lo, c_hi, bad, block_n, ch,
                                      wlo_y - chi_y[:, None]), zero)
     cb = torch.maximum(wrm + crm[:, None], torch.tensor(
         abs(cd), dtype=torch.float32, device=PT.device))
-    keep = ~(gx * gx + gy * gy > cb * cb * _SLACK)
+    if rearth is None:
+        d2 = gx * gx + gy * gy
+    else:
+        from icebergs_tpu_torch.constants import PI_180
+        kpr = float(torch.tensor(PI_180 * rearth, dtype=torch.float32))
+        L = torch.maximum(torch.maximum(wlo_y.abs(), whi_y.abs()),
+                          torch.maximum(clo_y.abs(), chi_y.abs())[:, None])
+        c = (torch.cos(L * PI_180) * (1. - 2. ** -16)).clamp(min=0.)
+        c = torch.where(torch.isnan(c), 0., c)
+        kx = c * kpr
+        gxm = torch.where(kx > 0., gx * kx, 0.)
+        gym = gy * kpr
+        d2 = gxm * gxm + gym * gym
+    keep = ~(d2 > cb * cb * _SLACK)
     keep &= exists[:, None] & can.any(2)[:, :, None, None]
     return float(keep.sum()) * 32 * ch
 
@@ -1228,6 +1361,10 @@ def k5_case(torch, prepass, P, key_p, cs, grid, cfg, ab):
     line."""
     win = cfg.fused_window
     N = P.shape[0]
+    ll = bool(cfg.grid_is_latlon)
+    # (only on a lat-lon grid: a parent package under --ab has no metric)
+    metric_kw = dict(rearth=float(cfg.Rearth)) if ll else {}
+    flops_pair = K2_FLOPS_PER_PAIR + (K2_LL_FLOPS_PER_PAIR if ll else 0)
 
     def k5(**kw):
         return prepass.contact_prepass_sorted(P, key_p, cs, grid, cfg,
@@ -1238,7 +1375,8 @@ def k5_case(torch, prepass, P, key_p, cs, grid, cfg, ab):
     cd = float(cfg.contact_distance)
 
     def k5p():
-        return prepass.prepass_sorted_plain(P, cs, p_lo, p_hi, 128, win, cd)
+        return prepass.prepass_sorted_plain(P, cs, p_lo, p_hi, 128, win, cd,
+                                            **metric_kw)
     ref = k5p()
     require(all(torch.equal(a, b) for a, b in zip(out[:3], ref)),
             "K5 count / min / max slot differ from the plain version")
@@ -1259,7 +1397,8 @@ def k5_case(torch, prepass, P, key_p, cs, grid, cfg, ab):
         t = [device_ms(torch, lambda: k5(variant="generic")),
              device_ms(torch, k5)]
         ms = statistics.median([ms, t[1]])
-        v, smem, ctas = prepass.kernel_config(128, 1, False)
+        v, smem, ctas = prepass.kernel_config(
+            128, 1, False, **(dict(latlon=True) if ll else {}))
         r = prepass.kernel_resources().get(v, {})
         note += (f"; generic instantiation {t[0]:.4f} ms against {ms:.4f} "
                  f"(compiled, median of 2), bitwise; instantiation {v}: "
@@ -1272,7 +1411,7 @@ def k5_case(torch, prepass, P, key_p, cs, grid, cfg, ab):
         plain_ms=None if ab else cuda_ms(torch, k5p, reps=2),
         library_ms=None,
         # P, the cell starts and the block's keys read, the outputs written
-        bound=bound(nbytes(P, cs, key_p, *out), K2_FLOPS_PER_PAIR * engaged),
+        bound=bound(nbytes(P, cs, key_p, *out), flops_pair * engaged),
         note=note)
 
 
@@ -1294,8 +1433,11 @@ def k4_flops(torch, st, cfg):
     broken) of a moving element and every moving element, per substep."""
     mv = st.alive & (st.static_berg < 0.5)
     slots = int(((st.bond_idx >= 0) & mv[:, None]).sum())
-    return cfg.n_sub_steps * (K4_FLOPS_PER_SLOT * slots
-                              + K4_FLOPS_PER_ELEMENT * int(mv.sum()))
+    ll = cfg.grid_is_latlon
+    return cfg.n_sub_steps * (
+        (K4_FLOPS_PER_SLOT + (K4_LL_FLOPS_PER_SLOT if ll else 0)) * slots
+        + (K4_FLOPS_PER_ELEMENT + (K4_LL_FLOPS_PER_ELEMENT if ll else 0))
+        * int(mv.sum()))
 
 
 def phase_kernels_dem(ibp, torch, device, cfg, world, ab=False):
@@ -1394,14 +1536,18 @@ def phase_kernels_dem(ibp, torch, device, cfg, world, ab=False):
     return res, k1
 
 
-def k4_state(torch, st, device):
+def k4_state(torch, st, device, latlon=False):
     """Phase 3's K4 input: the packed DEM world with each element moved by
-    up to 8 m, so that some bonds fracture and broken-bond contact
-    engages."""
+    up to 8 m (in degrees on a lat-lon grid: through the metric at the
+    element's latitude), so that some bonds fracture and broken-bond
+    contact engages."""
     import numpy as np
     rng = np.random.RandomState(5)
     jit = [torch.as_tensor(rng.uniform(-8., 8., st.capacity)).to(
         device, st.dtype) * st.alive for _ in range(2)]
+    if latlon:
+        jit = [jit[0] / (LL_K * torch.cos(torch.deg2rad(st.lat))),
+               jit[1] / LL_K]
     return st.replace(lon=st.lon + jit[0], lat=st.lat + jit[1],
                       lon_old=st.lon + jit[0], lat_old=st.lat + jit[1])
 
@@ -1530,12 +1676,17 @@ def mts_counters(d):
     return out
 
 
-def cross_yardstick(ibp, torch, label, st, run):
+def cross_yardstick(ibp, torch, label, st, run, grid=None):
     """``run(device, state) -> (state, coupler fields, counters)`` on the
     card, on a CPU copy and on a CPU copy with every velocity one ulp
     faster: counters and integers exact, each float field of the card
     within DEM_CROSS_ULP_FACTOR times the CPU's own one-ulp response or
-    DEM_CROSS_FLOOR of scale."""
+    DEM_CROSS_FLOOR of scale.  With ``grid`` (a regular lat-lon grid,
+    whose metric the card's and the CPU's cos round an ulp apart) an
+    element may sit in a neighbouring cell on the two sides where
+    :func:`edge_flips` shows the cell edge between its two positions;
+    its ``ine`` / ``jne`` / ``xi`` / ``yj`` then leave the comparison and
+    the flips are counted."""
     import numpy as np
     cpu = torch.device("cpu")
     up = torch.nextafter(st.uvel, torch.full_like(st.uvel, float("inf")))
@@ -1548,14 +1699,21 @@ def cross_yardstick(ibp, torch, label, st, run):
     (g, gacc, gc), (c, cacc, cc), (p, pacc, _) = (outs["cuda"], outs["cpu"],
                                                   outs["ulp"])
     alive = g["alive"]
+    flips, flip_ulps = np.zeros_like(alive), 0
+    if grid is not None:
+        flips, flip_ulps = edge_flips(grid, g, c)
+    keep = alive & ~flips
 
     def scaled(x, y):
         return float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30))
     ints = ("alive", "id_cnt", "id_ij", "ine", "jne", "bond_idx",
             "bond_broken", "n_bonds", "conglom_id")
-    differ = {k: int((g[k] != c[k]).sum()) for k in ints}
-    errs = {k: (scaled(v[alive], c[k][alive]), scaled(p[k][alive],
-                                                      c[k][alive]))
+    differ = {k: int((g[k] != c[k])[~flips].sum()) for k in ints}
+
+    def rows(k):
+        return keep if k in ("xi", "yj") else alive
+    errs = {k: (scaled(v[rows(k)], c[k][rows(k)]),
+                scaled(p[k][rows(k)], c[k][rows(k)]))
             for k, v in g.items() if v.dtype.kind == "f" and alive.any()}
     errs["coupler"] = (scaled(gacc, cacc), scaled(pacc, cacc))
     beyond = {k: e for k, e in errs.items()
@@ -1563,6 +1721,11 @@ def cross_yardstick(ibp, torch, label, st, run):
     if gc != cc or any(differ.values()) or beyond:
         print(f"[{label}] card {gc} cpu {cc} differing integers {differ} "
               f"(card, one-ulp) scaled float errors beyond {beyond}")
+        for n in np.nonzero(((g["ine"] != c["ine"]) | (g["jne"] != c["jne"]))
+                            & ~flips)[0][:8]:
+            print(f"[{label}] cell differs at slot {n}: card "
+                  f"{[g[k][n] for k in ('ine', 'jne', 'lon', 'lat', 'xi')]}"
+                  f" cpu {[c[k][n] for k in ('ine', 'jne', 'lon', 'lat')]}")
     require(gc == cc, f"{label}: counters differ: card {gc} cpu {cc}")
     require(gc.get("p1_overflow", 0) == 0
             and gc.get("contact_overflow", 0) == 0,
@@ -1575,11 +1738,53 @@ def cross_yardstick(ibp, torch, label, st, run):
     worst = max(errs, key=lambda k: errs[k][0])
     ratio = max(errs, key=lambda k: errs[k][0] / max(errs[k][1], 1e-30))
     bitwise = all(np.array_equal(g[k], c[k]) for k in g)
-    return dict(capacity=st.capacity, **gc, worst_field=worst,
-                worst_scaled_err=errs[worst][0],
-                its_one_ulp_response=errs[worst][1],
-                worst_ratio_field=ratio, worst_ratio_errs=errs[ratio],
-                coupler_rel_err=errs["coupler"][0], state_bitwise=bitwise)
+    res = dict(capacity=st.capacity, **gc, worst_field=worst,
+               worst_scaled_err=errs[worst][0],
+               its_one_ulp_response=errs[worst][1],
+               worst_ratio_field=ratio, worst_ratio_errs=errs[ratio],
+               coupler_rel_err=errs["coupler"][0], state_bitwise=bitwise)
+    if grid is not None:
+        res.update(cells_flipped_at_an_edge=int(flips.sum()),
+                   their_position_ulps_apart=flip_ulps)
+    return res
+
+
+def edge_flips(grid, g, c, Lx=360.):
+    """The live elements of the two states ``g`` and ``c`` (to_numpy
+    dicts on one regular grid) in neighbouring cells whose shared edge
+    lies between their two positions in the walk's fractional cell
+    coordinates (``dynamics._frac_coords``: the longitude brought within
+    half a period of the grid's middle, which rounds it to that sum's
+    ulp): the positions, held to the one-ulp yardstick, straddle the
+    edge, and each cell is the one its side's position lies in.  Returns
+    (mask, the largest distance between such a pair of longitudes or
+    latitudes in ulps).  Any other difference in cells fails."""
+    import numpy as np
+    import torch
+    from icebergs_tpu_torch.dynamics import _frac_coords
+    cpu_grid = grid.to(torch.device("cpu"))
+    f = {}
+    for k, x in (("g", g), ("c", c)):
+        fx, fy = _frac_coords(cpu_grid, torch.as_tensor(x["lon"]),
+                              torch.as_tensor(x["lat"]), Lx)
+        f[k] = (fx.numpy(), fy.numpy())
+    alive = g["alive"] & c["alive"]
+    di = g["ine"].astype(np.int64) - c["ine"]
+    dj = g["jne"].astype(np.int64) - c["jne"]
+    cand = alive & ((di != 0) | (dj != 0))
+    out = np.zeros_like(alive)
+    worst = 0
+    for n in np.nonzero(cand)[0]:
+        if abs(di[n]) + abs(dj[n]) != 1:
+            continue
+        ax, name, cell = (0, "lon", "ine") if di[n] else (1, "lat", "jne")
+        edge = max(g[cell][n], c[cell][n])
+        a, b = f["g"][ax][n], f["c"][ax][n]
+        out[n] = min(a, b) <= edge <= max(a, b)
+        worst = max(worst, int(abs(np.float32(g[name][n]).view(np.int32)
+                                   .astype(np.int64)
+                                   - np.float32(c[name][n]).view(np.int32))))
+    return out, worst
 
 
 def multi_run(ibp, grid, frc, make):
@@ -1763,14 +1968,15 @@ def max_occupancy(torch, st, grid):
 
 
 def phase_path(ibp, torch, device, kernels, label, cfg_kw=None,
-               multi_kw=None, profile_out=None, world=None):
+               multi_kw=None, profile_out=None, world=None, profile=False):
     """The headline world (or ``world``: (cfg, grid, frc, state)) through
     ``make_multi_step(**multi_kw)`` (config changed by ``cfg_kw``): a
     warm-up that grows the fallback cap until nothing overflows, 3 timed
     windows of ``INNER`` steps with every kernel's launches counted over
     the first, one step under torch's sync debug mode, and checks of the
     final state.  Returns ``(result, launches of the first window,
-    coupler accumulator)``."""
+    coupler accumulator)``.  ``profile`` profiles a window without
+    ``profile_out``."""
     from icebergs_tpu_torch.diag import berg_chksum
 
     cfg, grid, frc, st = world or headline_world(ibp, torch, N_HEAD,
@@ -1856,7 +2062,7 @@ def phase_path(ibp, torch, device, kernels, label, cfg_kw=None,
     if mpc is not None:
         # before the first step, before the last, after the last
         res.update(max_per_cell=mpc, max_occupancy=occ)
-    if profile_out:
+    if profile_out or profile:
         busy, nk = profile_window(torch, lambda: multi(st, frc), profile_out,
                                   label)
         res.update(device_kernel_ms_per_step=busy / INNER,
@@ -1867,11 +2073,25 @@ def phase_path(ibp, torch, device, kernels, label, cfg_kw=None,
 def coupled_world(ibp, torch, n, nx, cap, device, seed=0):
     """Phase 10a's world (COUPLED_* above): ``(cfg, grid, frc, state,
     calving flux, primed stored ice)``."""
+    cfg, grid, frc, st = headline_world(ibp, torch, n, nx, device, seed)
+    cfg = cfg.replace(**COUPLED_FL)
+    ring = torch.zeros(nx + 2, nx + 2, dtype=torch.bool, device=device)
+    ring[1:-1, 1:-1] = True
+    ring[2:-2, 2:-2] = False
+    return (cfg, grid, frc) + prime_coupled(torch, grid, cfg, st, cap, ring,
+                                            device, seed)
+
+
+def prime_coupled(torch, grid, cfg, st, cap, coast, device, seed=0):
+    """Phase 10a's priming of a world: ``st`` in ``cap`` slots with every
+    COUPLED_TABULAR_EVERY-th berg tabular and its foot primed and every
+    COUPLED_PROMOTE_EVERY-th holding footloose bits past the promotion;
+    COUPLED_FLUX into each cell of the (nx+2, ny+2) mask ``coast`` and
+    its buckets primed at random fractions of their thresholds.  Returns
+    ``(state, calving flux, primed stored ice)``."""
     from icebergs_tpu_torch.calving import class_grids
     from icebergs_tpu_torch.state import grow_capacity
 
-    cfg, grid, frc, st = headline_world(ibp, torch, n, nx, device, seed)
-    cfg = cfg.replace(**COUPLED_FL)
     st = grow_capacity(st, cap)
     k = torch.arange(cap, device=device)
     tab = st.alive & (k % COUPLED_TABULAR_EVERY == 0)
@@ -1885,15 +2105,12 @@ def coupled_world(ibp, torch, n, nx, cap, device, seed=0):
                     mass=put("mass", tab, 850. * 100. * 400. * 600.),
                     fl_k=put("fl_k", tab, 1e5),
                     mass_of_fl_bits=put("mass_of_fl_bits", prom, 1.2e12))
-    ring = torch.zeros(nx + 2, nx + 2, dtype=torch.bool, device=device)
-    ring[1:-1, 1:-1] = True
-    ring[2:-2, 2:-2] = False
-    calving = torch.where(ring, COUPLED_FLUX, 0.).to(torch.float32)
+    calving = torch.where(coast, COUPLED_FLUX, 0.).to(torch.float32)
     tb = class_grids(grid, cfg)
     g = torch.Generator(device=device).manual_seed(seed)
     u = torch.rand(tb["mass"].shape, generator=g, device=device)
-    stored = torch.where(ring[:, :, None], tb["mass"] * tb["scal"] * u, 0.)
-    return cfg, grid, frc, st, calving, stored
+    stored = torch.where(coast[:, :, None], tb["mass"] * tb["scal"] * u, 0.)
+    return st, calving, stored
 
 
 def coupled_state(model, st, stored, seed=0):
@@ -1911,14 +2128,17 @@ _COUPLED_FIELDS = ("spread_mass", "spread_area", "spread_uvel",
 _COUPLED_MELT = ("calving", "calving_hflx", "floating_melt")
 
 
-def phase_coupled_cross(ibp, torch, device):
+def phase_coupled_cross(ibp, torch, device, world=None):
     """2 steps of ``IcebergsModel.run`` on the coupled world at 50k bergs
-    (a 65,536-slot slab) on the card and on a CPU copy: every counter and
-    the integers exact, floats within the cross-check tolerance (the
-    coupler's melt fields within COUPLED_MELT_ATOL_SCALE)."""
+    (a 65,536-slot slab; or ``world``, as coupled_world or tripolar_world
+    returns it) on the card and on a CPU copy: every counter and the
+    integers exact, floats within the cross-check tolerance (the
+    coupler's melt fields within COUPLED_MELT_ATOL_SCALE).  The result
+    also reads how many ulps apart the live positions are after the
+    first step."""
     import numpy as np
 
-    cfg, grid, frc, st, calving, stored = coupled_world(
+    cfg, grid, frc, st, calving, stored = world or coupled_world(
         ibp, torch, N_CROSS, NX_CROSS, 1 << 16, device, seed=1)
     outs = []
     for dev in (device, torch.device("cpu")):
@@ -1928,11 +2148,19 @@ def phase_coupled_cross(ibp, torch, device):
         for _ in range(2):
             s, o = model.run(s, frc.to(dev), calving.to(dev))
             counts.append({f: int(getattr(o, f)) for f in _COUPLED_COUNTS})
+            if len(counts) == 1:
+                first = ibp.to_numpy(s.bergs)
         outs.append((ibp.to_numpy(s.bergs), counts, {
             f: getattr(o, f).cpu().numpy()
-            for f in _COUPLED_FIELDS + _COUPLED_MELT}))
-    (g, gc, gf), (c, cc, cf) = outs
+            for f in _COUPLED_FIELDS + _COUPLED_MELT}, first))
+    (g, gc, gf, g1), (c, cc, cf, c1) = outs
     require(gc == cc, f"coupled counters differ: card {gc} cpu {cc}")
+    require(np.array_equal(g1["alive"], c1["alive"]),
+            "alive differs between the card and the CPU after one step")
+    alive1 = g1["alive"]
+    ulps = {f: int(np.abs(g1[f][alive1].view(np.int32).astype(np.int64)
+                          - c1[f][alive1].view(np.int32).astype(np.int64)
+                          ).max(initial=0)) for f in ("lon", "lat")}
     for name in ("alive", "id_cnt", "id_ij", "ine", "jne", "fl_k"):
         if name == "fl_k":
             # the footloose states (-1, -2, -3) exactly
@@ -1964,21 +2192,24 @@ def phase_coupled_cross(ibp, torch, device):
         worst[name] = float(np.abs(a - b).max() / scale)
     w = max(worst, key=worst.get)
     return dict(n=int(alive.sum()), capacity=st.capacity, steps=gc,
-                worst_field=w, worst_scaled_err=worst[w])
+                worst_field=w, worst_scaled_err=worst[w],
+                position_ulps_after_step1=ulps)
 
 
-def phase_coupled(ibp, torch, device, kernels, profile_out=None):
-    """Phase 10a: ``IcebergsModel.run`` on the coupled world at 1M bergs:
-    a warm-up that grows the slab or the fallback cap until no counter
-    overflows, 3 timed windows of ``INNER`` steps from the same state
-    with every kernel's launches counted over the first, bucket and
-    footloose spawns required in each window, one ``run`` under torch's
-    sync debug mode, and the budgets' closure.  Returns ``(result,
-    launches of the first window)``."""
+def phase_coupled(ibp, torch, device, kernels, profile_out=None,
+                  world=None, label="coupled", profile=False, check=None):
+    """Phase 10a: ``IcebergsModel.run`` on the coupled world at 1M bergs
+    (or ``world``, as coupled_world returns it): a warm-up that grows the
+    slab or the fallback cap until no counter overflows, 3 timed windows
+    of ``INNER`` steps from the same state with every kernel's launches
+    counted over the first, bucket and footloose spawns required in each
+    window, one ``run`` under torch's sync debug mode, and the budgets'
+    closure; ``check(state)`` adds to the final state's checks.  Returns
+    ``(result, launches of the first window)``."""
     from icebergs_tpu_torch.diag import berg_chksum, compute_budgets
     from icebergs_tpu_torch.state import grow_capacity
 
-    cfg, grid, frc, st, calving, stored = coupled_world(
+    cfg, grid, frc, st, calving, stored = world or coupled_world(
         ibp, torch, N_HEAD, NX_HEAD, COUPLED_CAP, device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2005,13 +2236,13 @@ def phase_coupled(ibp, torch, device, kernels, profile_out=None):
             break
         if ov["contact_overflow"]:
             cap = min(4 * cfg.fused_fallback_cap, st.capacity)
-            print(f"coupled: fallback cap overran ({ov}); growing to {cap}")
+            print(f"{label}: fallback cap overran ({ov}); growing to {cap}")
             cfg = cfg.replace(fused_fallback_cap=cap)
         if ov["spawn_overflow"] or ov["fl_spawn_overflow"]:
-            print(f"coupled: slab full ({ov}); growing it to "
+            print(f"{label}: slab full ({ov}); growing it to "
                   f"{2 * st.capacity} slots")
             st = grow_capacity(st, 2 * st.capacity)
-    require(not any(ov.values()), f"coupled: overflow {ov}")
+    require(not any(ov.values()), f"{label}: overflow {ov}")
 
     b0 = compute_budgets(st, coupled_state(model, st, stored).calving)
     for fn in kernels.values():
@@ -2029,10 +2260,10 @@ def phase_coupled(ibp, torch, device, kernels, profile_out=None):
                            for f in ("nbergs_calved", "nbergs_calved_fl")})
     for w, c in enumerate(per_window):
         require(c["nbergs_calved"] > 0 and c["nbergs_calved_fl"] > 0,
-                f"coupled window {w}: no bucket or no footloose spawn {c}")
+                f"{label} window {w}: no bucket or no footloose spawn {c}")
     ov = {f: peak(outs, f) for f in ("spawn_overflow", "fl_spawn_overflow",
                                      "contact_overflow")}
-    require(not any(ov.values()), f"coupled: overflow {ov}")
+    require(not any(ov.values()), f"{label}: overflow {ov}")
 
     # the budgets close over the last window
     b1 = outs[-1].budgets
@@ -2042,7 +2273,7 @@ def phase_coupled(ibp, torch, device, kernels, profile_out=None):
     end = float(b1.mass) + float(b1.mass_of_bits) + float(b1.stored_ice)
     budget_rel = abs(end - (start + used - melt)) / end
     require(budget_rel <= COUPLED_BUDGET_RTOL,
-            f"coupled: the budgets do not close (rel {budget_rel:.3e})")
+            f"{label}: the budgets do not close (rel {budget_rel:.3e})")
 
     # host syncs inside one run (torch's sync debug mode warns on each)
     s0 = coupled_state(model, st, stored)
@@ -2056,15 +2287,15 @@ def phase_coupled(ibp, torch, device, kernels, profile_out=None):
     torch.cuda.synchronize()
 
     fin = s.bergs
-    require(all_finite(torch, fin), "coupled: non-finite state")
+    require(all_finite(torch, fin), f"{label}: non-finite state")
     o = outs[-1]
     require(all(bool(torch.isfinite(getattr(o, f)).all())
                 for f in _COUPLED_FIELDS + _COUPLED_MELT),
-            "coupled: non-finite coupler fields")
+            f"{label}: non-finite coupler fields")
     chk, n_alive = berg_chksum(fin)
     syncs = sorted({f"{pathlib.Path(r.filename).name}:{r.lineno}"
                     for r in rec})
-    require(not rec, f"coupled: host syncs in a run: {syncs}")
+    require(not rec, f"{label}: host syncs in a run: {syncs}")
     res = dict(ms_per_step=statistics.median(times), windows_ms=times,
                capacity=st.capacity, alive0=int(st.alive.sum()),
                alive=int(n_alive), berg_chksum=int(chk),
@@ -2075,9 +2306,11 @@ def phase_coupled(ibp, torch, device, kernels, profile_out=None):
                sync_kinds=syncs,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches=launches)
-    if profile_out:
+    if check is not None:
+        res.update(check(fin))
+    if profile_out or profile:
         busy, nk = profile_window(torch, lambda: window(model), profile_out,
-                                  "coupled_run")
+                                  label.replace(" ", "_") + "_run")
         res.update(device_kernel_ms_per_step=busy / INNER,
                    kernels_per_step=nk / INNER)
     return res, launches
@@ -2589,6 +2822,289 @@ def phase11(ibp, torch, device, kernels, by_path, kres, dcfg, dem,
         print(f"[11d cross-check {tag}] {json.dumps(r)}")
 
 
+def ll_world(ibp, torch, n, nx, ny, device, seed=0):
+    """Phase 12a's world: the headline flags with LL_CFG on a regular
+    LL_DEG lat-lon grid of nx x ny cells from (0 E, LL_LAT0), periodic in
+    longitude, ``n`` bergs of the headline's size seeded uniformly over
+    its cells (all ocean), the swirl on the index grid."""
+    import numpy as np
+    cfg = headline_world(ibp, torch, 1, 4, device)[0].replace(**LL_CFG)
+    grid = ibp.make_uniform_grid(nx, ny, 0., LL_LAT0, LL_DEG, LL_DEG,
+                                 grid_is_latlon=True, device=device)
+    frc = ibp.swirl_forcing(nx, ny, 1.0, uo=0.3, ua=5.0, sst=4.0, sss=33.0,
+                            device=device)
+    rng = np.random.RandomState(seed)
+    lon = rng.uniform(0., nx * LL_DEG, n)
+    lat = rng.uniform(LL_LAT0, LL_LAT0 + ny * LL_DEG, n)
+    st = ibp.create_bergs(n, lon=lon, lat=lat,
+                          mass=850. * 40. * 150. * 150., thickness=40.,
+                          width=150., length=150., mass_scaling=1.0,
+                          device=device)
+    i, j, xi, yj = ibp.pos_to_cell(grid, st.lon, st.lat, 360.)
+    return cfg, grid, frc, st.replace(ine=i, jne=j, xi=xi, yj=yj)
+
+
+def tripolar_world(ibp, torch, nx, ny, n, cap, device, seed=0):
+    """Phase 12b's world, as coupled_world returns its own: the coupled
+    flags (COUPLED_FL, LL_CFG, ``grid_is_regular=False``) on
+    ``make_tripolar_grid(nx, ny, lat0=TRI_LAT0)`` with land south of
+    TRI_LAND and on the cap's polar cells (the four top-row cells at the
+    geographic pole's corners, two cells across the fold), calving into
+    every ocean cell whose southern neighbour is Antarctic land, and
+    ``n`` bergs in ``cap`` slots over the ocean cells from TRI_LAND to
+    TRI_SEED: a cell drawn uniformly, a place in it by bilinear weights,
+    located by the quad geometry; primed as phase 10a's."""
+    import numpy as np
+    from icebergs_tpu_torch import geometry as geo
+    from icebergs_tpu_torch.grid import bilin_corner
+    cfg = headline_world(ibp, torch, 1, 4, device)[0].replace(
+        grid_is_regular=False, **LL_CFG, **COUPLED_FL)
+    g = ibp.make_tripolar_grid(nx, ny, lat0=TRI_LAT0,
+                               device=torch.device("cpu"))
+    latm = g.lat_center[1:-1, 1:-1]
+    ocean = latm >= TRI_LAND
+    for i in (nx // 4 - 1, nx // 4, 3 * nx // 4 - 1, 3 * nx // 4):
+        ocean[i, ny - 1] = False
+    msk = torch.zeros_like(g.msk)
+    msk[1:-1, 1:-1] = ocean.to(msk.dtype)
+    grid = g.replace(msk=msk).to(device)
+    coast = torch.zeros(nx + 2, ny + 2, dtype=torch.bool)
+    coast[1:-1, 2:-1] = ocean[:, 1:] & ~ocean[:, :-1] & (latm[:, 1:] < 0.)
+    cells = torch.nonzero(ocean & (latm < TRI_SEED)).numpy()
+    rng = np.random.RandomState(seed)
+    pick = cells[rng.randint(0, len(cells), n)]
+    ci = torch.as_tensor(pick[:, 0], dtype=torch.int32, device=device)
+    cj = torch.as_tensor(pick[:, 1], dtype=torch.int32, device=device)
+    w = [torch.as_tensor(rng.uniform(0.05, 0.95, n), dtype=torch.float32,
+                         device=device) for _ in range(2)]
+    lon = bilin_corner(grid.lonc, ci, cj, *w, False)
+    lat = bilin_corner(grid.latc, ci, cj, *w, False)
+    st = ibp.create_bergs(n, lon=lon.cpu().numpy(), lat=lat.cpu().numpy(),
+                          mass=850. * 40. * 150. * 150., thickness=40.,
+                          width=150., length=150., mass_scaling=1.0,
+                          device=device)
+    xi, yj, inside = geo.pos_within_cell_curvilinear(grid, st.lon, st.lat,
+                                                     ci, cj, 360.)
+    require(bool(inside.all()), "12b: a seeded berg lies outside its cell")
+    st = st.replace(ine=ci, jne=cj, xi=xi, yj=yj)
+    frc = ibp.swirl_forcing(nx, ny, 1.0, uo=0.3, ua=5.0, sst=4.0, sss=33.0,
+                            device=device)
+    return (cfg, grid, frc) + prime_coupled(torch, grid, cfg, st, cap,
+                                            coast.to(device), device, seed)
+
+
+def in_cells(torch, grid, Lx=360.):
+    """The curvilinear paths' gate: every live berg inside its cell by
+    the quad test (``is_point_in_cell``)."""
+    from icebergs_tpu_torch import geometry as geo
+
+    def check(st):
+        ok = geo.is_point_in_cell(grid, st.lon, st.lat, st.ine, st.jne, Lx)
+        bad = int((~ok & st.alive).sum())
+        require(bad == 0, f"{bad} live bergs outside their cells")
+        return dict(outside_cell=bad)
+    return check
+
+
+def phase12(ibp, torch, device, kernels, by_path, kres, profile_out=None):
+    """Phase 12, ROADMAP item 11: 12a the persistent fused3 lane (K1, K2
+    lat-lon, K3) and the persistent ``fused`` lane with K6 (K5 lat-lon)
+    on the 0.25-degree lat-lon world, timed as phase 5 is with a profiled
+    window; 12b ``IcebergsModel.run`` on the tripolar world, timed as
+    phase 10a is; 12c phase 6's DEM world on a lat-lon grid through K4's
+    lat-lon form (grouped K2 lat-lon in Part 1), timed as phase 6 is, and
+    one outer step of the scan against K4; the kernel rows of K2's, K5's
+    and K4's lat-lon forms; 12d card against CPU on small worlds of each.
+    Each path's launches go to ``by_path``."""
+    from icebergs_tpu_torch.ops import dem_substeps as k4, extract, prepass
+    from icebergs_tpu_torch.ops import sorted as srt
+    from icebergs_tpu_torch.ops.fused_contact import contact_features
+    from icebergs_tpu_torch.ops.prepass import prepass_features
+
+    def fmt(x):
+        return "-" if x is None else f"{x:.3f} ms"
+
+    def count(label, launches):
+        for k, n_ in launches.items():
+            if n_:
+                by_path.setdefault(k, {})[label] = n_
+
+    def kernel_line(name):
+        r = kres[name]
+        print(f"[12 kernel] {name}: kernel {r['ms']:.4f} ms, plain "
+              f"{fmt(r['plain_ms'])}, bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]}), max_abs_err {r['err']} ({r['note']})")
+
+    # 12d first: card against CPU on the small worlds
+    t0 = time.perf_counter()
+    lw = ll_world(ibp, torch, N_CROSS, LL_CROSS_NX, LL_CROSS_NY, device,
+                  seed=1)
+    for tag, ckw, mkw in (("fast lane", None, None),
+                          ("fused kernel-interp",
+                           dict(interp_mode="kernel",
+                                fused_fallback_cap=32768),
+                           dict(neighbor_mode="fused"))):
+        r = phase_cross(ibp, torch, device, ckw, mkw, world=lw)
+        require(r["overflow"] == 0, f"12d {tag}: contact_overflow "
+                f"{r['overflow']}")
+        print(f"[12d cross-check latlon {tag}] {json.dumps(r)}")
+    del lw
+    # the tripolar coupled world at the full world's density (~5 bergs
+    # an ocean cell), at phase 10a's tolerance; the positions after the
+    # first step within one ulp (the card's and the CPU's cos and sin
+    # round at most an ulp apart)
+    r = phase_coupled_cross(ibp, torch, device, world=tripolar_world(
+        ibp, torch, TRI_CROSS_NX, TRI_CROSS_NY, TRI_CROSS_N, TRI_CROSS_CAP,
+        device, seed=1))
+    print(f"[12d cross-check tripolar coupled] {json.dumps(r)}")
+    for c in r["steps"]:
+        require(c["contact_overflow"] == c["spawn_overflow"]
+                == c["fl_spawn_overflow"] == 0, f"12d tripolar: overflow {c}")
+    require(max(r["position_ulps_after_step1"].values()) <= 1,
+            f"12d tripolar: positions after one step differ by "
+            f"{r['position_ulps_after_step1']} ulps")
+    lcfg = dem_config(ibp, fused_fallback_cap=16384, **LL_CFG)
+    grid, frc, st, deltas, n = dem_world(
+        ibp, torch, lcfg, DEM_CROSS_UNITS, NX_DEM_CROSS, device,
+        gaps=(2.5e3, 3.5e3), cols=5, jitter=3.0, vel_spread=0.05, seed=1,
+        latlon=True)
+    r = cross_yardstick(ibp, torch, "12d dem latlon", st, multi_run(
+        ibp, grid, frc, lambda g: dem_multi(ibp, g, lcfg, 1, deltas)),
+        grid=grid)
+    print(f"[12d cross-check dem latlon] {json.dumps(dict(elements=n, **r))}")
+    print(f"[12d] {time.perf_counter() - t0:.1f} s")
+    del grid, frc, st
+
+    # 12a: the fast lanes on the lat-lon world, and K2's and K5's lat-lon
+    # rows on its sorted slab
+    world = ll_world(ibp, torch, N_HEAD, LL_NX, LL_NY, device)
+    cfg, grid, frc, st0 = world
+    st, cs = srt.sort_state_by_cell(st0, grid)
+    PT, key_s = contact_features(st, grid, cfg)
+    kres["extract_sorted/latlon"] = k2_case(
+        torch, extract, PT, key_s, cs, grid, cfg, False, block_n=128,
+        window=cfg.fused_window)[0]
+    del PT, key_s
+    P, key_p = prepass_features(st, grid, cfg)
+    kres["contact_prepass_sorted/latlon"] = k5_case(
+        torch, prepass, P, key_p, cs, grid, cfg, False)
+    del P, key_p, st, cs
+    for name in ("extract_sorted/latlon", "contact_prepass_sorted/latlon"):
+        kernel_line(name)
+    for tag, label, ckw, mkw, names in (
+            ("12a latlon fast lane", "ll_fast_lane", None, None,
+             ("permute_cols_u32", "extract_sorted", "segment_spread_sums")),
+            ("12a latlon persistent fused kernel-interp",
+             "ll_persistent_fused_kernel", dict(interp_mode="kernel"),
+             dict(neighbor_mode="fused"),
+             ("contact_prepass_sorted", "interp_sorted",
+              "permute_cols_u32", "segment_spread_sums"))):
+        res, launches, _ = phase_path(ibp, torch, device, kernels, label,
+                                      cfg_kw=ckw, multi_kw=mkw,
+                                      profile_out=profile_out, world=world,
+                                      profile=True)
+        count(label, launches)
+        print(f"[{tag}] {json.dumps(res)}")
+        for k in names:
+            require(launches[k] > 0, f"kernel {k} was not launched by the "
+                    f"{label} path")
+        require(res["host_syncs_per_step"] == 0,
+                f"{label}: host syncs in a step: {res['sync_kinds']}")
+    del world, st0
+    torch.cuda.empty_cache()
+
+    # 12b: the coupled entry on the tripolar grid
+    t0 = time.perf_counter()
+    tw = tripolar_world(ibp, torch, TRI_NX, TRI_NY, N_HEAD, COUPLED_CAP,
+                        device)
+    built = time.perf_counter() - t0
+    res, launches = phase_coupled(ibp, torch, device, kernels, profile_out,
+                                  world=tw, label="12b tripolar coupled",
+                                  profile=True, check=in_cells(torch, tw[1]))
+    count("tripolar_coupled_run", launches)
+    res.update(world_built_s=built, grid=[TRI_NX, TRI_NY],
+               ocean_cells=int(tw[1].msk.sum()),
+               calving_cells=int((tw[4] > 0).sum()))
+    print(f"[12b tripolar coupled run] {json.dumps(res)}")
+    for k in ("permute_cols_u32", "extract_sorted", "segment_spread_sums"):
+        require(launches[k] > 0, f"kernel {k} was not launched by the "
+                "tripolar coupled run")
+    del tw
+    torch.cuda.empty_cache()
+
+    # 12c: DEM on the lat-lon grid: K4's lat-lon form, grouped K2
+    # lat-lon, then one outer step of the scan against K4
+    t0 = time.perf_counter()
+    dcfg = dem_config(ibp, **LL_CFG)
+    dem = dem_world(ibp, torch, dcfg, DEM_UNITS, NX_DEM, device, latlon=True)
+    grid, frc, st, deltas, n = dem
+    from icebergs_tpu_torch.ops.forces import neighbor_radius
+    radius = neighbor_radius(grid, dcfg)
+    require(radius <= 4, f"12c: search radius {radius} > K2's 4")
+    print(f"[12c dem latlon world] {n} elements, capacity {st.capacity}, "
+          f"deltas {deltas}, radius {radius}, lat "
+          f"{float(st.lat[st.alive].min()):.3f}.."
+          f"{float(st.lat[st.alive].max()):.3f}, lon "
+          f"{float(st.lon[st.alive].min()):.3f}.."
+          f"{float(st.lon[st.alive].max()):.3f}, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # grouped K2 lat-lon as Part 1 runs it, and K4's lat-lon form
+    PT0, key = contact_features(st, grid, dcfg, exclude_same_group=True)
+    order = srt.lex_cell_id_order(key, st.id_cnt, st.id_ij)
+    from icebergs_tpu_torch.ops.pack import (from_bits, permute_cols_u32,
+                                             to_bits)
+    PT = from_bits(permute_cols_u32(to_bits(PT0), order), PT0.dtype)
+    key_s = key[order.long()]
+    cs = srt.starts_from_sorted_key(key_s, grid.nx * grid.ny)
+    kres["extract_sorted/grouped_latlon"] = k2_case(
+        torch, extract, PT, key_s, cs, grid, dcfg, False, block_n=256,
+        window=512, radius=radius, exclude_same_group=True)[0]
+    del PT0, PT, key, key_s, order, cs
+    s4 = k4_state(torch, st, device, latlon=True)
+    out4, nb4, err, worst, ms = k4_run(torch, k4, s4, dcfg, deltas)
+    require(k4.instantiation(dcfg, s4.max_bonds) == "generic",
+            "12c: K4's lat-lon flag set did not take the generic "
+            "instantiation")
+    mv = s4.alive & (s4.static_berg < 0.5)
+    kres["dem_substeps/latlon"] = dict(
+        err=err, ms=ms,
+        plain_ms=cuda_ms(torch, lambda: k4.part3_substeps_plain(
+            s4, dcfg, deltas, DEM_BLOCK), reps=1),
+        library_ms=None,
+        bound=bound(nbytes(*(getattr(s4, f) for f in (
+            "alive", "static_berg", "thickness", "mass", "od", "fl_k",
+            "length", "width", "bond_idx", "bond_broken")
+            + k4._CAR_FIELDS + k4._BOND_FIELDS))
+            + nbytes(*(getattr(out4, f) for f in ("bond_broken",)
+                       + k4._CAR_FIELDS + k4._BOND_FIELDS)),
+            k4_flops(torch, s4, dcfg)),
+        note=(f"N={s4.capacity} block {DEM_BLOCK} deltas {deltas} "
+              f"substeps {dcfg.n_sub_steps} moving={int(mv.sum())} "
+              f"nbroken={int(nb4)} bitwise=True worst_scaled_err="
+              f"{worst:.3e}; launched generic (F_LATLON); "
+              f"{k4_resources(k4, s4.max_bonds, DEM_BLOCK)}; "
+              f"{K4_BOUND_NOTE}"))
+    del s4, out4
+    for name in ("extract_sorted/grouped_latlon", "dem_substeps/latlon"):
+        kernel_line(name)
+    res, launches = phase_dem_slice(
+        ibp, torch, device, kernels, (
+            "permute_cols_u32", "extract_sorted", "segment_spread_sums",
+            "dem_substeps"), dcfg, dem, profile_out, label="12c dem latlon",
+        profile=True)
+    count("ll_dem", launches)
+    errs, na, nb = scan_vs_k4(ibp, torch, grid, frc, st, dcfg, deltas)
+    wf = max(errs, key=errs.get)
+    require(na == nb, f"12c: broken_bonds scan {na} != K4 {nb}")
+    require(errs[wf] <= SCAN_K4_TOL, f"12c: scan against K4: {wf} "
+            f"{errs[wf]:.3e} of scale > {SCAN_K4_TOL}")
+    res.update(radius=radius, scan_vs_k4_scaled=errs,
+               broken_bonds_scan_k4=[na, nb])
+    print(f"[12c dem latlon] {json.dumps(res)}")
+    del dem, grid, frc, st
+    torch.cuda.empty_cache()
+
+
 def kernel_counters():
     """Every kernel wrapper (or second count) by its row's name: the
     ``launches`` each path reads and resets."""
@@ -2805,6 +3321,9 @@ def main(argv=None) -> int:
 
     phase11(ibp, torch, device, kernels, by_path, kres, dcfg, dem,
             dem_s_per_step, args.profile_out)
+    del dem
+    torch.cuda.empty_cache()
+    phase12(ibp, torch, device, kernels, by_path, kres, args.profile_out)
 
     source = {"permute_cols_u32": ("permute_cols.cu",
                                    "icebergs_tpu/ops/pallas_pack.py:30"),
@@ -2837,12 +3356,32 @@ def main(argv=None) -> int:
               "eval_pair_ia_kernel": ("pair_eval.cu",
                                       "icebergs_tpu/ops/pallas_pairs.py:108"),
               "eval_pair_ia_kernel/m400": (
-                  "pair_eval.cu", "icebergs_tpu/ops/pallas_pairs.py:108")}
+                  "pair_eval.cu", "icebergs_tpu/ops/pallas_pairs.py:108"),
+              "extract_sorted/latlon": (
+                  "extract_sorted.cu", "icebergs_tpu/ops/pallas_prepass.py:625"),
+              "extract_sorted/grouped_latlon": (
+                  "extract_sorted.cu", "icebergs_tpu/ops/pallas_prepass.py:625"),
+              "contact_prepass_sorted/latlon": (
+                  "prepass_sorted.cu", "icebergs_tpu/ops/pallas_prepass.py:67"),
+              "dem_substeps/latlon": ("dem_substeps.cu",
+                                      "icebergs_tpu/ops/dem_vmem.py:691")}
     # the grouped K2 row is the DEM path's K2, the plain row the others';
     # K3's 14-column row is the per-step and DEM paths', the plain row the
     # persistent lanes' (3 columns)
     # the MTS paths' K2 is the grouped one (Part 1); their K3 takes 14
     # columns but on the coupled entry and the KID paths (no melt columns)
+    # phase 12's lat-lon paths launch the lat-lon instantiations: K2's
+    # grouped one on the lat-lon DEM path, its fused3 one on the lat-lon
+    # and tripolar paths; K5's and K4's lat-lon forms
+    def split(src, dst, paths):
+        d = by_path.get(src, {})
+        by_path[dst] = {p: d.pop(p) for p in list(d) if p in paths}
+    split("extract_sorted", "extract_sorted/grouped_latlon", ("ll_dem",))
+    split("extract_sorted", "extract_sorted/latlon",
+          ("ll_fast_lane", "tripolar_coupled_run"))
+    split("contact_prepass_sorted", "contact_prepass_sorted/latlon",
+          ("ll_persistent_fused_kernel",))
+    split("dem_substeps", "dem_substeps/latlon", ("ll_dem",))
     k2 = by_path.get("extract_sorted", {})
     by_path["extract_sorted/grouped"] = {
         p: k2.pop(p) for p in list(k2) if p == "dem" or p.startswith("mts_")}
@@ -2850,11 +3389,12 @@ def main(argv=None) -> int:
     by_path["segment_spread_sums/extra14"] = {
         p: k3.pop(p) for p in list(k3)
         if p in ("dem", "bonded_fused3", "mts_scan", "mts_pairs",
-                 "mts_cross_scan", "mts_cross_pairs")
+                 "mts_cross_scan", "mts_cross_pairs", "ll_dem")
         or p.startswith("perstep_")}
     by_path["segment_spread_sums/extra0"] = {
         p: k3.pop(p) for p in list(k3)
-        if p == "coupled_run" or p.startswith("mts_")}
+        if p in ("coupled_run", "tripolar_coupled_run")
+        or p.startswith("mts_")}
     # K7: the launches at M = 400 are the m400 row's (the tables Part 1
     # of 11c and 11c-dense, and the same-conglomerate contact group of the
     # KID paths); of the rest, the bonded and MTS paths' are the bond

@@ -10,15 +10,21 @@ behind :func:`make_multi_step` the production fast lane (the
 persistent-sorted coupling step with contacts, thermodynamics and
 spreading), the per-step path (``make_step``; the ``fused3``, ``fused``,
 ``buckets`` and ``sorted`` contact searches, bonded springs, footloose),
-the MTS/DEM step of bonded conglomerates (Part-1 fused search, force
-convergence, the substep loop as one kernel), and the options of those
-modules: Verlet and RK4 stepping, the table, sorted-frame and per-field
-(``interp_flds``) interpolations with coastal and tidal drift, K2's
-in-kernel pair epilogue, every slot-sum method of the reproducing
-spreading and the plain scatters without it, and the re-sort's transport
-knobs.  Lat-lon and curvilinear grids, the MTS scan substeps, I/O and
-the multi-device layer are not ported yet: their settings raise
-``NotImplementedError`` naming the ROADMAP.md item.
+the MTS/DEM step of bonded conglomerates (Part-1 fused search or the
+candidate tables, force convergence, the substep loop as one kernel or
+as the scan with the frozen pair list, outer-step fracture), and the
+options of those modules: Verlet and RK4 stepping, the table,
+sorted-frame and per-field (``interp_flds``) interpolations with coastal
+and tidal drift, K2's in-kernel pair epilogue, every slot-sum method of
+the reproducing spreading and the plain scatters without it, and the
+re-sort's transport knobs.  Every path runs on Cartesian, regular
+lat-lon (periodic in ``Lx``, latitude-dependent Coriolis, the polar
+tangent plane) and curvilinear or tripolar grids
+(:func:`make_curvilinear_grid`, :func:`make_tripolar_grid`; the
+point-in-quad walk of :mod:`.geometry`).  Hexagonal elements, I/O and
+the driver, and the multi-device layer are not ported yet: their
+settings and entry points raise ``NotImplementedError`` naming the
+ROADMAP.md item.
 Module names mirror the JAX package; each module names its counterpart.
 
 Importing this package imports torch and never jax.  On CPU tensors
@@ -31,7 +37,8 @@ from .config import IcebergsConfig, check_ported
 from .convert import (config_from_dict, forcing_from_numpy,
                       grid_from_numpy, state_from_numpy, to_numpy)
 from .forcing import Forcing, swirl_forcing, uniform_forcing
-from .grid import Grid, make_uniform_grid, pos_to_cell
+from .grid import (Grid, make_curvilinear_grid, make_tripolar_grid,
+                   make_uniform_grid, pos_to_cell)
 from .model import (StepDiags, make_multi_step, make_persistent_multi_step,
                     make_step)
 from .state import BergState, create_bergs, empty_state
@@ -41,7 +48,8 @@ __all__ = [
     "IcebergsConfig", "check_ported", "config_from_dict",
     "forcing_from_numpy", "grid_from_numpy", "state_from_numpy",
     "to_numpy", "Forcing", "swirl_forcing", "uniform_forcing", "Grid",
-    "make_uniform_grid", "pos_to_cell", "StepDiags", "make_multi_step",
+    "make_curvilinear_grid", "make_tripolar_grid", "make_uniform_grid",
+    "pos_to_cell", "StepDiags", "make_multi_step",
     "make_persistent_multi_step", "make_step", "BergState", "create_bergs",
     "empty_state",
 ]

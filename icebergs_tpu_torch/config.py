@@ -386,9 +386,7 @@ class IcebergsConfig:
 # Settings whose backend this package does not have yet, each with the
 # ROADMAP.md Queue 1 item that ports it.  Values not listed are served.
 _NOT_PORTED = (
-    ("grid_is_latlon", True, 11, "lat-lon grids"),
-    ("grid_is_regular", False, 11, "curvilinear grids"),
-    ("hexagonal_icebergs", True, 11, "hexagonal spreading"),
+    ("hexagonal_icebergs", True, 22, "hexagonal elements"),
 )
 _SLOT_SUM_METHODS = ("pallas", "scatter", "scatter_t", "gather",
                      "gather_raw", "gather_mm")

@@ -52,6 +52,13 @@
 //   an empty slot, the bond part of a slot with no intact bond and
 //   the contact part of a slot with no broken bond.
 //
+// On a lat-lon grid (F_LATLON, read at run time by the generic
+// instantiation only) the drift moves positions in degrees, lon by
+// dt u / (kpr cos(pi180 lat)) (an IEEE division) and lat by dt v inv_kpr,
+// and every bond and contact measures rx, ry in metres through the metric
+// factors at the pair's mean latitude (dem_vmem.py:240-246, 422-428,
+// 474-476); cosf, which torch.cos on a CUDA tensor also calls.
+//
 // The arithmetic follows the TPU kernel expression by expression
 // (accumulation over slots b = 0..nslots-1 with its association, IEEE
 // division, sqrtf, sinf, no reciprocals) and the library is built with
@@ -76,7 +83,7 @@ constexpr int MAX_BLOCK = 512;
 enum : int {
   F_CONST_LW = 1, F_HEX = 2, F_BONDS = 4, F_BREAK_SUB = 8,
   F_SHORT_GROUND = 16, F_GROUND_TORQUE = 32, F_ORIG_MOI = 64,
-  F_IGNORE_TANG = 128, F_PMAG = 256
+  F_IGNORE_TANG = 128, F_PMAG = 256, F_LATLON = 512
 };
 // the flag set of tools/bench_dem_1m.py's configuration
 constexpr int DEM_FLAGS = F_CONST_LW | F_BONDS | F_BREAK_SUB | F_PMAG;
@@ -116,6 +123,8 @@ struct DemArgs {
   float dtf, dtf2, kspring, poisson1, tn, tt, cs, rad_damp, tan_damp,
       dem_damp, K, A0c, R0c, l0c, R0contact, rho, hexdenom, pi, two_sqrt3,
       rho_ratio, h_ground, neg_cdrag, two_thirds;
+  // the lat-lon metric: PI_180 * Rearth, 1 / (PI_180 * Rearth), PI_180
+  float kpr, inv_kpr, pi180;
 };
 
 // Shared words per thread: the partner-visible kinematics (6) and
@@ -206,6 +215,7 @@ dem_substeps_kernel(const __grid_constant__ DemArgs a) {
   const bool const_lw = on<FL>(fl, F_CONST_LW);
   const bool hex = on<FL>(fl, F_HEX);
   const bool bonds = on<FL>(fl, F_BONDS);
+  const bool latlon = on<FL>(fl, F_LATLON);
   float* s_lon = sm;
   float* s_lat = sm + SS;
   float* s_u = sm + 2 * SS;
@@ -322,8 +332,16 @@ dem_substeps_kernel(const __grid_constant__ DemArgs a) {
       const float bxf = own[O_BXF * SS], byf = own[O_BYF * SS];
       const float uvel2 = u + a.dtf2 * (axf + bxf);
       const float vvel2 = v + a.dtf2 * (ayf + byf);
-      const float lonn = own[O_LON * SS] + a.dtf * uvel2;
-      const float latn = own[O_LAT * SS] + a.dtf * vvel2;
+      float lonn, latn;
+      if (latlon) {
+        const float lat = own[O_LAT * SS];
+        const float dxdl = 1.f / (a.kpr * cosf(a.pi180 * lat));
+        lonn = own[O_LON * SS] + a.dtf * uvel2 * dxdl;
+        latn = lat + a.dtf * vvel2 * a.inv_kpr;
+      } else {
+        lonn = own[O_LON * SS] + a.dtf * uvel2;
+        latn = own[O_LAT * SS] + a.dtf * vvel2;
+      }
       if (mv) {
         own[O_LON * SS] = lonn;
         own[O_LAT * SS] = latn;
@@ -395,8 +413,15 @@ dem_substeps_kernel(const __grid_constant__ DemArgs a) {
         R2c = radius_contact(len2 * wid2, hex, bonds, a.hexdenom, a.pi);
         M2c = h ? s_ms[p] : 0.f;
       }
-      const float rx = lon_o - lon2;
-      const float ry = lat_o - lat2;
+      float rx, ry;
+      if (latlon) {
+        const float lat_ref = 0.5f * (lat_o + lat2);
+        rx = (lon_o - lon2) * (a.kpr * cosf(a.pi180 * lat_ref));
+        ry = (lat_o - lat2) * a.kpr;
+      } else {
+        rx = lon_o - lon2;
+        ry = lat_o - lat2;
+      }
       const float blength = sqrtf(rx * rx + ry * ry);
       const float lsafe = blength > 0.f ? blength : 1.f;
 

@@ -74,6 +74,13 @@
 //   compiled shape of the same GROUP), which a caller may also force
 //   onto the compiled shapes to time the specialisation.
 //
+// - On a lat-lon grid (LL) the distance test measures the pair in metres
+//   through the metric factors at its mean latitude (csrc/latlon.cuh), one
+//   cosf per tested pair, and the chunk skip bounds the x gap by the
+//   cosine at the largest |latitude| of the two boxes (gap2_lower there).
+//   Every instantiation exists with LL false, which is the Cartesian code
+//   unchanged, and with LL true.
+//
 // Blocks that the wrapper flags bad (span or window overflow, computed as
 // the TPU wrapper does so that the fallback set stays the same) are
 // skipped and write the "no partner" result; the caller routes their
@@ -87,6 +94,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "latlon.cuh"
 
 namespace {
 
@@ -133,12 +142,15 @@ __device__ __forceinline__ float group_max(float v) {
 // One selected partner's epilogue rows from its PT rows (the operations
 // of the TPU kernel's per-candidate chain): P11, P12, P22, mass ratio,
 // exactness.  An engaged partner has r2 > 0, so rsafe = r.
+template <bool LL>
 __device__ __forceinline__ void partner_rows(const float* __restrict__ PT,
                                              long long N, int q, float lon1,
                                              float lat1, float R1, float M1,
-                                             float cd, float* d) {
-  const float rx = lon1 - PT[PT_LON * N + q];
-  const float ry = lat1 - PT[PT_LAT * N + q];
+                                             float cd, float kpr,
+                                             float pi180, float* d) {
+  float rx, ry;
+  pair_sep<LL>(lon1, lat1, PT[PT_LON * N + q], PT[PT_LAT * N + q], kpr,
+               pi180, rx, ry);
   const float r2 = rx * rx + ry * ry;
   const float crit = fmaxf(R1 + PT[PT_RAD * N + q], cd);
   const float r = sqrtf(r2);
@@ -152,8 +164,9 @@ __device__ __forceinline__ void partner_rows(const float* __restrict__ PT,
 
 // BN_T / NS_T: threads per block and strips, or 0 for run-time values;
 // CH: candidates per chunk (16 or 32), the grain of the warp's skip;
-// EPI: the pair epilogue (spring: the contact spring coefficient).
-template <int BN_T, int NS_T, bool GROUP, int CH, bool EPI>
+// EPI: the pair epilogue (spring: the contact spring coefficient); LL: the
+// lat-lon metric (kpr, pi180: csrc/latlon.cuh).
+template <int BN_T, int NS_T, bool GROUP, int CH, bool EPI, bool LL>
 __global__ void __launch_bounds__(BN_T ? BN_T : 1024)
 extract_sorted_kernel(const float* __restrict__ PT, int n,
                       const int32_t* __restrict__ cell_starts,
@@ -161,7 +174,7 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
                       const int32_t* __restrict__ c_hi,
                       const uint8_t* __restrict__ bad,
                       float* __restrict__ out, int nstrips_rt, float cd,
-                      float slack, float spring) {
+                      float slack, float spring, float kpr, float pi180) {
   static_assert(!(GROUP && EPI), "EPI stages the mass where GROUP stages "
                                  "the group");
   const int bn = BN_T ? BN_T : (int)blockDim.x;
@@ -275,7 +288,8 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
           const float gx = fmaxf(fmaxf(bx.x - whi_x, wlo_x - bx.y), 0.f);
           const float gy = fmaxf(fmaxf(bx.z - whi_y, wlo_y - bx.w), 0.f);
           const float cb = fmaxf(wr + s_rmax[q], acd);
-          const float d2 = gx * gx + gy * gy;
+          const float d2 = gap2_lower<LL>(gx, gy, wlo_y, whi_y, bx.z, bx.w,
+                                          kpr, pi180);
           if (d2 > cb * cb * slack) continue;        // warp-uniform
           const int ch = ch0 + q;
           int s = 0;
@@ -285,8 +299,8 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
 #pragma unroll 8
           for (int k = 0; k < CH; ++k) {
             const float4 c = cq[k];
-            const float rx = lon1 - c.x;
-            const float ry = lat1 - c.y;
+            float rx, ry;
+            pair_sep<LL>(lon1, lat1, c.x, c.y, kpr, pi180, rx, ry);
             const float r2 = rx * rx + ry * ry;
             const float crit = fmaxf(R1 + c.z, cd);
             bool e = r2 > 0.f && r2 <= crit * crit * slack;
@@ -328,7 +342,7 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
       float d[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
       float u = 0.f, v = 0.f;
       if (cnt > 0) {
-        partner_rows(PT, N, q, lon1, lat1, R1, M1, cd, d);
+        partner_rows<LL>(PT, N, q, lon1, lat1, R1, M1, cd, kpr, pi180, d);
         u = PT[PT_U * N + q];
         v = PT[PT_V * N + q];
       }
@@ -354,39 +368,56 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
 
 // instantiations: 0 = BN 128 / 3 strips (chunks of 16), 1 = BN 256 / 5
 // strips / GROUP (chunks of 32), 2 = generic (16), 3 = generic / GROUP
-// (32), 4 = BN 128 / 3 strips / EPI (16), 5 = generic / EPI (16).  Chunks
-// of 16 against 32: 0.153 against 0.168 ms at BN 128, 0.298 against 0.271
-// at BN 256 (NVIDIA H100, chip_smoke.py --ab).
+// (32), 4 = BN 128 / 3 strips / EPI (16), 5 = generic / EPI (16); each
+// Cartesian (0-5) and lat-lon (NV + 0-5).  Chunks of 16 against 32: 0.153
+// against 0.168 ms at BN 128, 0.298 against 0.271 at BN 256 (NVIDIA H100,
+// chip_smoke.py --ab).
 enum {
   V_FUSED3 = 0, V_PART1 = 1, V_GENERIC = 2, V_GENERIC_GROUP = 3,
-  V_FUSED3_EPI = 4, V_GENERIC_EPI = 5
+  V_FUSED3_EPI = 4, V_GENERIC_EPI = 5, NV = 6
 };
-constexpr int CH_OF[6] = {16, 32, 16, 32, 16, 16};
+constexpr int CH_OF[NV] = {16, 32, 16, 32, 16, 16};
 
 typedef void (*KernelFn)(const float*, int, const int32_t*, const int32_t*,
                          const int32_t*, const uint8_t*, float*, int, float,
-                         float, float);
+                         float, float, float, float);
 
-KernelFn kernel_of(int variant) {
+template <bool LL>
+KernelFn kernel_of_metric(int variant) {
   switch (variant) {
-    case V_FUSED3: return extract_sorted_kernel<128, 3, false, 16, false>;
-    case V_PART1: return extract_sorted_kernel<256, 5, true, 32, false>;
-    case V_GENERIC: return extract_sorted_kernel<0, 0, false, 16, false>;
-    case V_GENERIC_GROUP: return extract_sorted_kernel<0, 0, true, 32, false>;
-    case V_FUSED3_EPI: return extract_sorted_kernel<128, 3, false, 16, true>;
-    case V_GENERIC_EPI: return extract_sorted_kernel<0, 0, false, 16, true>;
+    case V_FUSED3: return extract_sorted_kernel<128, 3, false, 16, false, LL>;
+    case V_PART1: return extract_sorted_kernel<256, 5, true, 32, false, LL>;
+    case V_GENERIC: return extract_sorted_kernel<0, 0, false, 16, false, LL>;
+    case V_GENERIC_GROUP:
+      return extract_sorted_kernel<0, 0, true, 32, false, LL>;
+    case V_FUSED3_EPI:
+      return extract_sorted_kernel<128, 3, false, 16, true, LL>;
+    case V_GENERIC_EPI: return extract_sorted_kernel<0, 0, false, 16, true, LL>;
     default: return nullptr;
   }
 }
 
+KernelFn kernel_of(int variant) {
+  return variant >= NV ? kernel_of_metric<true>(variant - NV)
+                       : kernel_of_metric<false>(variant);
+}
+
 // generic != 0 forces the generic instantiation; -1: no instantiation
 // (the epilogue with the group filter)
-int variant_of(int block_n, int nstrips, int group, int generic, int epi) {
+int variant_of(int block_n, int nstrips, int group, int generic, int epi,
+               int latlon) {
   const bool f3 = !generic && block_n == 128 && nstrips == 3 && !group;
-  if (epi) return group ? -1 : f3 ? V_FUSED3_EPI : V_GENERIC_EPI;
-  if (f3) return V_FUSED3;
-  if (!generic && block_n == 256 && nstrips == 5 && group) return V_PART1;
-  return group ? V_GENERIC_GROUP : V_GENERIC;
+  int v;
+  if (epi) {
+    v = group ? -1 : f3 ? V_FUSED3_EPI : V_GENERIC_EPI;
+  } else if (f3) {
+    v = V_FUSED3;
+  } else if (!generic && block_n == 256 && nstrips == 5 && group) {
+    v = V_PART1;
+  } else {
+    v = group ? V_GENERIC_GROUP : V_GENERIC;
+  }
+  return v < 0 ? v : v + (latlon ? NV : 0);
 }
 
 }  // namespace
@@ -395,31 +426,33 @@ extern "C" int ib_extract_sorted(const void* PT, int n, const void* cell_starts,
                                  const void* c_lo, const void* c_hi,
                                  const void* bad, void* out, int nblocks,
                                  int block_n, int nstrips, int group,
-                                 int generic, int epilogue, float cd,
-                                 float slack, float spring, void* stream) {
+                                 int generic, int epilogue, int latlon,
+                                 float cd, float slack, float spring,
+                                 float kpr, float pi180, void* stream) {
   if (nblocks == 0) return (int)cudaGetLastError();
-  const int v = variant_of(block_n, nstrips, group, generic, epilogue);
+  const int v = variant_of(block_n, nstrips, group, generic, epilogue,
+                           latlon);
   if (block_n % 32 || block_n < 32 || block_n > 1024 || nstrips < 1 ||
       nstrips > MAX_STRIPS || v < 0)
     return (int)cudaErrorInvalidValue;
-  kernel_of(v)<<<nblocks, block_n, smem_bytes(block_n, CH_OF[v]),
+  kernel_of(v)<<<nblocks, block_n, smem_bytes(block_n, CH_OF[v % NV]),
                  (cudaStream_t)stream>>>(
       (const float*)PT, n, (const int32_t*)cell_starts, (const int32_t*)c_lo,
       (const int32_t*)c_hi, (const uint8_t*)bad, (float*)out, nstrips, cd,
-      slack, spring);
+      slack, spring, kpr, pi180);
   return (int)cudaGetLastError();
 }
 
 // The instantiation a launch takes, its dynamic shared memory and its
 // resident CTAs per SM at block_n threads.
 extern "C" int ib_extract_config(int block_n, int nstrips, int group,
-                                 int generic, int epilogue, int* variant,
-                                 int* smem, int* ctas_per_sm) {
-  *variant = variant_of(block_n, nstrips, group, generic, epilogue);
+                                 int generic, int epilogue, int latlon,
+                                 int* variant, int* smem, int* ctas_per_sm) {
+  *variant = variant_of(block_n, nstrips, group, generic, epilogue, latlon);
   if (block_n % 32 || block_n < 32 || block_n > 1024 || nstrips < 1 ||
       nstrips > MAX_STRIPS || *variant < 0)
     return (int)cudaErrorInvalidValue;
-  *smem = (int)smem_bytes(block_n, CH_OF[*variant]);
+  *smem = (int)smem_bytes(block_n, CH_OF[*variant % NV]);
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       ctas_per_sm, kernel_of(*variant), block_n, (size_t)*smem);
 }

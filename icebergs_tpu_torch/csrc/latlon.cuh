@@ -1,0 +1,63 @@
+// The lat-lon pair metric shared by the contact searches K2
+// (extract_sorted.cu) and K5 (prepass_sorted.cu).
+//
+// On a lat-lon grid the TPU kernels (icebergs_tpu/ops/pallas_prepass.py,
+// contact_prepass_sorted :196-200, contact_extract_sorted_g :746-750)
+// measure a pair in metres through the metric factors at the pair's mean
+// latitude:
+//   lat_ref = 0.5 * (lat1 + lat2)
+//   rx = (lon1 - lon2) * (kpr * cos(pi180 * lat_ref))
+//   ry = (lat1 - lat2) * kpr
+// where kpr is PI_180 * Rearth folded in double and rounded once to float
+// (a Python scalar product meeting a float32 array) and pi180 is PI_180
+// rounded to float.  Both come from the host.  cosf, not __cosf: torch.cos
+// on a CUDA tensor calls the same CUDA math library, so each kernel equals
+// its plain PyTorch version bit for bit.
+#pragma once
+
+#include <math.h>
+
+// rx, ry of the distance test, Cartesian (LL false) or lat-lon.
+template <bool LL>
+__device__ __forceinline__ void pair_sep(float lon1, float lat1, float lon2,
+                                         float lat2, float kpr, float pi180,
+                                         float& rx, float& ry) {
+  if (LL) {
+    const float lat_ref = 0.5f * (lat1 + lat2);
+    rx = (lon1 - lon2) * (kpr * cosf(pi180 * lat_ref));
+    ry = (lat1 - lat2) * kpr;
+  } else {
+    rx = lon1 - lon2;
+    ry = lat1 - lat2;
+  }
+}
+
+// A lower bound, by monotone rounding, of r2 = rx*rx + ry*ry over every
+// pair of a berg in the warp's box and a candidate in a chunk's box, from
+// their gaps gx (degrees of longitude, or metres) and gy.  Cartesian: gx*gx
+// + gy*gy (csrc/extract_sorted.cu argues it).  Lat-lon: with L the largest
+// |latitude| of both boxes, every pair has |lat_ref| <= L (its rounded sum
+// and halving are monotone), so |pi180 * lat_ref| <= pi180 * L after
+// rounding and the true cosine at the pair is at least cos(pi180 * L) (cos
+// is even and falls on [0, pi]).  cosf is within 2 ulp of the true value
+// (CUDA C Programming Guide, the single-precision accuracy table), so
+// cosf(pi180 * L) * (1 - 2^-16), clamped at 0, is at most every pair's
+// cosf; kpr times it is at most every pair's dx_dlon, and gx times that
+// is at most every |rx| (|lon1 - lon2| >= gx).  |ry| >= gy * kpr likewise.
+// The products and the sum round monotonically, so the bound is at most
+// r2.  An empty chunk box (gy = inf) gives inf: the chunk is skipped; a
+// NaN bound compares false and skips nothing.
+template <bool LL>
+__device__ __forceinline__ float gap2_lower(float gx, float gy, float lat_a,
+                                           float lat_b, float lat_c,
+                                           float lat_d, float kpr,
+                                           float pi180) {
+  if (!LL) return gx * gx + gy * gy;
+  const float L = fmaxf(fmaxf(fabsf(lat_a), fabsf(lat_b)),
+                        fmaxf(fabsf(lat_c), fabsf(lat_d)));
+  const float c = fmaxf(cosf(pi180 * L) * (1.f - 1.f / 65536.f), 0.f);
+  const float kx = kpr * c;
+  const float gxm = kx > 0.f ? gx * kx : 0.f;
+  const float gym = gy * kpr;
+  return gxm * gxm + gym * gym;
+}

@@ -46,12 +46,20 @@
 //   time, GROUP compiled both ways), which a caller may also force onto
 //   the compiled shape to time the specialisation.
 //
+// - On a lat-lon grid (LL) the distance test measures the pair in metres
+//   through the metric factors at its mean latitude and the chunk skip
+//   bounds the x gap by the cosine at the largest |latitude| of the two
+//   boxes (csrc/latlon.cuh); every instantiation exists with LL false (the
+//   Cartesian code unchanged) and true.
+//
 // Build with -fmad=false: r^2 and crit^2 * slack must round as the
 // reference rounds them, or engagement flips at the boundary.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "latlon.cuh"
 
 namespace {
 
@@ -88,14 +96,16 @@ __device__ __forceinline__ float group_max(float v) {
 }
 
 // BN_T / NS_T: threads per block and strips, or 0 for run-time values;
-// CH: candidates per chunk, the grain of the warp's skip.
-template <int BN_T, int NS_T, bool GROUP, int CH>
+// CH: candidates per chunk, the grain of the warp's skip; LL: the lat-lon
+// metric (kpr, pi180: csrc/latlon.cuh).
+template <int BN_T, int NS_T, bool GROUP, int CH, bool LL>
 __global__ void __launch_bounds__(BN_T ? BN_T : 1024)
 prepass_sorted_kernel(const float4* __restrict__ P, int n,
                       const int32_t* __restrict__ key_s,
                       const int32_t* __restrict__ cell_starts, int nx,
                       int ncells, int nstrips_rt, int window, float cd,
-                      float slack, int32_t* __restrict__ cnt_out,
+                      float slack, float kpr, float pi180,
+                      int32_t* __restrict__ cnt_out,
                       int32_t* __restrict__ pmin_out,
                       int32_t* __restrict__ pmax_out,
                       uint8_t* __restrict__ bad_out) {
@@ -218,7 +228,8 @@ prepass_sorted_kernel(const float4* __restrict__ P, int n,
         const float gx = fmaxf(fmaxf(bx.x - whi_x, wlo_x - bx.y), 0.f);
         const float gy = fmaxf(fmaxf(bx.z - whi_y, wlo_y - bx.w), 0.f);
         const float cb = fmaxf(wr + s_rmax[q], acd);
-        const float d2 = gx * gx + gy * gy;
+        const float d2 = gap2_lower<LL>(gx, gy, wlo_y, whi_y, bx.z, bx.w, kpr,
+                                        pi180);
         if (d2 > cb * cb * slack) continue;          // warp-uniform
         const int ch = ch0 + q;
         int s = 0;
@@ -228,8 +239,8 @@ prepass_sorted_kernel(const float4* __restrict__ P, int n,
 #pragma unroll 8
         for (int k = 0; k < CH; ++k) {
           const float4 c = cq[k];
-          const float rx = lon1 - c.x;
-          const float ry = lat1 - c.y;
+          float rx, ry;
+          pair_sep<LL>(lon1, lat1, c.x, c.y, kpr, pi180, rx, ry);
           const float r2 = rx * rx + ry * ry;
           const float crit = fmaxf(R1 + c.z, cd);
           bool e = r2 > 0.f && r2 <= crit * crit * slack;
@@ -254,27 +265,37 @@ prepass_sorted_kernel(const float4* __restrict__ P, int n,
 
 // instantiations: 0 = BN 128 / 3 strips (the `fused` paths), 1 = generic,
 // 2 = generic / GROUP; chunks of 16 candidates without the group filter
-// and 32 with it, as K2's instantiations of the same shapes
-enum { V_FUSED = 0, V_GENERIC = 1, V_GENERIC_GROUP = 2 };
-constexpr int CH_OF[3] = {16, 16, 32};
+// and 32 with it, as K2's instantiations of the same shapes; each
+// Cartesian (0-2) and lat-lon (NV + 0-2)
+enum { V_FUSED = 0, V_GENERIC = 1, V_GENERIC_GROUP = 2, NV = 3 };
+constexpr int CH_OF[NV] = {16, 16, 32};
 
 typedef void (*KernelFn)(const float4*, int, const int32_t*, const int32_t*,
-                         int, int, int, int, float, float, int32_t*, int32_t*,
-                         int32_t*, uint8_t*);
+                         int, int, int, int, float, float, float, float,
+                         int32_t*, int32_t*, int32_t*, uint8_t*);
 
-KernelFn kernel_of(int variant) {
+template <bool LL>
+KernelFn kernel_of_metric(int variant) {
   switch (variant) {
-    case V_FUSED: return prepass_sorted_kernel<128, 3, false, 16>;
-    case V_GENERIC: return prepass_sorted_kernel<0, 0, false, 16>;
-    case V_GENERIC_GROUP: return prepass_sorted_kernel<0, 0, true, 32>;
+    case V_FUSED: return prepass_sorted_kernel<128, 3, false, 16, LL>;
+    case V_GENERIC: return prepass_sorted_kernel<0, 0, false, 16, LL>;
+    case V_GENERIC_GROUP: return prepass_sorted_kernel<0, 0, true, 32, LL>;
     default: return nullptr;
   }
 }
 
+KernelFn kernel_of(int variant) {
+  return variant >= NV ? kernel_of_metric<true>(variant - NV)
+                       : kernel_of_metric<false>(variant);
+}
+
 // generic != 0 forces the generic instantiation
-int variant_of(int block_n, int nstrips, int group, int generic) {
-  if (!generic && block_n == 128 && nstrips == 3 && !group) return V_FUSED;
-  return group ? V_GENERIC_GROUP : V_GENERIC;
+int variant_of(int block_n, int nstrips, int group, int generic,
+               int latlon) {
+  const int v = !generic && block_n == 128 && nstrips == 3 && !group
+                    ? V_FUSED
+                    : group ? V_GENERIC_GROUP : V_GENERIC;
+  return v + (latlon ? NV : 0);
 }
 
 bool valid_shape(int block_n, int nstrips) {
@@ -290,29 +311,31 @@ bool valid_shape(int block_n, int nstrips) {
 extern "C" int ib_prepass_sorted(const void* P, int n, const void* key_s,
                                  const void* cell_starts, int nx, int ncells,
                                  int block_n, int nstrips, int window,
-                                 int group, int generic, float cd,
-                                 float slack, void* cnt, void* pmin,
+                                 int group, int generic, int latlon,
+                                 float cd, float slack, float kpr,
+                                 float pi180, void* cnt, void* pmin,
                                  void* pmax, void* bad, void* stream) {
   if (!valid_shape(block_n, nstrips) || ncells < 1)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaGetLastError();
-  const int v = variant_of(block_n, nstrips, group, generic);
+  const int v = variant_of(block_n, nstrips, group, generic, latlon);
   kernel_of(v)<<<(n + block_n - 1) / block_n, block_n,
-                 smem_bytes(block_n, CH_OF[v]), (cudaStream_t)stream>>>(
+                 smem_bytes(block_n, CH_OF[v % NV]), (cudaStream_t)stream>>>(
       (const float4*)P, n, (const int32_t*)key_s,
       (const int32_t*)cell_starts, nx, ncells, nstrips, window, cd, slack,
-      (int32_t*)cnt, (int32_t*)pmin, (int32_t*)pmax, (uint8_t*)bad);
+      kpr, pi180, (int32_t*)cnt, (int32_t*)pmin, (int32_t*)pmax,
+      (uint8_t*)bad);
   return (int)cudaGetLastError();
 }
 
 // The instantiation a launch takes, its dynamic shared memory and its
 // resident CTAs per SM at block_n threads.
 extern "C" int ib_prepass_config(int block_n, int nstrips, int group,
-                                 int generic, int* variant, int* smem,
-                                 int* ctas_per_sm) {
+                                 int generic, int latlon, int* variant,
+                                 int* smem, int* ctas_per_sm) {
   if (!valid_shape(block_n, nstrips)) return (int)cudaErrorInvalidValue;
-  *variant = variant_of(block_n, nstrips, group, generic);
-  *smem = (int)smem_bytes(block_n, CH_OF[*variant]);
+  *variant = variant_of(block_n, nstrips, group, generic, latlon);
+  *smem = (int)smem_bytes(block_n, CH_OF[*variant % NV]);
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       ctas_per_sm, kernel_of(*variant), block_n, (size_t)*smem);
 }

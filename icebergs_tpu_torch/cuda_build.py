@@ -39,8 +39,8 @@ _SIGNATURES = {
     "ib_gather_rows": (_P, _L, _I, _P, _P, _L, _L, _P),
     "ib_k1_config": (_I, _I, _P, _P, _P),
     "ib_extract_sorted": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _F, _F, _F, _P),
-    "ib_extract_config": (_I, _I, _I, _I, _I, _P, _P, _P),
+                          _I, _I, _F, _F, _F, _F, _F, _P),
+    "ib_extract_config": (_I, _I, _I, _I, _I, _I, _P, _P, _P),
     "ib_segment_spread_sums": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _P),
     "ib_segment_sums_assoc": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
@@ -50,9 +50,9 @@ _SIGNATURES = {
     "ib_dem_substeps": (_P, _I, _I, _I, _P),
     "ib_dem_config": (_I, _I, _I, _P, _P),
     "ib_dem_args_size": (),
-    "ib_prepass_sorted": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                          _F, _P, _P, _P, _P, _P),
-    "ib_prepass_config": (_I, _I, _I, _I, _P, _P, _P),
+    "ib_prepass_sorted": (_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _F, _F, _F, _F, _P, _P, _P, _P, _P),
+    "ib_prepass_config": (_I, _I, _I, _I, _I, _P, _P, _P),
     "ib_pair_eval": (_P,) * 12 + (_I, _I, _I, _P, _P),
     "ib_pair_eval_config": (_I, _I, _P, _P, _P),
     "ib_interp_sorted": (_P, _I, _P, _P, _P, _I, _I, _P, _P),

@@ -1,11 +1,14 @@
 """Time stepping: Verlet and RK4 evolution and position bookkeeping.
 
 Counterpart of ``icebergs_tpu/dynamics.py``: ``verlet_step``,
-``rk4_step``, ``evolve_icebergs``, ``_advance_position``,
-``adjust_index_and_ground`` with the gather-free 9x9-anchor walk
-(``_walk4``, ``_walk4_compact``), ``_msk25_table`` and ``_msk81_rows``.
-Regular Cartesian grids only; lat-lon and curvilinear grids are a later
-slice (ROADMAP.md Queue 1 item 11).
+``rk4_step``, ``evolve_icebergs``, ``_advance_position`` (the lat-lon
+metric, and the polar tangent plane above 89 degrees with
+``rotpos_/rotvec_{to,from}_tang``), ``adjust_index_and_ground`` with the
+gather-free 9x9-anchor walk (``_walk4``, ``_walk4_compact``),
+``_msk25_table`` and ``_msk81_rows`` on regular grids (Cartesian, or
+lat-lon periodic in ``Lx``), and on curvilinear grids
+(``grid_is_regular=False``) the quad-cell walk
+``adjust_index_and_ground_curvilinear`` over :mod:`.geometry`.
 """
 
 from __future__ import annotations
@@ -15,9 +18,12 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from . import constants as C
 from .config import IcebergsConfig
-from .grid import Grid, cell_to_pos
-from .ops.accel import accel
+from .geometry import cell_corners, pos_within_cell_curvilinear
+from .grid import (Grid, apply_modulo_around_point, cell_to_pos,
+                   convert_from_meters_to_grid)
+from .ops.accel import accel, divc
 from .ops.interp import Env, interp_flds
 
 POSN_EPS = 0.05  # pushback after a coast bounce (icebergs.F90:7836)
@@ -30,9 +36,91 @@ WALK_COMPACT_FRAC = 4
 WALK_COMPACT_CAP_FLOOR = 4096
 
 
-def _frac_coords(grid: Grid, lon, lat):
-    """Global fractional cell coordinates on a regular Cartesian grid."""
-    return (lon - grid.lon0) / grid.dlon, (lat - grid.lat0) / grid.dlat
+def _lx(cfg: IcebergsConfig) -> float:
+    """The x periodicity the grid routines take: ``Lx`` on a lat-lon
+    grid, none (-1) on a Cartesian one."""
+    return cfg.Lx if cfg.grid_is_latlon else -1.
+
+
+def _frac_coords(grid: Grid, lon, lat, Lx: float = -1.):
+    """Global fractional cell coordinates on a regular grid (with ``Lx``
+    > 0, longitudes brought within half a period of the grid's
+    middle)."""
+    cx = lon if Lx <= 0. else apply_modulo_around_point(
+        lon, grid.lon0 + 0.5 * grid.dlon * grid.nx, Lx)
+    return (cx - grid.lon0) / grid.dlon, (lat - grid.lat0) / grid.dlat
+
+
+def _cell_to_pos_curvilinear(grid: Grid, cfg: IcebergsConfig, i, j, xi,
+                             yj):
+    """Bilinear map (xi, yj) -> position from the cell's corners, the
+    inverse of ``calc_xiyj`` (pos_within_cell's yj2x / xi2y,
+    icebergs_framework.F90:6350-6364)."""
+    Lx = _lx(cfg)
+    x1, x2, x3, x4, y1, y2, y3, y4 = cell_corners(grid, i, j)
+    x2 = apply_modulo_around_point(x2, x1, Lx)
+    x3 = apply_modulo_around_point(x3, x1, Lx)
+    x4 = apply_modulo_around_point(x4, x1, Lx)
+    w1 = (1. - xi) * (1. - yj)
+    w2 = xi * (1. - yj)
+    w3 = xi * yj
+    w4 = (1. - xi) * yj
+    return (w1 * x1 + w2 * x2 + w3 * x3 + w4 * x4,
+            w1 * y1 + w2 * y2 + w3 * y3 + w4 * y4)
+
+
+def adjust_index_and_ground_curvilinear(grid: Grid, cfg: IcebergsConfig,
+                                        lon, lat, i, j):
+    """The quad-cell walk of ``adjust_index_and_ground``
+    (icebergs.F90:7819-8100) on a curvilinear grid: four steps of at
+    most one cell in x then y, driven by ``calc_xiyj``'s coordinates in
+    the current cell, bouncing (clamped just inside the current cell)
+    where a step would enter land or leave the grid.  Returns ``(lon,
+    lat, i, j, xi, yj, bounced)``."""
+    Lx = _lx(cfg)
+    msk = grid.msk
+    bounced = torch.zeros(lon.shape, dtype=torch.bool, device=lon.device)
+    for _ in range(4):  # icount < 4 (icebergs.F90:7941)
+        xi, yj, in_cell = pos_within_cell_curvilinear(grid, lon, lat, i, j,
+                                                      Lx)
+        move_w = xi < 0.
+        move_e = xi >= 1.
+        ti = (i - move_w.to(torch.int32) + move_e.to(torch.int32)).clamp(
+            0, grid.nx - 1)
+        ocean_x = msk[(ti + 1).long(), (j + 1).long()] > 0.
+        stepped_x = (~in_cell) & (move_w | move_e)
+        b_x = stepped_x & ((~ocean_x) | (ti == i))
+        i = torch.where(stepped_x & ocean_x, ti, i)
+
+        move_s = yj < 0.
+        move_n = yj >= 1.
+        tj = (j - move_s.to(torch.int32) + move_n.to(torch.int32)).clamp(
+            0, grid.ny - 1)
+        ocean_y = msk[(i + 1).long(), (tj + 1).long()] > 0.
+        stepped_y = (~in_cell) & (move_s | move_n)
+        b_y = stepped_y & ((~ocean_y) | (tj == j))
+        j = torch.where(stepped_y & ocean_y, tj, j)
+
+        newly_bounced = b_x | b_y
+        bounced = bounced | newly_bounced
+        xi2, yj2, _ = pos_within_cell_curvilinear(grid, lon, lat, i, j, Lx)
+        blon, blat = _cell_to_pos_curvilinear(
+            grid, cfg, i, j, xi2.clamp(POSN_EPS, 1. - POSN_EPS),
+            yj2.clamp(POSN_EPS, 1. - POSN_EPS))
+        lon = torch.where(newly_bounced, blon, lon)
+        lat = torch.where(newly_bounced, blat, lat)
+
+    # final safety clamp (icebergs.F90:8058-8066)
+    xi, yj, _ = pos_within_cell_curvilinear(grid, lon, lat, i, j, Lx)
+    bad = (xi < 0.) | (xi >= 1.) | (yj <= 0.) | (yj > 1.)
+    xi_c = xi.clamp(POSN_EPS, 1. - POSN_EPS)
+    yj_c = yj.clamp(POSN_EPS, 1. - POSN_EPS)
+    clon, clat = _cell_to_pos_curvilinear(grid, cfg, i, j, xi_c, yj_c)
+    lon = torch.where(bad, clon, lon)
+    lat = torch.where(bad, clat, lat)
+    xi = torch.where(bad, xi_c, xi)
+    yj = torch.where(bad, yj_c, yj)
+    return lon, lat, i, j, xi, yj, bounced
 
 
 def _msk25_table(msk):
@@ -159,18 +247,23 @@ def adjust_index_and_ground(grid: Grid, cfg: IcebergsConfig, lon, lat,
     """Re-localize bergs after motion, bouncing off land cells
     (icebergs.F90:7819-8100, regular grid): walk at most 4 cells toward
     the new position, clamping just inside the current cell where the
-    walk would enter land.  ``m25_pre`` is the table interpolation's
-    ``(m25, m81)`` anchor pair; the walk reads ``m81``.  Without it (the
+    walk would enter land.  A curvilinear grid (``grid_is_regular``
+    false) takes :func:`adjust_index_and_ground_curvilinear` instead.
+    ``m25_pre`` is the table interpolation's ``(m25, m81)`` anchor pair;
+    the walk reads ``m81``.  Without it (the
     ``with_interp=False`` probe) the 9x9 rows are gathered from the grid:
     the same mask bits the JAX package's 5x5-anchor walk reads.
 
     Returns ``(lon, lat, i, j, xi, yj, bounced)``."""
+    if not cfg.grid_is_regular:
+        return adjust_index_and_ground_curvilinear(grid, cfg, lon, lat, i,
+                                                   j)
     if isinstance(m25_pre, tuple) and m25_pre[1] is not None:
         m81_pre = m25_pre[1]
     else:
         m81_pre = _msk81_rows(grid.msk)[:, (i + 5).long(), (j + 5).long()]
     dtype = lon.dtype
-    fx, fy = _frac_coords(grid, lon, lat)
+    fx, fy = _frac_coords(grid, lon, lat, _lx(cfg))
     walk = _walk4_compact if lon.shape[0] >= WALK_COMPACT_MIN_N else _walk4
     lon, lat, i, j, fx, fy, bounced = walk(grid, lon, lat, i, j, fx, fy,
                                            m81_pre)
@@ -188,13 +281,48 @@ def adjust_index_and_ground(grid: Grid, cfg: IcebergsConfig, lon, lat,
     return lon, lat, i, j, xi, yj, bounced
 
 
+def rotpos_to_tang(lon, lat, Rearth: float):
+    """Position on the polar tangent plane (icebergs.F90:7767-7818)."""
+    r = Rearth * ((90. - lat) * C.PI_180)
+    return r * torch.cos(lon * C.PI_180), r * torch.sin(lon * C.PI_180)
+
+
+def rotpos_from_tang(x, y, Rearth: float):
+    r = torch.sqrt(x * x + y * y)
+    lat = 90. - divc(C.R180_PI * r, Rearth)
+    lon = C.R180_PI * torch.arccos(
+        (x / r.clamp(min=1e-30)).clamp(-1., 1.)) * torch.sign(y)
+    return lon, lat
+
+
+def rotvec_to_tang(lon, u, v):
+    clon = torch.cos(lon * C.PI_180)
+    slon = torch.sin(lon * C.PI_180)
+    return -slon * u - clon * v, clon * u - slon * v
+
+
+def rotvec_from_tang(lon, xdot, ydot):
+    clon = torch.cos(lon * C.PI_180)
+    slon = torch.sin(lon * C.PI_180)
+    return -slon * xdot + clon * ydot, -clon * xdot - slon * ydot
+
+
 def _advance_position(cfg: IcebergsConfig, lon, lat, u, v, dt):
-    """Position update on a Cartesian grid (the metric factors are 1)."""
-    if cfg.grid_is_latlon:
-        raise NotImplementedError("lat-lon grids (ROADMAP.md Queue 1 "
-                                  "item 11)")
-    ones = torch.ones_like(lat)
-    return lon + dt * u * ones, lat + dt * v * ones
+    """Position update ``X + dt V`` through the metric factors (ones on
+    a Cartesian grid, where the product is the step itself); on a lat-lon
+    grid the bergs above 89 degrees move on the polar tangent plane."""
+    if not cfg.grid_is_latlon:
+        return lon + dt * u, lat + dt * v
+    dxdl, dydl = convert_from_meters_to_grid(lat, cfg.grid_is_latlon,
+                                             cfg.Rearth)
+    lonn = lon + dt * u * dxdl
+    latn = lat + dt * v * dydl
+    on_tang = lat > 89.
+    x1, y1 = rotpos_to_tang(lon, lat, cfg.Rearth)
+    xd, yd = rotvec_to_tang(lon, u, v)
+    tlon, tlat = rotpos_from_tang(x1 + dt * xd, y1 + dt * yd, cfg.Rearth)
+    return torch.where(on_tang, tlon, lonn), torch.where(on_tang, tlat,
+                                                         latn)
 
 
 class EvolveOut(NamedTuple):
@@ -308,27 +436,40 @@ def rk4_step(st, grid: Grid, frc, cfg: IcebergsConfig, ia_fn=None,
         lon, lat = _advance_position(cfg, lon1, lat1, u, v, dtk)
         return adjust_index_and_ground(grid, cfg, lon, lat, i1, j1, m25_pre)
 
-    # on a Cartesian grid the metric factors are 1: the stage velocities
-    # are the positions' rates
+    def rate(uvel, vvel, lat):
+        """The stage's position rates: the velocities through the
+        metric factors (ones on a Cartesian grid, where the product is
+        the velocity itself); dlat/dy is stage 1's throughout."""
+        if not cfg.grid_is_latlon:
+            return uvel, vvel
+        dxdl, _ = convert_from_meters_to_grid(lat, True, cfg.Rearth)
+        return uvel * dxdl, vvel * dydl
+
+    if cfg.grid_is_latlon:
+        _, dydl = convert_from_meters_to_grid(lat1, True, cfg.Rearth)
     o1 = call_accel(env1, i1, j1, uvel1, vvel1, dt_2)
+    u1, v1 = rate(uvel1, vvel1, lat1)
     uvel2, vvel2 = uvel1 + dt_2 * o1.ax, vvel1 + dt_2 * o1.ay
     lon2, lat2, i2, j2, xi2, yj2, b2 = stage(uvel1, vvel1, dt_2)
+    u2, v2 = rate(uvel2, vvel2, lat2)
     o2 = call_accel(stage_env(lon2, lat2, i2, j2, xi2, yj2), i2, j2,
                     uvel2, vvel2, dt_2)
     uvel3, vvel3 = uvel1 + dt_2 * o2.ax, vvel1 + dt_2 * o2.ay
     lon3, lat3, i3, j3, xi3, yj3, b3 = stage(uvel2, vvel2, dt_2)
+    u3, v3 = rate(uvel3, vvel3, lat3)
     o3 = call_accel(stage_env(lon3, lat3, i3, j3, xi3, yj3), i3, j3,
                     uvel3, vvel3, dt)
     uvel4, vvel4 = uvel1 + dt * o3.ax, vvel1 + dt * o3.ay
     lon4, lat4, i4, j4, xi4, yj4, b4 = stage(uvel3, vvel3, dt)
+    u4, v4 = rate(uvel4, vvel4, lat4)
     o4 = call_accel(stage_env(lon4, lat4, i4, j4, xi4, yj4), i4, j4,
                     uvel4, vvel4, dt)
 
     def comb(a1, a2, a3, a4):
         return (a1 + a4) + 2. * (a2 + a3)
 
-    lonn = lon1 + dt_6 * comb(uvel1, uvel2, uvel3, uvel4)
-    latn = lat1 + dt_6 * comb(vvel1, vvel2, vvel3, vvel4)
+    lonn = lon1 + dt_6 * comb(u1, u2, u3, u4)
+    latn = lat1 + dt_6 * comb(v1, v2, v3, v4)
     uveln = uvel1 + dt_6 * comb(o1.ax, o2.ax, o3.ax, o4.ax)
     vveln = vvel1 + dt_6 * comb(o1.ay, o2.ay, o3.ay, o4.ay)
     axn = comb(o1.axn, o2.axn, o3.axn, o4.axn) / six

@@ -232,7 +232,8 @@ def _spawn_children(st, grid: Grid, cfg: IcebergsConfig, rn, want, k, l_b,
         disp_y = disp_y * dydl
     lon_c = st.lon + disp_x
     lat_c = st.lat + disp_y
-    ci, cj, cxi, cyj = pos_to_cell(grid, lon_c, lat_c, -1.)
+    ci, cj, cxi, cyj = pos_to_cell(grid, lon_c, lat_c,
+                                   cfg.Lx if cfg.grid_is_latlon else -1.)
     # a child displaced into a dead (area 0) cell stays on its parent
     bad = grid.area[(ci + 1).long(), (cj + 1).long()] <= 0.
     lon_c = torch.where(bad, st.lon, lon_c)

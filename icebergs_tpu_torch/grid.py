@@ -1,12 +1,14 @@
-"""Eulerian grid container and the regular-grid geometry the step uses.
+"""Eulerian grid container, the grid builders and the metric factors.
 
 PyTorch counterpart of ``icebergs_tpu/grid.py`` (``Grid``,
-``make_uniform_grid``, ``pos_to_cell``, ``cell_to_pos``,
-``bilin_corner``, and the Cartesian branch of
-``convert_from_grid_to_meters`` / ``convert_from_meters_to_grid``), with the same layout conventions: corner arrays
-``(nx+1, ny+1)``, halo-padded center arrays ``(nx+2, ny+2)`` with cell
-``(i, j)`` at ``[i+1, j+1]``, and 0-dim float32 tensors for the
-regular-grid metadata.
+``make_uniform_grid``, ``make_curvilinear_grid``, ``make_tripolar_grid``,
+``pos_to_cell``, ``cell_to_pos``, ``bilin_corner``, ``center_at`` and
+``convert_from_grid_to_meters`` / ``convert_from_meters_to_grid``), with
+the same layout conventions: corner arrays ``(nx+1, ny+1)``, halo-padded
+center arrays ``(nx+2, ny+2)`` with cell ``(i, j)`` at ``[i+1, j+1]``,
+and 0-dim float32 tensors for the regular-grid metadata.  The builders
+work in float64 numpy and round once to the grid's dtype, as the JAX
+package's do, so the corners are the JAX grid's bit for bit.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from . import constants as C
+from .ops.accel import rdiv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,10 +138,13 @@ def cell_to_pos(grid: Grid, i, j, xi, yj):
 def convert_from_grid_to_meters(lat_ref, grid_is_latlon: bool,
                                 Rearth: float):
     """Metric factors (dx/dlon, dy/dlat) at a latitude
-    (icebergs.F90:443-460): ones on a Cartesian grid."""
+    (icebergs.F90:443-460): ``PI_180 Rearth cos(PI_180 lat)`` and
+    ``PI_180 Rearth`` on a lat-lon grid (the product ``PI_180 Rearth``
+    folded in double and rounded once, as the JAX expression rounds it),
+    ones on a Cartesian grid."""
     if grid_is_latlon:
-        raise NotImplementedError("lat-lon metric factors (ROADMAP.md Queue "
-                                  "1 item 11)")
+        k = C.PI_180 * Rearth
+        return torch.cos(lat_ref * C.PI_180) * k, torch.full_like(lat_ref, k)
     one = torch.ones_like(lat_ref)
     return one, one
 
@@ -146,8 +152,23 @@ def convert_from_grid_to_meters(lat_ref, grid_is_latlon: bool,
 def convert_from_meters_to_grid(lat_ref, grid_is_latlon: bool,
                                 Rearth: float):
     """Metric factors (dlon/dx, dlat/dy) at a latitude
-    (icebergs.F90:462-478): ones on a Cartesian grid."""
-    return convert_from_grid_to_meters(lat_ref, grid_is_latlon, Rearth)
+    (icebergs.F90:462-478): the reciprocals, correctly rounded."""
+    dx_dlon, dy_dlat = convert_from_grid_to_meters(lat_ref, grid_is_latlon,
+                                                   Rearth)
+    return rdiv(1.0, dx_dlon), rdiv(1.0, dy_dlat)
+
+
+def pair_separation(lon1, lat1, lon2, lat2, grid_is_latlon: bool,
+                    Rearth: float):
+    """``(rx, ry)`` in metres between two positions: the differences
+    times the metric factors at the mean latitude (the pair metric of
+    ``forces``, ``dem``, ``mts`` and ``footloose``); on a Cartesian grid
+    the factors are ones and the product is the difference itself."""
+    if not grid_is_latlon:
+        return lon1 - lon2, lat1 - lat2
+    dx_dlon, dy_dlat = convert_from_grid_to_meters(0.5 * (lat1 + lat2),
+                                                   True, Rearth)
+    return (lon1 - lon2) * dx_dlon, (lat1 - lat2) * dy_dlat
 
 
 def bilin_corner(fld_c, i, j, xi, yj, old_bug_bilin: bool):
@@ -164,3 +185,132 @@ def bilin_corner(fld_c, i, j, xi, yj, old_bug_bilin: bool):
                 + (f10 * (1. - xi) + f00 * xi) * yj)
     return ((f11 * xi + f01 * (1. - xi)) * yj
             + (f10 * xi + f00 * (1. - xi)) * (1. - yj))
+
+
+def center_at(fld, i, j):
+    """Gather a halo-padded center field at 0-based cell offsets."""
+    return fld[(i + 1).long(), (j + 1).long()]
+
+
+def make_curvilinear_grid(lonc, latc, *, Rearth: float = C.REARTH_DEFAULT,
+                          msk=None, ocean_depth=None, dtype=torch.float32,
+                          device) -> Grid:
+    """A grid from explicit corner arrays (nx+1, ny+1), with haversine
+    metric terms (driver/driver_data_fms2.F90:60-120): ``dx`` the
+    northern edge, ``dy`` the eastern edge, ``area = dx dy``, rotation
+    ``cosc = 1``, ``sinc = 0``.  Such grids step through the curvilinear
+    walk of :mod:`.geometry` (``grid_is_regular=False``)."""
+    lonc = np.asarray(lonc, np.float64)
+    latc = np.asarray(latc, np.float64)
+    nx, ny = lonc.shape[0] - 1, lonc.shape[1] - 1
+
+    def hav(lon1, lat1, lon2, lat2):
+        p = np.pi / 180.
+        dlat = (lat2 - lat1) * p
+        dlon = (lon2 - lon1) * p
+        a = np.sin(dlat / 2) ** 2 + np.cos(lat1 * p) * np.cos(lat2 * p) \
+            * np.sin(dlon / 2) ** 2
+        return 2 * Rearth * np.arcsin(np.sqrt(np.clip(a, 0., 1.)))
+
+    dx = hav(lonc[:-1, 1:], latc[:-1, 1:], lonc[1:, 1:], latc[1:, 1:])
+    dy = hav(lonc[1:, :-1], latc[1:, :-1], lonc[1:, 1:], latc[1:, 1:])
+    latm = 0.25 * (latc[:-1, :-1] + latc[1:, :-1] + latc[:-1, 1:]
+                   + latc[1:, 1:])
+    if msk is None:
+        msk = np.ones((nx, ny))
+    if ocean_depth is None:
+        ocean_depth = np.zeros((nx, ny))
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64)).to(
+            device=device, dtype=dtype)
+
+    def pad_center(a):
+        return t(np.pad(np.asarray(a, np.float64), 1))
+
+    return Grid(
+        nx=nx, ny=ny, lonc=t(lonc), latc=t(latc),
+        cosc=torch.ones(nx + 1, ny + 1, dtype=dtype, device=device),
+        sinc=torch.zeros(nx + 1, ny + 1, dtype=dtype, device=device),
+        msk=pad_center(msk), area=pad_center(dx * dy),
+        dx=pad_center(dx), dy=pad_center(dy),
+        ocean_depth=pad_center(ocean_depth), lat_center=pad_center(latm),
+        lon0=t(lonc[0, 0]), lat0=t(latc[0, 0]),
+        dlon=t(lonc[1, 0] - lonc[0, 0]), dlat=t(latc[0, 1] - latc[0, 0]))
+
+
+def _sph(lon, lat):
+    p = np.pi / 180.0
+    return np.array([np.cos(lat * p) * np.cos(lon * p),
+                     np.cos(lat * p) * np.sin(lon * p), np.sin(lat * p)])
+
+
+def _geo(v):
+    v = v / np.linalg.norm(v)
+    lat = np.degrees(np.arcsin(np.clip(v[2], -1., 1.)))
+    lon = np.degrees(np.arctan2(v[1], v[0])) % 360.0
+    return lon, lat
+
+
+def _slerp(a, b, t):
+    a = a / np.linalg.norm(a)
+    b = b / np.linalg.norm(b)
+    w = np.arccos(np.clip(a @ b, -1., 1.))
+    if w < 1e-12:
+        return a
+    return (np.sin((1 - t) * w) * a + np.sin(t * w) * b) / np.sin(w)
+
+
+def make_tripolar_grid(nx: int, ny: int, *, lat0: float = 30.0,
+                       lat_join: float = 65.0, lat_poles: float = 75.0,
+                       lon0: float = 0.0, msk=None, ocean_depth=None,
+                       Rearth: float = C.REARTH_DEFAULT,
+                       dtype=torch.float32, device) -> Grid:
+    """Tripolar corner coordinates: regular lat-lon from ``lat0`` to
+    ``lat_join``, above it a two-pole cap whose rows follow great circles
+    from the join circle to the fold line (pole 1 at (lon0 + 90,
+    lat_poles) over the geographic pole to pole 2 at (lon0 + 270,
+    lat_poles)), so the top corner row pairs corner(i, ny) with
+    corner(nx - i, ny) (icebergs_framework.F90:649, 933).  The cells are
+    general quads (``grid_is_regular=False``); the two polar cells are
+    degenerate and belong on land.  The corners are computed point by
+    point in float64 exactly as the JAX builder computes them."""
+    frac_cap = (90.0 - lat_join) / (90.0 - lat0)
+    ny_cap = max(2, int(round(ny * frac_cap)))
+    ny_ll = ny - ny_cap
+    if ny_ll < 1:
+        raise ValueError("ny too small for the requested cap")
+    lons = lon0 + 360.0 * np.arange(nx + 1) / nx
+    lonc = np.zeros((nx + 1, ny + 1))
+    latc = np.zeros((nx + 1, ny + 1))
+    for j in range(ny_ll + 1):
+        latc[:, j] = lat0 + (lat_join - lat0) * j / ny_ll
+        lonc[:, j] = lons
+
+    p1 = _sph(lon0 + 90.0, lat_poles)
+    p2 = _sph(lon0 + 270.0, lat_poles)
+    npole = np.array([0.0, 0.0, 1.0])
+    half = nx // 2
+    fold = np.zeros((nx + 1, 3))
+    for i in range(half + 1):
+        t = i / half
+        fold[i] = (_slerp(p1, npole, 2 * t) if t <= 0.5
+                   else _slerp(npole, p2, 2 * t - 1))
+    for i in range(half + 1, nx + 1):
+        fold[i] = fold[nx - i]
+    for i in range(nx + 1):
+        q = _sph(lons[i], lat_join)
+        for k in range(1, ny_cap + 1):
+            lonc[i, ny_ll + k], latc[i, ny_ll + k] = _geo(
+                _slerp(q, fold[i], k / ny_cap))
+    # longitudes continuous along each column (no 360 jumps)
+    for i in range(nx + 1):
+        for j in range(ny_ll + 1, ny + 1):
+            d = lonc[i, j] - lonc[i, j - 1]
+            if d > 180.0:
+                lonc[i, j] -= 360.0
+            elif d < -180.0:
+                lonc[i, j] += 360.0
+    return make_curvilinear_grid(lonc, latc, Rearth=Rearth, msk=msk,
+                                 ocean_depth=ocean_depth, dtype=dtype,
+                                 device=device)

@@ -364,10 +364,11 @@ def make_persistent_multi_step(grid: Grid, cfg: IcebergsConfig,
            else fused_fallback_cap)
     uniform = uniform_state_fields(cfg)
     skw = sort_kw(cfg)
-    # the JAX lane's interpolation routing (model.py:470-476): K6, the
-    # table, or (interp_mode "xla", coastal or tidal drift) interp_flds
+    # the JAX lane's interpolation routing (model.py:470-476): K6 on
+    # regular grids, the table, or (interp_mode "xla", coastal or tidal
+    # drift, "kernel" on a curvilinear grid) interp_flds
     interp_ok = cfg.coastal_drift == 0. and cfg.tidal_drift == 0.
-    if cfg.interp_mode == "kernel" and interp_ok:
+    if cfg.interp_mode == "kernel" and interp_ok and cfg.grid_is_regular:
         interp = interp_to_bergs_sorted
     elif cfg.interp_mode == "table" and interp_ok:
         interp = interp_to_bergs_table

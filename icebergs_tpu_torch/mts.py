@@ -42,7 +42,7 @@ import torch
 from . import constants as C
 from .config import IcebergsConfig
 from .dynamics import _advance_position, adjust_index_and_ground
-from .grid import Grid
+from .grid import Grid, pair_separation
 from .ops import dem as _dem
 from .ops import forces as _forces
 from .ops.accel import coriolis, rdiv
@@ -78,9 +78,6 @@ def _slow_accel_mts(st, cfg: IcebergsConfig, ia_fn):
     u_star, v_star = st.uvel, st.vvel
     uvel0, vvel0 = st.uvel, st.vvel
     dt = cfg.dt
-    if cfg.grid_is_latlon and not cfg.use_f_plane:
-        raise NotImplementedError(
-            "latitude-dependent Coriolis (ROADMAP.md Queue 1 item 11)")
     f_cori = coriolis(cfg, st.lat)
 
     # dead slots carry mass 0: clamp so masked lanes stay finite
@@ -94,7 +91,7 @@ def _slow_accel_mts(st, cfg: IcebergsConfig, ia_fn):
     uo, vo, ui, vi, ua, va = st.uo, st.vo, st.ui, st.vi, st.ua, st.va
     if cfg.dem and cfg.hexagonal_icebergs and cfg.radius_based_drag:
         raise NotImplementedError("hexagonal DEM faces (ROADMAP.md Queue 1 "
-                                  "item 11)")
+                                  "item 22)")
     L2, W2 = L, W
 
     if cfg.h_to_init_grounding > 0.:
@@ -253,11 +250,9 @@ def _pair_keep_mask(st, nbr, cfg: Optional[IcebergsConfig] = None,
     skin_dropped = torch.zeros((), dtype=torch.int32, device=st.device)
     if cfg is None or dt is None or cfg.mts_pair_skin <= 0.:
         return keepM, skin_dropped
-    if cfg.grid_is_latlon:
-        raise NotImplementedError("lat-lon pair metrics (ROADMAP.md Queue "
-                                  "1 item 11)")
-    rx = st.lon[:, None] - st.lon[other]
-    ry = st.lat[:, None] - st.lat[other]
+    rx, ry = pair_separation(st.lon[:, None], st.lat[:, None],
+                             st.lon[other], st.lat[other],
+                             cfg.grid_is_latlon, cfg.Rearth)
     r2 = rx * rx + ry * ry
     if cfg.constant_interaction_LW:
         A1 = torch.full_like(st.lon, cfg.constant_length

@@ -68,8 +68,11 @@ def f32_scalar(fn, x: float) -> float:
 
 
 def coriolis(cfg: IcebergsConfig, lat):
-    """f-plane Coriolis parameter (the step's only form: lat-lon grids are
-    not ported); the two factors multiply in float32 as in JAX."""
+    """The Coriolis parameter: ``2 Omega sin(PI_180 lat)`` per berg on a
+    lat-lon grid unless ``use_f_plane``, else the f-plane value at
+    ``cfg.lat_ref``; the two factors multiply in float32 as in JAX."""
+    if cfg.grid_is_latlon and not cfg.use_f_plane:
+        return torch.sin(lat * C.PI_180) * (2. * C.OMEGA)
     f = f32_scalar(lambda s: torch.tensor(2. * C.OMEGA,
                                           dtype=torch.float32)
                    * torch.sin(s), C.PI_180 * cfg.lat_ref)
@@ -97,9 +100,6 @@ def accel(cfg: IcebergsConfig, grid, *, lat, mass, thickness, width, length,
     ssh_x, ssh_y = env.ssh_x, env.ssh_y
     hi, od = env.hi, env.od
 
-    if cfg.grid_is_latlon and not cfg.use_f_plane:
-        raise NotImplementedError(
-            "latitude-dependent Coriolis (ROADMAP.md Queue 1 item 11)")
     f_cori = coriolis(cfg, lat)
 
     M = mass.clamp(min=1e-30)

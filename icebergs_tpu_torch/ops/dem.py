@@ -38,6 +38,7 @@ import torch
 
 from .. import constants as C
 from ..config import IcebergsConfig
+from ..grid import pair_separation
 from .accel import f32_scalar, rdiv
 
 _HEXDENOM = 1. / (2. * math.sqrt(3.))
@@ -79,12 +80,6 @@ def tdiv(x, c: float):
     device (a CUDA tensor divided by a host scalar is multiplied by the
     scalar's reciprocal)."""
     return torch.div(x, x.new_full((), c))
-
-
-def _check_grid(cfg: IcebergsConfig):
-    if cfg.grid_is_latlon:
-        raise NotImplementedError("lat-lon DEM metrics (ROADMAP.md Queue 1 "
-                                  "item 11)")
 
 
 def slot_sums(*xs):
@@ -186,7 +181,6 @@ def dem_bond_forces(st, cfg: IcebergsConfig, dt, part=None) -> DemOut:
     per-bond state (calculate_force_dem, savestress), the per-substep
     fracture when ``break_bonds_on_sub_steps`` is on.  ``part`` reuses a
     :func:`bond_partner_fields` table."""
-    _check_grid(cfg)
     p = bond_partner_fields(st) if part is None else part
     valid = ((st.bond_idx >= 0) & (st.bond_broken != 1)
              & st.alive[:, None] & p["alive"]
@@ -216,8 +210,9 @@ def dem_bond_forces(st, cfg: IcebergsConfig, dt, part=None) -> DemOut:
                              p["thickness"])
         l0 = R1 + R2
 
-    rx = st.lon_old[:, None] - p["lon_old"]
-    ry = st.lat_old[:, None] - p["lat_old"]
+    rx, ry = pair_separation(st.lon_old[:, None], st.lat_old[:, None],
+                             p["lon_old"], p["lat_old"], cfg.grid_is_latlon,
+                             cfg.Rearth)
     length = torch.sqrt(rx * rx + ry * ry)
     lsafe = torch.where(length > 0., length, 1.)
     n1 = rx / lsafe
@@ -412,7 +407,6 @@ def dem_contact_forces(st, cfg: IcebergsConfig, other, mask, part=None):
     candidates, which bounds the memory and leaves every row's bits as
     they are.  Returns ``(IA_x, IA_y, IAd_x, IAd_y)``, each row summed in
     slot order."""
-    _check_grid(cfg)
     own = {k: getattr(st, k) for k in _CONTACT_FIELDS + ("uvel", "vvel")}
     if part is not None:
         return _contact_rows(cfg, own, part, mask)
@@ -445,8 +439,9 @@ def _contact_rows(cfg: IcebergsConfig, own, g, mask):
             + _contact_radii(cfg, g["length"] * g["width"])
         M1 = own["mass"][:, None]
         M2 = g["mass"]
-    rx = own["lon_old"][:, None] - g["lon_old"]
-    ry = own["lat_old"][:, None] - g["lat_old"]
+    rx, ry = pair_separation(own["lon_old"][:, None],
+                             own["lat_old"][:, None], g["lon_old"],
+                             g["lat_old"], cfg.grid_is_latlon, cfg.Rearth)
     u2, v2 = g["uvel_old"], g["vvel_old"]
     # the pmag velocity difference: the partner's *_old velocity less the
     # substep-start velocity (accel_explicit_inner_mts passes uvel0 for
@@ -468,7 +463,6 @@ def dem_contact_forces_pairs(st, cfg: IcebergsConfig, me, other, mask,
     (:func:`segment_sum_sorted`).  ``me`` must ascend over the pairs
     where ``valid`` (all pairs when None); pairs outside ``valid`` must be
     masked.  Returns ``(IA_x, IA_y, IAd_x, IAd_y)``."""
-    _check_grid(cfg)
     N = st.capacity
     packed = torch.stack([st.lon_old, st.lat_old, st.uvel_old, st.vvel_old,
                           st.uvel, st.vvel, st.length * st.width,

@@ -14,7 +14,11 @@ per element, partners read from shared memory.  The kernel has two
 instantiations (:func:`instantiation`): one compiled for the flag set of
 ``tools/bench_dem_1m.py`` with 6 bond slots, and a generic one that reads
 the flags and the slot count at run time, both built for two 512-thread
-CTAs per SM.
+CTAs per SM.  On a lat-lon grid (the flag ``F_LATLON``, which only the
+generic instantiation takes) the substep drift moves positions in
+degrees and each bond and contact is measured through the metric
+factors at the pair's mean latitude (``dem_vmem.py:240-246, 422-428,
+474-476``).
 
 :func:`part3_substeps_plain` is the same function in plain PyTorch
 (partners gathered by index, a Python loop over substeps); CPU tensors
@@ -34,6 +38,7 @@ import torch
 from .. import constants as C
 from .. import cuda_build
 from ..config import IcebergsConfig
+from ..grid import pair_separation
 from .accel import rdiv
 from .dem import _HEXDENOM, dem_K_damp, grounding_drag_coeff, tdiv
 
@@ -170,7 +175,7 @@ def supports_vmem_substeps(cfg: IcebergsConfig) -> bool:
 
 _F_CONST_LW, _F_HEX, _F_BONDS, _F_BREAK_SUB = 1, 2, 4, 8
 _F_SHORT_GROUND, _F_GROUND_TORQUE, _F_ORIG_MOI = 16, 32, 64
-_F_IGNORE_TANG, _F_PMAG = 128, 256
+_F_IGNORE_TANG, _F_PMAG, _F_LATLON = 128, 256, 512
 # the flag set of tools/bench_dem_1m.py, which has its own instantiation
 DEM_FLAGS = _F_CONST_LW | _F_BONDS | _F_BREAK_SUB | _F_PMAG
 _VARIANTS = {"generic": 0, "dem": 1}
@@ -208,7 +213,11 @@ def _params(cfg: IcebergsConfig):
         pi=C.PI, two_sqrt3=float(f32(2.) * np.sqrt(f32(3.))),
         rho_ratio=cfg.rho_bergs / C.RHO_SEAWATER,
         h_ground=cfg.h_to_init_grounding, neg_cdrag=-cfg.cdrag_grounding,
-        two_thirds=2. / 3.)
+        two_thirds=2. / 3.,
+        # the lat-lon metric: PI_180 Rearth and its reciprocal folded in
+        # double (dem_vmem.py:241-243, 422-424), PI_180
+        kpr=C.PI_180 * cfg.Rearth, inv_kpr=1. / (C.PI_180 * cfg.Rearth),
+        pi180=C.PI_180)
 
 
 def _flags(cfg: IcebergsConfig) -> int:
@@ -220,7 +229,8 @@ def _flags(cfg: IcebergsConfig) -> int:
         (_F_GROUND_TORQUE, cfg.use_grounding_torque),
         (_F_ORIG_MOI, cfg.orig_dem_moment_of_inertia),
         (_F_IGNORE_TANG, cfg.ignore_tangential_force),
-        (_F_PMAG, cfg.scale_damping_by_pmag)) if on)
+        (_F_PMAG, cfg.scale_damping_by_pmag),
+        (_F_LATLON, cfg.grid_is_latlon)) if on)
 
 
 def _check(st, cfg: IcebergsConfig, deltas, block_n: int):
@@ -234,9 +244,6 @@ def _check(st, cfg: IcebergsConfig, deltas, block_n: int):
     if st.capacity % block_n or block_n % 128:
         raise ValueError(f"capacity {st.capacity} / block_n {block_n}: "
                          "need capacity % block_n == 0 == block_n % 128")
-    if cfg.grid_is_latlon:
-        raise NotImplementedError("lat-lon substep drift (ROADMAP.md Queue "
-                                  "1 item 11)")
     if st.dtype != torch.float32:
         raise TypeError(f"state dtype {st.dtype}: need float32")
 
@@ -356,13 +363,19 @@ def part3_substeps_plain(st, cfg: IcebergsConfig, deltas,
     bbrok = st.bond_broken
     blen, bt1, bt2, brr, bns, bss = (getattr(st, f) for f in _BOND_FIELDS)
     mvb = mv[:, None]
+    latlon = cfg.grid_is_latlon
 
     for _ in range(cfg.n_sub_steps):
-        # drift (icebergs.F90:6790-6831)
+        # drift (icebergs.F90:6790-6831), in degrees on a lat-lon grid
         uvel2 = u + dtf2 * (axf + bxf)
         vvel2 = v + dtf2 * (ayf + byf)
-        lonn = lon + dtf * uvel2
-        latn = lat + dtf * vvel2
+        if latlon:
+            dxdl = rdiv(1., torch.cos(lat * p_["pi180"]) * p_["kpr"])
+            lonn = lon + dtf * uvel2 * dxdl
+            latn = lat + dtf * vvel2 * p_["inv_kpr"]
+        else:
+            lonn = lon + dtf * uvel2
+            latn = lat + dtf * vvel2
         lon = torch.where(mv, lonn, lon)
         lat = torch.where(mv, latn, lat)
         lon_o = torch.where(mv, lonn, lon_o)
@@ -379,8 +392,8 @@ def part3_substeps_plain(st, cfg: IcebergsConfig, deltas,
         valid = vstat & (bbrok != 1)
 
         # ---- bond (calculate_force_dem) ----
-        rx = lon_o[:, None] - lon2
-        ry = lat_o[:, None] - lat2
+        rx, ry = pair_separation(lon_o[:, None], lat_o[:, None], lon2, lat2,
+                                 latlon, cfg.Rearth)
         blength = torch.sqrt(rx * rx + ry * ry)
         lsafe = torch.where(blength > 0., blength, 1.)
         n1 = rx / lsafe
@@ -557,7 +570,8 @@ _P = ctypes.c_void_p
 _PARAM_ORDER = ("dtf", "dtf2", "kspring", "poisson1", "tn", "tt", "cs",
                 "rad_damp", "tan_damp", "dem_damp", "K", "A0c", "R0c", "l0c",
                 "R0contact", "rho", "hexdenom", "pi", "two_sqrt3",
-                "rho_ratio", "h_ground", "neg_cdrag", "two_thirds")
+                "rho_ratio", "h_ground", "neg_cdrag", "two_thirds", "kpr",
+                "inv_kpr", "pi180")
 
 
 class _DemArgs(ctypes.Structure):

@@ -17,6 +17,10 @@ them as the JAX package does.
 candidates whose ``PT_GRP`` row (the conglomerate id) equals the berg's
 own (``pallas_prepass.py:709-710, 743-744``).
 
+On a lat-lon grid the distance test measures each pair in metres
+through the metric factors at its mean latitude, as the TPU kernel does
+(``pallas_prepass.py:746-750``; :func:`..grid.pair_separation`).
+
 ``epilogue=True`` (``contact_epilogue``, ``pallas_prepass.py:776-830``)
 also runs the legacy contact group's velocity-independent pair
 precompute: the spring-acceleration sums over every exact pair (r <
@@ -31,7 +35,8 @@ the two shapes the paths launch (:func:`kernel_config`): BN 128, radius 1
 (the fast lane and per-step ``fused3``) and BN 256, radius 2 with the
 conglomerate filter (MTS Part 1); other shapes take a generic one, and
 ``variant="generic"`` forces it onto those two (to time the
-specialisation).
+specialisation).  Each instantiation has a Cartesian and a lat-lon
+form (``*_ll``).
 """
 
 from __future__ import annotations
@@ -42,7 +47,9 @@ import re
 import numpy as np
 import torch
 
+from .. import constants as C
 from .. import cuda_build
+from ..grid import pair_separation
 
 # PT feature rows (pallas_prepass.py:258-261)
 PT_LON, PT_LAT, PT_U, PT_V, PT_AREA, PT_MASS = range(6)
@@ -105,7 +112,7 @@ def extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad, block_n: int,
                          contact_distance: float, chunk_rows: int = 65536,
                          exclude_same_group: bool = False,
                          epilogue: bool = False, spring: float = 0.,
-                         exact_counts: bool = False):
+                         exact_counts: bool = False, rearth=None):
     """Plain version: each row's candidates as a (rows, 2r+1, W) slab of
     strip slots ``cell_starts[c_lo] + k`` (W = the longest strip of a
     good block), engagement elementwise, count / min / max reductions,
@@ -113,7 +120,8 @@ def extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad, block_n: int,
     by exactness and summed over the slab, and the selected partners'
     rows recomputed from their slots).  Processed in row chunks.
     ``exact_counts`` (with ``epilogue``) also returns each row's number
-    of exact pairs, (N,) int32."""
+    of exact pairs, (N,) int32.  ``rearth``: the Earth's radius on a
+    lat-lon grid (None: Cartesian)."""
     N = PT.shape[1]
     dev = PT.device
     nstrips = c_lo.shape[1]
@@ -147,8 +155,8 @@ def extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad, block_n: int,
                  & (own(PT_FLK) != -1.) & (cnd(PT_FLK) != -1.))
         if exclude_same_group:
             valid = valid & (cnd(PT_GRP) != own(PT_GRP))
-        rx = own(PT_LON) - cnd(PT_LON)
-        ry = own(PT_LAT) - cnd(PT_LAT)
+        rx, ry = pair_separation(own(PT_LON), own(PT_LAT), cnd(PT_LON),
+                                 cnd(PT_LAT), rearth is not None, rearth)
         r2 = rx * rx + ry * ry
         crit = (own(PT_RAD) + cnd(PT_RAD)).clamp(min=contact_distance)
         engaged = valid & (r2 > 0.) & (r2 <= crit * crit * _SLACK)
@@ -173,7 +181,7 @@ def extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad, block_n: int,
                                             0.).sum(dim=(1, 2))
             for base, q in ((EX_F1, vmin.clamp(max=N - 1)),
                             (EX_F2, vmax.clamp(min=0))):
-                d = _partner_rows(PT, rows, q, contact_distance)
+                d = _partner_rows(PT, rows, q, contact_distance, rearth)
                 out[base:base + EX_EPI_NP, rows] = torch.where(has, d, 0.)
             continue
         out[EX_F1:EX_F1 + _NFEAT, rows] = torch.where(
@@ -183,12 +191,13 @@ def extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad, block_n: int,
     return (out, nexact) if exact_counts else out
 
 
-def _partner_rows(PT, rows, q, contact_distance: float):
+def _partner_rows(PT, rows, q, contact_distance: float, rearth=None):
     """(7, n) epilogue rows of the partners in slots ``q``: u, v, P11,
     P12, P22, min(M1, M2) / M1, exactness (an engaged partner has r2 >
     0, so rsafe = r)."""
-    rx = PT[PT_LON, rows] - PT[PT_LON, q]
-    ry = PT[PT_LAT, rows] - PT[PT_LAT, q]
+    rx, ry = pair_separation(PT[PT_LON, rows], PT[PT_LAT, rows],
+                             PT[PT_LON, q], PT[PT_LAT, q],
+                             rearth is not None, rearth)
     r2 = rx * rx + ry * ry
     crit = (PT[PT_RAD, rows] + PT[PT_RAD, q]).clamp(min=contact_distance)
     r = torch.sqrt(r2)
@@ -202,6 +211,17 @@ def _partner_rows(PT, rows, q, contact_distance: float):
 
 _VARIANTS = ("fused3", "part1", "generic", "generic_group", "fused3_epi",
              "generic_epi")
+_VARIANTS = _VARIANTS + tuple(v + "_ll" for v in _VARIANTS)
+
+
+def metric_scalars(rearth):
+    """``(kpr, pi180)`` for the kernels' lat-lon metric
+    (``csrc/latlon.cuh``): ``PI_180 * Rearth`` folded in double and
+    ``PI_180``, each rounded once to float32 where ctypes passes it
+    (zeros on a Cartesian grid)."""
+    if rearth is None:
+        return 0., 0.
+    return C.PI_180 * rearth, C.PI_180
 
 
 def _generic(variant) -> int:
@@ -211,16 +231,18 @@ def _generic(variant) -> int:
 
 
 def kernel_config(block_n: int, radius: int, exclude_same_group: bool,
-                  variant: str = None, epilogue: bool = False):
+                  variant: str = None, epilogue: bool = False,
+                  latlon: bool = False):
     """``(instantiation, dynamic shared memory bytes, resident CTAs per
     SM)`` of the K2 launch at these settings on the current CUDA device:
     ``"fused3"`` (BN 128, radius 1), ``"part1"`` (BN 256, radius 2, the
     conglomerate filter), ``"fused3_epi"`` (BN 128, radius 1, the pair
-    epilogue) or a generic one (also where ``variant == "generic"``)."""
+    epilogue) or a generic one (also where ``variant == "generic"``),
+    with ``"_ll"`` on a lat-lon grid."""
     v, smem, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     cuda_build.check(cuda_build.library().ib_extract_config(
         block_n, 2 * radius + 1, int(exclude_same_group), _generic(variant),
-        int(epilogue), ctypes.byref(v), ctypes.byref(smem),
+        int(epilogue), int(latlon), ctypes.byref(v), ctypes.byref(smem),
         ctypes.byref(ctas)), "extract_config")
     return _VARIANTS[v.value], smem.value, ctas.value
 
@@ -231,15 +253,15 @@ def kernel_resources() -> dict:
     out = {}
     for name, r in cuda_build.resource_report().items():
         m = re.search(r"extract_sorted_kernelILi(\d+)ELi(\d+)ELb([01])ELi"
-                      r"\d+ELb([01])E", name)
+                      r"\d+ELb([01])ELb([01])E", name)
         if m and "registers" in r:
-            bn, ns, g, e = m.groups()
+            bn, ns, g, e, ll = m.groups()
             key = ({("128", "3", "0"): "fused3",
                     ("256", "5", "1"): "part1"}.get((bn, ns, g))
                    or ("generic_group" if g == "1" else "generic"))
             if e == "1":
                 key = "fused3_epi" if key == "fused3" else "generic_epi"
-            out[key] = r
+            out[key + ("_ll" if ll == "1" else "")] = r
     return out
 
 
@@ -275,11 +297,13 @@ def extract_sorted(PT, key_s, cell_starts, grid, cfg, *, block_n: int = 128,
         raise ValueError("the pair epilogue serves the legacy contact "
                          "group only (no exclude_same_group)")
     spring = float(cfg.contact_spring_coef_eff) if epilogue else 0.
+    rearth = float(cfg.Rearth) if cfg.grid_is_latlon else None
     if PT.device.type == "cpu":
         return (extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad,
                                      block_n, cd,
                                      exclude_same_group=exclude_same_group,
-                                     epilogue=epilogue, spring=spring),
+                                     epilogue=epilogue, spring=spring,
+                                     rearth=rearth),
                 bad_block)
     if PT.device.type != "cuda":
         raise NotImplementedError(f"no K2 kernel for {PT.device}")
@@ -295,7 +319,8 @@ def extract_sorted(PT, key_s, cell_starts, grid, cfg, *, block_n: int = 128,
         PT.data_ptr(), N, cell_starts.data_ptr(), c_lo.data_ptr(),
         c_hi.data_ptr(), badu8.data_ptr(), out.data_ptr(), bad.shape[0],
         block_n, c_lo.shape[1], int(exclude_same_group), generic,
-        int(epilogue), cd, _SLACK, spring, cuda_build.stream_ptr(PT.device)),
+        int(epilogue), int(rearth is not None), cd, _SLACK, spring,
+        *metric_scalars(rearth), cuda_build.stream_ptr(PT.device)),
         "extract_sorted")
     if epilogue:
         extract_sorted.epilogue_launches += 1

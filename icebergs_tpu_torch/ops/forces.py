@@ -6,11 +6,12 @@ Counterpart of ``icebergs_tpu/ops/forces.py``: ``NeighborTables``,
 (``forces.py:25-140``); ``_interaction_radius``, ``PairData``,
 ``precompute_pair_data``, ``precompute_pair_data_T``,
 ``refresh_pair_velocities``, ``eval_pair_ia`` and ``eval_pair_ia_T``
-(port of ``calculate_force``, ``src/icebergs.F90:611-804``) on a
-Cartesian grid (metric factors 1): the contact groups of the legacy and
-the modern dispatch (``contact_distance`` crit, separate contact spring,
-``use_c_crit_dist``) and the bonded springs (legacy bonds pull only when
-over-stretched); the ``contact_cap`` compaction
+(port of ``calculate_force``, ``src/icebergs.F90:611-804``; pair
+separations through the metric factors at the pair's mean latitude on
+a lat-lon grid, :func:`..grid.pair_separation`): the contact groups of
+the legacy and the modern dispatch (``contact_distance`` crit, separate
+contact spring, ``use_c_crit_dist``) and the bonded springs (legacy
+bonds pull only when over-stretched); the ``contact_cap`` compaction
 (``active_contact_bergs``, ``compacted_contact_pairdata``,
 ``scatter_ia``), ``pair_forces``, ``bond_partner_table`` and
 ``make_ia_fn`` with its bond, same-conglomerate and cross-conglomerate
@@ -34,6 +35,7 @@ import torch
 
 from .. import constants as C
 from ..config import IcebergsConfig
+from ..grid import pair_separation
 from .accel import IA, f32_scalar, zero_ia
 from .pack import from_bits, permute_cols_u32, to_bits
 
@@ -193,11 +195,8 @@ def _pair_terms(cfg, lon1, lat1, A1, M1, lon2, lat2, A2, M2, mask, u2,
     modern one (icebergs.F90:698-703).  The caller gives the areas and
     masses (:func:`_areas_masses`).  ``axis`` is the partner axis the
     spring sums reduce over."""
-    if cfg.grid_is_latlon:
-        raise NotImplementedError("lat-lon pair metrics (ROADMAP.md Queue "
-                                  "1 item 11)")
-    r_dist_x = lon1 - lon2
-    r_dist_y = lat1 - lat2
+    r_dist_x, r_dist_y = pair_separation(lon1, lat1, lon2, lat2,
+                                         cfg.grid_is_latlon, cfg.Rearth)
     r_dist = torch.sqrt(r_dist_x * r_dist_x + r_dist_y * r_dist_y)
     R1 = _interaction_radius(cfg, A1)
     R2 = _interaction_radius(cfg, A2)
@@ -368,13 +367,11 @@ def active_contact_bergs(st, cfg: IcebergsConfig, other, mask,
     in front of the ``contact_cap`` compaction (r^2 against crit^2, crit
     = max(R1 + R2, contact_distance), or R1 + R2 with
     ``use_c_crit_dist``)."""
-    if cfg.grid_is_latlon:
-        raise NotImplementedError("lat-lon pair metrics (ROADMAP.md Queue "
-                                  "1 item 11)")
     o = other.long()
     mask = mask & (st.fl_k[:, None] != -1.) & (st.fl_k[o] != -1.)
-    rx = st.lon_old[:, None] - st.lon_old[o]
-    ry = st.lat_old[:, None] - st.lat_old[o]
+    rx, ry = pair_separation(st.lon_old[:, None], st.lat_old[:, None],
+                             st.lon_old[o], st.lat_old[o],
+                             cfg.grid_is_latlon, cfg.Rearth)
     r2 = rx * rx + ry * ry
     R1 = _interaction_radius(cfg, (st.length * st.width)[:, None])
     R2 = _interaction_radius(cfg, st.length[o] * st.width[o])

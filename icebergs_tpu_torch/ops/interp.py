@@ -9,7 +9,10 @@ its NaN scrub, coastal and tidal drift, the grid rotation and the ocean
 depth (PCM, the quadratic A-grid stencil under MTS, or the A68 test's
 analytic depth).  Every berg reads the grid arrays it needs by index,
 with the JAX table's edge clamping; the arithmetic follows the JAX
-function term for term.  Regular Cartesian grids.
+function term for term.  The reads are cell-local, so Cartesian,
+lat-lon and curvilinear grids take the same code (the rotation
+``cosc`` / ``sinc`` turns grid-aligned vectors east and north); the
+quadratic depth stencil is the regular-grid one, as in the JAX package.
 
 The step takes this path wherever the JAX ``make_step`` takes it
 (``interp_mode="xla"``, per-step ``"kernel"``, coastal or tidal drift,
@@ -77,9 +80,6 @@ def interp_flds(grid: Grid, frc, cfg: IcebergsConfig, lon, lat, i, j, xi,
                 yj, rx=0., ry=0.) -> Env:
     """Interpolate every forcing field to the bergs' positions
     (icebergs.F90:4718-4969)."""
-    if cfg.grid_is_latlon or not cfg.grid_is_regular:
-        raise NotImplementedError("interp_flds on lat-lon or curvilinear "
-                                  "grids (ROADMAP.md Queue 1 item 11)")
     nx, ny = grid.nx, grid.ny
     I, J = (i + 1).long(), (j + 1).long()
 

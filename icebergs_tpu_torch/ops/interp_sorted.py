@@ -100,15 +100,14 @@ def interp_to_bergs_sorted(st, grid: Grid, frc, cfg: IcebergsConfig):
     walk's packed 5x5 land-mask anchor, (N,) int32 (the walk then reads
     its 9x9 rows from the grid)."""
     if cfg.coastal_drift != 0. or cfg.tidal_drift != 0.:
-        raise NotImplementedError(
-            "the kernel interpolation with coastal/tidal drift (ROADMAP.md "
-            "Queue 1 item 11)")
+        raise ValueError("the kernel interpolation serves steps without "
+                         "coastal or tidal drift, as in the JAX package")
     if cfg.mts:
         raise ValueError("the kernel interpolation serves non-MTS steps "
                          "only, as in the JAX package")
     if not cfg.grid_is_regular:
-        raise NotImplementedError("curvilinear grids (ROADMAP.md Queue 1 "
-                                  "item 11)")
+        raise ValueError("the kernel interpolation serves regular grids "
+                         "only, as in the JAX package (model.py:473-476)")
     ncells = grid.nx * grid.ny
     key_s = torch.where(st.alive, st.jne * grid.nx + st.ine,
                         ncells).to(torch.int32)

@@ -24,7 +24,10 @@ stay the reference's: :func:`block_tables` and :func:`strip_ranges`
 compute the tables in torch for the plain version (and the tests); the
 CUDA kernel (``csrc/prepass_sorted.cu``) builds them per block itself.
 It has an instantiation compiled for the `fused` paths' shape (BN 128,
-radius 1, no group) and a generic one (:func:`kernel_config`).
+radius 1, no group) and a generic one (:func:`kernel_config`), each in a
+Cartesian and a lat-lon form (``*_ll``): on a lat-lon grid a pair is
+measured in metres through the metric factors at its mean latitude, as
+the TPU kernel does (``pallas_prepass.py:196-200``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ import torch
 
 from .. import cuda_build
 from . import forces as _forces
-from .extract import strip_cells
+from ..grid import pair_separation
+from .extract import metric_scalars, strip_cells
 
 # packed feature columns (pallas_prepass.py:50, group id in column 6)
 F_LON, F_LAT, F_RAD, F_FLK, F_ALIVE, F_KEY, F_GRP = range(7)
@@ -87,10 +91,11 @@ def strip_ranges(cell_starts, c_lo, c_hi, window: int, N: int):
 def prepass_sorted_plain(P, cell_starts, c_lo, c_hi, block_n: int,
                          window: int, contact_distance: float,
                          exclude_same_group: bool = False,
-                         chunk_rows: int = 65536):
+                         chunk_rows: int = 65536, rearth=None):
     """Plain version: each row's candidates as a (rows, 2r+1, W) slab of
     strip slots ``start + k`` (W = the longest strip range), engagement
     elementwise, count / min / max reductions.  Processed in row chunks.
+    ``rearth``: the Earth's radius on a lat-lon grid (None: Cartesian).
     Returns ``(cnt, pmin, pmax)`` int32."""
     N = P.shape[0]
     dev = P.device
@@ -123,8 +128,8 @@ def prepass_sorted_plain(P, cell_starts, c_lo, c_hi, block_n: int,
                  & (own(F_FLK) != -1.) & (cnd(F_FLK) != -1.))
         if exclude_same_group:
             valid = valid & (cnd(F_GRP) != own(F_GRP))
-        rx = own(F_LON) - cnd(F_LON)
-        ry = own(F_LAT) - cnd(F_LAT)
+        rx, ry = pair_separation(own(F_LON), own(F_LAT), cnd(F_LON),
+                                 cnd(F_LAT), rearth is not None, rearth)
         r2 = rx * rx + ry * ry
         crit = (own(F_RAD) + cnd(F_RAD)).clamp(min=contact_distance)
         engaged = valid & (r2 > 0.) & (r2 <= crit * crit * _SLACK)
@@ -137,6 +142,7 @@ def prepass_sorted_plain(P, cell_starts, c_lo, c_hi, block_n: int,
 
 
 _VARIANTS = ("fused", "generic", "generic_group")
+_VARIANTS = _VARIANTS + tuple(v + "_ll" for v in _VARIANTS)
 
 
 def _generic(variant) -> int:
@@ -146,16 +152,16 @@ def _generic(variant) -> int:
 
 
 def kernel_config(block_n: int, radius: int, exclude_same_group: bool,
-                  variant: str = None):
+                  variant: str = None, latlon: bool = False):
     """``(instantiation, dynamic shared memory bytes, resident CTAs per
     SM)`` of the K5 launch at these settings on the current CUDA device:
     ``"fused"`` (BN 128, radius 1, no group) or a generic one (also where
-    ``variant == "generic"``)."""
+    ``variant == "generic"``), with ``"_ll"`` on a lat-lon grid."""
     v, smem, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     cuda_build.check(cuda_build.library().ib_prepass_config(
         block_n, 2 * radius + 1, int(exclude_same_group), _generic(variant),
-        ctypes.byref(v), ctypes.byref(smem), ctypes.byref(ctas)),
-        "prepass_config")
+        int(latlon), ctypes.byref(v), ctypes.byref(smem),
+        ctypes.byref(ctas)), "prepass_config")
     return _VARIANTS[v.value], smem.value, ctas.value
 
 
@@ -164,12 +170,13 @@ def kernel_resources() -> dict:
     from the library's ``-Xptxas -v`` report."""
     out = {}
     for name, r in cuda_build.resource_report().items():
-        m = re.search(r"prepass_sorted_kernelILi(\d+)ELi(\d+)ELb([01])E",
-                      name)
+        m = re.search(r"prepass_sorted_kernelILi(\d+)ELi(\d+)ELb([01])ELi"
+                      r"\d+ELb([01])E", name)
         if m and "registers" in r:
-            bn, ns, g = m.groups()
-            out["fused" if (bn, ns) == ("128", "3")
-                else "generic_group" if g == "1" else "generic"] = r
+            bn, ns, g, ll = m.groups()
+            key = ("fused" if (bn, ns) == ("128", "3")
+                   else "generic_group" if g == "1" else "generic")
+            out[key + ("_ll" if ll == "1" else "")] = r
     return out
 
 
@@ -187,9 +194,7 @@ def contact_prepass_sorted(P, key_s, cell_starts, grid, cfg, *,
     the block tables itself; ``variant="generic"`` forces its generic
     instantiation (:func:`kernel_config`)."""
     generic = _generic(variant)
-    if cfg.grid_is_latlon:
-        raise NotImplementedError("lat-lon pair metrics (ROADMAP.md Queue "
-                                  "1 item 11)")
+    rearth = float(cfg.Rearth) if cfg.grid_is_latlon else None
     if P.dim() != 2 or P.shape[1] != NFEAT or P.dtype != torch.float32:
         raise ValueError(f"P {tuple(P.shape)} {P.dtype}: need (N, "
                          f"{NFEAT}) float32")
@@ -208,7 +213,8 @@ def contact_prepass_sorted(P, key_s, cell_starts, grid, cfg, *,
         # host
         bad_block = bad[:, None].expand(-1, block_n).reshape(-1)[:N]
         return (*prepass_sorted_plain(P, cell_starts, c_lo, c_hi, block_n,
-                                      window, cd, exclude_same_group),
+                                      window, cd, exclude_same_group,
+                                      rearth=rearth),
                 bad_block)
     if P.device.type != "cuda":
         raise NotImplementedError(f"no K5 kernel for {P.device}")
@@ -228,7 +234,8 @@ def contact_prepass_sorted(P, key_s, cell_starts, grid, cfg, *,
     cuda_build.check(lib.ib_prepass_sorted(
         P.data_ptr(), N, key_s.data_ptr(), cell_starts.data_ptr(), grid.nx,
         ncells, block_n, 2 * radius + 1, window, int(exclude_same_group),
-        generic, cd, _SLACK, cnt.data_ptr(), pmin.data_ptr(),
+        generic, int(rearth is not None), cd, _SLACK,
+        *metric_scalars(rearth), cnt.data_ptr(), pmin.data_ptr(),
         pmax.data_ptr(), bad_block.data_ptr(),
         cuda_build.stream_ptr(P.device)), "contact_prepass_sorted")
     contact_prepass_sorted.launches += 1

@@ -395,7 +395,7 @@ def create_gridded_icebergs_fields(st, grid, frc, cfg: IcebergsConfig, *,
     columns, ``(SpreadDiags, extra_fields)``."""
     if cfg.hexagonal_icebergs:
         raise NotImplementedError("hexagonal spreading (ROADMAP.md Queue 1 "
-                                  "item 11)")
+                                  "item 22)")
     nx, ny = grid.nx, grid.ny
     if cfg.parallel_reprod and cfg.slot_sum_method == "pallas":
         FX = len(extra_cell_cols or [])

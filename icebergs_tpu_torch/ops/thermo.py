@@ -116,9 +116,6 @@ def find_basal_melt(cfg: IcebergsConfig, dvo, lat, salt, temp, thickness,
     ustar = torch.sqrt(cfg.cdrag_icebergs
                        * (dvo * dvo + cfg.utide_icebergs ** 2))
     ustar_h = ustar.clamp(min=cfg.ustar_icebergs_bg)
-    if cfg.grid_is_latlon and not cfg.use_f_plane:
-        raise NotImplementedError("latitude-dependent Coriolis "
-                                  "(ROADMAP.md Queue 1 item 11)")
     absf = coriolis(cfg, lat).abs()
     hBL_neut = torch.where((absf * Hml <= VK * ustar_h) | (absf == 0.),
                            Hml, (VK * ustar_h) / absf.clamp(min=1e-30))

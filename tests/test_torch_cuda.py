@@ -198,7 +198,7 @@ def test_extract_kernel_defeats_culling(dev, block_n, radius, group, variant,
     contact_distance above R1 + R2."""
     from types import SimpleNamespace
     PT, key_s, cs, grid = _k2_world(dev)
-    cfg = SimpleNamespace(contact_distance=cd)
+    cfg = SimpleNamespace(contact_distance=cd, grid_is_latlon=False)
     before = extract.extract_sorted.launches
     out, bad_block = extract.extract_sorted(
         PT, key_s, cs, grid, cfg, block_n=block_n, window=1024,
@@ -240,7 +240,8 @@ def _epi_inputs(dev, world):
     if world == "dense":
         PT, key_s, cs, grid = _k2_world(dev)
         cfg = SimpleNamespace(contact_distance=0.,
-                              contact_spring_coef_eff=1e-8)
+                              contact_spring_coef_eff=1e-8,
+                              grid_is_latlon=False)
         return PT, key_s, cs, grid, cfg
     cfg, grid, frc, st, cs = _world(dev)
     PT, key_s = contact_features(st, grid, cfg)
@@ -1139,3 +1140,172 @@ def test_mts_without_dem_on_card_matches_cpu(dev, explicit):
     for name in ("lon", "lat", "uvel", "vvel", "axn_fast", "ayn_fast"):
         np.testing.assert_allclose(g[name][live], c[name][live], rtol=1e-4,
                                    atol=1e-4 * np.abs(c[name][live]).max())
+
+
+# ---------------------------------------------------------------------------
+# the lat-lon branches of K2, K5 and K4 (ROADMAP item 11)
+# ---------------------------------------------------------------------------
+
+# the grids' southern edge: from 89.9 S, mid-latitude, and from 89.5 N
+# (those grids end at 89.52 to 89.9 N, by their number of rows)
+_LL_LATS = {"south_pole": -89.9, "mid": -61.0, "north_pole": 89.5}
+
+
+def _ll_world(dev, n, lat0, nx=40, seed=0):
+    """``n`` bergs of 100-300 m on a lat-lon grid of 0.02 x 0.01 degree
+    cells from ``lat0``, 40 cells wide and ``n // 500`` (2 to 40) rows
+    high, so that a block of 128 or 256 sorted bergs spans few enough
+    cells to be searched, with knots, fl_k == -1 and dead rows and shared
+    conglomerate ids; sorted.  Returns (cfg, grid, st, cs)."""
+    ny = min(max(n // 500, 2), 40)
+    cfg = ibp.IcebergsConfig(
+        grid_is_latlon=True, Lx=360., use_f_plane=False, dt=600.0,
+        Runge_not_Verlet=False, interactive_icebergs_on=True,
+        contact_spring_coef=1e-8)
+    grid = ibp.make_uniform_grid(nx, ny, 30., lat0, 0.02, 0.01,
+                                 grid_is_latlon=True, device=dev)
+    rng = np.random.RandomState(seed)
+    m = max(n, 1)
+    lon = 30. + rng.uniform(0.01, nx * 0.02 - 0.01, m)
+    lat = lat0 + rng.uniform(0.005, ny * 0.01 - 0.005, m)
+    k = m // 5
+    lon[:k] = lon[0] + rng.uniform(-0.004, 0.004, k)
+    lat[:k] = lat[0] + rng.uniform(-0.002, 0.002, k)
+    st = ibp.create_bergs(max(n, 1) + 64, lon=lon[:n], lat=lat[:n],
+                          mass=rng.uniform(1e8, 1e9, n), thickness=40.,
+                          width=rng.uniform(100., 300., n),
+                          length=rng.uniform(100., 300., n),
+                          fl_k=np.where(rng.uniform(size=n) < 0.02, -1., 0.),
+                          uvel=rng.uniform(-.3, .3, n),
+                          vvel=rng.uniform(-.3, .3, n), device=dev)
+    alive = st.alive & torch.as_tensor(rng.uniform(size=st.capacity) > 0.03,
+                                       device=dev)
+    i, j, xi, yj = ibp.pos_to_cell(grid, st.lon, st.lat, 360.)
+    cong = torch.as_tensor(rng.randint(0, 3, st.capacity)
+                           + np.arange(st.capacity) // 20, device=dev)
+    st = st.replace(ine=i, jne=j, xi=xi, yj=yj, alive=alive,
+                    conglom_id=cong.to(st.conglom_id.dtype))
+    st, cs = srt.sort_state_by_cell(st, grid)
+    return cfg, grid, st, cs
+
+
+@pytest.mark.parametrize("lat", sorted(_LL_LATS))
+@pytest.mark.parametrize("n", [0, 1, 1000, 16000])
+@pytest.mark.parametrize("case", ["fused3", "part1", "epilogue",
+                                  "generic"])
+def test_extract_latlon_kernel_matches_plain(dev, case, n, lat):
+    """K2's lat-lon instantiations (``fused3_ll``, ``part1_ll``,
+    ``fused3_epi_ll``, and ``generic_ll`` at BN 64) bitwise against the
+    plain version (the epilogue's spring sums bitwise on rows with at
+    most two exact pairs, as its Cartesian test), at N 0, 1, 1000 and
+    16,000, mid-latitude and at both poles' edge."""
+    cfg, grid, st, cs = _ll_world(dev, n, _LL_LATS[lat])
+    bn, radius, group, epi = {"fused3": (128, 1, False, False),
+                              "part1": (256, 2, True, False),
+                              "epilogue": (128, 1, False, True),
+                              "generic": (64, 1, False, False)}[case]
+    PT, key_s = contact_features(st, grid, cfg, exclude_same_group=group)
+    before = (extract.extract_sorted.launches,
+              extract.extract_sorted.epilogue_launches)
+    out, _ = extract.extract_sorted(PT, key_s, cs, grid, cfg, block_n=bn,
+                                    window=1024, radius=radius,
+                                    exclude_same_group=group, epilogue=epi)
+    after = (extract.extract_sorted.launches,
+             extract.extract_sorted.epilogue_launches)
+    assert after == ((before[0], before[1] + 1) if epi
+                     else (before[0] + 1, before[1]))
+    c_lo, c_hi, bad = extract.block_tables(key_s, cs, grid.nx, grid.ny, bn,
+                                           1024, radius)
+    plain, nexact = extract.extract_sorted_plain(
+        PT, cs, c_lo, c_hi, bad, bn, float(cfg.contact_distance),
+        exclude_same_group=group, epilogue=epi,
+        spring=float(cfg.contact_spring_coef_eff) if epi else 0.,
+        exact_counts=True, rearth=float(cfg.Rearth))
+    sums = [extract.EX_IAX, extract.EX_IAY] if epi else []
+    rest = [r for r in range(extract.EX_NOUT) if r not in sums]
+    assert torch.equal(out[rest], plain[rest])
+    if epi:
+        few = nexact <= 2
+        assert torch.equal(out[sums][:, few], plain[sums][:, few])
+    if n >= 1000:
+        assert int((plain[extract.EX_CNT] > 0).sum()) > 50
+    name = {"fused3": "fused3_ll", "part1": "part1_ll",
+            "epilogue": "fused3_epi_ll", "generic": "generic_ll"}[case]
+    assert extract.kernel_config(bn, radius, group, epilogue=epi,
+                                 latlon=True)[0] == name
+
+
+@pytest.mark.parametrize("lat", sorted(_LL_LATS))
+@pytest.mark.parametrize("n", [0, 1, 1000, 16000])
+@pytest.mark.parametrize("group", [False, True], ids=["fused", "grouped"])
+def test_prepass_latlon_kernel_matches_plain(dev, group, n, lat):
+    """K5's lat-lon instantiations (``fused_ll``; ``generic_group_ll`` at
+    radius 2) bitwise against the plain version: counts, partner slots
+    and bad flags."""
+    cfg, grid, st, cs = _ll_world(dev, n, _LL_LATS[lat])
+    bn, radius = (128, 2) if group else (128, 1)
+    P, key_s = prepass.prepass_features(st, grid, cfg, group)
+    before = prepass.contact_prepass_sorted.launches
+    got = prepass.contact_prepass_sorted(P, key_s, cs, grid, cfg,
+                                         block_n=bn, window=512,
+                                         radius=radius,
+                                         exclude_same_group=group)
+    assert prepass.contact_prepass_sorted.launches == before + 1
+    c_lo, c_hi, bad = prepass.block_tables(key_s, cs, grid.nx, grid.ny, bn,
+                                           512, radius)
+    ref = prepass.prepass_sorted_plain(P, cs, c_lo, c_hi, bn, 512,
+                                       float(cfg.contact_distance),
+                                       exclude_same_group=group,
+                                       rearth=float(cfg.Rearth))
+    for a, b in zip(got[:3], ref):
+        assert torch.equal(a, b)
+    assert torch.equal(got[3], bad[:, None].expand(-1, bn).reshape(-1)[
+        :P.shape[0]])
+    if n >= 1000:
+        assert int((ref[0] > 0).sum()) > 50
+    assert prepass.kernel_config(bn, radius, group, latlon=True)[0] == (
+        "generic_group_ll" if group else "fused_ll")
+
+
+def _to_degrees_at(st, lat0):
+    """A Cartesian DEM state's metres as degrees from (40 E, ``lat0``):
+    latitude by PI_180 Rearth, longitude through the metric at each
+    element's latitude (float64 on the host)."""
+    k = np.pi / 180. * 6360000.
+    out = {}
+    for lo, la in (("lon", "lat"), ("lon_old", "lat_old")):
+        x = getattr(st, lo).double().cpu().numpy()
+        y = getattr(st, la).double().cpu().numpy()
+        lat = lat0 + (y - 14e3) / k
+        out[la] = torch.as_tensor(lat, dtype=torch.float32)
+        out[lo] = torch.as_tensor(40. + x / (k * np.cos(np.radians(lat))),
+                                  dtype=torch.float32)
+    return st.replace(**{k_: v.to(st.device) for k_, v in out.items()})
+
+
+@pytest.mark.parametrize("lat", [-89.78, -60.0, 89.78],
+                         ids=["south_pole", "mid", "north_pole"])
+@pytest.mark.parametrize("jitter,flags", [
+    (40.0, {}),
+    (2.0, {"short_step_mts_grounding": True, "use_grounding_torque": True,
+           "frac_thres_n": 1.8e5})], ids=["fracturing", "elastic"])
+def test_dem_substeps_latlon_kernel_matches_plain(dev, lat, jitter, flags):
+    """K4's lat-lon form (the generic instantiation with F_LATLON: the
+    drift in degrees, the bond and contact metric at each pair's mean
+    latitude) bitwise against the plain version, the DEM world placed
+    mid-latitude and reaching 89.9 degrees at either pole."""
+    cfg = _dem_cfg(grid_is_latlon=True, Lx=360., use_f_plane=False,
+                   **flags)
+    _, _, st, deltas = _dem_world(_dem_cfg(**flags), jitter)
+    st = _to_degrees_at(st, lat).to(dev)
+    assert abs(float(st.lat[st.alive].abs().max())) < 89.95
+    assert k4.instantiation(cfg, st.max_bonds) == "generic"
+    before = k4.part3_substeps_vmem.launches
+    out, nb = k4.part3_substeps_vmem(st, cfg, deltas, block_n=128)
+    assert k4.part3_substeps_vmem.launches == before + 1
+    ref, nbp = k4.part3_substeps_plain(st, cfg, deltas, block_n=128)
+    assert int(nb) == int(nbp)
+    for name in ("bond_broken", "n_bonds") + k4._CAR_FIELDS \
+            + k4._BOND_FIELDS:
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    assert bool((out.lon != st.lon)[st.alive].any())

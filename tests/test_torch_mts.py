@@ -180,19 +180,31 @@ def test_config_normalized_matches_jax(extra):
     (dict(grid_is_latlon=True), 11),
 ])
 def test_unported_mts_settings_raise(kw, item):
-    """Every MTS setting that was ROADMAP.md item 16's is served: it
-    passes ``check_ported`` and one outer step runs on the CPU through
-    the scan substeps (Part 1 on the candidate tables), every live float
-    finite; a lat-lon grid still names item 11."""
+    """Every MTS setting that was ROADMAP.md item 16's or item 11's is
+    served: it passes ``check_ported`` and one outer step runs on the CPU
+    through the scan substeps (Part 1 on the candidate tables), every
+    live float finite.  The lat-lon case (item 11) places the world at
+    60 S in degrees (metres through the metric factors at 60 S; the grid
+    keeps its cell sizes in metres), so the outer step runs the lat-lon
+    metric and Coriolis by latitude on every path."""
     cfg, grid, frc, st, (tcfg, tgrid, tfrc) = _world()
     ibp.check_ported(tcfg)
     tcfg = tcfg.replace(**kw)
-    if item == 11:
-        with pytest.raises(NotImplementedError, match="item 11\\)"):
-            ibp.check_ported(tcfg)
-        return
     ibp.check_ported(tcfg)
-    ts, d = tmts.evolve_icebergs_mts(_tstate(st), tgrid, tfrc, tcfg)
+    ts0 = _tstate(st)
+    if item == 11:
+        tcfg = tcfg.replace(Lx=360., use_f_plane=False)
+        ky = 180. / (3.141592653589793 * 6360000.)
+        kx = 2. * ky                              # 1 / cos(60 degrees)
+        tgrid = tgrid.replace(lon0=tgrid.lon0 * kx, dlon=tgrid.dlon * kx,
+                              lonc=tgrid.lonc * kx,
+                              lat0=tgrid.lat0 * ky - 60.,
+                              dlat=tgrid.dlat * ky,
+                              latc=tgrid.latc * ky - 60.)
+        ts0 = ts0.replace(lon=ts0.lon * kx, lon_old=ts0.lon_old * kx,
+                          lat=ts0.lat * ky - 60.,
+                          lat_old=ts0.lat_old * ky - 60.)
+    ts, d = tmts.evolve_icebergs_mts(ts0, tgrid, tfrc, tcfg)
     assert d.conv_iters >= 1 and int(d.broken_bonds) >= 0
     live = ts.alive
     for name in ("lon", "lat", "uvel", "vvel", "axn_fast", "ang_vel"):

@@ -143,12 +143,50 @@ _CFG = dict(grid_is_latlon=False, Runge_not_Verlet=False,
     dict(grid_is_regular=False), dict(hexagonal_icebergs=True)],
     ids=lambda kw: next(iter(kw)))
 def test_unported_settings_raise(kw):
-    """Settings of later slices raise and name their ROADMAP item."""
+    """Lat-lon and curvilinear grids, ROADMAP item 11's, are served:
+    ``check_ported`` passes and one step (an MTS outer step with ``mts``)
+    runs on a lat-lon grid, or on the same corners as a curvilinear
+    grid, with every live float finite.  Hexagonal elements still raise
+    and name item 22."""
     cfg = ibp.IcebergsConfig(**_CFG)
     ibp.check_ported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 "
-                       "item (11|12|13)"):
-        ibp.check_ported(cfg.replace(**kw))
+    cfg = cfg.replace(**kw)
+    if cfg.hexagonal_icebergs:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1 item 22\\)"):
+            ibp.check_ported(cfg)
+        return
+    ibp.check_ported(cfg)
+    cfg = cfg.replace(Lx=360. if cfg.grid_is_latlon else -1.,
+                      use_f_plane=not cfg.grid_is_latlon, lat_ref=-60.)
+    dlon, dlat = (0.05, 0.025) if cfg.grid_is_latlon else (2000., 2000.)
+    grid = ibp.make_uniform_grid(16, 16, 0., -62. if cfg.grid_is_latlon
+                                 else 0., dlon, dlat,
+                                 grid_is_latlon=cfg.grid_is_latlon,
+                                 device=CPU)
+    if not cfg.grid_is_regular:
+        grid = ibp.make_curvilinear_grid(grid.lonc.double().numpy(),
+                                         grid.latc.double().numpy(),
+                                         device=CPU)
+    rng = np.random.RandomState(0)
+    n = 40
+    st = ibp.create_bergs(
+        64, device=CPU, lon=grid.lonc[0, 0].item() + dlon * rng.uniform(
+            2., 14., n),
+        lat=grid.latc[0, 0].item() + dlat * rng.uniform(2., 14., n),
+        uvel=rng.uniform(-.3, .3, n), vvel=rng.uniform(-.3, .3, n),
+        mass=850. * 40. * 150. * 150., thickness=40., width=150.,
+        length=150., mass_scaling=1., id_cnt=np.arange(n) + 1)
+    i, j, xi, yj = ibp.pos_to_cell(grid, st.lon, st.lat, cfg.Lx)
+    st = st.replace(ine=i, jne=j, xi=xi, yj=yj)
+    frc = ibp.uniform_forcing(16, 16, uo=0.2, vo=0.1, ua=5., sst=1.,
+                              sss=34., device=CPU)
+    st2, d = ibp.make_step(grid, cfg)(st, frc)
+    assert int(d.nbergs) == n
+    live = st2.alive
+    for name in ("lon", "lat", "uvel", "vvel", "xi", "yj", "mass"):
+        assert bool(torch.isfinite(getattr(st2, name)[live]).all()), name
+    assert bool((st2.lon[live] != st.lon[live]).any())
 
 
 @pytest.mark.parametrize("kw", [
