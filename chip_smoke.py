@@ -115,7 +115,23 @@ Phases, one line each:
    lat-lon forms of K2, K5 and K4 each against its plain version (bit
    for bit); 12d card against CPU on small worlds of each (the tripolar
    and DEM ones on one-ulp yardsticks, cells flipped only across an
-   edge between the two positions).
+   edge between the two positions);
+13. ROADMAP items 21 and 12, the stand-alone driver (``driver.run``) end
+   to end, its input files written and its output files read back by the
+   port's I/O in a directory of the checkout (``_chip_work/``, removed
+   after): 13a phase 5's world (1M bergs, uniform forcing) for 24 steps
+   through K1-K3 at capacity 2^20 (seconds a step, the output writing
+   apart, file sizes, peak memory, launches, host reads a step, 0 host
+   syncs in a step, overflow 0, every berg kept, the restart bit for bit
+   the state) and 13a', 12 steps + restart + 12 steps against the 24
+   field by field; 13b phase 6's world through the driver (K4 picked by
+   it, 2 outer steps, the bond tables through write and read bit for
+   bit, the world's bonds formed once by the native library); 13c the
+   A68 transient branch (synthetic files of tools/run_a68.py's schema,
+   half-hour steps, MTS+DEM on the curvilinear grid) and 13d the driver
+   on tests/test_driver.py's two namelists, card against CPU: integers
+   exact, floats within phase 4's tolerance (the DEM worlds on phase
+   4b's one-ulp yardstick), in the final state and in every file.
 
 The last two lines are a JSON object with each kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -899,12 +915,21 @@ def k3_assoc_case(torch, ss, cols, cs, K):
             "K3 pass-through sequential sums differ from the plain version")
     rows_in = int(cs[-1] - cs[0])
     occ = cs[1:] - cs[:-1]
+    # the library's segment sums of the same columns over the same cells:
+    # torch.segment_reduce on the (rows, 43) slab, one call (a yardstick;
+    # the port never calls it)
+    data = M[:, int(cs[0]):int(cs[-1])].T.contiguous()
+    lengths = occ.to(torch.int64)
+    seg = torch.segment_reduce(data, "sum", lengths=lengths, axis=0)
+    require(tuple(seg.shape) == (occ.shape[0], len(cols)),
+            f"segment_reduce gave {tuple(seg.shape)}")
     return dict(
         err=max_abs_err(torch, S, Sp),
         ms=device_ms(torch, lambda: ss.segment_sums(cols, cs, K, True)),
         plain_ms=cuda_ms(torch, lambda: ss._sums_plain(M, cs, K, True),
                          reps=2),
-        library_ms=None,
+        library_ms=cuda_ms(torch, lambda: torch.segment_reduce(
+            data, "sum", lengths=lengths, axis=0)),
         bound=bound(4 * rows_in * len(cols) + nbytes(cs, S),
                     len(cols) * rows_in),
         note=(f"{len(cols)} columns, rows={rows_in} K={K} cells over K="
@@ -3105,6 +3130,713 @@ def phase12(ibp, torch, device, kernels, by_path, kres, profile_out=None):
     torch.cuda.empty_cache()
 
 
+# phase 13: ROADMAP items 21 and 12, the stand-alone driver end to end
+# (python -m icebergs_tpu_torch.driver): its input files written by the
+# port's writers into a directory of the checkout, run through driver.run
+# on the card, its output files read back by the port's readers
+WORK = ROOT / "_chip_work"
+DRIVER_CAP = 1 << 20
+# tests/test_driver.py:14 and :132, the worlds of phase 13d
+NML_DRIVER = """
+&icebergs_driver_nml
+  ni=20
+  nj=20
+  ibdt=600.0
+  ibuo=0.2
+  ibvo=0.0
+  ibhrs=4
+  nmax=1000
+  saverestart=.true.
+  gridres=1000.0
+/
+
+&icebergs_nml
+  grid_is_latlon=.false.
+  Lx=20000.
+  use_f_plane=.true.
+  lat_ref=0.
+  Runge_not_Verlet=.false.
+  use_new_predictive_corrective=.true.
+  traj_sample_hrs=1.0
+  set_melt_rates_to_zero=.false.
+/
+"""
+NML_DEM = """
+&icebergs_driver_nml
+  ni=24
+  nj=24
+  ibdt=120.0
+  ibuo=0.15
+  ibvo=0.05
+  ibhrs=1
+  nmax=1000
+  saverestart=.true.
+  gridres=7000.0
+/
+
+&icebergs_nml
+  grid_is_latlon=.false.
+  Lx=-1.
+  use_f_plane=.true.
+  lat_ref=-55.
+  Runge_not_Verlet=.false.
+  mts=.true.
+  mts_sub_steps=12
+  dem=.true.
+  explicit_inner_mts=.true.
+  dem_spring_coef=5.e6
+  dem_damping_coef=1.0
+  interactive_icebergs_on=.true.
+  iceberg_bonds_on=.true.
+  spring_coef=0.00065
+  contact_spring_coef=1.e-7
+  contact_distance=4.e3
+  use_broken_bonds_for_substep_contact=.true.
+  break_bonds_on_sub_steps=.true.
+  fracture_criterion='stress'
+  frac_thres_n=18.e3
+  frac_thres_t=100.e3
+  constant_interaction_LW=.true.
+  manually_initialize_bonds=.true.
+  manually_initialize_bonds_from_radii=.true.
+  allow_bergs_to_roll=.false.
+  max_bonds=6
+/
+"""
+# 13c: tools/run_a68.py:27's synthetic forcing files at that tool's size
+# (48 x 32 nodes of 0.125 degrees from 38 W 56 S, 48 hourly frames: the
+# observed files are not in the repository), and an 8 x 8 raft of 3 km
+# square elements at 2r spacing drifting at 0.22 m/s (tools/run_a68.py's
+# square makeberg convention) in the A68 flag set (long_run.nml's
+# MTS+DEM) on the curvilinear grid, two 30-min steps: an hourly frame,
+# then the half-hour blend.  In float32 degrees one ulp of longitude is
+# ~1.9 m here, a strain of 6e-4 on a bond: the CPU's own one-ulp response
+# reaches the whole scale of the raft's velocities within the two steps
+A68_NI, A68_NJ, A68_NT, A68_LON0, A68_LAT0 = 48, 32, 48, -38.0, -56.0
+A68_SIDE, A68_R = 8, 1500.0
+# the history's ratio fields (a cell's sum over its spread area) are
+# compared where both spread areas exceed this share of their largest: a
+# berg on a cell's mid-line puts ~1e-9 of its area on the neighbour cell
+# in one run and none in the other by one ulp of its position, and the
+# ratio there is its whole velocity or 0
+RATIO_FIELDS = ("spread_uvel", "spread_vvel", "ustar_iceberg")
+SPREAD_FLOOR = 1e-6
+
+
+def nml_text(drv: dict, cfg, base) -> str:
+    """An input.nml: the driver stanza ``drv`` and every field of ``cfg``
+    that differs from ``base`` (the config's defaults)."""
+    def fmt(v):
+        if isinstance(v, bool):
+            return ".true." if v else ".false."
+        if isinstance(v, str):
+            return f"'{v}'"
+        if isinstance(v, (tuple, list)):
+            return ", ".join(fmt(x) for x in v)
+        return repr(v)
+    lines = ["&icebergs_driver_nml"]
+    lines += [f"  {k}={fmt(v)}" for k, v in drv.items()]
+    lines += ["/", "&icebergs_nml"]
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if v != getattr(base, f.name):
+            lines.append(f"  {f.name}={fmt(v)}")
+    return "\n".join(lines + ["/", ""])
+
+
+def driver_inputs(ibp, d, drv, cfg, st, bonds=False):
+    """Write ``d``: the namelist (checked to parse back into ``cfg``)
+    and the initial state's restart(s), by the port's writers."""
+    import shutil
+    from icebergs_tpu_torch.io import namelist, restart
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    (d / "input.nml").write_text(nml_text(drv, cfg, ibp.IcebergsConfig()))
+    back, _ = namelist.config_from_namelist(str(d / "input.nml"))
+    require(dataclasses.asdict(back) == dataclasses.asdict(cfg.normalized(
+        warn=False)), f"{d.name}: the namelist does not give the config")
+    restart.write_restart_bergs(str(d / "icebergs.res.nc"), st, cfg)
+    if bonds:
+        restart.write_restart_bonds(str(d / "bonds_iceberg.res.nc"), st,
+                                    cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def _make_step_orig():
+    from icebergs_tpu_torch import model
+    return model.make_step
+
+
+class WatchedSteps:
+    """Within ``with``: every step the driver builds (``model.make_step``)
+    counts the host syncs inside it (torch's sync debug mode) and keeps
+    its last ``StepDiags``."""
+
+    def __init__(self, torch):
+        self.torch, self.calls, self.syncs, self.kinds = torch, 0, 0, set()
+        self.last = None
+
+    def __enter__(self):
+        from icebergs_tpu_torch import model
+        orig, torch = _make_step_orig(), self.torch
+
+        def make_step(*a, **k):
+            step = orig(*a, **k)
+
+            def watched(*sa, **sk):
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    with warnings.catch_warnings(record=True) as rec:
+                        warnings.simplefilter("always")
+                        out = step(*sa, **sk)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                self.calls += 1
+                self.syncs += len(rec)
+                self.kinds |= {f"{pathlib.Path(r.filename).name}:{r.lineno}"
+                               for r in rec}
+                self.last = out[1]
+                return out
+            return watched
+        model.make_step = make_step
+        return self
+
+    def __exit__(self, *exc):
+        from icebergs_tpu_torch import model
+        model.make_step = _make_step_orig()
+
+
+def run_driver(ibp, torch, d, out, kernels=None, **kw):
+    """driver.run on the card from input directory ``d``: (final state,
+    the driver's report, the watched steps, launches per kernel, peak
+    GB)."""
+    from icebergs_tpu_torch import driver
+    if kernels:
+        for fn in kernels.values():
+            fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rep = {}
+    with WatchedSteps(torch) as w:
+        st = driver.run(str(d / "input.nml"), str(d), str(out),
+                        verbose=False, device="cuda", report=rep, **kw)
+    torch.cuda.synchronize()
+    launches = ({k: fn.launches for k, fn in kernels.items()}
+                if kernels else {})
+    return st, rep, w, launches, torch.cuda.max_memory_allocated() / 1e9
+
+
+def restart_fields(cfg):
+    from icebergs_tpu_torch.io import restart
+    v = list(restart.BERG_VARS)
+    v += restart.FL_VARS if cfg.footloose else []
+    v += restart.MTS_VARS if cfg.mts else []
+    v += restart.DEM_VARS if cfg.dem else []
+    return v
+
+
+def check_restart_file(ibp, torch, path, st, cfg, grid):
+    """The restart at ``path`` holds the state's live slots bit for bit,
+    and the port's reader gives them back (its cells re-localised:
+    returns the count that differ from the state's)."""
+    import numpy as np
+    from scipy.io import netcdf_file
+    from icebergs_tpu_torch.io import restart
+    S = ibp.to_numpy(st)
+    live = np.nonzero(S["alive"] & (S["halo_berg"] < 0.5))[0]
+    with netcdf_file(str(path), "r", mmap=False) as f:
+        for name, field, kind in restart_fields(cfg):
+            v = np.asarray(f.variables[name][:])
+            want = S[field][live] + (1 if field in ("ine", "jne") else 0)
+            require(np.array_equal(v, want.astype(v.dtype)) and np.array_equal(
+                v.astype(S[field].dtype), want), f"{path.name}: {name} is "
+                "not the state's")
+    back = ibp.to_numpy(restart.read_restart_bergs(
+        str(path), st.capacity, grid, cfg))
+    n = len(live)
+    for name, field, kind in restart_fields(cfg):
+        if field not in ("ine", "jne"):
+            require(np.array_equal(back[field][:n], S[field][live]),
+                    f"{path.name}: {field} read back differs")
+    return int(((back["ine"][:n] != S["ine"][live])
+                | (back["jne"][:n] != S["jne"][live])).sum())
+
+
+def check_outputs(ibp, torch, out, cfg, grid, st):
+    """Every output file opens; the restart is the state's, bit for bit,
+    and reads back; the calving restart reads back; the trajectory and
+    history files hold finite values.  Returns {file: bytes}."""
+    import numpy as np
+    from scipy.io import netcdf_file
+    from icebergs_tpu_torch import calving
+    from icebergs_tpu_torch.io import restart
+    sizes = {p.name: p.stat().st_size for p in sorted(out.iterdir())}
+    res = dict(relocalised_cells_differ=check_restart_file(
+        ibp, torch, out / "icebergs.res.nc", st, cfg, grid))
+    restart.read_restart_calving(str(out / "calving.res.nc"),
+                                 calving.init_calving_state(grid), grid)
+    for name in sizes:
+        if name.endswith(".res.nc"):
+            continue
+        with netcdf_file(str(out / name), "r", mmap=False) as f:
+            for k, v in f.variables.items():
+                require(bool(np.isfinite(np.asarray(v[:])).all()),
+                        f"{name}: {k} is not finite")
+    return res, sizes
+
+
+def phase13a(ibp, torch, device, kernels):
+    """13a: the driver on the headline world (bench.py:43-72's 1M bergs
+    on 512 x 512 cells of 2 km, uniform forcing: the driver has no
+    swirl) at capacity 2^20, 24 steps of 600 s with an hourly trajectory
+    sample and the restart written; 13a': 12 steps, the restart, 12
+    more, against the 24.  Returns (result, launches)."""
+    import shutil
+    import numpy as np
+    from icebergs_tpu_torch.diag import berg_chksum
+    cfg, grid, _, st = headline_world(ibp, torch, N_HEAD, NX_HEAD, device)
+    cfg = cfg.replace(traj_sample_hrs=1.0)
+    drv = dict(ni=NX_HEAD, nj=NX_HEAD, gridres=DXY, ibdt=600.0, ibuo=0.3,
+               ibua=5.0, sst=4.0, ibhrs=4, saverestart=True)
+    d = WORK / "13a"
+    driver_inputs(ibp, d, drv, cfg, st)
+    del st
+    t0 = time.perf_counter()
+    s, rep, w, launches, peak = run_driver(ibp, torch, d, d / "out",
+                                           kernels, capacity=DRIVER_CAP)
+    wall = time.perf_counter() - t0
+    last = w.last
+    require(int(last.contact_overflow) == 0, "13a: contact_overflow "
+            f"{int(last.contact_overflow)} after the driver's growth")
+    n_alive = int(s.count())
+    require(n_alive == N_HEAD, f"13a: {n_alive} bergs of {N_HEAD}")
+    require(w.syncs == 0, f"13a: host syncs in a step: {sorted(w.kinds)}")
+    for k in ("permute_cols_u32", "extract_sorted", "segment_spread_sums"):
+        require(launches[k] > 0, f"13a: kernel {k} was not launched")
+    chk, _ = berg_chksum(s)
+    outs, sizes = check_outputs(ibp, torch, d / "out", cfg, grid, s)
+    res = dict(steps=rep["steps"], s_per_step=rep["loop_s"] / rep["steps"],
+               loop_s=rep["loop_s"], io_write_s=rep["io_s"],
+               run_wall_s=wall, host_reads_per_step=rep["host_reads"]
+               / rep["steps"], host_syncs_in_steps=w.syncs,
+               step_calls=w.calls, peak_gb=peak, berg_chksum=int(chk),
+               alive=n_alive, file_bytes=sizes, contact_overflow=0,
+               launches={k: launches[k] for k in (
+                   "permute_cols_u32", "pack_rows_u32", "gather_rows_u32",
+                   "extract_sorted", "segment_spread_sums")}, **outs)
+
+    # 13a': the same run cut by a restart
+    h = WORK / "13a_half"
+    shutil.rmtree(h, ignore_errors=True)
+    h.mkdir(parents=True)
+    shutil.copy(d / "icebergs.res.nc", h / "icebergs.res.nc")
+    half = nml_text(dict(drv, ibhrs=2), cfg, ibp.IcebergsConfig())
+    (h / "input.nml").write_text(half)
+    kw = dict(capacity=DRIVER_CAP, cfg_overrides=dict(ignore_traj=True))
+    run_driver(ibp, torch, h, h / "b", **kw)
+    (h / "b" / "input.nml").write_text(half)
+    s2, *_ = run_driver(ibp, torch, h / "b", h / "c", **kw)
+    A, B = ibp.to_numpy(s), ibp.to_numpy(s2)
+    differ = {}
+    for name, v in A.items():
+        bad = (v != B[name]) & ~(np.isnan(v) & np.isnan(B[name])) \
+            if v.dtype.kind == "f" else v != B[name]
+        if bad.any():
+            rows = bad if bad.ndim == 1 else bad.any(axis=1)
+            differ[name] = (int(rows.sum()), float(np.abs(
+                v.astype(np.float64) - B[name]).max()))
+    chk2, _ = berg_chksum(s2)
+    # the restart re-localises every berg by pos_to_cell (it holds no
+    # xi / yj), an ulp from the walk's fractions: the JAX package's runs
+    # part too (ROADMAP.md Queue 3, tests/test_torch_driver.py::
+    # test_restart_relocalisation_is_not_exact), so the bergs that differ
+    # and the worst error of each field are reported; ids, liveness and
+    # the berg count must agree
+    lon = A["lon"]
+    res["exact_restart"] = dict(
+        bitwise=not differ, fields_differing=differ,
+        bergs_differing=int((lon != B["lon"]).sum()),
+        worst_lon_ulps=int(np.abs(lon.view(np.int32).astype(np.int64)
+                                  - B["lon"].view(np.int32)).max()),
+        berg_chksum_24=int(chk), berg_chksum_12_12=int(chk2))
+    for name in ("alive", "id_cnt", "id_ij"):
+        require(name not in differ, f"13a': {name} differs after the "
+                "restart")
+    shutil.rmtree(d)
+    shutil.rmtree(h)
+    return res, launches
+
+
+def phase13b(ibp, torch, device, kernels, dcfg):
+    """13b: phase 6's DEM world (tools/bench_dem_1m.py:27-112, 999,944
+    bonded elements) through the driver: its restarts written by the
+    port, 2 outer steps with the substep kernel the driver picks (K4 on
+    the card), the bond tables through write and read; then the same
+    world's bonds formed once by manually_initialize_bonds on the native
+    library.  Returns (result, launches)."""
+    import shutil
+    import numpy as np
+    from icebergs_tpu_torch.io import restart
+    from icebergs_tpu_torch.ops import forces
+    grid, _, st, _, n = dem_world(ibp, torch, dcfg, DEM_UNITS, NX_DEM,
+                                  device)
+    drv = dict(ni=NX_DEM, nj=NX_DEM, gridres=DXY_DEM, ibdt=600.0, ibuo=0.25,
+               ibvo=0.05, ibua=5.0, sst=-2.0, ibhrs=1, nmax=DEM_INNER,
+               saverestart=True)
+    d = WORK / "13b"
+    t0 = time.perf_counter()
+    driver_inputs(ibp, d, drv, dcfg, st, bonds=True)
+    t_write = time.perf_counter() - t0
+
+    # the bond tables through write and read, bit for bit: the reader
+    # packs the live elements to the front in slot order
+    t0 = time.perf_counter()
+    back = restart.read_restart_bonds(
+        str(d / "bonds_iceberg.res.nc"), restart.read_restart_bergs(
+            str(d / "icebergs.res.nc"), DRIVER_CAP, grid, dcfg), dcfg)
+    t_read = time.perf_counter() - t0
+    S, B = ibp.to_numpy(st), ibp.to_numpy(back)
+    live = np.nonzero(S["alive"])[0]
+    rank = np.full(st.capacity, -1, np.int64)
+    rank[live] = np.arange(len(live))
+    bi = S["bond_idx"][live]
+    require(np.array_equal(np.where(bi >= 0, rank[np.maximum(bi, 0)], -1),
+                           B["bond_idx"][:len(live)]),
+            "13b: bond partners differ after write and read")
+    for f in ("bond_broken", "bond_tangd1", "bond_tangd2", "bond_nstress",
+              "bond_sstress", "bond_rel_rotation", "n_bonds"):
+        require(np.array_equal(S[f][live], B[f][:len(live)]),
+                f"13b: {f} differs after write and read")
+    del back, B
+
+    s, rep, w, launches, peak = run_driver(ibp, torch, d, d / "out",
+                                           kernels, capacity=DRIVER_CAP)
+    last = w.last
+    require(launches["dem_substeps"] > 0, "13b: the driver did not pick K4")
+    require(int(last.p1_overflow) == 0,
+            f"13b: p1_overflow {int(last.p1_overflow)}")
+    require(int(s.count()) == n, f"13b: {int(s.count())} elements of {n}")
+    outs, sizes = check_outputs(ibp, torch, d / "out", dcfg, grid, s)
+    res = dict(elements=n, capacity=s.capacity, outer_steps=rep["steps"],
+               s_per_outer_step=rep["loop_s"] / rep["steps"],
+               io_write_s=rep["io_s"], restart_write_s=t_write,
+               restart_read_s=t_read, host_reads_per_outer_step=rep[
+                   "host_reads"] / rep["steps"],
+               host_syncs_per_outer_step=w.syncs / rep["steps"],
+               conv_iters=last.conv_iters, p1_overflow=0,
+               broken_bonds=int(last.broken_bonds), peak_gb=peak,
+               bond_restart_bytes=sizes["bonds_iceberg.res.nc"],
+               file_bytes=sizes,
+               launches={k: launches[k] for k in (
+                   "permute_cols_u32", "extract_sorted",
+                   "segment_spread_sums", "dem_substeps")}, **outs)
+    del s
+
+    # the world's bonds formed by the native library, partner ids against
+    # the replicated prototype's
+    bare = st.replace(bond_idx=torch.full_like(st.bond_idx, -1))
+    t0 = time.perf_counter()
+    formed = forces.initialize_bonds_host(bare, dcfg)
+    res["native_bond_init_s"] = time.perf_counter() - t0
+    ids = S["id_cnt"]
+
+    def partner_ids(bidx):
+        return np.sort(np.where(bidx >= 0, ids[np.maximum(bidx, 0)], 0),
+                       axis=1)[live]
+    F = formed.bond_idx.cpu().numpy()
+    require(np.array_equal(partner_ids(F), partner_ids(S["bond_idx"])),
+            "13b: the native bond formation's partners differ from "
+            "dem_world's")
+    res["native_bonds"] = int((F >= 0).sum())
+    shutil.rmtree(d)
+    return res, launches
+
+
+def write_a68_synthetic(d):
+    """tools/run_a68.py:27's schema-identical synthetic forcing (a
+    rotating wind over a sheared ocean jet) at that tool's size."""
+    import numpy as np
+    from scipy.io import netcdf_file
+    from icebergs_tpu_torch.io import a68
+    ni, nj, nt = A68_NI, A68_NJ, A68_NT
+    lon = A68_LON0 + a68.GRES * np.arange(ni)
+    lat = A68_LAT0 + a68.GRES * np.arange(nj)
+    with netcdf_file(str(d / a68.GRID_FILE), "w") as f:
+        f.createDimension("lon", ni)
+        f.createDimension("lat", nj)
+        L, T = np.meshgrid(lon, lat, indexing="ij")
+        f.createVariable("longitude", "d", ("lon", "lat"))[:] = L
+        f.createVariable("latitude", "d", ("lon", "lat"))[:] = T
+    t = np.arange(nt)[:, None, None]
+    Y = np.linspace(0, 1, nj)[None, None, :]
+
+    def write3(fname, fields):
+        with netcdf_file(str(d / fname), "w") as f:
+            f.createDimension("time", nt)
+            f.createDimension("lon", ni)
+            f.createDimension("lat", nj)
+            for name, arr in fields.items():
+                f.createVariable(name, "d", ("time", "lon", "lat"))[:] = \
+                    arr * np.ones((nt, ni, nj))
+    write3(a68.WIND_FILE, {"ua": 6. * np.cos(2 * np.pi * t / 24.),
+                           "va": 6. * np.sin(2 * np.pi * t / 24.)})
+    write3(a68.OCEAN_FILE, {"uo": 0.3 * np.sin(np.pi * Y) * np.ones_like(t),
+                            "vo": 0.05 * np.ones((nt, ni, nj))})
+    write3(a68.SSH_FILE, {"SSH": 0.05 * np.sin(np.pi * Y)
+                          * np.cos(2 * np.pi * t / 48.)})
+    return lon[0] + 360. + 0.5 * a68.GRES * ni, lat[0] + 0.5 * a68.GRES * nj
+
+
+def a68_config(ibp):
+    """The A68 flag set (tools/run_a68.py:80-106's long run) on the
+    curvilinear grid, with 180 substeps of 10 s (phase 6's substep),
+    elastic: once bonds fracture, one ulp decides which break first and
+    the card's and the CPU's runs part (phase 4b keeps its world
+    elastic for that reason)."""
+    return ibp.IcebergsConfig(
+        grid_is_latlon=True, grid_is_regular=False, Lx=360., dt=1800.,
+        Runge_not_Verlet=False, mts=True, mts_sub_steps=180,
+        explicit_inner_mts=True, dem=True, dem_spring_coef=5.e6,
+        dem_damping_coef=1.0, poisson=0.3, interactive_icebergs_on=True,
+        iceberg_bonds_on=True, spring_coef=0.00065359477124183,
+        contact_spring_coef=1.e-7, contact_distance=4.e3,
+        force_convergence=True, convergence_tolerance=1e-4,
+        use_broken_bonds_for_substep_contact=True,
+        break_bonds_on_sub_steps=True, constant_interaction_LW=True,
+        fracture_criterion="stress", frac_thres_scaling=1.,
+        frac_thres_n=1.e12, frac_thres_t=1.e12,
+        manually_initialize_bonds=True,
+        manually_initialize_bonds_from_radii=True,
+        allow_bergs_to_roll=False, max_bonds=6,
+        hexagonal_icebergs=False).normalized(warn=False)
+
+
+def driver_yardstick(ibp, torch, label, d, dem, **kw):
+    """The driver from input directory ``d`` on the card and on the CPU:
+    every integer of the final state and of every output file exact;
+    floats within phase 4's tolerance (``dem``: within
+    DEM_CROSS_ULP_FACTOR times the CPU's own response to every other
+    element's longitude one ulp larger, or DEM_CROSS_FLOOR of scale, as
+    phase 4b holds the DEM step).  The history's ratio fields on the cells with a
+    spread area in both runs."""
+    import shutil
+    import numpy as np
+    from scipy.io import netcdf_file
+    from icebergs_tpu_torch import driver
+
+    def run(dev, src, out):
+        # the CPU runs K4's plain version where the card picks K4
+        sk = "auto" if dev == "cuda" else "vmem"
+        return ibp.to_numpy(driver.run(str(src / "input.nml"), str(src),
+                                       str(out), verbose=False, device=dev,
+                                       substep_kernel=sk, **kw))
+    outs = [d / "o_card", d / "o_cpu"]
+    runs = {"cuda": run("cuda", d, outs[0]), "cpu": run("cpu", d, outs[1])}
+    if dem:
+        u = d.parent / f"{d.name}_ulp"
+        shutil.rmtree(u, ignore_errors=True)
+        shutil.copytree(d, u, ignore=shutil.ignore_patterns("o_*"))
+        with netcdf_file(str(d / "icebergs.res.nc"), "r", mmap=False) as f:
+            data = {k: np.array(v[:]) for k, v in f.variables.items()}
+        with netcdf_file(str(u / "icebergs.res.nc"), "w") as f:
+            f.createDimension("i", len(data["lon"]))
+            for k, v in data.items():
+                if k == "lon":
+                    # every other element: a shift of all would keep the
+                    # lattice's symmetry, which the roundings do not
+                    up = np.nextafter(v.astype(np.float32),
+                                      np.float32(np.inf)).astype(np.float64)
+                    v = np.where(np.arange(len(v)) % 2 == 0, up, v)
+                f.createVariable(k, v.dtype.char, ("i",))[:] = v
+        outs.append(u / "o_cpu")
+        runs["ulp"] = run("cpu", u, outs[2])
+
+    def floats_ok(a, b, p, name):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if not b.size:
+            return 0.
+        scale = max(np.abs(b).max(), 1e-30)
+        err = float(np.abs(a - b).max() / scale)
+        if p is None:
+            tol = CROSS_RTOL * np.abs(b) + CROSS_ATOL_SCALE * scale
+            require(bool(np.all(np.abs(a - b) <= tol)),
+                    f"{label}: {name} beyond phase 4's tolerance "
+                    f"({err:.3e} of scale)")
+        else:
+            ulp = float(np.abs(np.asarray(p, np.float64) - b).max() / scale)
+            require(err <= max(DEM_CROSS_ULP_FACTOR * ulp, DEM_CROSS_FLOOR),
+                    f"{label}: {name} {err:.3e} of scale beyond the one-ulp "
+                    f"yardstick ({ulp:.3e})")
+        return err
+
+    g, c, p = runs["cuda"], runs["cpu"], runs.get("ulp")
+    alive = c["alive"]
+    worst = {}
+    for name, v in c.items():
+        if v.dtype.kind != "f":
+            require(np.array_equal(g[name], v), f"{label}: {name} differs "
+                    "between the card and the CPU")
+            continue
+        worst[name] = floats_ok(g[name][alive], v[alive],
+                                None if p is None else p[name][alive], name)
+    files = sorted(q.name for q in outs[1].iterdir())
+    require(files == sorted(q.name for q in outs[0].iterdir()),
+            f"{label}: the card and the CPU wrote other files")
+    for fname in files:
+        F = [None] * 3
+        for n_, o in enumerate(outs):
+            with netcdf_file(str(o / fname), "r", mmap=False) as f:
+                F[n_] = {k: np.array(v[:]) for k, v in f.variables.items()}
+        G, C, P = F
+        require(list(G) == list(C), f"{label}: {fname}'s variables differ")
+        keep = None
+        if "spread_area" in C:
+            a = np.minimum(C["spread_area"], G["spread_area"])
+            keep = a > SPREAD_FLOOR * max(C["spread_area"].max(), 1e-30)
+        for k, v in C.items():
+            if k == "list_chksum":
+                continue            # a hash of every bit of the state
+            if v.dtype.kind != "f":
+                require(np.array_equal(G[k], v), f"{label}: {fname} {k} "
+                        "differs between the card and the CPU")
+                continue
+            sel = keep if (keep is not None and k in RATIO_FIELDS) else \
+                np.ones(v.shape, bool)
+            worst[f"{fname}:{k}"] = floats_ok(
+                G[k][sel], v[sel], None if P is None else P[k][sel],
+                f"{fname} {k}")
+    top = max(worst, key=worst.get)
+    if dem:
+        shutil.rmtree(outs[2].parent)
+    return dict(worst_field=top, worst_scaled_err=worst[top],
+                bitwise=all(np.array_equal(g[k], c[k]) for k in c),
+                alive=int(alive.sum()))
+
+
+def phase13c(ibp, torch, device, kernels):
+    """13c: the A68 transient branch (the hourly frames and the half-hour
+    blend) with MTS+DEM on the curvilinear grid, card against CPU (K4's
+    plain version on the CPU).  Returns (result, launches)."""
+    import shutil
+    import numpy as np
+    from icebergs_tpu_torch.io import a68
+    d, dd = WORK / "13c", WORK / "13c_data"
+    shutil.rmtree(dd, ignore_errors=True)
+    dd.mkdir(parents=True)
+    lon_c, lat_c = write_a68_synthetic(dd)
+    cfg = a68_config(ibp)
+    data = a68.load_a68(str(dd), cfg, device=torch.device("cpu"))
+    # square elements at 2r, metres to degrees at each element's latitude
+    k = (np.arange(A68_SIDE) - 0.5 * (A68_SIDE - 1)) * 2 * A68_R
+    px, py = np.meshgrid(k, k, indexing="ij")
+    mlat = 1. / ((np.pi / 180.) * cfg.Rearth)
+    lat = lat_c + py.ravel() * mlat
+    lon = lon_c + px.ravel() * mlat / np.cos(np.radians(lat))
+    n = lon.size
+    st = ibp.create_bergs(128, lon=lon, lat=lat, uvel=np.full(n, 0.22),
+                          mass=850. * 200. * (2 * A68_R) ** 2,
+                          thickness=200., width=2 * A68_R,
+                          length=2 * A68_R, mass_scaling=1.,
+                          id_cnt=np.arange(n) + 1, max_bonds=6,
+                          device=torch.device("cpu"))
+    i, j, xi, yj = ibp.pos_to_cell(data.grid, st.lon, st.lat, 360.)
+    st = st.replace(ine=i, jne=j, xi=xi, yj=yj)
+    drv = dict(a68_test=True, transient_a68_data_start_ind=2,
+               data_dir=f"{dd}/", ibdt=1800., ibhrs=1, saverestart=True)
+    driver_inputs(ibp, d, drv, cfg, st)
+    for fn in kernels.values():
+        fn.launches = 0
+    with WatchedSteps(torch) as w:
+        r = driver_yardstick(ibp, torch, "13c a68", d, True, capacity=128)
+    launches = {k_: fn.launches for k_, fn in kernels.items()}
+    require(launches["dem_substeps"] > 0,
+            "13c: the driver did not pick K4 on the card")
+    r.update(elements=n, launches={k_: v for k_, v in launches.items()
+                                    if v}, host_syncs_in_steps=w.syncs)
+    shutil.rmtree(d)
+    shutil.rmtree(dd)
+    return r, launches
+
+
+def phase13d(ibp, torch, device):
+    """13d: the driver on tests/test_driver.py:14's NML world and :132's
+    DEM_NML world, card against CPU, the CPU running K4's plain version
+    where the card runs K4."""
+    import shutil
+    import numpy as np
+    from icebergs_tpu_torch.io import namelist, restart
+    from icebergs_tpu_torch.ops import forces
+    out = {}
+    cpu = torch.device("cpu")
+    for name, text in (("nml", NML_DRIVER), ("dem_nml", NML_DEM)):
+        d = WORK / f"13d_{name}"
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        (d / "input.nml").write_text(text)
+        cfg, _ = namelist.config_from_namelist(str(d / "input.nml"))
+        if name == "nml":
+            grid = ibp.make_uniform_grid(20, 20, 0., 0., 1000., 1000.,
+                                         grid_is_latlon=False, device=cpu)
+            st = ibp.create_bergs(64, lon=[5000., 9000., 13000.],
+                                  lat=[9500., 10500., 9000.],
+                                  mass=850. * 20 * 100 * 100, thickness=20.,
+                                  width=100., length=100., mass_scaling=1.,
+                                  device=cpu)
+        else:
+            grid = ibp.make_uniform_grid(24, 24, 0., 0., 7000., 7000.,
+                                         grid_is_latlon=False, device=cpu)
+            r = 1500.0
+            px, py = np.meshgrid(np.arange(4) * 2 * r, np.arange(4) * 2 * r,
+                                 indexing="ij")
+            st = ibp.create_bergs(64, lon=px.ravel() + 30000.,
+                                  lat=py.ravel() + 40000.,
+                                  mass=850. * 200. * (2 * r) ** 2,
+                                  thickness=200., width=2 * r, length=2 * r,
+                                  mass_scaling=1., id_cnt=np.arange(16) + 1,
+                                  max_bonds=6, device=cpu)
+        i, j, xi, yj = ibp.pos_to_cell(grid, st.lon, st.lat, -1.)
+        st = st.replace(ine=i, jne=j, xi=xi, yj=yj)
+        if name == "dem_nml":
+            st = forces.count_bonds(forces.initialize_bonds_host(st, cfg))
+            restart.write_restart_bonds(str(d / "bonds_iceberg.res.nc"),
+                                        st, cfg)
+        restart.write_restart_bergs(str(d / "icebergs.res.nc"), st, cfg)
+        out[name] = driver_yardstick(ibp, torch, f"13d {name}", d,
+                                     name == "dem_nml", capacity=64)
+        shutil.rmtree(d)
+    return out
+
+
+def phase13(ibp, torch, device, kernels, by_path):
+    """Phase 13, ROADMAP items 21 and 12: the driver at full width (13a,
+    13a', 13b) and card against CPU (13c, 13d); the timed paths'
+    launches go to ``by_path``."""
+    import shutil
+    t0 = time.perf_counter()
+    shutil.rmtree(WORK, ignore_errors=True)
+    try:
+        r = phase13d(ibp, torch, device)
+        print(f"[13d driver cross-check] {json.dumps(r)}")
+        r, launches = phase13c(ibp, torch, device, kernels)
+        print(f"[13c a68 driver] {json.dumps(r)}")
+        r, launches = phase13a(ibp, torch, device, kernels)
+        for k, n in launches.items():
+            if n:
+                by_path.setdefault(k, {})["driver_headline"] = n
+        print(f"[13a driver headline] {json.dumps(r)}")
+        torch.cuda.empty_cache()
+        r, launches = phase13b(ibp, torch, device, kernels,
+                               dem_config(ibp))
+        for k, n in launches.items():
+            if n:
+                by_path.setdefault(k, {})["driver_dem"] = n
+        print(f"[13b driver dem] {json.dumps(r)}")
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"[13 phase] {time.perf_counter() - t0:.1f} s")
+
+
 def kernel_counters():
     """Every kernel wrapper (or second count) by its row's name: the
     ``launches`` each path reads and resets."""
@@ -3324,6 +4056,7 @@ def main(argv=None) -> int:
     del dem
     torch.cuda.empty_cache()
     phase12(ibp, torch, device, kernels, by_path, kres, args.profile_out)
+    phase13(ibp, torch, device, kernels, by_path)
 
     source = {"permute_cols_u32": ("permute_cols.cu",
                                    "icebergs_tpu/ops/pallas_pack.py:30"),
@@ -3384,12 +4117,14 @@ def main(argv=None) -> int:
     split("dem_substeps", "dem_substeps/latlon", ("ll_dem",))
     k2 = by_path.get("extract_sorted", {})
     by_path["extract_sorted/grouped"] = {
-        p: k2.pop(p) for p in list(k2) if p == "dem" or p.startswith("mts_")}
+        p: k2.pop(p) for p in list(k2)
+        if p in ("dem", "driver_dem") or p.startswith("mts_")}
     k3 = by_path.get("segment_spread_sums", {})
     by_path["segment_spread_sums/extra14"] = {
         p: k3.pop(p) for p in list(k3)
         if p in ("dem", "bonded_fused3", "mts_scan", "mts_pairs",
-                 "mts_cross_scan", "mts_cross_pairs", "ll_dem")
+                 "mts_cross_scan", "mts_cross_pairs", "ll_dem",
+                 "driver_headline", "driver_dem")
         or p.startswith("perstep_")}
     by_path["segment_spread_sums/extra0"] = {
         p: k3.pop(p) for p in list(k3)

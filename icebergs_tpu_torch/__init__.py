@@ -21,10 +21,13 @@ re-sort's transport knobs.  Every path runs on Cartesian, regular
 lat-lon (periodic in ``Lx``, latitude-dependent Coriolis, the polar
 tangent plane) and curvilinear or tripolar grids
 (:func:`make_curvilinear_grid`, :func:`make_tripolar_grid`; the
-point-in-quad walk of :mod:`.geometry`).  Hexagonal elements, I/O and
-the driver, and the multi-device layer are not ported yet: their
-settings and entry points raise ``NotImplementedError`` naming the
-ROADMAP.md item.
+point-in-quad walk of :mod:`.geometry`).  The stand-alone driver
+(``python -m icebergs_tpu_torch.driver``) reads the reference's
+namelists and restarts and writes restarts, trajectories and the
+diagnostics' history file (:mod:`.io`, :mod:`.diagnostics`), with the
+A68 hindcast's forcing files.  Hexagonal elements and the multi-device
+layer are not ported yet: their settings and entry points raise
+``NotImplementedError`` naming the ROADMAP.md item.
 Module names mirror the JAX package; each module names its counterpart.
 
 Importing this package imports torch and never jax.  On CPU tensors
@@ -33,23 +36,26 @@ kernels launch.
 """
 
 from .api import IcebergsModel, ModelState, RunOutputs, prepare_forcing
-from .config import IcebergsConfig, check_ported
+from .config import NCLASSES, IcebergsConfig, check_ported
 from .convert import (config_from_dict, forcing_from_numpy,
                       grid_from_numpy, state_from_numpy, to_numpy)
-from .forcing import Forcing, swirl_forcing, uniform_forcing
+from .forcing import (Forcing, forcing_from_arrays, swirl_forcing,
+                      uniform_forcing)
 from .grid import (Grid, make_curvilinear_grid, make_tripolar_grid,
                    make_uniform_grid, pos_to_cell)
-from .model import (StepDiags, make_multi_step, make_persistent_multi_step,
-                    make_step)
-from .state import BergState, create_bergs, empty_state
+from .model import (StepDiags, interp_to_bergs, make_multi_step,
+                    make_persistent_multi_step, make_step, step_dynamics)
+from .state import (BergState, allocate_slots, create_bergs, empty_state,
+                    grow_capacity)
 
 __all__ = [
     "IcebergsModel", "ModelState", "RunOutputs", "prepare_forcing",
-    "IcebergsConfig", "check_ported", "config_from_dict",
+    "IcebergsConfig", "NCLASSES", "check_ported", "config_from_dict",
     "forcing_from_numpy", "grid_from_numpy", "state_from_numpy",
-    "to_numpy", "Forcing", "swirl_forcing", "uniform_forcing", "Grid",
-    "make_curvilinear_grid", "make_tripolar_grid", "make_uniform_grid",
-    "pos_to_cell", "StepDiags", "make_multi_step",
-    "make_persistent_multi_step", "make_step", "BergState", "create_bergs",
-    "empty_state",
+    "to_numpy", "Forcing", "forcing_from_arrays", "swirl_forcing",
+    "uniform_forcing", "Grid", "make_curvilinear_grid",
+    "make_tripolar_grid", "make_uniform_grid", "pos_to_cell", "StepDiags",
+    "interp_to_bergs", "make_multi_step", "make_persistent_multi_step",
+    "make_step", "step_dynamics", "BergState", "allocate_slots",
+    "create_bergs", "empty_state", "grow_capacity",
 ]

@@ -24,9 +24,10 @@ from :func:`.footloose.id_hash_uniforms` of (seed, step); both plug in
 per call.  An MTS configuration evolves by
 :func:`.mts.evolve_icebergs_mts` as the JAX entry calls it: Part 1 on the
 candidate tables (K7), the scan substeps; its diagnostics come back in
-``RunOutputs.mts``.  Restarts and the end-of-run trajectories raise,
-naming ROADMAP.md Queue 1 item 12.  A step makes no host sync but the
-MTS force-convergence reads (one a Part-1 iteration).
+``RunOutputs.mts``.  :meth:`IcebergsModel.save_restart` writes the
+restart triplet and :meth:`IcebergsModel.end` the trajectories
+(:mod:`.io`).  A step makes no host sync but the MTS force-convergence
+reads (one a Part-1 iteration).
 """
 
 from __future__ import annotations
@@ -433,12 +434,32 @@ class IcebergsModel:
         return mass_field + sp.spread_mass
 
     def save_restart(self, state: ModelState, directory: str = "."):
-        """icebergs_save_restart writes the restart files."""
-        raise NotImplementedError("restart files (ROADMAP.md Queue 1 item "
-                                  "12)")
+        """Write the restart triplet (icebergs_save_restart):
+        icebergs.res.nc, bonds_iceberg.res.nc with bonds on, and
+        calving.res.nc, into ``directory``."""
+        import os
+        from .io import restart as rio
+        os.makedirs(directory, exist_ok=True)
+        rio.write_restart_bergs(os.path.join(directory, "icebergs.res.nc"),
+                                state.bergs, self.cfg)
+        if self.cfg.iceberg_bonds_on:
+            rio.write_restart_bonds(
+                os.path.join(directory, "bonds_iceberg.res.nc"),
+                state.bergs, self.cfg)
+        rio.write_restart_calving(
+            os.path.join(directory, "calving.res.nc"), state.calving,
+            self.grid)
 
     def end(self, state: ModelState, directory: str = ".",
             traj_buffer=None):
-        """icebergs_end writes the trajectories and the final budgets."""
-        raise NotImplementedError("icebergs_end's trajectory output "
-                                  "(ROADMAP.md Queue 1 item 12)")
+        """icebergs_end: drain ``traj_buffer`` (an
+        :class:`.io.trajectory.TrajBuffer`) to the trajectory file in
+        ``directory`` unless ``ignore_traj``, and return the final
+        budgets."""
+        if traj_buffer is not None and not self.cfg.ignore_traj:
+            import os
+            from .io import trajectory as tio
+            tio.write_trajectories(
+                os.path.join(directory, self.cfg.traj_name), traj_buffer,
+                self.cfg)
+        return compute_budgets(state.bergs, state.calving)

@@ -8,10 +8,11 @@ PyTorch counterpart of ``icebergs_tpu/diag.py`` (``berg_chksum``,
 ``src/icebergs_framework.F90:6606-7070`` and the budget tables of
 ``src/icebergs.F90:5683-5995``).  The hashes are order-invariant sums of
 bit patterns modulo 2^32, bit for bit the JAX package's uint32 values
-(here int64 tensors in [0, 2^32): torch has no usable uint32 sum).
-``debug_write_and_stop`` writes a restart file (ROADMAP.md Queue 1 item
-12) and ``dump_halo_state`` lists the multi-device halo (item 13): both
-raise.
+(here int64 tensors in [0, 2^32): torch has no usable uint32 sum); a
+float64 field hashes as the sum of its two 32-bit words, as the JAX
+package's does.  ``debug_write_and_stop`` writes a restart file;
+``dump_halo_state`` lists the multi-device halo (ROADMAP.md Queue 1 item
+13) and raises.
 """
 
 from __future__ import annotations
@@ -41,18 +42,20 @@ def berg_chksum(st, fields=CHKSUM_FIELDS):
     alive = st.alive & (st.halo_berg < 0.5)
     total = torch.zeros((), dtype=torch.int64, device=alive.device)
     for f in fields:
-        arr = getattr(st, f)
-        bits = (arr.view(torch.int32) if arr.dtype == torch.float32
-                else arr.to(torch.int32)).to(torch.int64) & _U32
+        bits = _u32(getattr(st, f))
         total = (total + torch.where(alive, bits, 0).sum()) & _U32
     return total, alive.sum(dtype=torch.int64)
 
 
 def _u32(arr):
     """The u32 bit pattern of each element, widened to int64 in
-    [0, 2^32) (float32 bits; integers wrapped as the JAX ``astype``)."""
+    [0, 2^32): float32 bits; a float64's two 32-bit words summed mod
+    2^32; integers wrapped as the JAX ``astype``."""
     if arr.dtype == torch.float32:
         return arr.view(torch.int32).to(torch.int64) & _U32
+    if arr.dtype == torch.float64:
+        w = arr.view(torch.int32).view(*arr.shape, 2).to(torch.int64) & _U32
+        return (w[..., 0] + w[..., 1]) & _U32
     return arr.to(torch.int64) & _U32
 
 
@@ -160,9 +163,11 @@ def check_state(st, grid, cfg, label: str = "", fatal: bool = True):
 
 def debug_write_and_stop(st, cfg, path: str = "debug_state.nc",
                          message: str = "debugwriteandstop"):
-    """debugwriteandstop (icebergs.F90:180-191) writes a restart file."""
-    raise NotImplementedError("debug_write_and_stop writes a restart "
-                              "(ROADMAP.md Queue 1 item 12)")
+    """Write the whole particle state as a restart file and stop
+    (debugwriteandstop, icebergs.F90:180-191): raises RuntimeError."""
+    from .io.restart import write_restart_bergs
+    write_restart_bergs(path, st, cfg)
+    raise RuntimeError(f"KID-TPU {message}: state dumped to {path}")
 
 
 def dump_halo_state(st, label: str = "", device: int = -1, file=None):
@@ -237,8 +242,10 @@ class IntervalBudget:
     """Interval source and sink accumulators of the category budget
     tables (the reference's ``lbudget`` block, icebergs.F90:5700-5860):
     feed each step's ``StepDiags`` / ``RunOutputs`` to :meth:`add_step`,
-    print with :func:`report_full_budget`, then :meth:`reset`.  Plain
-    Python floats (each ``add_step`` reads its scalars on the host)."""
+    print with :func:`report_full_budget`, then :meth:`reset`.  The sums
+    are float64 0-dim tensors on the diagnostics' device (Python 0.0
+    until a step adds to them): ``add_step`` reads nothing on the host,
+    the report does."""
 
     SCALARS = (
         "nbergs_calved", "nbergs_calved_fl", "nbergs_melted",
@@ -260,7 +267,7 @@ class IntervalBudget:
         """A (nx+2, ny+2) kg/m2/s rate field as kg over ``dt``."""
         if field is None:
             return 0.0
-        return float((field * grid.area).sum()) * dt
+        return (field * grid.area).sum().double() * dt
 
     def add_step(self, d, grid, dt):
         """Accumulate one step's diagnostics (missing ones count as 0).
@@ -269,7 +276,9 @@ class IntervalBudget:
         internal erosion in, as the reference's do)."""
         def sc(name):
             v = getattr(d, name, None)
-            return float(v) if v is not None else 0.0
+            if v is None:
+                return 0.0
+            return v.double() if torch.is_tensor(v) else float(v)
 
         self.nbergs_calved += sc("nbergs_calved")
         self.nbergs_calved_fl += sc("nbergs_calved_fl")

@@ -79,3 +79,25 @@ def swirl_forcing(nx: int, ny: int, dxy: float, *, uo=0.3, ua=5.0,
                    vi=zero, ua=t(prof * ex * ua), va=t(prof * ey * ua),
                    ssh=center(ssh), sst=center(sst), sss=center(sss),
                    cn=center(cn), hi=center(hi))
+
+
+def forcing_from_arrays(*, uo, vo, ui, vi, ua, va, ssh, sst, sss, cn, hi,
+                        dtype=torch.float32, device) -> Forcing:
+    """A Forcing from raw arrays (``icebergs_tpu.forcing.
+    forcing_from_arrays``): corner fields (nx+1, ny+1); centre fields
+    (nx, ny), halo-padded here with zeros, or already (nx+2, ny+2)."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
+
+    ssh_shape = np.shape(ssh)
+    nx, ny = ssh_shape[0], ssh_shape[1]
+    if ssh_shape[0] == np.shape(uo)[0] + 1:
+        nx, ny = nx - 2, ny - 2
+
+    def center(a):
+        a = np.asarray(a)
+        return t(a if a.shape == (nx + 2, ny + 2) else np.pad(a, 1))
+
+    return Forcing(uo=t(uo), vo=t(vo), ui=t(ui), vi=t(vi), ua=t(ua),
+                   va=t(va), ssh=center(ssh), sst=center(sst),
+                   sss=center(sss), cn=center(cn), hi=center(hi))

@@ -1,8 +1,9 @@
 """The coupling step: the production fast lane on a persistent sorted
 slab, the per-step path, and the MTS/DEM step of bonded conglomerates.
 
-Counterpart of ``icebergs_tpu/model.py``'s ``StepDiags``, ``make_step``
-(``model.py:110-406``),
+Counterpart of ``icebergs_tpu/model.py``'s ``StepDiags``,
+``interp_to_bergs`` and ``step_dynamics`` (``model.py:90-107``),
+``make_step`` (``model.py:110-406``),
 ``make_persistent_multi_step`` (``model.py:413-612``) and
 ``make_multi_step`` (``model.py:615-695``).  One fast-lane step:
 
@@ -97,6 +98,24 @@ class StepDiags(NamedTuple):
     u_iceberg: Optional[torch.Tensor] = None
     v_iceberg: Optional[torch.Tensor] = None
     melt_by_class: Optional[torch.Tensor] = None  # (nx+2, ny+2, classes)
+    # the extended gridded diagnostics (diagnostics.CATALOG's): the rest
+    # of the 14 melt fields (thermo.MELT_FIELDS) and of the spreading's
+    mass: Optional[torch.Tensor] = None
+    virtual_area: Optional[torch.Tensor] = None
+    bergy_mass: Optional[torch.Tensor] = None
+    fl_bits_mass: Optional[torch.Tensor] = None
+    fl_bergy_bits_mass: Optional[torch.Tensor] = None
+    bergy_src: Optional[torch.Tensor] = None
+    bergy_melt: Optional[torch.Tensor] = None
+    fl_bits_melt: Optional[torch.Tensor] = None
+    melt_buoy: Optional[torch.Tensor] = None
+    melt_eros: Optional[torch.Tensor] = None
+    melt_conv: Optional[torch.Tensor] = None
+    fl_parent_melt: Optional[torch.Tensor] = None
+    fl_child_melt: Optional[torch.Tensor] = None
+    melt_buoy_fl: Optional[torch.Tensor] = None
+    melt_eros_fl: Optional[torch.Tensor] = None
+    melt_conv_fl: Optional[torch.Tensor] = None
     # footloose (FootlooseDiags) and the interval-budget scalars (kg this
     # step; diag.IntervalBudget reads them)
     nbergs_calved_fl: Optional[torch.Tensor] = None
@@ -114,6 +133,14 @@ class StepDiags(NamedTuple):
     flb_bergy_melt_kg: Optional[torch.Tensor] = None
     flb_internal_eros_kg: Optional[torch.Tensor] = None
     net_melt_heat: Optional[torch.Tensor] = None
+
+
+def step_dynamics(st, grid: Grid, frc, cfg: IcebergsConfig, ia_fn=None):
+    """Interpolation and evolve only, the minimum end-to-end slice
+    (``icebergs_tpu.model.step_dynamics``): :func:`interp_to_bergs` then
+    :func:`.dynamics.evolve_icebergs`; returns its ``EvolveOut``."""
+    st = interp_to_bergs(st, grid, frc, cfg)
+    return evolve_icebergs(st, grid, frc, cfg, ia_fn=ia_fn)
 
 
 def _zero_spread(st, grid):
@@ -272,9 +299,9 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
                 st, grid, frc, cfg, defer_cell_cols=cfg.parallel_reprod,
                 sort_ctx=sort_ctx, with_class_melt=with_class_melt)
         deferred = melt.deferred_cols if melt is not None else None
-        melt_fields = ([None] * 3 if melt is None or deferred is not None
-                       else [melt.floating_melt, melt.calving_hflx,
-                             melt.berg_melt])
+        melt_fields = ([None] * len(_thermo.MELT_FIELDS)
+                       if melt is None or deferred is not None
+                       else [getattr(melt, f) for f in _thermo.MELT_FIELDS])
         if not with_spread:
             sp = _zero_spread(st, grid)
         else:
@@ -292,12 +319,8 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
                               else cap_ov),
             contact_fallback=(fstats.n_fallback if fstats is not None
                               else None),
-            floating_melt=melt_fields[0], calving_hflx=melt_fields[1],
-            berg_melt=melt_fields[2],
-            spread_mass=sp.spread_mass, spread_area=sp.spread_area,
-            spread_uvel=sp.spread_uvel, spread_vvel=sp.spread_vvel,
-            ustar_iceberg=sp.ustar_iceberg, mass_on_ocean=sp.mass_on_ocean,
-            u_iceberg=sp.u_iceberg, v_iceberg=sp.v_iceberg,
+            **dict(zip(_thermo.MELT_FIELDS, melt_fields)),
+            **sp._asdict(),
             melt_by_class=(melt.melt_by_class if melt is not None
                            else None))
         if fl_d is not None:

@@ -17,8 +17,12 @@ bonds pull only when over-stretched); the ``contact_cap`` compaction
 ``make_ia_fn`` with its bond, same-conglomerate and cross-conglomerate
 groups, their MTS parts and the Part-1 velocity refresh
 (``forces.py:559-769``); the constant interaction area of MTS bonds;
-``check_bond_reciprocity``; and ``initialize_bonds_host``,
-``compute_conglom_ids_host`` and ``count_bonds`` (numpy).
+``check_bond_reciprocity``; the driver's host checks
+``can_use_quadrant_window`` and
+``set_constant_interaction_length_and_width``; and
+``initialize_bonds_host``, ``compute_conglom_ids_host`` (numpy, or the
+native library of :mod:`..native` above 512 elements) and
+``count_bonds``.
 
 ``*_T`` functions hold pair slabs as (M, N) with the partner axis first
 (the fused search's two partners); the plain ones as (N, M) (the exact
@@ -27,6 +31,7 @@ fallback's candidate strips).
 
 from __future__ import annotations
 
+import warnings
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
@@ -147,6 +152,31 @@ def _interaction_radius(cfg: IcebergsConfig, A):
     if cfg.iceberg_bonds_on:
         return 0.5 * torch.sqrt(A)
     return torch.sqrt(A / C.PI)
+
+
+def can_use_quadrant_window(st, grid, cfg: IcebergsConfig) -> bool:
+    """Host-side check: is the 2x2 quadrant candidate window exact?
+    (``icebergs_tpu.ops.forces.can_use_quadrant_window``).  True when
+    the largest possible pair cutoff (R1 + R2 of the biggest two bergs,
+    or ``contact_distance``) is at most half the smallest cell extent.
+    Rolling can widen a berg (W <-> T exchange), so the area is bounded
+    by its largest dimension squared."""
+    alive = st.alive.cpu().numpy()
+    if not alive.any():
+        return True
+
+    def host(x):
+        return x.cpu().numpy().astype(np.float64)
+    dmax_berg = np.maximum(np.maximum(host(st.length), host(st.width)),
+                           host(st.thickness))[alive]
+    A = torch.as_tensor(dmax_berg ** 2, dtype=st.dtype)
+    rmax = float(_interaction_radius(cfg, A).max())
+    cutoff = max(2. * rmax, float(cfg.contact_distance))
+    dx = grid.dx.cpu().numpy()[1:-1, 1:-1]
+    dy = grid.dy.cpu().numpy()[1:-1, 1:-1]
+    dmin = float(min(np.min(np.where(dx > 0, dx, np.inf)),
+                     np.min(np.where(dy > 0, dy, np.inf))))
+    return bool(np.isfinite(dmin) and cutoff <= 0.5 * dmin)
 
 
 class PairData(NamedTuple):
@@ -554,6 +584,43 @@ def check_bond_reciprocity(st):
 # bond setup (host side, at init)
 # --------------------------------------------------------------------------
 
+def set_constant_interaction_length_and_width(cfg: IcebergsConfig, st):
+    """Fill ``constant_length`` / ``constant_width`` from the mean live
+    element (set_constant_interaction_length_and_width,
+    icebergs_framework.F90:4641-4671), when ``constant_interaction_LW``
+    is on and the namelist left either at 0 (icebergs.F90:175-177).
+    Host side; returns the updated config.  The means are numpy's sums
+    of the float32 host copies, as the JAX package takes them: another
+    association moves ``constant_length`` by an ulp, and with it every
+    DEM radius."""
+    if not cfg.constant_interaction_LW or (cfg.constant_length != 0.
+                                           and cfg.constant_width != 0.):
+        return cfg
+    alive = st.alive.cpu().numpy()
+    n = max(int(alive.sum()), 1)
+    return cfg.replace(
+        constant_length=float(st.length.cpu().numpy()[alive].sum() / n),
+        constant_width=float(st.width.cpu().numpy()[alive].sum() / n))
+
+
+def _native_or_numpy(what: str, n: int, limit):
+    """The native library for ``n`` elements, or None where the numpy
+    route takes the size (``limit``; None: any size) and the library
+    does not build, with a warning naming the compiler's error."""
+    from .. import native
+    try:
+        native.library()
+        return native
+    except RuntimeError as e:
+        if limit is not None and n > limit:
+            raise RuntimeError(f"{what} of {n} elements needs the native "
+                               f"library (the numpy route holds at most "
+                               f"{limit}): {e}") from e
+        warnings.warn(f"{what}: the native library did not build, the "
+                      f"numpy route runs instead: {e}")
+        return None
+
+
 def initialize_bonds_host(st, cfg: IcebergsConfig, max_pairwise=8192):
     """Form bonds between nearby bergs (initialize_iceberg_bonds,
     icebergs.F90:355-442): bond when the distance is below
@@ -562,15 +629,14 @@ def initialize_bonds_host(st, cfg: IcebergsConfig, max_pairwise=8192):
     ``max_bonds`` each.  Then labels conglomerates
     (:func:`compute_conglom_ids_host`).
 
-    Host-side numpy on the O(n^2) pairwise matrix, as the JAX package
-    does up to 512 bergs: build large worlds by bonding one prototype
-    conglomerate and replicating its table with slot offsets (more than
-    ``max_pairwise`` live bergs raises)."""
+    Host side.  Above :data:`..native.MIN_ELEMENTS` live bergs the
+    cell-hashed native library forms them, in O(n), as the JAX package
+    does; else numpy on the O(n^2) pairwise matrix, which also serves up
+    to ``max_pairwise`` bergs when the library does not build (with a
+    warning; beyond that it raises)."""
+    from .. import native
     alive = st.alive.cpu().numpy()
     n = int(alive.sum())
-    if n > max_pairwise:
-        raise ValueError(f"{n} live bergs > max_pairwise={max_pairwise}: "
-                         "bond a prototype and replicate it")
     idx = np.nonzero(alive)[0]
 
     def host(x):
@@ -578,36 +644,48 @@ def initialize_bonds_host(st, cfg: IcebergsConfig, max_pairwise=8192):
 
     lon, lat, L, W = host(st.lon), host(st.lat), host(st.length), \
         host(st.width)
-    lat_ref = 0.5 * (lat[:, None] + lat[None, :])
-    if cfg.grid_is_latlon:
-        dxl = (np.pi / 180.) * cfg.Rearth * np.cos((np.pi / 180.) * lat_ref)
-        dyl = (np.pi / 180.) * cfg.Rearth
-    else:
-        dxl = np.ones_like(lat_ref)
-        dyl = 1.0
-    rx = (lon[:, None] - lon[None, :]) * dxl
-    ry = (lat[:, None] - lat[None, :]) * dyl
-    r = np.hypot(rx, ry)
-    np.fill_diagonal(r, np.inf)
     A = L * W
     R = (np.sqrt(A / (2. * np.sqrt(3.))) if cfg.hexagonal_icebergs
          else 0.5 * np.sqrt(A))
-    if cfg.manually_initialize_bonds_from_radii:
-        crit = 1.25 * (R[:, None] + R[None, :])
-    else:
-        crit = cfg.length_for_manually_initialize_bonds
-    pairs = r < crit
-
     B = st.max_bonds
     bond_idx = np.full((st.capacity, B), -1, np.int32)
     bond_len = np.zeros((st.capacity, B))
     nb = np.zeros((st.capacity,))
-    for a in range(n):
-        partners = np.nonzero(pairs[a])[0]
-        for k, b in enumerate(partners[:B]):
-            bond_idx[idx[a], k] = idx[b]
-            bond_len[idx[a], k] = r[a, b]
-        nb[idx[a]] = min(len(partners), B)
+    lib = (_native_or_numpy("bond formation", n, max_pairwise)
+           if n > native.MIN_ELEMENTS else None)
+    if lib is not None:
+        crit_const = (-1.0 if cfg.manually_initialize_bonds_from_radii
+                      else cfg.length_for_manually_initialize_bonds)
+        bi, blen, nbv = lib.bond_init(lon, lat, R, crit_const,
+                                      cfg.grid_is_latlon, cfg.Rearth, B)
+        # compact row / partner indices back to state slots
+        bond_idx[idx] = np.where(bi >= 0, idx[np.clip(bi, 0, None)], -1)
+        bond_len[idx] = blen
+        nb[idx] = np.minimum(nbv, B)
+    else:
+        lat_ref = 0.5 * (lat[:, None] + lat[None, :])
+        if cfg.grid_is_latlon:
+            dxl = (np.pi / 180.) * cfg.Rearth * np.cos(
+                (np.pi / 180.) * lat_ref)
+            dyl = (np.pi / 180.) * cfg.Rearth
+        else:
+            dxl = np.ones_like(lat_ref)
+            dyl = 1.0
+        rx = (lon[:, None] - lon[None, :]) * dxl
+        ry = (lat[:, None] - lat[None, :]) * dyl
+        r = np.hypot(rx, ry)
+        np.fill_diagonal(r, np.inf)
+        if cfg.manually_initialize_bonds_from_radii:
+            crit = 1.25 * (R[:, None] + R[None, :])
+        else:
+            crit = cfg.length_for_manually_initialize_bonds
+        pairs = r < crit
+        for a in range(n):
+            partners = np.nonzero(pairs[a])[0]
+            for k, b in enumerate(partners[:B]):
+                bond_idx[idx[a], k] = idx[b]
+                bond_len[idx[a], k] = r[a, b]
+            nb[idx[a]] = min(len(partners), B)
     dev, dt = st.device, st.dtype
     st = st.replace(bond_idx=torch.as_tensor(bond_idx, device=dev),
                     bond_length=torch.as_tensor(bond_len).to(dev, dt),
@@ -618,20 +696,33 @@ def initialize_bonds_host(st, cfg: IcebergsConfig, max_pairwise=8192):
 def compute_conglom_ids_host(st):
     """Label bonded conglomerates (set_conglom_ids,
     icebergs_framework.F90:2737): the connected components of the bond
-    graph, numbered from 1; unbonded bergs get singleton labels.  Host
-    side (scipy)."""
-    from scipy.sparse import coo_matrix
-    from scipy.sparse.csgraph import connected_components
-
+    graph, each a positive label shared by its members; unbonded bergs
+    get singleton labels.  Host side: above
+    :data:`..native.MIN_ELEMENTS` slots the native union-find (bonded
+    components numbered from 1 in order of first appearance, the
+    unbonded bergs after them, as the JAX package labels them there),
+    else scipy's connected components numbered from 1 (and there when
+    the library does not build, with a warning)."""
+    from .. import native
     N = st.capacity
     bond_idx = st.bond_idx.cpu().numpy()
-    m = bond_idx >= 0
-    rows = np.nonzero(m)[0]
-    cols = bond_idx[m]
-    g = coo_matrix((np.ones(len(rows)), (rows, cols)), shape=(N, N))
-    _, labels = connected_components(g, directed=False)
+    lib = (_native_or_numpy("conglomerate labels", N, None)
+           if N > native.MIN_ELEMENTS else None)
+    if lib is not None:
+        labels = lib.conglom_label(bond_idx).astype(np.int64)
+        unb = labels == 0
+        labels[unb] = labels.max() + 1 + np.arange(int(unb.sum()))
+    else:
+        from scipy.sparse import coo_matrix
+        from scipy.sparse.csgraph import connected_components
+        m = bond_idx >= 0
+        rows = np.nonzero(m)[0]
+        cols = bond_idx[m]
+        g = coo_matrix((np.ones(len(rows)), (rows, cols)), shape=(N, N))
+        _, labels = connected_components(g, directed=False)
+        labels = labels + 1
     return st.replace(conglom_id=torch.as_tensor(
-        (labels + 1).astype(np.int32), device=st.device))
+        labels.astype(np.int32), device=st.device))
 
 
 def count_bonds(st):

@@ -20,7 +20,9 @@ source, each with its wrapper here and its launch count:
 
 ``idx`` lies in ``[0, nsrc]``; ``idx == nsrc`` is the dead key and reads 0.
 Columns travel as int32 bit patterns (``Tensor.view(torch.int32)``): the
-transport is exact for f32/i32, and bools go as 0/1.
+transport is exact for f32/i32, and bools go as 0/1.  A float64 column
+travels as its int64 bits, which only the plain versions (CPU tensors)
+take: the float64 model runs on the CPU.
 """
 
 from __future__ import annotations
@@ -35,13 +37,19 @@ from .. import cuda_build
 MAX_COLS = 128                  # columns per launch (csrc/permute_cols.cu)
 
 
+def _bits_type_ok(t):
+    """int32 columns, or int64 ones (float64 bits) on the CPU."""
+    return t.dtype == torch.int32 or (t.dtype == torch.int64
+                                      and t.device.type == "cpu")
+
+
 def _source(R, what):
     """The columns ``R`` (a (C, nsrc) matrix, or a sequence of (nsrc,)
-    tensors and ``None``) checked to be int32 on one device, as
-    ``(C, nsrc, device, pointers, element strides)`` (pointer None for a
-    column of zeros)."""
+    tensors and ``None``) checked to be int32 on one device (or int64 on
+    the CPU), as ``(C, nsrc, device, pointers, element strides)``
+    (pointer None for a column of zeros)."""
     if isinstance(R, torch.Tensor):
-        if R.dim() != 2 or R.dtype != torch.int32:
+        if R.dim() != 2 or not _bits_type_ok(R):
             raise TypeError(f"{what}: R {R.dtype} {tuple(R.shape)}, need "
                             "(C, nsrc) int32")
         C, nsrc = R.shape
@@ -57,8 +65,7 @@ def _source(R, what):
         shape = c.shape
         if nsrc is None:
             nsrc, dev = shape[0], c.device
-        if c.dtype is not torch.int32 or shape != (nsrc,) \
-                or c.device != dev:
+        if not _bits_type_ok(c) or shape != (nsrc,) or c.device != dev:
             raise TypeError(f"{what}: column {c.dtype} {tuple(shape)} on "
                             f"{c.device}, need ({nsrc},) int32 on {dev}")
         ptrs.append(c.data_ptr())
@@ -73,8 +80,10 @@ def _matrix_plain(R):
     if isinstance(R, torch.Tensor):
         return R
     like = next(c for c in R if c is not None)
-    z = like.new_zeros(like.shape[0])
-    return torch.stack([z if c is None else c for c in R])
+    wide = any(c is not None and c.dtype == torch.int64 for c in R)
+    z = like.new_zeros(like.shape[0],
+                       dtype=torch.int64 if wide else torch.int32)
+    return torch.stack([z if c is None else c.to(z.dtype) for c in R])
 
 
 def _check_idx(idx, device, what):
@@ -245,17 +254,24 @@ def kernel_resources(C: int = 64) -> dict:
 
 
 def to_bits(col):
-    """One (N,) column as its int32 bit pattern (bool -> 0/1); ``None``
-    (a column of zeros) stays ``None``."""
+    """One (N,) column as its int32 bit pattern (bool -> 0/1; a float64
+    column as its int64 bits); ``None`` (a column of zeros) stays
+    ``None``."""
     if col is None:
         return None
     if col.dtype == torch.bool:
         return col.to(torch.int32)
+    if col.element_size() == 8:
+        return col.view(torch.int64)
     return col.view(torch.int32)
 
 
 def from_bits(bits, dtype):
-    """Inverse of :func:`to_bits`."""
+    """Inverse of :func:`to_bits` (a 4-byte column that travelled beside
+    float64 ones comes back from int64)."""
     if dtype == torch.bool:
         return bits > 0
+    if bits.dtype == torch.int64 and torch.empty(
+            (), dtype=dtype).element_size() == 4:
+        bits = bits.to(torch.int32)
     return bits.view(dtype)

@@ -243,16 +243,20 @@ def _generic(variant) -> int:
 
 
 def _payload(rows_s, n_extra: int):
-    """The payload's rows as a list of (N,) float32 tensors on one device,
-    from a (13 + n_extra, N) matrix or a sequence of rows."""
+    """The payload's rows as a list of (N,) tensors of one length, float
+    type and device, from a (13 + n_extra, N) matrix or a sequence of
+    rows: float32 for the kernel, float32 or float64 for the plain
+    version (a CPU tensor)."""
     rows = list(rows_s)
     if len(rows) != R_NFIX + n_extra or any(
-            r.dim() != 1 or r.dtype != torch.float32
+            r.dim() != 1 or r.dtype != rows[0].dtype
             or r.shape != rows[0].shape or r.device != rows[0].device
-            for r in rows):
+            for r in rows) or rows[0].dtype not in (
+                (torch.float32, torch.float64)
+                if rows[0].device.type == "cpu" else (torch.float32,)):
         raise ValueError(f"rows_s for n_extra={n_extra}: need "
-                         f"{R_NFIX + n_extra} float32 rows of one length "
-                         "on one device")
+                         f"{R_NFIX + n_extra} float32 rows (float64 on the "
+                         "CPU) of one length on one device")
     return rows
 
 

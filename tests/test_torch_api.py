@@ -412,21 +412,24 @@ def test_check_state_ids_and_dates():
                                   np.asarray(jo.start_day))
 
 
-def test_unported_entry_points_raise():
-    """What the entry cannot serve yet names its ROADMAP.md item:
-    restarts and icebergs_end (item 12), the halo dump (item 13); MTS
-    (item 16) runs through the entry."""
+def test_unported_entry_points_raise(tmp_path):
+    """What the entry cannot serve yet names its ROADMAP.md item: the
+    halo dump (item 13).  Restarts, icebergs_end and the debug dump
+    (item 12) and MTS (item 16) are served: the files are written, the
+    dump stops the run."""
     cfg, grid, frc, st, _, _ = _world("new_bergs")
     tgrid = ibp.grid_from_numpy(_leaves(grid), device=CPU)
     tcfg = ibp.config_from_dict(dataclasses.asdict(cfg))
     tm = tapi.IcebergsModel(tgrid, tcfg, device=CPU)
     ts = tm.init_state(ibp.state_from_numpy(_leaves(st), device=CPU))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tm.save_restart(ts)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tm.end(ts)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tdiag.debug_write_and_stop(ts.bergs, tcfg)
+    tm.save_restart(ts, str(tmp_path))
+    assert (tmp_path / "icebergs.res.nc").exists()
+    assert (tmp_path / "calving.res.nc").exists()
+    assert int(tm.end(ts).nbergs) == int(ts.bergs.count())
+    with pytest.raises(RuntimeError, match="state dumped"):
+        tdiag.debug_write_and_stop(ts.bergs, tcfg,
+                                   path=str(tmp_path / "debug.nc"))
+    assert (tmp_path / "debug.nc").exists()
     with pytest.raises(NotImplementedError, match="item 13"):
         tdiag.dump_halo_state(ts.bergs)
     # MTS (item 16, served): an outer step runs through the entry

@@ -1309,3 +1309,94 @@ def test_dem_substeps_latlon_kernel_matches_plain(dev, lat, jitter, flags):
             + k4._BOND_FIELDS:
         assert torch.equal(getattr(out, name), getattr(ref, name)), name
     assert bool((out.lon != st.lon)[st.alive].any())
+
+
+def _driver_inputs(d, name):
+    """``chip_smoke.py``'s phase-13d worlds (tests/test_driver.py's NML
+    with contacts on, and DEM_NML) written by the port into ``d``."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from icebergs_tpu_torch.io import namelist, restart
+    cpu = torch.device("cpu")
+    if name == "nml":
+        text = chip_smoke.NML_DRIVER.replace(
+            "&icebergs_nml", "&icebergs_nml\n  interactive_icebergs_on="
+            ".true.\n  spring_coef=1.e-5")
+        grid = ibp.make_uniform_grid(20, 20, 0., 0., 1000., 1000.,
+                                     grid_is_latlon=False, device=cpu)
+        st = ibp.create_bergs(64, lon=[5000., 9000., 9100.],
+                              lat=[9500., 10500., 10450.],
+                              mass=850. * 20 * 100 * 100, thickness=20.,
+                              width=100., length=100., mass_scaling=1.,
+                              device=cpu)
+    else:
+        text = chip_smoke.NML_DEM
+        grid = ibp.make_uniform_grid(24, 24, 0., 0., 7000., 7000.,
+                                     grid_is_latlon=False, device=cpu)
+        px, py = np.meshgrid(np.arange(4) * 3000., np.arange(4) * 3000.,
+                             indexing="ij")
+        st = ibp.create_bergs(64, lon=px.ravel() + 30000.,
+                              lat=py.ravel() + 40000.,
+                              mass=850. * 200. * 3000. ** 2, thickness=200.,
+                              width=3000., length=3000., mass_scaling=1.,
+                              id_cnt=np.arange(16) + 1, max_bonds=6,
+                              device=cpu)
+    (d / "input.nml").write_text(text)
+    cfg, _ = namelist.config_from_namelist(str(d / "input.nml"))
+    i, j, xi, yj = ibp.pos_to_cell(grid, st.lon, st.lat, -1.)
+    st = st.replace(ine=i, jne=j, xi=xi, yj=yj)
+    if name == "dem_nml":
+        st = forces.count_bonds(forces.initialize_bonds_host(st, cfg))
+        restart.write_restart_bonds(str(d / "bonds_iceberg.res.nc"), st,
+                                    cfg)
+    restart.write_restart_bergs(str(d / "icebergs.res.nc"), st, cfg)
+    return text
+
+
+def test_driver_exact_restart_on_card(dev, tmp_path):
+    """The driver on the card (K1-K3 with contacts): 12 steps, the
+    restart, 12 more equal 24 uninterrupted steps field by field, and
+    its restart file is the state's, as on the CPU
+    (tests/test_torch_driver.py::test_driver_exact_restart)."""
+    from icebergs_tpu_torch import diag, driver
+    text = _driver_inputs(tmp_path, "nml")
+    (tmp_path / "half.nml").write_text(text.replace("ibhrs=4", "ibhrs=2"))
+    kw = dict(capacity=64, verbose=False, device="cuda")
+    before = extract.extract_sorted.launches
+    full = driver.run(str(tmp_path / "input.nml"), str(tmp_path),
+                      str(tmp_path / "full"), **kw)
+    assert extract.extract_sorted.launches > before
+    driver.run(str(tmp_path / "half.nml"), str(tmp_path),
+               str(tmp_path / "h1"), **kw)
+    h2 = driver.run(str(tmp_path / "half.nml"), str(tmp_path / "h1"),
+                    str(tmp_path / "h2"), **kw)
+    assert [int(x) for x in diag.berg_chksum(full)] == \
+        [int(x) for x in diag.berg_chksum(h2)]
+    F, H = ibp.to_numpy(full), ibp.to_numpy(h2)
+    for name, v in F.items():
+        np.testing.assert_array_equal(H[name], v, err_msg=name)
+    assert (tmp_path / "full" / "icebergs.res.nc").read_bytes() == \
+        (tmp_path / "h2" / "icebergs.res.nc").read_bytes()
+
+
+def test_driver_picks_k4_on_card(dev, tmp_path):
+    """On DEM_NML the driver on the card picks K4 (block-closed 128-slot
+    block, the capacity grown from 64 as the JAX driver grows it) and
+    keeps every integer of the CPU's run with K4's plain version."""
+    from icebergs_tpu_torch import driver
+    _driver_inputs(tmp_path, "dem_nml")
+    nml = str(tmp_path / "input.nml")
+    before = k4.part3_substeps_vmem.launches
+    g = driver.run(nml, str(tmp_path), str(tmp_path / "g"), capacity=64,
+                   verbose=False, device="cuda")
+    assert k4.part3_substeps_vmem.launches > before
+    assert g.capacity == 128 and g.device.type == "cuda"
+    c = driver.run(nml, str(tmp_path), str(tmp_path / "c"), capacity=64,
+                   verbose=False, device="cpu", substep_kernel="vmem")
+    G, C = ibp.to_numpy(g), ibp.to_numpy(c)
+    for name in ("alive", "id_cnt", "ine", "jne", "bond_idx",
+                 "bond_broken", "conglom_id"):
+        np.testing.assert_array_equal(G[name], C[name], err_msg=name)
+    assert np.isfinite(G["lon"]).all()
