@@ -27,9 +27,10 @@ Phases, one line each:
    interpolation), K2's pair-epilogue instantiation (every row but the
    spring sums bitwise, the spring sums bitwise on rows with at most two
    exact pairs, the others counted; two calls bitwise), K3's pass-through
-   entry at the slot scatter spreading's 43 columns (slot tree and
-   sequential, bitwise) and K7 (the pair evaluation over the bucket tables,
-   max_per_cell 24; both pmag instantiations, bitwise on the rows with
+   at the slot scatter spreading's 43 columns (slot tree and sequential)
+   and the melt's 14 (slot tree), bitwise, one launch a call, beside
+   ``torch.segment_reduce``, and K7
+   (the pair evaluation over the bucket tables, max_per_cell 24; both pmag instantiations, bitwise on the rows with
    at most two active pairs and from run to run, with their registers,
    spills, shared memory and CTAs per SM) at the shapes the headline
    world gives them, and K2 with the conglomerate filter (radius 2,
@@ -138,7 +139,8 @@ The last two lines are a JSON object with each kernel's numbers and
 without them.  Imports nothing of JAX.
 
 ``--ab DIR`` runs phase 3's K1, K2 (with its epilogue where the package
-has one), K3, K5 and K7 cases only, with the
+has one), K3 (its pass-through too), K5 and K7 cases and phase 12's two
+K2 lat-lon cases (12a's and 12c's slabs) only, with the
 package of a copy of another commit unpacked at DIR inside this checkout
 (``git archive`` into a directory ``.gitignore`` lists), so that a parent
 and a change are timed on one card in one call: parent, change, change,
@@ -807,11 +809,23 @@ def k2_case(torch, extract, PT, key_s, cs, grid, cfg, ab, **kw):
     rows = [extract.PT_RAD, extract.PT_ALIVE, extract.PT_KEY, extract.PT_FLK]
     rows += [extract.PT_GRP] if group else []
     need = nbytes(PT[:8], cs, c_lo, c_hi, bad, out) + 4 * len(rows) * N
-    tested = k2_tested_pairs(torch, extract, PT, cs, c_lo, c_hi, bad, bn,
-                             K2_CHUNK[group], cd, rearth)
+    tested, cos_tests = k2_tested_pairs(torch, extract, PT, cs, c_lo, c_hi,
+                                        bad, bn, K2_CHUNK[group], cd, rearth,
+                                        group)
+    tested_s = "(not modeled)" if tested is None else tested
+    cos_note = ("" if cos_tests is None else
+                f"; of them, tests that take a cosine after the candidate "
+                f"skip {cos_tests}")
     t_ops = flops_pair * engaged / FP32_FLOPS_PER_S * 1e3
     t_bytes = need / HBM_BYTES_PER_S * 1e3
     ms = device_ms(torch, k2)
+
+    # the wrapper's table operations without the kernel (no host sync)
+    def tables():
+        c_lo, _, bad = extract.block_tables(key_s, cs, grid.nx, grid.ny, bn,
+                                            win, radius=rad)
+        return bad[:, None].expand(-1, bn).reshape(-1), bad.to(torch.uint8)
+    tables_ms = device_ms(torch, tables)
     gen = ""
     if not ab:
         g = k2(variant="generic")
@@ -833,9 +847,11 @@ def k2_case(torch, extract, PT, key_s, cs, grid, cfg, ab, **kw):
               f"bad_blocks={int(bad.sum())}/{bad.numel()} engaged_pairs="
               f"{engaged:.0f} engaged_rows={int((cnt > 0).sum())} "
               f"rows_3plus={int((cnt > 2).sum())}; pair tests the kernel's "
-              f"chunk skip leaves {tested:.0f} (bound: the engaged pairs' "
+              f"chunk skip leaves {tested_s}{cos_note} (bound: the engaged "
+              f"pairs' "
               f"tests {t_ops:.4f} ms, the bytes {t_bytes:.4f} ms); with "
-              f"the host {cuda_ms(torch, k2):.3f} ms; "
+              f"the host {cuda_ms(torch, k2):.3f} ms; the wrapper's table "
+              f"operations alone {tables_ms:.4f} ms; "
               f"{k2_resources(extract, bn, rad, group, latlon=ll)}{gen}"))
     return row, outp, bad_block
 
@@ -899,13 +915,19 @@ def k2_epi_case(torch, extract, PT, key_s, cs, grid, cfg):
               f"{k2_resources(extract, bn, 1, False, epilogue=True)}"))
 
 
-def k3_assoc_case(torch, ss, cols, cs, K):
-    """K3's pass-through entry (``segment_sums``) at the slot scatter
-    spreading's shape on the persistent lane (the 36 weighted products and
-    7 cell columns of the sorted headline slab, in three launches) in the
-    slot tree and sequentially, each bitwise to the plain version.  Its
-    row of the kernels line."""
+def k3_assoc_case(torch, ss, cols, melt_cols, cs, K, ab=False):
+    """K3's pass-through (``segment_sums``) at the shapes its callers give
+    it on the sorted headline slab: the slot scatter spreading's (the 36
+    weighted products and 7 cell columns, 43 separate columns) in the slot
+    tree and sequentially, and the melt's (``scatter_cell_deterministic``:
+    the thermodynamics' 14 columns) in the slot tree, each bitwise to the
+    plain version, the launches a call counted, beside
+    ``torch.segment_reduce`` over the same columns and cells, all timed
+    with ``device_ms``.  Its row of the kernels line, at the 43 columns
+    (``ab``: no plain time); the 14 columns' times in its note."""
+    n0 = ss.segment_sums.launches
     S = ss.segment_sums(cols, cs, K, tree=True)
+    per_call = ss.segment_sums.launches - n0
     M = torch.stack(cols)
     Sp = ss._sums_plain(M, cs, K, True)
     require(torch.equal(S, Sp), "K3 pass-through tree sums differ from the "
@@ -913,101 +935,181 @@ def k3_assoc_case(torch, ss, cols, cs, K):
     Sq = ss.segment_sums(cols, cs, K, tree=False)
     require(torch.equal(Sq, ss._sums_plain(M, cs, K, False)),
             "K3 pass-through sequential sums differ from the plain version")
+    S14 = ss.segment_sums(melt_cols, cs, K, tree=True)
+    require(torch.equal(S14, ss._sums_plain(torch.stack(melt_cols), cs, K,
+                                            True)),
+            "K3 pass-through tree sums of the melt's columns differ from the "
+            "plain version")
     rows_in = int(cs[-1] - cs[0])
     occ = cs[1:] - cs[:-1]
-    # the library's segment sums of the same columns over the same cells:
-    # torch.segment_reduce on the (rows, 43) slab, one call (a yardstick;
-    # the port never calls it)
-    data = M[:, int(cs[0]):int(cs[-1])].T.contiguous()
     lengths = occ.to(torch.int64)
-    seg = torch.segment_reduce(data, "sum", lengths=lengths, axis=0)
-    require(tuple(seg.shape) == (occ.shape[0], len(cols)),
-            f"segment_reduce gave {tuple(seg.shape)}")
+
+    # the library's segment sums of the same columns over the same cells:
+    # torch.segment_reduce on the (rows, F) slab, one call (a yardstick;
+    # the port never calls it).  Its input is transposed before the
+    # timing, and the timed calls skip the lengths' checks (host syncs)
+    # that the first call makes
+    def library(cs_cols):
+        data = torch.stack(cs_cols)[:, int(cs[0]):int(cs[-1])].T.contiguous()
+        seg = torch.segment_reduce(data, "sum", lengths=lengths, axis=0)
+        require(tuple(seg.shape) == (occ.shape[0], len(cs_cols)),
+                f"segment_reduce gave {tuple(seg.shape)}")
+        return lambda: torch.segment_reduce(data, "sum", lengths=lengths,
+                                            axis=0, unsafe=True)
+    lib, lib14 = library(cols), library(melt_cols)
+
+    def tree():
+        return ss.segment_sums(cols, cs, K, True)
+
+    def seq():
+        return ss.segment_sums(cols, cs, K, False)
+
+    def tree14():
+        return ss.segment_sums(melt_cols, cs, K, True)
+    # in turns: kernel, library, library, kernel (each association and
+    # width)
+    t = [device_ms(torch, f) for f in (tree, lib, seq, lib, tree, seq,
+                                       tree14, lib14, lib14, tree14)]
+    from icebergs_tpu_torch import cuda_build
+    regs = "; ".join(
+        f"{'tree' if 'ILb1E' in k else 'sequential'}: {r.get('registers')} "
+        f"registers, spill stores/loads {r.get('spill_stores')}/"
+        f"{r.get('spill_loads')} B"
+        for k, r in cuda_build.resource_report().items()
+        if "segment_sums_kernel" in k)
+    b14 = bound(4 * rows_in * len(melt_cols) + nbytes(cs, S14),
+                len(melt_cols) * rows_in)
     return dict(
-        err=max_abs_err(torch, S, Sp),
-        ms=device_ms(torch, lambda: ss.segment_sums(cols, cs, K, True)),
-        plain_ms=cuda_ms(torch, lambda: ss._sums_plain(M, cs, K, True),
-                         reps=2),
-        library_ms=cuda_ms(torch, lambda: torch.segment_reduce(
-            data, "sum", lengths=lengths, axis=0)),
+        err=max_abs_err(torch, S, Sp), ms=statistics.median([t[0], t[4]]),
+        plain_ms=None if ab else cuda_ms(
+            torch, lambda: ss._sums_plain(M, cs, K, True), reps=2),
+        library_ms=statistics.median([t[1], t[3]]),
         bound=bound(4 * rows_in * len(cols) + nbytes(cs, S),
                     len(cols) * rows_in),
         note=(f"{len(cols)} columns, rows={rows_in} K={K} cells over K="
-              f"{int((occ > K).sum())}; sequential "
-              f"{device_ms(torch, lambda: ss.segment_sums(cols, cs, K, False)):.4f}"
-              f" ms, bitwise"))
+              f"{int((occ > K).sum())} largest cell {int(occ.max())}; "
+              f"launches a call {per_call}; tree {t[0]:.4f}, {t[4]:.4f} ms, "
+              f"sequential {t[2]:.4f}, {t[5]:.4f} ms, segment_reduce "
+              f"{t[1]:.4f}, {t[3]:.4f} ms (order tree, library, sequential, "
+              f"library, tree, sequential), both associations bitwise; "
+              f"the melt's {len(melt_cols)} columns, tree: {t[6]:.4f}, "
+              f"{t[9]:.4f} ms, segment_reduce {t[7]:.4f}, {t[8]:.4f} ms, "
+              f"bound {b14[0]:.4f} ms ({b14[1]}), bitwise"
+              f"{'; ' + regs if regs else ''}"))
 
 
 def k2_tested_pairs(torch, extract, PT, cs, c_lo, c_hi, bad, block_n, ch,
-                    cd, rearth=None):
-    """Pair tests K2 makes on these inputs: each warp tests all ``ch``
-    slots of every chunk of staged candidates that its box test keeps
-    (csrc/extract_sorted.cu; on a lat-lon grid, ``rearth``, the bound of
-    csrc/latlon.cuh), in float32 as the kernel computes it."""
+                    cd, rearth=None, group=False):
+    """Pair tests K2 makes on these inputs, as csrc/extract_sorted.cu
+    makes them, in float32: ``(chunk, cosine)``.  ``chunk``: each warp's
+    32 lanes test all ``ch`` slots of every chunk of staged candidates that
+    its box test keeps (the design before the candidate skip: every such
+    test took a cosine on a lat-lon grid).  ``cosine``, on a lat-lon grid
+    (``rearth``): the tests of the candidates of kept chunks
+    for which some lane's bound (csrc/latlon.cuh, with the chunk's kx;
+    not at the lane's own coordinates; with ``group``, outside the lane's
+    conglomerate) may engage, each of
+    which takes the metric's cosine in all 32 lanes; else None.  Both are
+    None on a lat-lon grid for a package without the bound's plain mirror
+    (a parent commit under ``--ab``)."""
     from icebergs_tpu_torch.ops.extract import _SLACK
+    per_cand = rearth is not None
+    if per_cand and not hasattr(extract, "latlon_kx"):
+        return None, None
     N = PT.shape[1]
     nb = bad.numel()
+    dev = PT.device
     csl = cs.long()
-    start = csl[c_lo.long()]
-    length = torch.where(bad[:, None], 0,
-                         (csl[(c_hi + 1).long()] - start).clamp(min=0))
-    W = -(-max(int(length.max()), 1) // ch) * ch
-    k = torch.arange(W, device=PT.device)
-    slot = (start[:, :, None] + k).clamp(max=N - 1)        # (nb, ns, W)
-    key = PT[extract.PT_KEY][slot]
-    lon = PT[extract.PT_LON][slot]
-    inc = ((k < length[:, :, None]) & (key >= c_lo[:, :, None])
-           & (key <= c_hi[:, :, None])
-           & (PT[extract.PT_ALIVE][slot] > 0.5)
-           & (PT[extract.PT_FLK][slot] != -1.) & ~torch.isnan(lon))
+    start_all = csl[c_lo.long()]
+    length_all = torch.where(bad[:, None], 0, (csl[(c_hi + 1).long()]
+                                               - start_all).clamp(min=0))
+    W = -(-max(int(length_all.max()), 1) // ch) * ch
+    nw, ns, nc = block_n // 32, c_lo.shape[1], W // ch
     inf = float("inf")
-
-    def chunks(x, fill, hi):
-        x = torch.where(inc, x, fill).view(nb, -1, W // ch, ch)
-        return x.amax(3) if hi else x.amin(3)
-    lat = PT[extract.PT_LAT][slot]
-    clo_x, chi_x = chunks(lon, inf, False), chunks(lon, -inf, True)
-    clo_y, chi_y = chunks(lat, inf, False), chunks(lat, -inf, True)
-    crm = chunks(PT[extract.PT_RAD][slot].abs(), 0., True)
-    nch = (length + ch - 1) // ch
-    exists = torch.arange(W // ch, device=PT.device) < nch[:, :, None]
-    # each warp's box over its lanes that can engage
+    zero = torch.zeros((), device=dev)
+    k = torch.arange(W, device=dev)
+    cdt = torch.tensor(abs(cd), dtype=torch.float32, device=dev)
+    cds = torch.tensor(cd, dtype=torch.float32, device=dev)
     pad = nb * block_n - N
 
-    def lanes(r):
-        return torch.nn.functional.pad(PT[r], (0, pad)).view(nb, -1, 32)
-    can = ((lanes(extract.PT_ALIVE) > 0.5) & (lanes(extract.PT_FLK) != -1.)
-           & ~torch.isnan(lanes(extract.PT_LON)))
-    wx, wy, wr = lanes(extract.PT_LON), lanes(extract.PT_LAT), lanes(
-        extract.PT_RAD).abs()
-    wlo_x = torch.where(can, wx, inf).amin(2)[:, :, None, None]
-    whi_x = torch.where(can, wx, -inf).amax(2)[:, :, None, None]
-    wlo_y = torch.where(can, wy, inf).amin(2)[:, :, None, None]
-    whi_y = torch.where(can, wy, -inf).amax(2)[:, :, None, None]
-    wrm = torch.where(can, wr, 0.).amax(2)[:, :, None, None]
-    zero = torch.zeros((), device=PT.device)
-    gx = torch.maximum(torch.maximum(clo_x[:, None] - whi_x,
-                                     wlo_x - chi_x[:, None]), zero)
-    gy = torch.maximum(torch.maximum(clo_y[:, None] - whi_y,
-                                     wlo_y - chi_y[:, None]), zero)
-    cb = torch.maximum(wrm + crm[:, None], torch.tensor(
-        abs(cd), dtype=torch.float32, device=PT.device))
-    if rearth is None:
-        d2 = gx * gx + gy * gy
-    else:
-        from icebergs_tpu_torch.constants import PI_180
-        kpr = float(torch.tensor(PI_180 * rearth, dtype=torch.float32))
-        L = torch.maximum(torch.maximum(wlo_y.abs(), whi_y.abs()),
-                          torch.maximum(clo_y.abs(), chi_y.abs())[:, None])
-        c = (torch.cos(L * PI_180) * (1. - 2. ** -16)).clamp(min=0.)
-        c = torch.where(torch.isnan(c), 0., c)
-        kx = c * kpr
-        gxm = torch.where(kx > 0., gx * kx, 0.)
-        gym = gy * kpr
-        d2 = gxm * gxm + gym * gym
-    keep = ~(d2 > cb * cb * _SLACK)
-    keep &= exists[:, None] & can.any(2)[:, :, None, None]
-    return float(keep.sum()) * 32 * ch
+    def lanes_all(r):
+        return torch.nn.functional.pad(PT[r], (0, pad)).view(nb, nw, 32)
+    chunk_tests = cos_tests = 0
+    step = max(1, (1 << 24) // (nw * ns * W * (32 if per_cand else 1)))
+    for b0 in range(0, nb, step):
+        b1 = min(nb, b0 + step)
+        b = b1 - b0
+        start, length = start_all[b0:b1], length_all[b0:b1]
+        lo, hi = c_lo[b0:b1, :, None], c_hi[b0:b1, :, None]
+        slot = (start[:, :, None] + k).clamp(max=N - 1)    # (b, ns, W)
+
+        def cand(r):
+            return PT[r][slot]
+        lon = cand(extract.PT_LON)
+        inc = ((k < length[:, :, None]) & (cand(extract.PT_KEY) >= lo)
+               & (cand(extract.PT_KEY) <= hi)
+               & (cand(extract.PT_ALIVE) > 0.5)
+               & (cand(extract.PT_FLK) != -1.) & ~torch.isnan(lon))
+        lat = cand(extract.PT_LAT)
+
+        def chunks(x, fill, hi):
+            x = torch.where(inc, x, fill).view(b, ns, nc, ch)
+            return x.amax(3) if hi else x.amin(3)
+        clo_x, chi_x = chunks(lon, inf, False), chunks(lon, -inf, True)
+        clo_y, chi_y = chunks(lat, inf, False), chunks(lat, -inf, True)
+        crm = chunks(cand(extract.PT_RAD).abs(), 0., True)
+        nch = (length + ch - 1) // ch
+        exists = torch.arange(nc, device=dev) < nch[:, :, None]
+
+        # each warp's box over its lanes that can engage: (b, nw, 1, 1)
+        def lanes(r):
+            return lanes_all(r)[b0:b1]
+        wx, wy = lanes(extract.PT_LON), lanes(extract.PT_LAT)
+        can = ((lanes(extract.PT_ALIVE) > 0.5)
+               & (lanes(extract.PT_FLK) != -1.) & ~torch.isnan(wx))
+        wlo_x = torch.where(can, wx, inf).amin(2)[:, :, None, None]
+        whi_x = torch.where(can, wx, -inf).amax(2)[:, :, None, None]
+        wlo_y = torch.where(can, wy, inf).amin(2)[:, :, None, None]
+        whi_y = torch.where(can, wy, -inf).amax(2)[:, :, None, None]
+        wrm = torch.where(can, lanes(extract.PT_RAD).abs(), 0.).amax(2)[
+            :, :, None, None]
+        gx = torch.maximum(torch.maximum(clo_x[:, None] - whi_x,
+                                         wlo_x - chi_x[:, None]), zero)
+        gy = torch.maximum(torch.maximum(clo_y[:, None] - whi_y,
+                                         wlo_y - chi_y[:, None]), zero)
+        cb = torch.maximum(wrm + crm[:, None], cdt)
+        if rearth is None:
+            d2 = gx * gx + gy * gy
+        else:
+            kx = extract.latlon_kx(
+                torch.maximum(wlo_y.abs(), whi_y.abs()),
+                torch.maximum(clo_y.abs(), chi_y.abs())[:, None], rearth)
+            d2 = extract.gap2_metric(gx, gy, kx, rearth)
+        keep = ~(d2 > cb * cb * _SLACK)
+        keep &= exists[:, None] & can.any(2)[:, :, None, None]
+        chunk_tests += int(keep.sum()) * 32 * ch
+        if per_cand:
+            # (b, nw, 32 lanes, ns, nc, ch): each lane's bound against its
+            # own crit; a lane that cannot engage has lon1 = NaN
+            def c6(x):
+                return x.view(b, 1, 1, ns, nc, ch)
+
+            def l6(x):
+                return x[:, :, :, None, None, None]
+            lon1 = l6(torch.where(can, wx, float("nan")))
+            dx = lon1 - c6(torch.where(inc, lon, float("nan")))
+            dy = l6(wy) - c6(lat)
+            lb = extract.gap2_metric(dx.abs(), dy.abs(),
+                                     kx[:, :, None, :, :, None], rearth)
+            crit = torch.maximum(l6(lanes(extract.PT_RAD))
+                                 + c6(cand(extract.PT_RAD)), cds)
+            # a pair at equal coordinates (the lane's own slot) has r2 = 0
+            may = ((dx != 0.) | (dy != 0.)) & (lb <= crit * crit * _SLACK)
+            if group:
+                may &= l6(lanes(extract.PT_GRP)) != c6(cand(extract.PT_GRP))
+            cos_tests += int((keep[..., None] & may.any(2)).sum()) * 32
+            del lon1, dx, dy, lb, crit, may
+    return chunk_tests, (cos_tests if per_cand else None)
 
 
 def k1_rows(torch, pack, cases, cols_re, order1, trows, key):
@@ -1172,15 +1274,15 @@ def phase_kernels(ibp, torch, device, ab=False):
         _, rows = ss.build_rows(st_t, grid, frc, cfg,
                                 melt.deferred_cols[:ne], key_alive=st.alive)
         res.update(k3_case(torch, ss, rows, cs, tblc, cfg, ne, ab))
-    del st_t, melt, rows
-    if not ab:
-        from icebergs_tpu_torch.ops import spread as sp
-        w9, vals = sp.spread_products(st, grid, frc, cfg)
-        cols = [wk * v for wk in w9 for v in vals] + sp.cell_columns(
-            st, grid, cfg)
-        res["segment_spread_sums/assoc"] = k3_assoc_case(
-            torch, ss, cols, cs, cfg.reprod_max_per_cell)
-        del w9, vals, cols
+    del st_t, rows
+    from icebergs_tpu_torch.ops import spread as sp
+    w9, vals = sp.spread_products(st, grid, frc, cfg)
+    cols = [wk * v for wk in w9 for v in vals] + sp.cell_columns(
+        st, grid, cfg)
+    res["segment_spread_sums/assoc"] = k3_assoc_case(
+        torch, ss, cols, list(melt.deferred_cols), cs,
+        cfg.reprod_max_per_cell, ab)
+    del w9, vals, cols, melt
 
     # K5 on the sorted slab, as the persistent fused lane runs it
     from icebergs_tpu_torch.ops import interp_sorted as k6, prepass
@@ -2931,6 +3033,54 @@ def in_cells(torch, grid, Lx=360.):
     return check
 
 
+def k2_latlon_row(torch, world, ab):
+    """K2's lat-lon row (``fused3_ll``, BN 128) on 12a's world sorted by
+    cell: ``(row, sorted state, cell starts)``."""
+    from icebergs_tpu_torch.ops import extract, sorted as srt
+    from icebergs_tpu_torch.ops.fused_contact import contact_features
+    cfg, grid, frc, st0 = world
+    st, cs = srt.sort_state_by_cell(st0, grid)
+    PT, key_s = contact_features(st, grid, cfg)
+    row = k2_case(torch, extract, PT, key_s, cs, grid, cfg, ab, block_n=128,
+                  window=cfg.fused_window)[0]
+    return row, st, cs
+
+
+def k2_grouped_latlon_row(torch, dem, dcfg, radius, ab):
+    """Grouped K2 lat-lon's row (``part1_ll``) on 12c's world as MTS Part
+    1 runs it: the feature rows moved into (cell, id) order, block 256,
+    window 512."""
+    from icebergs_tpu_torch.ops import extract, sorted as srt
+    from icebergs_tpu_torch.ops.fused_contact import contact_features
+    from icebergs_tpu_torch.ops.pack import (from_bits, permute_cols_u32,
+                                             to_bits)
+    grid, frc, st = dem[:3]
+    PT0, key = contact_features(st, grid, dcfg, exclude_same_group=True)
+    order = srt.lex_cell_id_order(key, st.id_cnt, st.id_ij)
+    PT = from_bits(permute_cols_u32(to_bits(PT0), order), PT0.dtype)
+    key_s = key[order.long()]
+    cs = srt.starts_from_sorted_key(key_s, grid.nx * grid.ny)
+    return k2_case(torch, extract, PT, key_s, cs, grid, dcfg, ab,
+                   block_n=256, window=512, radius=radius,
+                   exclude_same_group=True)[0]
+
+
+def ab_latlon_rows(ibp, torch, device):
+    """``--ab``'s phase-12 cases: K2 lat-lon on 12a's slab and grouped K2
+    lat-lon on 12c's, as phase 12 builds them."""
+    from icebergs_tpu_torch.ops.forces import neighbor_radius
+    world = ll_world(ibp, torch, N_HEAD, LL_NX, LL_NY, device)
+    rows = {"extract_sorted/latlon": k2_latlon_row(torch, world, True)[0]}
+    del world
+    dcfg = dem_config(ibp, **LL_CFG)
+    dem = dem_world(ibp, torch, dcfg, DEM_UNITS, NX_DEM, device, latlon=True)
+    rows["extract_sorted/grouped_latlon"] = k2_grouped_latlon_row(
+        torch, dem, dcfg, neighbor_radius(dem[0], dcfg), True)
+    del dem
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase12(ibp, torch, device, kernels, by_path, kres, profile_out=None):
     """Phase 12, ROADMAP item 11: 12a the persistent fused3 lane (K1, K2
     lat-lon, K3) and the persistent ``fused`` lane with K6 (K5 lat-lon)
@@ -2941,9 +3091,7 @@ def phase12(ibp, torch, device, kernels, by_path, kres, profile_out=None):
     one outer step of the scan against K4; the kernel rows of K2's, K5's
     and K4's lat-lon forms; 12d card against CPU on small worlds of each.
     Each path's launches go to ``by_path``."""
-    from icebergs_tpu_torch.ops import dem_substeps as k4, extract, prepass
-    from icebergs_tpu_torch.ops import sorted as srt
-    from icebergs_tpu_torch.ops.fused_contact import contact_features
+    from icebergs_tpu_torch.ops import dem_substeps as k4, prepass
     from icebergs_tpu_torch.ops.prepass import prepass_features
 
     def fmt(x):
@@ -3004,12 +3152,8 @@ def phase12(ibp, torch, device, kernels, by_path, kres, profile_out=None):
     # rows on its sorted slab
     world = ll_world(ibp, torch, N_HEAD, LL_NX, LL_NY, device)
     cfg, grid, frc, st0 = world
-    st, cs = srt.sort_state_by_cell(st0, grid)
-    PT, key_s = contact_features(st, grid, cfg)
-    kres["extract_sorted/latlon"] = k2_case(
-        torch, extract, PT, key_s, cs, grid, cfg, False, block_n=128,
-        window=cfg.fused_window)[0]
-    del PT, key_s
+    kres["extract_sorted/latlon"], st, cs = k2_latlon_row(torch, world,
+                                                          False)
     P, key_p = prepass_features(st, grid, cfg)
     kres["contact_prepass_sorted/latlon"] = k5_case(
         torch, prepass, P, key_p, cs, grid, cfg, False)
@@ -3074,17 +3218,8 @@ def phase12(ibp, torch, device, kernels, by_path, kres, profile_out=None):
           f"{float(st.lon[st.alive].max()):.3f}, built in "
           f"{time.perf_counter() - t0:.1f} s")
     # grouped K2 lat-lon as Part 1 runs it, and K4's lat-lon form
-    PT0, key = contact_features(st, grid, dcfg, exclude_same_group=True)
-    order = srt.lex_cell_id_order(key, st.id_cnt, st.id_ij)
-    from icebergs_tpu_torch.ops.pack import (from_bits, permute_cols_u32,
-                                             to_bits)
-    PT = from_bits(permute_cols_u32(to_bits(PT0), order), PT0.dtype)
-    key_s = key[order.long()]
-    cs = srt.starts_from_sorted_key(key_s, grid.nx * grid.ny)
-    kres["extract_sorted/grouped_latlon"] = k2_case(
-        torch, extract, PT, key_s, cs, grid, dcfg, False, block_n=256,
-        window=512, radius=radius, exclude_same_group=True)[0]
-    del PT0, PT, key, key_s, order, cs
+    kres["extract_sorted/grouped_latlon"] = k2_grouped_latlon_row(
+        torch, dem, dcfg, radius, False)
     s4 = k4_state(torch, st, device, latlon=True)
     out4, nb4, err, worst, ms = k4_run(torch, k4, s4, dcfg, deltas)
     require(k4.instantiation(dcfg, s4.max_bonds) == "generic",
@@ -3861,7 +3996,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-out", default=None,
                     help="directory for a profiler table and trace")
     ap.add_argument("--ab", metavar="ROOT", default=None,
-                    help="run only phase 3's K1, K2, K3, K5 and K7 cases, "
+                    help="run only phase 3's K1, K2, K3, K5 and K7 cases "
+                    "and phase 12's K2 lat-lon cases, "
                     "with the package of the checkout at ROOT (a copy of "
                     "another commit inside this one, or this one): the "
                     "parent / change comparison")
@@ -3911,6 +4047,10 @@ def main(argv=None) -> int:
           f"deltas {dem[3]}, built in {time.perf_counter() - t_dem:.1f} s")
     dres, dk1 = phase_kernels_dem(ibp, torch, device, dcfg, dem, ab)
     kres.update(dres)
+    if ab:
+        del dem
+        torch.cuda.empty_cache()
+        kres.update(ab_latlon_rows(ibp, torch, device))
     for c in k1 + dk1:
         print(f"[3 k1] {json.dumps(c)}")
     def fmt(x):
@@ -4071,7 +4211,7 @@ def main(argv=None) -> int:
               "extract_sorted/epilogue": (
                   "extract_sorted.cu", "icebergs_tpu/ops/pallas_prepass.py:625"),
               "segment_spread_sums/assoc": (
-                  "segment_spread.cu", "icebergs_tpu/ops/pallas_spread.py:136"),
+                  "segment_sums.cu", "icebergs_tpu/ops/pallas_spread.py:136"),
               "segment_spread_sums": ("segment_spread.cu",
                                       "icebergs_tpu/ops/pallas_spread.py:136"),
               "segment_spread_sums/extra14": (

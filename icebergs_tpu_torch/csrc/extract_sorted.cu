@@ -77,9 +77,20 @@
 // - On a lat-lon grid (LL) the distance test measures the pair in metres
 //   through the metric factors at its mean latitude (csrc/latlon.cuh), one
 //   cosf per tested pair, and the chunk skip bounds the x gap by the
-//   cosine at the largest |latitude| of the two boxes (gap2_lower there).
-//   Every instantiation exists with LL false, which is the Cartesian code
-//   unchanged, and with LL true.
+//   cosine at the largest |latitude| of the two boxes (latlon.cuh).
+//   The cosine is the test's cost (bitwise equality with torch.cos rules
+//   out __cosf), so each candidate of a kept chunk first takes a test
+//   with no cosine: every lane bounds its pair's r2 from its own gaps
+//   (|lon1 - lon2| scaled by the chunk's factor, |ry| itself) against its
+//   own crit (and, with GROUP, drops its own conglomerate), and the warp
+//   skips the candidate unless some lane may engage (one vote).  The
+//   chunk skip's argument covers the bound (the two points lie in the two
+//   boxes), so it drops only pairs that the full test rejects.  The chunk
+//   skip's own factor takes the smaller of two cosines, one per warp and
+//   one per staged chunk (box_cos, metric_kx), not one per warp and chunk
+//   (12c's grouped search meets ~250 chunks a block, most of them
+//   skipped).  Every instantiation exists with LL false, which is the
+//   Cartesian code unchanged, and with LL true.
 //
 // Blocks that the wrapper flags bad (span or window overflow, computed as
 // the TPU wrapper does so that the fallback set stays the same) are
@@ -116,9 +127,11 @@ __host__ __device__ constexpr int cap_chunks(int bn, int ch) {
                                                 : MAX_CAND) / ch;
 }
 
-size_t smem_bytes(int bn, int ch) {
+// ll: the lat-lon forms, which keep each chunk's cosine
+size_t smem_bytes(int bn, int ch, bool ll) {
   const size_t cap = (size_t)cap_chunks(bn, ch);
-  return cap * ch * sizeof(float4) + cap * (sizeof(float4) + sizeof(float));
+  return cap * ch * sizeof(float4) +
+         cap * (sizeof(float4) + (ll ? 2 : 1) * sizeof(float));
 }
 
 // min / max over lanes w*W .. w*W + W - 1 (W = 32: the warp; W = 16: each
@@ -186,6 +199,7 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
   float4* s_cand = sm4;                        // [cap * CH]
   float4* s_box = sm4 + cap * CH;              // [cap] lon min/max, lat min/max
   float* s_rmax = (float*)(s_box + cap);       // [cap] largest |rad|
+  float* s_ccos = s_rmax + cap;                // [cap] (LL) box_cos
   __shared__ int s_start[MAX_STRIPS], s_len[MAX_STRIPS];
   __shared__ int s_choff[MAX_STRIPS + 1];
   __shared__ float s_clo[MAX_STRIPS], s_chi[MAX_STRIPS];
@@ -239,6 +253,7 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
     const float wlo_y = group_min<32>(can ? lat1 : INFINITY);
     const float whi_y = group_max<32>(can ? lat1 : -INFINITY);
     const float wr = group_max<32>(can ? fabsf(R1) : 0.f);
+    const float cos_w = LL ? box_cos(wlo_y, whi_y, pi180) : 0.f;
     const bool warp_can = __any_sync(FULL, can);
     const float acd = fabsf(cd);
     __syncthreads();
@@ -276,9 +291,11 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
         const float lo_y = group_min<CH>(in ? c.y : INFINITY);
         const float hi_y = group_max<CH>(in ? c.y : -INFINITY);
         const float rm = group_max<CH>(in ? fabsf(c.z) : 0.f);
+        const float cc = LL ? box_cos(lo_y, hi_y, pi180) : 0.f;
         if (lane % CH == 0 && q < m) {
           s_box[q] = make_float4(lo_x, hi_x, lo_y, hi_y);
           s_rmax[q] = rm;
+          if (LL) s_ccos[q] = cc;
         }
       }
       __syncthreads();
@@ -288,8 +305,11 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
           const float gx = fmaxf(fmaxf(bx.x - whi_x, wlo_x - bx.y), 0.f);
           const float gy = fmaxf(fmaxf(bx.z - whi_y, wlo_y - bx.w), 0.f);
           const float cb = fmaxf(wr + s_rmax[q], acd);
-          const float d2 = gap2_lower<LL>(gx, gy, wlo_y, whi_y, bx.z, bx.w,
-                                          kpr, pi180);
+          // the metric's x factor bound for every pair of the warp and
+          // the chunk (lat-lon only)
+          const float kx = LL ? metric_kx(cos_w, s_ccos[q], kpr) : 0.f;
+          const float d2 = LL ? gap2_metric(gx, gy, kx, kpr)
+                              : gx * gx + gy * gy;
           if (d2 > cb * cb * slack) continue;        // warp-uniform
           const int ch = ch0 + q;
           int s = 0;
@@ -299,6 +319,23 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
 #pragma unroll 8
           for (int k = 0; k < CH; ++k) {
             const float4 c = cq[k];
+            if (LL) {
+              // the lane's bound of its r2 with the chunk's kx and no
+              // cosine (csrc/latlon.cuh); the warp skips the cosine when
+              // no lane may engage.  A NaN bound compares false: it comes
+              // only from a NaN or opposite infinite coordinates, whose
+              // r2 is NaN too, or a NaN crit, which fails the full test.
+              // A pair at equal coordinates (the lane's own slot) has dx =
+              // dy = 0, so rx = ry = 0 and r2 = 0 fails r2 > 0
+              const float dx = lon1 - c.x, dy = lat1 - c.y;
+              const float gxm = kx > 0.f ? fabsf(dx) * kx : 0.f;
+              const float gym = dy * kpr;
+              const float critl = fmaxf(R1 + c.z, cd);
+              bool may = (dx != 0.f || dy != 0.f) &&
+                         gxm * gxm + gym * gym <= critl * critl * slack;
+              if (GROUP) may = may && c.w != g1;
+              if (!__any_sync(FULL, may)) continue;        // warp-uniform
+            }
             float rx, ry;
             pair_sep<LL>(lon1, lat1, c.x, c.y, kpr, pi180, rx, ry);
             const float r2 = rx * rx + ry * ry;
@@ -435,7 +472,8 @@ extern "C" int ib_extract_sorted(const void* PT, int n, const void* cell_starts,
   if (block_n % 32 || block_n < 32 || block_n > 1024 || nstrips < 1 ||
       nstrips > MAX_STRIPS || v < 0)
     return (int)cudaErrorInvalidValue;
-  kernel_of(v)<<<nblocks, block_n, smem_bytes(block_n, CH_OF[v % NV]),
+  kernel_of(v)<<<nblocks, block_n,
+                 smem_bytes(block_n, CH_OF[v % NV], v >= NV),
                  (cudaStream_t)stream>>>(
       (const float*)PT, n, (const int32_t*)cell_starts, (const int32_t*)c_lo,
       (const int32_t*)c_hi, (const uint8_t*)bad, (float*)out, nstrips, cd,
@@ -452,7 +490,7 @@ extern "C" int ib_extract_config(int block_n, int nstrips, int group,
   if (block_n % 32 || block_n < 32 || block_n > 1024 || nstrips < 1 ||
       nstrips > MAX_STRIPS || *variant < 0)
     return (int)cudaErrorInvalidValue;
-  *smem = (int)smem_bytes(block_n, CH_OF[*variant % NV]);
+  *smem = (int)smem_bytes(block_n, CH_OF[*variant % NV], *variant >= NV);
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       ctas_per_sm, kernel_of(*variant), block_n, (size_t)*smem);
 }

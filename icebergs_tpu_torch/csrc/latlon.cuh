@@ -61,3 +61,33 @@ __device__ __forceinline__ float gap2_lower(float gx, float gy, float lat_a,
   const float gym = gy * kpr;
   return gxm * gxm + gym * gym;
 }
+
+// K2's form of the same bound, with fewer cosines.  The rounded products
+// pi180 * L keep the order of the |latitudes|, so the cosf at the larger
+// of the warp's and the chunk's largest |latitude| is one of the two boxes'
+// own cosf (box_cos), and their minimum is at most the cosf that
+// gap2_lower takes: metric_kx below is at most every pair's dx_dlon by the
+// argument above.  K2 takes one cosf per warp and one per staged chunk,
+// not one per warp and chunk.  An empty box (L = inf) has a NaN cosine:
+// fminf takes the other, and the empty chunk's gy = inf skips it anyway.
+__device__ __forceinline__ float box_cos(float lat_lo, float lat_hi,
+                                        float pi180) {
+  return cosf(pi180 * fmaxf(fabsf(lat_lo), fabsf(lat_hi)));
+}
+
+__device__ __forceinline__ float metric_kx(float cos_w, float cos_c,
+                                          float kpr) {
+  return kpr * fmaxf(fminf(cos_w, cos_c) * (1.f - 1.f / 65536.f), 0.f);
+}
+
+// the bound from the gaps gx (degrees of longitude) and gy with kx from
+// metric_kx.  It holds for any sub-box of the two boxes, down to one
+// pair's two points (gaps |lon1 - lon2| and |lat1 - lat2|, where gy * kpr
+// is |ry| itself), so K2 bounds each lane's pair with a candidate of a
+// kept chunk with the chunk's kx and no cosine of its own.
+__device__ __forceinline__ float gap2_metric(float gx, float gy, float kx,
+                                            float kpr) {
+  const float gxm = kx > 0.f ? gx * kx : 0.f;
+  const float gym = gy * kpr;
+  return gxm * gxm + gym * gym;
+}

@@ -48,11 +48,8 @@
 // - n_extra = 3 (the persistent lanes) and 14 (the per-step and DEM
 //   paths) are compile-time instantiations; other widths take a generic
 //   one.
-// - A pass-through instantiation (PASS) sums up to 16 given columns per
-//   cell in an association the caller fixes (ib_segment_sums_assoc):
-//   the reproducing spreading of the other slot-sum methods forms its
-//   products in PyTorch as the JAX package forms them and sums them here,
-//   in the slot tree or sequentially (its block sums), with no atomics.
+// - The other slot-sum methods' sums of given columns (K3's
+//   pass-through) are a kernel of their own, csrc/segment_sums.cu.
 //
 // It runs at ~3x its bound at the headline (PERF.md).  No profiler says
 // why on that machine; the likely cause is latency: each CTA waits on two
@@ -103,18 +100,13 @@ __host__ __device__ constexpr int log2_ceil(int k) {
   return l;
 }
 
-// staged floats per row: the pass-through entry stages its columns alone
-__host__ __device__ constexpr int stage_width(int ne, bool pass) {
-  return pass ? (ne | 1) : stage_width(ne);
-}
-
 // shared floats: sequential rounds stage NT rows; tree rounds keep the
 // pending slot sums (log2_ceil(K) levels of CB * OUT) and stage the rest
-size_t region_floats(int ne, int K, bool pass = false) {
-  const int out = pass ? ne : NFIXOUT + ne;
-  const size_t seq = (size_t)NT * stage_width(ne, pass);
+size_t region_floats(int ne, int K) {
+  const int out = NFIXOUT + ne;
+  const size_t seq = (size_t)NT * stage_width(ne);
   const size_t tree = (size_t)log2_ceil(K) * CB * out +
-                      (size_t)TREE_MIN_ROWS * stage_width(ne, pass);
+                      (size_t)TREE_MIN_ROWS * stage_width(ne);
   return seq > tree ? seq : tree;
 }
 
@@ -166,21 +158,18 @@ __device__ __forceinline__ void tree_push(float* pend, int stride, int p,
   }
 }
 
-// NE_T: n_extra, or -1 for the run-time value; PASS: the pass-through
-// entry, which sums the n_extra columns alone (no spreading products,
-// no cell columns, no table)
-template <int NE_T, bool PASS = false>
+// NE_T: n_extra, or -1 for the run-time value
+template <int NE_T>
 __global__ void __launch_bounds__(NT, MIN_CTAS)
 segment_spread_kernel(RowTable rows, const int32_t* __restrict__ cs,
                       const float* __restrict__ tbl, int ncells,
                       float* __restrict__ S, const int32_t* __restrict__ nbad,
                       int ne_rt, int K, int region, int use_old_spreading) {
   const int ne = NE_T >= 0 ? NE_T : ne_rt;
-  const int out = PASS ? ne : NFIXOUT + ne;
-  const int stg_w = stage_width(ne, PASS);
+  const int out = NFIXOUT + ne;
+  const int stg_w = stage_width(ne);
   constexpr int NPT =
-      (CB * ((PASS ? 0 : NFIXOUT) + (NE_T >= 0 ? NE_T : MAX_EXTRA)) + NT -
-       1) / NT;
+      (CB * (NFIXOUT + (NE_T >= 0 ? NE_T : MAX_EXTRA)) + NT - 1) / NT;
   extern __shared__ float sm[];
   __shared__ int s_cs[CB + 1];
   __shared__ float s_tbl[T_USED][CB];
@@ -190,7 +179,7 @@ segment_spread_kernel(RowTable rows, const int32_t* __restrict__ cs,
   const int ncb = min(CB, ncells - c0);
   const int npairs = ncb * out;
   if (t <= ncb) s_cs[t] = cs[c0 + t];
-  for (int e = t; !PASS && e < T_USED * CB; e += NT) {
+  for (int e = t; e < T_USED * CB; e += NT) {
     const int k = e / CB, c = e % CB;
     s_tbl[k][c] = c < ncb ? tbl[(long long)k * ncells + c0 + c] : 0.f;
   }
@@ -209,10 +198,7 @@ segment_spread_kernel(RowTable rows, const int32_t* __restrict__ cs,
 
   for (int base = r0; base < r1; base += chunk) {
     const int m = min(chunk, r1 - base);
-    if (PASS && t < m) {
-      float* s = stg + t * stg_w;
-      for (int e = 0; e < ne; ++e) s[e] = rows.p[P_NFIX + e][base + t];
-    } else if (t < m) {
+    if (t < m) {
       const int r = base + t;
       // the cell of row r: the last c with s_cs[c] <= r
       int lo = 0, hi = ncb - 1;
@@ -296,13 +282,13 @@ segment_spread_kernel(RowTable rows, const int32_t* __restrict__ cs,
         if (!tree) {
           for (int r = ra; r < rb; ++r) {
             const float* sr = stg + (r - base) * stg_w;
-            a = a + (PASS ? sr[col] : summand(sr, col));
+            a = a + summand(sr, col);
           }
         } else {
           for (int r = ra; r < rb; ++r) {
             const int k = r - cbeg;
             const float* sr = stg + (r - base) * stg_w;
-            const float v = PASS ? sr[col] : summand(sr, col);
+            const float v = summand(sr, col);
             if (k < K - 1) tree_push(pend, pstride, p, k, 0.f + v, levels);
             else a = k == K - 1 ? 0.f + v : a + v;
           }
@@ -396,30 +382,6 @@ extern "C" int ib_segment_spread_sums(const void* const* rows,
                                             (cudaStream_t)stream>>>(
       tab, (const int32_t*)cell_starts, (const float*)tbl, ncells, (float*)S,
       (const int32_t*)nbad, n_extra, K, region, use_old_spreading);
-  return (int)cudaGetLastError();
-}
-
-// The sums of n_extra columns alone (S: (ncells, n_extra)) in a fixed
-// association, by the PASS instantiation: rows[12 ..] are the columns
-// (the fixed payload rows are not read), no window flags are computed,
-// tbl is not read, and the kernel reads the association from tree_flag
-// (one int32 on the device: nonzero the slot tree, 0 sequential).
-extern "C" int ib_segment_sums_assoc(const void* const* rows,
-                                     const void* cell_starts, const void* tbl,
-                                     void* S, const void* tree_flag,
-                                     int ncells, int n_extra, int K,
-                                     void* stream) {
-  if (!valid_args(n_extra, K)) return (int)cudaErrorInvalidValue;
-  if (ncells == 0) return (int)cudaGetLastError();
-  RowTable tab;
-  for (int k = 0; k < P_NFIX + MAX_EXTRA; ++k)
-    tab.p[k] = k < P_NFIX + n_extra ? (const float*)rows[k] : nullptr;
-  const int region = (int)region_floats(n_extra, K, true);
-  segment_spread_kernel<-1, true><<<(ncells + CB - 1) / CB, NT,
-                                    region * sizeof(float),
-                                    (cudaStream_t)stream>>>(
-      tab, (const int32_t*)cell_starts, (const float*)tbl, ncells, (float*)S,
-      (const int32_t*)tree_flag, n_extra, K, region, 0);
   return (int)cudaGetLastError();
 }
 

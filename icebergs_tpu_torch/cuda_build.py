@@ -43,7 +43,7 @@ _SIGNATURES = {
     "ib_extract_config": (_I, _I, _I, _I, _I, _I, _P, _P, _P),
     "ib_segment_spread_sums": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _P),
-    "ib_segment_sums_assoc": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "ib_segment_sums": (_P, _P, _L, _P, _P, _I, _I, _I, _I, _P),
     "ib_spread_config": (_I, _I, _I, _P, _P, _P),
     "ib_max_spread_extra": (),
     "ib_max_spread_slots": (),

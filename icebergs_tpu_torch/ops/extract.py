@@ -224,6 +224,32 @@ def metric_scalars(rearth):
     return C.PI_180 * rearth, C.PI_180
 
 
+def latlon_kx(L_w, L_c, rearth: float):
+    """``metric_kx(box_cos(..), box_cos(..))`` of ``csrc/latlon.cuh`` on
+    float32 tensors, from the largest |latitude| of the warp's box
+    (``L_w``) and of the chunk's (``L_c``): a lower bound of the metric's
+    x factor ``kpr * cos(pi180 * lat_ref)`` over every pair whose mean
+    latitude has ``|lat_ref| <= max(L_w, L_c)``.  ``torch.fmin`` and
+    ``torch.fmax`` skip a NaN as ``fminf`` and ``fmaxf`` do."""
+    kpr, pi180 = (torch.tensor(v, dtype=torch.float32, device=L_w.device)
+                  for v in metric_scalars(rearth))
+    c = torch.fmin(torch.cos(pi180 * L_w), torch.cos(pi180 * L_c))
+    return kpr * torch.fmax(c * (1. - 2. ** -16), torch.zeros_like(c))
+
+
+def gap2_metric(gx, gy, kx, rearth: float):
+    """``gap2_metric`` of ``csrc/latlon.cuh`` on float32 tensors: the
+    lower bound of r2 over the pairs whose longitude and latitude gaps are
+    at least ``gx`` and ``gy``, with ``kx`` from :func:`latlon_kx`.  K2's
+    chunk skip and its per-candidate skip drop a pair only where this
+    exceeds ``cb * cb * slack``."""
+    kpr = torch.tensor(metric_scalars(rearth)[0], dtype=torch.float32,
+                       device=gx.device)
+    gxm = torch.where(kx > 0., gx * kx, 0.)
+    gym = gy * kpr
+    return gxm * gxm + gym * gym
+
+
 def _generic(variant) -> int:
     if variant not in (None, "generic"):
         raise ValueError(f"variant={variant!r}: need None or 'generic'")

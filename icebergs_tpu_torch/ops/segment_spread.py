@@ -22,9 +22,10 @@ by association.  Both versions here take the same switch: the CUDA kernel
 computes the window flags and their count on the device and reads the
 count there (no host sync); the plain version reads it on the host.
 
-:func:`segment_sums` is K3's pass-through entry: the per-cell sums of
-given columns in an association the caller fixes, for the other slot-sum
-methods of :mod:`.spread`.
+:func:`segment_sums` is K3's pass-through: the per-cell sums of given
+columns in an association the caller fixes, for the other slot-sum
+methods of :mod:`.spread`, by a kernel of its own
+(``csrc/segment_sums.cu``).
 """
 
 from __future__ import annotations
@@ -193,44 +194,62 @@ def _sums_plain(P, cell_starts, K: int, tree: bool):
     return slot_tree(torch.stack(slots + [tail], dim=-1)).T.contiguous()
 
 
+# columns a call may pass as a sequence (csrc/segment_sums.cu MAX_TABLE)
+MAX_TABLE_COLS = 128
+
+
 def segment_sums(cols, cell_starts, K: int, tree: bool):
     """Per-cell sums of cell-sorted columns in a chosen association: K3's
-    pass-through instantiation, ``tree`` the slot tree over K slots, else
-    sequential in row order.  ``cols``: (N,) float32 columns in sorted
-    order; ``cell_starts``: (ncells + 1,) int32.  Returns (ncells,
-    len(cols)).
+    pass-through, ``tree`` the slot tree over K slots, else sequential in
+    row order.  ``cols``: F (N,) float32 columns in sorted order, as a
+    sequence or the rows of an (F, N) matrix; ``cell_starts``: (ncells +
+    1,) int32.  Returns (ncells, F).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches K3 once
-    per 16 columns (counted in ``segment_sums.launches``), the
-    association fixed by a device flag (no host sync)."""
-    cols = list(cols)
+    A CPU tensor takes the plain version; a CUDA tensor launches
+    ``csrc/segment_sums.cu`` once a call for any F (counted in
+    ``segment_sums.launches``), the association a kernel argument.  The
+    kernel reads the columns where they lie: an (F, N) matrix by its base
+    and row stride, a sequence by address (at most ``MAX_TABLE_COLS``
+    columns); each column's own stride must be 1."""
+    if not torch.is_tensor(cols):
+        cols = list(cols)
     dev = cols[0].device
     ncells = cell_starts.shape[0] - 1
     if dev.type == "cpu":
-        return _sums_plain(torch.stack(cols), cell_starts, K, tree)
+        M = cols if torch.is_tensor(cols) else torch.stack(cols)
+        return _sums_plain(M, cell_starts, K, tree)
     if dev.type != "cuda":
         raise NotImplementedError(f"no K3 kernel for {dev}")
+    F, N = len(cols), cols[0].shape[0]
+    if any(c.dtype != torch.float32 or c.dim() != 1 or c.shape[0] != N
+           or c.device != dev for c in cols) or cell_starts.device != dev:
+        raise ValueError("cols: need (N,) float32 columns on "
+                         "cell_starts' device")
     lib = cuda_build.library()
     if not 1 <= K <= lib.ib_max_spread_slots():
         raise ValueError(f"K={K}: the K3 kernel takes 1 .. "
                          f"{lib.ib_max_spread_slots()} slots")
+    if (cols.stride(1) != 1 if torch.is_tensor(cols)
+            else any(c.stride() != (1,) for c in cols)):
+        raise ValueError("cols: each column needs stride 1")
+    if not torch.is_tensor(cols) and F > MAX_TABLE_COLS:
+        raise ValueError(f"cols: {F} separate columns, the kernel's "
+                         f"address table takes {MAX_TABLE_COLS}; pass an "
+                         "(F, N) matrix")
     cs = cell_starts.to(torch.int32).contiguous()
-    flag = torch.full((), int(tree), dtype=torch.int32, device=dev)
-    out = []
-    step = lib.ib_max_spread_extra()
-    for c0 in range(0, len(cols), step):
-        part = [c.contiguous() for c in cols[c0:c0 + step]]
-        S = torch.empty(ncells, len(part), dtype=torch.float32, device=dev)
-        # the payload's fixed rows and the cell table are not read
-        ptrs = array.array("Q", [0] * (R_NFIX - 1)
-                           + [r.data_ptr() for r in part])
-        cuda_build.check(lib.ib_segment_sums_assoc(
-            ptrs.buffer_info()[0], cs.data_ptr(), None, S.data_ptr(),
-            flag.data_ptr(), ncells, len(part), K,
-            cuda_build.stream_ptr(dev)), "segment_sums")
-        segment_sums.launches += 1
-        out.append(S)
-    return torch.cat(out, dim=1)
+    S = torch.empty(ncells, F, dtype=torch.float32, device=dev)
+    if torch.is_tensor(cols):
+        ptrs, base, stride = None, cols.data_ptr(), cols.stride(0)
+    else:
+        # the address table rides along so that it lives through the call
+        ptrs = array.array("Q", [c.data_ptr() for c in cols])
+        base, stride = None, 0
+    cuda_build.check(lib.ib_segment_sums(
+        ptrs.buffer_info()[0] if ptrs else None, base, stride,
+        cs.data_ptr(), S.data_ptr(), ncells, F, K, int(tree),
+        cuda_build.stream_ptr(dev)), "segment_sums")
+    segment_sums.launches += 1
+    return S
 
 
 _VARIANTS = ("extra3", "extra14", "generic")

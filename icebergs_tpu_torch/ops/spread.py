@@ -224,7 +224,7 @@ def _slot_sums(cols, sort_ctx, ncells: int, K: int, method: str,
             mm_rows = (torch.stack(to_sorted(list(w9))),
                        torch.stack(to_sorted(list(vals))))
         T, bkey = _block_trees(cols_s, key_s, rank, ncells, K, mm_rows)
-        return ss.segment_sums(list(T), starts_from_sorted_key(bkey, ncells),
+        return ss.segment_sums(T, starts_from_sorted_key(bkey, ncells),
                                K, tree=False)
     if method == "scatter_t" and order is not None:
         # slot K-1 adds its rows in the slab's own order: rows of rank

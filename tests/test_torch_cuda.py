@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import icebergs_tpu_torch as ibp
+from icebergs_tpu_torch.grid import pair_separation
 from icebergs_tpu_torch.ops import dem_substeps as k4
 from icebergs_tpu_torch.ops import extract, forces, pack, prepass
 from icebergs_tpu_torch.ops import interp_sorted as k6
@@ -315,22 +316,88 @@ def test_epilogue_runs_with_gathered_extraction_only(dev, impl):
     assert bool(torch.isfinite(ia.IA_x).all())
 
 
-@pytest.mark.parametrize("ncols,K", [(43, 16), (16, 5), (7, 1)])
+def _pass_columns(n, ncols, seed):
+    """(ncols, n) float32 columns for K3's pass-through: normal values,
+    with -0.0 in every third column's every seventh row and, in every
+    fourth column, each odd row the negation of the row before (sums that
+    cancel exactly within a cell)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    M = torch.randn(ncols, n, generator=g)
+    M[::3, ::7] = -0.0
+    M[1::4, 1::2] = -M[1::4, 0:n - 1:2][:, :M[1::4, 1::2].shape[1]]
+    return M
+
+
+@pytest.mark.parametrize("ncols,K", [(43, 16), (16, 5), (7, 1), (57, 16),
+                                     (100, 32), (43, 32)])
 @pytest.mark.parametrize("tree", [True, False])
 def test_segment_sums_assoc_kernel_matches_plain(dev, ncols, K, tree):
-    """K3's pass-through entry (``segment_sums``, the slot-sum
-    spreading's per-cell sums) bitwise against its plain version in the
-    slot tree and sequentially, on a world with a 700-berg cell and dead
-    rows, one launch per 16 columns."""
+    """K3's pass-through (``segment_sums``, the slot-sum spreading's
+    per-cell sums) bitwise against its plain version in the slot tree and
+    sequentially, on a world with a 700-berg cell and dead rows, with
+    -0.0 and exactly cancelling values, one launch a call."""
     cfg, grid, frc, st, cs = _world(dev, cluster=700)
-    g = torch.Generator(device="cpu").manual_seed(ncols)
-    cols = [torch.randn(st.capacity, generator=g).to(dev)
-            for _ in range(ncols)]
+    M = _pass_columns(st.capacity, ncols, ncols)
+    cols = [c.to(dev) for c in M]
     before = ss.segment_sums.launches
     S = ss.segment_sums(cols, cs, K, tree)
-    assert ss.segment_sums.launches == before + -(-ncols // 16)
-    assert torch.equal(S, ss._sums_plain(torch.stack(cols), cs, K, tree))
+    assert ss.segment_sums.launches == before + 1
+    Sp = ss._sums_plain(torch.stack(cols), cs, K, tree)
+    assert torch.equal(S, Sp)
+    # -0.0 sums come out +0.0 on both sides
+    assert torch.equal(S.view(torch.int32), Sp.view(torch.int32))
     assert int((cs[1:] - cs[:-1]).max()) >= 700
+    assert int(cs[-1]) < st.capacity
+
+
+@pytest.mark.parametrize("form", ["matrix", "matrix_view", "rows",
+                                  "full_table"])
+@pytest.mark.parametrize("tree", [True, False])
+def test_segment_sums_column_forms(dev, form, tree):
+    """K3's pass-through on the column forms its callers hand it, bitwise
+    to the plain version in one launch: an (F, N) matrix (the
+    ``"gather"`` methods' block sums, read by base and row stride), a view
+    of a wider matrix (a row stride past N), the matrix's rows as a list
+    (read by address), and as many separate columns as the kernel's
+    address table holds."""
+    cfg, grid, frc, st, cs = _world(dev, cluster=700)
+    N = st.capacity
+    ncols = ss.MAX_TABLE_COLS if form == "full_table" else 23
+    M = _pass_columns(N + 5, ncols, 7).to(dev)
+    if form == "matrix_view":
+        cols = M[:, 3:N + 3]
+    elif form == "full_table":
+        cols = [c[:N].clone() for c in M]
+    else:
+        M = M[:, :N].contiguous()
+        cols = M if form == "matrix" else list(M)
+    before = ss.segment_sums.launches
+    S = ss.segment_sums(cols, cs, 16, tree)
+    assert ss.segment_sums.launches == before + 1
+    ref = torch.stack(list(cols))
+    assert torch.equal(S, ss._sums_plain(ref, cs, 16, tree))
+
+
+@pytest.mark.parametrize("form", ["strided_column", "strided_matrix",
+                                  "over_table"])
+def test_segment_sums_refuses_forms_it_cannot_read(dev, form):
+    """K3's pass-through raises, and launches nothing, on columns it does
+    not read in place: a column of stride 2, a matrix whose columns are
+    strided, and more separate columns than its address table holds."""
+    cfg, grid, frc, st, cs = _world(dev)
+    N = st.capacity
+    if form == "over_table":
+        cols = [c.clone() for c in _pass_columns(
+            N, ss.MAX_TABLE_COLS + 1, 7).to(dev)]
+    elif form == "strided_column":
+        M = _pass_columns(2 * N, 3, 3).to(dev)
+        cols = [M[0, ::2], M[1, :N], M[2, :N]]
+    else:
+        cols = _pass_columns(N, 3, 3).to(dev).T.contiguous().T
+    before = ss.segment_sums.launches
+    with pytest.raises(ValueError):
+        ss.segment_sums(cols, cs, 16, True)
+    assert ss.segment_sums.launches == before
 
 
 def test_segment_spread_kernel_matches_plain(dev):
@@ -1189,8 +1256,76 @@ def _ll_world(dev, n, lat0, nx=40, seed=0):
     return cfg, grid, st, cs
 
 
+def _ll_edge_world(dev, lat0, npairs=400, nx=60, ny=4):
+    """Pairs of bergs ~22 m apart across the boundary between grid rows 1
+    and 2 of a lat-lon grid of 0.01-degree rows from ``lat0`` (cells
+    ~1 km wide at every latitude: 0.02 degrees at 60 degrees, wider
+    towards the poles), straight north-south or on a diagonal, 0.095 of a
+    cell apart in longitude from cell 10 (so that a block of up to 256
+    sorted bergs spans fewer than nx - 5 cells), each berg in a
+    conglomerate of its own.
+    Sorted.  Returns (cfg, grid, st, cs); :func:`_edge_radii` then sets
+    the radii that put each pair at its threshold."""
+    cfg = ibp.IcebergsConfig(
+        grid_is_latlon=True, Lx=360., use_f_plane=False, dt=600.0,
+        Runge_not_Verlet=False, interactive_icebergs_on=True)
+    lat_b = lat0 + 2 * 0.01
+    coslat = np.cos(np.radians(lat_b))
+    dlon_cell = 0.02 * np.cos(np.radians(60.)) / coslat
+    grid = ibp.make_uniform_grid(nx, ny, 30., lat0, dlon_cell, 0.01,
+                                 grid_is_latlon=True, device=dev)
+    kpr = extract.metric_scalars(float(cfg.Rearth))[0]
+    p = np.arange(npairs)
+    sep = 22. / kpr                                        # degrees
+    diag = p % 2 == 1
+    dlat = np.where(diag, sep / np.sqrt(2.), sep)
+    dlon = np.where(diag, sep / np.sqrt(2.) / coslat, 0.)
+    lon0 = 30. + dlon_cell * (10.3 + 0.095 * p)
+    lon = np.stack([lon0, lon0 + dlon], 1).reshape(-1)
+    lat = np.stack([lat_b - dlat / 2, lat_b + dlat / 2], 1).reshape(-1)
+    st = ibp.create_bergs(2 * npairs + 64, lon=lon, lat=lat, mass=1e7,
+                          thickness=40., width=20., length=20., device=dev)
+    i, j, xi, yj = ibp.pos_to_cell(grid, st.lon, st.lat, 360.)
+    cong = torch.arange(st.capacity, device=dev).to(st.conglom_id.dtype)
+    st, cs = srt.sort_state_by_cell(
+        st.replace(ine=i, jne=j, xi=xi, yj=yj, conglom_id=cong), grid)
+    return cfg, grid, st, cs
+
+
+def _edge_radii(PT, cfg):
+    """``PT`` with each live berg's radius set so that its pair's crit
+    (the sum of the two radii, exact: both are crit / 2) puts crit^2 *
+    slack at the pair's float32 r2 (the plain metric on the card), nudged
+    by -2 .. 2 ulps of crit: the pairs sit just inside and just outside
+    the threshold.  Each berg's partner is its nearest live berg."""
+    lon, lat = PT[extract.PT_LON], PT[extract.PT_LAT]
+    live = torch.nonzero(PT[extract.PT_ALIVE] > 0.5).flatten()
+    rx, ry = pair_separation(lon[live, None], lat[live, None],
+                             lon[None, live], lat[None, live], True,
+                             float(cfg.Rearth))
+    r2 = rx * rx + ry * ry
+    r2.fill_diagonal_(float("inf"))
+    r2p, partner = r2.min(1)
+    assert torch.equal(partner[partner], torch.arange(live.numel(),
+                                                      device=PT.device))
+    crit = torch.sqrt(r2p / torch.tensor(extract._SLACK,
+                                         dtype=torch.float32))
+    # both sides of a pair take the nudge of its lower row
+    k = torch.minimum(torch.arange(live.numel(), device=PT.device),
+                      partner) % 5 - 2
+    for step in range(2):
+        up, down = k > step, k < -step
+        crit = torch.where(up, torch.nextafter(crit, crit.new_tensor(
+            float("inf"))), crit)
+        crit = torch.where(down, torch.nextafter(crit, crit.new_zeros(())),
+                           crit)
+    PT = PT.clone()
+    PT[extract.PT_RAD, live] = crit * 0.5
+    return PT
+
+
 @pytest.mark.parametrize("lat", sorted(_LL_LATS))
-@pytest.mark.parametrize("n", [0, 1, 1000, 16000])
+@pytest.mark.parametrize("n", [0, 1, 1000, 16000, "edge"])
 @pytest.mark.parametrize("case", ["fused3", "part1", "epilogue",
                                   "generic"])
 def test_extract_latlon_kernel_matches_plain(dev, case, n, lat):
@@ -1198,13 +1333,20 @@ def test_extract_latlon_kernel_matches_plain(dev, case, n, lat):
     ``fused3_epi_ll``, and ``generic_ll`` at BN 64) bitwise against the
     plain version (the epilogue's spring sums bitwise on rows with at
     most two exact pairs, as its Cartesian test), at N 0, 1, 1000 and
-    16,000, mid-latitude and at both poles' edge."""
-    cfg, grid, st, cs = _ll_world(dev, n, _LL_LATS[lat])
+    16,000, mid-latitude and at both poles' edge; ``"edge"``: pairs just
+    inside and just outside crit across a cell-row boundary, where the
+    candidate skip and the full test meet."""
+    if n == "edge":
+        cfg, grid, st, cs = _ll_edge_world(dev, _LL_LATS[lat])
+    else:
+        cfg, grid, st, cs = _ll_world(dev, n, _LL_LATS[lat])
     bn, radius, group, epi = {"fused3": (128, 1, False, False),
                               "part1": (256, 2, True, False),
                               "epilogue": (128, 1, False, True),
                               "generic": (64, 1, False, False)}[case]
     PT, key_s = contact_features(st, grid, cfg, exclude_same_group=group)
+    if n == "edge":
+        PT = _edge_radii(PT, cfg)
     before = (extract.extract_sorted.launches,
               extract.extract_sorted.epilogue_launches)
     out, _ = extract.extract_sorted(PT, key_s, cs, grid, cfg, block_n=bn,
@@ -1227,7 +1369,15 @@ def test_extract_latlon_kernel_matches_plain(dev, case, n, lat):
     if epi:
         few = nexact <= 2
         assert torch.equal(out[sums][:, few], plain[sums][:, few])
-    if n >= 1000:
+    if n == "edge":
+        # the pairs straddle the threshold: some engage, some do not, and
+        # the rows cross the cell-row boundary
+        engaged = int((plain[extract.EX_CNT] > 0).sum())
+        assert 0.2 < engaged / int(st.alive.sum()) < 0.8
+        assert int(bad.sum()) <= 1            # the tail's dead padding
+        assert int(st.jne[st.alive].min()) == 1
+        assert int(st.jne[st.alive].max()) == 2
+    elif n >= 1000:
         assert int((plain[extract.EX_CNT] > 0).sum()) > 50
     name = {"fused3": "fused3_ll", "part1": "part1_ll",
             "epilogue": "fused3_epi_ll", "generic": "generic_ll"}[case]
