@@ -140,7 +140,8 @@ without them.  Imports nothing of JAX.
 
 ``--ab DIR`` runs phase 3's K1, K2 (with its epilogue where the package
 has one), K3 (its pass-through too), K5 and K7 cases and phase 12's two
-K2 lat-lon cases (12a's and 12c's slabs) only, with the
+K2 lat-lon cases (12a's and 12c's slabs) and K5 lat-lon case (12a's)
+only, with the
 package of a copy of another commit unpacked at DIR inside this checkout
 (``git archive`` into a directory ``.gitignore`` lists), so that a parent
 and a change are timed on one card in one call: parent, change, change,
@@ -216,9 +217,9 @@ K2_FLOPS_PER_PAIR, K3_FLOPS_PER_ROW_BASE = 12, 110
 K2_LL_FLOPS_PER_PAIR = 6
 # K2's pair epilogue, counted from csrc/extract_sorted.cu: per exact pair
 # (sqrt, compare, mass ratio, spring product, the two projections and
-# their sums) and per selected partner (separation, r2, crit, sqrt, r^2,
-# three projections, mass ratio, compare)
-K2_EPI_FLOPS_PER_EXACT, K2_EPI_FLOPS_PER_PARTNER = 14, 18
+# their sums) and per selected partner from the search's registers (r^2,
+# three products and their divisions, mass ratio, compare)
+K2_EPI_FLOPS_PER_EXACT, K2_EPI_FLOPS_PER_PARTNER = 14, 10
 # K2's chunk of staged candidates per instantiation (csrc/extract_sorted.cu
 # CH_OF), for the count of the pair tests its skip leaves
 K2_CHUNK = {False: 16, True: 32}
@@ -767,6 +768,15 @@ def k2_resources(extract, block_n, radius, group, variant=None,
             f" {smem} B shared, {ctas} CTAs/SM at {block_n} threads")
 
 
+def partner_slots(torch, extract, out):
+    """The distinct slots K2's output ``out`` names as the min or max
+    partner of an engaged row: the slots whose partner rows the function
+    must read."""
+    e = out[extract.EX_CNT] > 0
+    return int(torch.unique(torch.cat([out[extract.EX_VMIN][e],
+                                       out[extract.EX_VMAX][e]])).numel())
+
+
 def k2_case(torch, extract, PT, key_s, cs, grid, cfg, ab, **kw):
     """K2 on a sorted slab (``kw``: the wrapper's block_n, window, radius,
     exclude_same_group), held bitwise to its plain version (the features
@@ -790,6 +800,8 @@ def k2_case(torch, extract, PT, key_s, cs, grid, cfg, ab, **kw):
     out, bad_block = k2()
     c_lo, c_hi, bad = extract.block_tables(key_s, cs, grid.nx, grid.ny, bn,
                                            win, radius=rad)
+    require(torch.equal(bad_block, bad[:, None].expand(-1, bn).reshape(-1)[
+        :N]), f"K2 (BN {bn}) bad flags differ from block_tables'")
 
     def k2p():
         return extract.extract_sorted_plain(PT, cs, c_lo, c_hi, bad, bn, cd,
@@ -804,28 +816,27 @@ def k2_case(torch, extract, PT, key_s, cs, grid, cfg, ab, **kw):
             f"K2 (BN {bn}) features differ from the plain version")
     cnt = outp[extract.EX_CNT]
     engaged = float(cnt.double().sum())
-    # the function reads the feature rows 0-7 (the partners' copies), the
-    # rows of the tests and the block tables, and writes 24 rows
-    rows = [extract.PT_RAD, extract.PT_ALIVE, extract.PT_KEY, extract.PT_FLK]
-    rows += [extract.PT_GRP] if group else []
-    need = nbytes(PT[:8], cs, c_lo, c_hi, bad, out) + 4 * len(rows) * N
-    tested, cos_tests = k2_tested_pairs(torch, extract, PT, cs, c_lo, c_hi,
-                                        bad, bn, K2_CHUNK[group], cd, rearth,
-                                        group)
-    tested_s = "(not modeled)" if tested is None else tested
-    cos_note = ("" if cos_tests is None else
-                f"; of them, tests that take a cosine after the candidate "
-                f"skip {cos_tests}")
+    # the function reads the rows of the tests for every berg, feature
+    # rows 2-7 only at the engaged rows' partners (each distinct slot
+    # once), each block's first and last key and the cell starts, and
+    # writes 24 rows and the bad flags
+    rows = [extract.PT_LON, extract.PT_LAT, extract.PT_RAD, extract.PT_ALIVE,
+            extract.PT_KEY, extract.PT_FLK] + ([extract.PT_GRP] if group
+                                              else [])
+    partners = partner_slots(torch, extract, outp)
+    need = (4 * len(rows) * N + 4 * (8 - 2) * partners + 8 * bad.numel()
+            + nbytes(cs, out, bad_block))
+    csl = cs.long()
+    start = csl[c_lo.long()]
+    length = torch.where(bad[:, None], 0, (csl[(c_hi + 1).long()]
+                                           - start).clamp(min=0))
+    tested, cos_tests = tested_pairs(torch, extract, PT, c_lo, c_hi, start,
+                                     length, bn, K2_CHUNK[group], cd, rearth,
+                                     group)
     t_ops = flops_pair * engaged / FP32_FLOPS_PER_S * 1e3
     t_bytes = need / HBM_BYTES_PER_S * 1e3
     ms = device_ms(torch, k2)
-
-    # the wrapper's table operations without the kernel (no host sync)
-    def tables():
-        c_lo, _, bad = extract.block_tables(key_s, cs, grid.nx, grid.ny, bn,
-                                            win, radius=rad)
-        return bad[:, None].expand(-1, bn).reshape(-1), bad.to(torch.uint8)
-    tables_ms = device_ms(torch, tables)
+    ops = torch_ops(torch, k2)
     gen = ""
     if not ab:
         g = k2(variant="generic")
@@ -846,12 +857,12 @@ def k2_case(torch, extract, PT, key_s, cs, grid, cfg, ab, **kw):
         note=(f"N={PT.shape[1]} radius {rad} BN {bn} window {win} "
               f"bad_blocks={int(bad.sum())}/{bad.numel()} engaged_pairs="
               f"{engaged:.0f} engaged_rows={int((cnt > 0).sum())} "
-              f"rows_3plus={int((cnt > 2).sum())}; pair tests the kernel's "
-              f"chunk skip leaves {tested_s}{cos_note} (bound: the engaged "
-              f"pairs' "
-              f"tests {t_ops:.4f} ms, the bytes {t_bytes:.4f} ms); with "
-              f"the host {cuda_ms(torch, k2):.3f} ms; the wrapper's table "
-              f"operations alone {tables_ms:.4f} ms; "
+              f"partner_slots={partners} "
+              f"rows_3plus={int((cnt > 2).sum())}; "
+              f"{tests_note(tested, cos_tests)} (bound: the engaged "
+              f"pairs' tests {t_ops:.4f} ms, the bytes {t_bytes:.4f} ms); "
+              f"with the host {cuda_ms(torch, k2):.3f} ms; "
+              f"{ops_note(ops)}; "
               f"{k2_resources(extract, bn, rad, group, latlon=ll)}{gen}"))
     return row, outp, bad_block
 
@@ -873,10 +884,13 @@ def k2_epi_case(torch, extract, PT, key_s, cs, grid, cfg):
     def k2e():
         return extract.extract_sorted(PT, key_s, cs, grid, cfg, block_n=bn,
                                       window=win, epilogue=True)
-    out, _ = k2e()
+    out, bad_block = k2e()
     require(torch.equal(out, k2e()[0]), "K2 epilogue: two calls differ")
+    N = PT.shape[1]
     c_lo, c_hi, bad = extract.block_tables(key_s, cs, grid.nx, grid.ny, bn,
                                            win)
+    require(torch.equal(bad_block, bad[:, None].expand(-1, bn).reshape(-1)[
+        :N]), "K2 epilogue: bad flags differ from block_tables'")
 
     def k2p(counts=False):
         return extract.extract_sorted_plain(
@@ -895,10 +909,12 @@ def k2_epi_case(torch, extract, PT, key_s, cs, grid, cfg):
     engaged = float(cnt.double().sum())
     exact = float(nexact.double().sum())
     partners = float((cnt > 0).double().sum()) * 2
-    N = PT.shape[1]
-    # the rows the search and the epilogue read (lon, lat, u, v, mass,
-    # rad, alive, key, fl_k), the block tables, and the 24 rows written
-    need = 4 * 9 * N + nbytes(cs, c_lo, c_hi, bad, out)
+    # the rows the search and the epilogue read for every berg (lon, lat,
+    # mass, rad, alive, key, fl_k), u and v only at the engaged rows'
+    # partners (each distinct slot once), each block's first and last
+    # key, the cell starts, and the 24 rows and the bad flags written
+    need = (4 * 7 * N + 4 * 2 * partner_slots(torch, extract, outp)
+            + 8 * bad.numel() + nbytes(cs, out, bad_block))
     flops = (K2_FLOPS_PER_PAIR * engaged + K2_EPI_FLOPS_PER_EXACT * exact
              + K2_EPI_FLOPS_PER_PARTNER * partners)
     return dict(
@@ -912,6 +928,7 @@ def k2_epi_case(torch, extract, PT, key_s, cs, grid, cfg):
               f"{max_abs_err(torch, out[sums][:, ~few], outp[sums][:, ~few]) if bool((~few).any()) else 0.0} "
               f"of the plain version); with the host "
               f"{cuda_ms(torch, k2e):.3f} ms; "
+              f"{ops_note(torch_ops(torch, k2e))}; "
               f"{k2_resources(extract, bn, 1, False, epilogue=True)}"))
 
 
@@ -998,33 +1015,66 @@ def k3_assoc_case(torch, ss, cols, melt_cols, cs, K, ab=False):
               f"{'; ' + regs if regs else ''}"))
 
 
-def k2_tested_pairs(torch, extract, PT, cs, c_lo, c_hi, bad, block_n, ch,
-                    cd, rearth=None, group=False):
-    """Pair tests K2 makes on these inputs, as csrc/extract_sorted.cu
-    makes them, in float32: ``(chunk, cosine)``.  ``chunk``: each warp's
-    32 lanes test all ``ch`` slots of every chunk of staged candidates that
-    its box test keeps (the design before the candidate skip: every such
-    test took a cosine on a lat-lon grid).  ``cosine``, on a lat-lon grid
-    (``rearth``): the tests of the candidates of kept chunks
-    for which some lane's bound (csrc/latlon.cuh, with the chunk's kx;
-    not at the lane's own coordinates; with ``group``, outside the lane's
-    conglomerate) may engage, each of
-    which takes the metric's cosine in all 32 lanes; else None.  Both are
-    None on a lat-lon grid for a package without the bound's plain mirror
-    (a parent commit under ``--ab``)."""
+def torch_ops(torch, fn):
+    """The torch operations one fn() call dispatches beside its kernels'
+    launches, views and allocations left out: each launches at least one
+    kernel of its own on the card (K2's wrapper spent 28 on its block
+    tables before the kernel built them)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view and not func.__name__.startswith("empty"):
+                ops.append(func.__name__)
+            return func(*args, **(kwargs or {}))
+    with Record():
+        fn()
+    torch.cuda.synchronize()
+    return ops
+
+
+def ops_note(ops):
+    return (f"torch operations around the kernel a call {len(ops)}"
+            + (f" ({', '.join(sorted(set(ops)))})" if ops else ""))
+
+
+def tests_note(tested, cos_tests):
+    """A search row's note on the pair tests of ``tested_pairs``."""
+    return (f"pair tests the kernel's chunk skip leaves "
+            f"{'(not modeled)' if tested is None else tested}"
+            + ("" if cos_tests is None else
+               f"; of them, tests that take a cosine after the candidate "
+               f"skip {cos_tests}"))
+
+
+def tested_pairs(torch, extract, PT, c_lo, c_hi, start_all, length_all,
+                 block_n, ch, cd, rearth=None, group=False):
+    """Pair tests a contact search makes on these inputs, as K2
+    (csrc/extract_sorted.cu) and K5 (csrc/prepass_sorted.cu) make them, in
+    float32: ``(chunk, cosine)``.  ``PT``: the feature rows by K2's row
+    index (the slab, or K5's columns in a dict); ``c_lo``, ``c_hi``: the
+    strips' cell ranges and ``start_all``, ``length_all`` the slots each
+    strip scans (nblocks, 2r+1), none in K2's bad blocks.  ``chunk``:
+    each warp's 32 lanes test all ``ch`` slots of every chunk of staged
+    candidates that its box test keeps (the design before the candidate
+    skip: every such test took a cosine on a lat-lon grid).  ``cosine``,
+    on a lat-lon grid (``rearth``): the tests of the candidates of kept
+    chunks for which some lane's bound (csrc/latlon.cuh, with the chunk's
+    kx; not at the lane's own coordinates; with ``group``, outside the
+    lane's conglomerate) may engage, each of which takes the metric's
+    cosine in all 32 lanes; else None.  Both are None on a lat-lon grid
+    for a package without the bound's plain mirror (a parent commit
+    under ``--ab``)."""
     from icebergs_tpu_torch.ops.extract import _SLACK
     per_cand = rearth is not None
     if per_cand and not hasattr(extract, "latlon_kx"):
         return None, None
-    N = PT.shape[1]
-    nb = bad.numel()
-    dev = PT.device
-    csl = cs.long()
-    start_all = csl[c_lo.long()]
-    length_all = torch.where(bad[:, None], 0, (csl[(c_hi + 1).long()]
-                                               - start_all).clamp(min=0))
+    N = PT[extract.PT_LON].shape[0]
+    nb, ns = start_all.shape
+    dev = start_all.device
     W = -(-max(int(length_all.max()), 1) // ch) * ch
-    nw, ns, nc = block_n // 32, c_lo.shape[1], W // ch
+    nw, nc = block_n // 32, W // ch
     inf = float("inf")
     zero = torch.zeros((), device=dev)
     k = torch.arange(W, device=dev)
@@ -1511,11 +1561,25 @@ def k5_case(torch, prepass, P, key_p, cs, grid, cfg, ab):
         :N]), "K5 bad flags differ from block_tables'")
     engaged = float(ref[0].double().sum())
     tests = k5_pair_tests(torch, P, cs, p_lo, p_hi, 128, win)
+    # the chunk skip's and (lat-lon) the candidate skip's tests, on K5's
+    # columns by K2's row names and its strips' scan ranges (bad blocks
+    # too); chunks of 16 (csrc/prepass_sorted.cu, no group filter)
+    from icebergs_tpu_torch.ops import extract
+    cols = {extract.PT_LON: prepass.F_LON, extract.PT_LAT: prepass.F_LAT,
+            extract.PT_RAD: prepass.F_RAD, extract.PT_FLK: prepass.F_FLK,
+            extract.PT_ALIVE: prepass.F_ALIVE, extract.PT_KEY: prepass.F_KEY,
+            extract.PT_GRP: prepass.F_GRP}
+    start, end = prepass.strip_ranges(cs, p_lo, p_hi, win, N)
+    tested, cos_tests = tested_pairs(
+        torch, extract, {r: P[:, c] for r, c in cols.items()}, p_lo, p_hi,
+        start, (end - start).clamp(min=0), 128, K2_CHUNK[False], cd,
+        metric_kw.get("rearth"))
     ms = device_ms(torch, k5)
     note = (f"N={N} BN 128 window {win} bad_blocks={int(pbad.sum())}/"
             f"{pbad.numel()} engaged_pairs={engaged:.0f} engaged_rows="
             f"{int((ref[0] > 0).sum())} rows_3plus={int((ref[0] > 2).sum())}"
-            f"; pair tests in the strips {tests:.0f}; with the host "
+            f"; pair tests in the strips {tests:.0f}; "
+            f"{tests_note(tested, cos_tests)}; with the host "
             f"{cuda_ms(torch, k5):.3f} ms")
     if not ab:
         g = k5(variant="generic")
@@ -1537,8 +1601,10 @@ def k5_case(torch, prepass, P, key_p, cs, grid, cfg, ab):
         ms=ms,
         plain_ms=None if ab else cuda_ms(torch, k5p, reps=2),
         library_ms=None,
-        # P, the cell starts and the block's keys read, the outputs written
-        bound=bound(nbytes(P, cs, key_p, *out), flops_pair * engaged),
+        # P, the cell starts and each block's first and last key read, the
+        # outputs written
+        bound=bound(nbytes(P, cs, *out) + 8 * pbad.numel(),
+                    flops_pair * engaged),
         note=note)
 
 
@@ -3066,12 +3132,18 @@ def k2_grouped_latlon_row(torch, dem, dcfg, radius, ab):
 
 
 def ab_latlon_rows(ibp, torch, device):
-    """``--ab``'s phase-12 cases: K2 lat-lon on 12a's slab and grouped K2
-    lat-lon on 12c's, as phase 12 builds them."""
+    """``--ab``'s phase-12 cases: K2 lat-lon and K5 lat-lon on 12a's slab
+    and grouped K2 lat-lon on 12c's, as phase 12 builds them."""
+    from icebergs_tpu_torch.ops import prepass
     from icebergs_tpu_torch.ops.forces import neighbor_radius
     world = ll_world(ibp, torch, N_HEAD, LL_NX, LL_NY, device)
-    rows = {"extract_sorted/latlon": k2_latlon_row(torch, world, True)[0]}
-    del world
+    row, st, cs = k2_latlon_row(torch, world, True)
+    rows = {"extract_sorted/latlon": row}
+    cfg, grid = world[:2]
+    P, key_p = prepass.prepass_features(st, grid, cfg)
+    rows["contact_prepass_sorted/latlon"] = k5_case(
+        torch, prepass, P, key_p, cs, grid, cfg, True)
+    del world, st, cs, P, key_p
     dcfg = dem_config(ibp, **LL_CFG)
     dem = dem_world(ibp, torch, dcfg, DEM_UNITS, NX_DEM, device, latlon=True)
     rows["extract_sorted/grouped_latlon"] = k2_grouped_latlon_row(
@@ -3997,7 +4069,7 @@ def main(argv=None) -> int:
                     help="directory for a profiler table and trace")
     ap.add_argument("--ab", metavar="ROOT", default=None,
                     help="run only phase 3's K1, K2, K3, K5 and K7 cases "
-                    "and phase 12's K2 lat-lon cases, "
+                    "and phase 12's K2 and K5 lat-lon cases, "
                     "with the package of the checkout at ROOT (a copy of "
                     "another commit inside this one, or this one): the "
                     "parent / change comparison")

@@ -3,7 +3,8 @@
 // Replaces icebergs_tpu/ops/pallas_prepass.py::contact_extract_sorted_g
 // (and its bitwise twins contact_extract_sorted / contact_extract_sorted_p).
 // For each block of BN consecutive sorted bergs it scans 2r+1 strips of
-// cells [c_lo, c_hi] (grid rows j-r .. j+r of the block's cell span).  A
+// cells [c_lo, c_hi] (grid rows j-r .. j+r of the block's cell span),
+// which each CTA builds itself from the block's first and last key.  A
 // candidate is engaged when its key lies in the strip, both sides are
 // alive, it is not the berg itself, neither side has fl_k == -1, and
 // r^2 <= crit^2 * slack with crit = max(R1 + R2, contact_distance).
@@ -27,10 +28,13 @@
 // (rx / r, ry / r) to the berg's sums iax, iay in candidate order (a
 // fixed order; rows with at most two exact pairs equal any order's
 // bits).  The two selected partners' rows become u, v, P11, P12, P22 =
-// (rx rx, rx ry, ry ry) / r^2, the mass ratio and the exactness flag,
-// recomputed from the partner's PT rows with the same operations.  Rows
-// (EX_IAX = 3, EX_IAY = 20, 7 a partner from EX_F1 / EX_F2) as the TPU
-// kernel writes them.
+// (rx rx, rx ry, ry ry) / r^2, the mass ratio and the exactness flag.
+// The search keeps rx, ry, r, crit and the candidate's mass of the pair
+// that sets vmin and of the one that sets vmax in registers, and forms
+// the rows from them: the values a reload of the partner's PT rows would
+// recompute with the same operations, so the same bits; only u and v are
+// loaded by slot.  Rows (EX_IAX = 3, EX_IAY = 20, 7 a partner from EX_F1
+// / EX_F2) as the TPU kernel writes them.
 //
 // Bound: instruction issue.  At the 1M-berg headline a block of 128 bergs
 // meets ~400 candidates and every thread tests every one; the data are a
@@ -92,20 +96,31 @@
 //   skipped).  Every instantiation exists with LL false, which is the
 //   Cartesian code unchanged, and with LL true.
 //
-// Blocks that the wrapper flags bad (span or window overflow, computed as
-// the TPU wrapper does so that the fallback set stays the same) are
-// skipped and write the "no partner" result; the caller routes their
-// bergs to the exact fallback.  Build with -fmad=false: the compare must
-// round rx*rx + ry*ry and crit*crit*slack exactly as the reference does,
-// or engagement flips at the boundary.  The epilogue writes 24 rows (96 B
-// per berg) and reads the two partners' 8 feature rows only for engaged
-// bergs, next to the berg in the sorted slab: ~0.03 ms of HBM time at
-// 1M bergs.
+// The block tables.  Each CTA builds its strips and its bad flag from the
+// block's first and last key and the cell starts (csrc/block_tables.cuh,
+// shared with K5), under the TPU wrapper's rule (pallas_prepass.py:663-675;
+// ops/extract.py block_tables, which the plain version and the CPU path
+// take): c0 = key[b*BN], c1c = min(key of
+// the block's last row, ncells - 1) with the tail padded with dead keys
+// (ncells); span bad when c1c - c0 > nx - (2r+1); strip s covers
+// [clamp(c0 - r + (s-r)*nx, 0, ncells-1), clamp(c1c + r + (s-r)*nx, -1,
+// ncells-1)], and is window bad when cs[chi+1] - 128*(cs[clo]/128) > WL,
+// the TPU kernel's 128-aligned window (window_lanes on the host).  It
+// scans [cs[clo], cs[chi+1]) whole (the gathered window holds all of it
+// when the block is good).  A bad block is skipped and writes the "no
+// partner" result; every row writes its block's bad byte, and the caller
+// routes those bergs to the exact fallback, so the fallback set stays the
+// reference's.  Build with -fmad=false: the compare must round rx*rx +
+// ry*ry and crit*crit*slack exactly as the reference does, or engagement
+// flips at the boundary.  The epilogue writes 24 rows (96 B per berg) and
+// reads the two partners' u and v only for engaged bergs, next to the
+// berg in the sorted slab.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "block_tables.cuh"
 #include "latlon.cuh"
 
 namespace {
@@ -152,27 +167,23 @@ __device__ __forceinline__ float group_max(float v) {
   return v;
 }
 
-// One selected partner's epilogue rows from its PT rows (the operations
-// of the TPU kernel's per-candidate chain): P11, P12, P22, mass ratio,
-// exactness.  An engaged partner has r2 > 0, so rsafe = r.
-template <bool LL>
-__device__ __forceinline__ void partner_rows(const float* __restrict__ PT,
-                                             long long N, int q, float lon1,
-                                             float lat1, float R1, float M1,
-                                             float cd, float kpr,
-                                             float pi180, float* d) {
-  float rx, ry;
-  pair_sep<LL>(lon1, lat1, PT[PT_LON * N + q], PT[PT_LAT * N + q], kpr,
-               pi180, rx, ry);
-  const float r2 = rx * rx + ry * ry;
-  const float crit = fmaxf(R1 + PT[PT_RAD * N + q], cd);
-  const float r = sqrtf(r2);
-  const float rs2 = r * r;
-  d[0] = (rx * rx) / rs2;
-  d[1] = (rx * ry) / rs2;
-  d[2] = (ry * ry) / rs2;
-  d[3] = fminf(M1, PT[PT_MASS * N + q]) / M1;
-  d[4] = r < crit ? 1.f : 0.f;
+// The search's registers of one selected partner: rx, ry, r = sqrtf(r2),
+// crit and the partner's mass.
+struct Partner {
+  float rx, ry, r, crit, m2;
+};
+
+// One selected partner's epilogue rows (the operations of the TPU
+// kernel's per-candidate chain): P11, P12, P22, mass ratio, exactness.
+// An engaged partner has r2 > 0, so rsafe = r.
+__device__ __forceinline__ void partner_rows(const Partner& p, float M1,
+                                             float* d) {
+  const float rs2 = p.r * p.r;
+  d[0] = (p.rx * p.rx) / rs2;
+  d[1] = (p.rx * p.ry) / rs2;
+  d[2] = (p.ry * p.ry) / rs2;
+  d[3] = fminf(M1, p.m2) / M1;
+  d[4] = p.r < p.crit ? 1.f : 0.f;
 }
 
 // BN_T / NS_T: threads per block and strips, or 0 for run-time values;
@@ -182,12 +193,12 @@ __device__ __forceinline__ void partner_rows(const float* __restrict__ PT,
 template <int BN_T, int NS_T, bool GROUP, int CH, bool EPI, bool LL>
 __global__ void __launch_bounds__(BN_T ? BN_T : 1024)
 extract_sorted_kernel(const float* __restrict__ PT, int n,
-                      const int32_t* __restrict__ cell_starts,
-                      const int32_t* __restrict__ c_lo,
-                      const int32_t* __restrict__ c_hi,
-                      const uint8_t* __restrict__ bad,
-                      float* __restrict__ out, int nstrips_rt, float cd,
-                      float slack, float spring, float kpr, float pi180) {
+                      const int32_t* __restrict__ key_s,
+                      const int32_t* __restrict__ cell_starts, int nx,
+                      int ncells, int wl, float* __restrict__ out,
+                      uint8_t* __restrict__ bad_out, int nstrips_rt,
+                      float cd, float slack, float spring, float kpr,
+                      float pi180) {
   static_assert(!(GROUP && EPI), "EPI stages the mass where GROUP stages "
                                  "the group");
   const int bn = BN_T ? BN_T : (int)blockDim.x;
@@ -203,6 +214,7 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
   __shared__ int s_start[MAX_STRIPS], s_len[MAX_STRIPS];
   __shared__ int s_choff[MAX_STRIPS + 1];
   __shared__ float s_clo[MAX_STRIPS], s_chi[MAX_STRIPS];
+  __shared__ int s_win_bad[MAX_STRIPS];
 
   const int b = blockIdx.x;
   const int t = threadIdx.x;
@@ -225,19 +237,23 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
   }
   const int big = 2 * n;
   int cnt = 0, vmin = big, vmax = -1;
+  Partner p_min = {}, p_max = {};               // (EPI) see the note above
 
-  if (!bad[b]) {
-    if (t < ns) {
-      const int clo = c_lo[b * ns + t];
-      const int chi = c_hi[b * ns + t];
-      const int start = cell_starts[clo];
-      const int len = cell_starts[chi + 1] - start;
-      s_start[t] = start;
-      s_len[t] = len > 0 ? len : 0;
-      s_clo[t] = (float)clo;
-      s_chi[t] = (float)chi;
-    }
-    __syncthreads();
+  // the block's tables (see the note above; csrc/block_tables.cuh)
+  const BlockSpan sp = block_span(key_s, b, bn, n, ncells);
+  if (t < ns) {
+    const Strip st = block_strip(sp, t, ns, nx, ncells, cell_starts);
+    s_win_bad[t] = st.stop - (st.start / 128) * 128 > wl;
+    s_start[t] = st.start;
+    s_len[t] = st.stop > st.start ? st.stop - st.start : 0;
+    s_clo[t] = (float)st.clo;
+    s_chi[t] = (float)st.chi;
+  }
+  __syncthreads();
+  bool bad = span_bad(sp, nx, ns);
+  for (int s = 0; s < ns; ++s) bad = bad || s_win_bad[s];
+
+  if (!bad) {
     if (t == 0) {
       int acc = 0;
       for (int s = 0; s < ns; ++s) {
@@ -345,8 +361,6 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
             if (e) {
               const int wid = base + k;
               ++cnt;
-              vmin = min(vmin, wid);
-              vmax = max(vmax, wid);
               if (EPI) {
                 const float r = sqrtf(r2);
                 if (r < crit) {
@@ -355,7 +369,11 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
                   iax = iax + aspr * (rx / r);
                   iay = iay + aspr * (ry / r);
                 }
+                if (wid < vmin) p_min = Partner{rx, ry, r, crit, c.w};
+                if (wid > vmax) p_max = Partner{rx, ry, r, crit, c.w};
               }
+              vmin = min(vmin, wid);
+              vmax = max(vmax, wid);
             }
           }
         }
@@ -364,6 +382,7 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
     }
   }
   if (!own) return;
+  bad_out[gid] = bad;
   out[0 * N + gid] = (float)cnt;
   out[1 * N + gid] = (float)vmin;
   out[2 * N + gid] = (float)vmax;
@@ -379,7 +398,7 @@ extract_sorted_kernel(const float* __restrict__ PT, int n,
       float d[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
       float u = 0.f, v = 0.f;
       if (cnt > 0) {
-        partner_rows<LL>(PT, N, q, lon1, lat1, R1, M1, cd, kpr, pi180, d);
+        partner_rows(p ? p_max : p_min, M1, d);
         u = PT[PT_U * N + q];
         v = PT[PT_V * N + q];
       }
@@ -416,8 +435,8 @@ enum {
 constexpr int CH_OF[NV] = {16, 32, 16, 32, 16, 16};
 
 typedef void (*KernelFn)(const float*, int, const int32_t*, const int32_t*,
-                         const int32_t*, const uint8_t*, float*, int, float,
-                         float, float, float, float);
+                         int, int, int, float*, uint8_t*, int, float, float,
+                         float, float, float);
 
 template <bool LL>
 KernelFn kernel_of_metric(int variant) {
@@ -457,27 +476,34 @@ int variant_of(int block_n, int nstrips, int group, int generic, int epi,
   return v < 0 ? v : v + (latlon ? NV : 0);
 }
 
+bool valid_shape(int block_n, int nstrips) {
+  return block_n % 32 == 0 && block_n >= 32 && block_n <= 1024 &&
+         nstrips >= 1 && nstrips <= MAX_STRIPS && nstrips % 2 == 1;
+}
+
 }  // namespace
 
-extern "C" int ib_extract_sorted(const void* PT, int n, const void* cell_starts,
-                                 const void* c_lo, const void* c_hi,
-                                 const void* bad, void* out, int nblocks,
-                                 int block_n, int nstrips, int group,
-                                 int generic, int epilogue, int latlon,
-                                 float cd, float slack, float spring,
-                                 float kpr, float pi180, void* stream) {
-  if (nblocks == 0) return (int)cudaGetLastError();
+// PT: (16, n) float rows, key_s: (n,) int32 sorted cell keys (dead =
+// ncells), cell_starts: (ncells + 1,) int32, wl: the TPU kernel's window
+// width (window_lanes); outputs (24, n) float rows and (n,) bytes bad.
+extern "C" int ib_extract_sorted(const void* PT, int n, const void* key_s,
+                                 const void* cell_starts, int nx, int ncells,
+                                 int wl, void* out, void* bad, int block_n,
+                                 int nstrips, int group, int generic,
+                                 int epilogue, int latlon, float cd,
+                                 float slack, float spring, float kpr,
+                                 float pi180, void* stream) {
   const int v = variant_of(block_n, nstrips, group, generic, epilogue,
                            latlon);
-  if (block_n % 32 || block_n < 32 || block_n > 1024 || nstrips < 1 ||
-      nstrips > MAX_STRIPS || v < 0)
+  if (!valid_shape(block_n, nstrips) || ncells < 1 || v < 0)
     return (int)cudaErrorInvalidValue;
-  kernel_of(v)<<<nblocks, block_n,
+  if (n == 0) return (int)cudaGetLastError();
+  kernel_of(v)<<<(n + block_n - 1) / block_n, block_n,
                  smem_bytes(block_n, CH_OF[v % NV], v >= NV),
                  (cudaStream_t)stream>>>(
-      (const float*)PT, n, (const int32_t*)cell_starts, (const int32_t*)c_lo,
-      (const int32_t*)c_hi, (const uint8_t*)bad, (float*)out, nstrips, cd,
-      slack, spring, kpr, pi180);
+      (const float*)PT, n, (const int32_t*)key_s,
+      (const int32_t*)cell_starts, nx, ncells, wl, (float*)out,
+      (uint8_t*)bad, nstrips, cd, slack, spring, kpr, pi180);
   return (int)cudaGetLastError();
 }
 
@@ -487,8 +513,7 @@ extern "C" int ib_extract_config(int block_n, int nstrips, int group,
                                  int generic, int epilogue, int latlon,
                                  int* variant, int* smem, int* ctas_per_sm) {
   *variant = variant_of(block_n, nstrips, group, generic, epilogue, latlon);
-  if (block_n % 32 || block_n < 32 || block_n > 1024 || nstrips < 1 ||
-      nstrips > MAX_STRIPS || *variant < 0)
+  if (!valid_shape(block_n, nstrips) || *variant < 0)
     return (int)cudaErrorInvalidValue;
   *smem = (int)smem_bytes(block_n, CH_OF[*variant % NV], *variant >= NV);
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(

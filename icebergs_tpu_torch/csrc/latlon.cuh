@@ -32,44 +32,27 @@ __device__ __forceinline__ void pair_sep(float lon1, float lat1, float lon2,
   }
 }
 
-// A lower bound, by monotone rounding, of r2 = rx*rx + ry*ry over every
-// pair of a berg in the warp's box and a candidate in a chunk's box, from
-// their gaps gx (degrees of longitude, or metres) and gy.  Cartesian: gx*gx
-// + gy*gy (csrc/extract_sorted.cu argues it).  Lat-lon: with L the largest
-// |latitude| of both boxes, every pair has |lat_ref| <= L (its rounded sum
-// and halving are monotone), so |pi180 * lat_ref| <= pi180 * L after
-// rounding and the true cosine at the pair is at least cos(pi180 * L) (cos
-// is even and falls on [0, pi]).  cosf is within 2 ulp of the true value
-// (CUDA C Programming Guide, the single-precision accuracy table), so
-// cosf(pi180 * L) * (1 - 2^-16), clamped at 0, is at most every pair's
-// cosf; kpr times it is at most every pair's dx_dlon, and gx times that
-// is at most every |rx| (|lon1 - lon2| >= gx).  |ry| >= gy * kpr likewise.
-// The products and the sum round monotonically, so the bound is at most
-// r2.  An empty chunk box (gy = inf) gives inf: the chunk is skipped; a
-// NaN bound compares false and skips nothing.
-template <bool LL>
-__device__ __forceinline__ float gap2_lower(float gx, float gy, float lat_a,
-                                           float lat_b, float lat_c,
-                                           float lat_d, float kpr,
-                                           float pi180) {
-  if (!LL) return gx * gx + gy * gy;
-  const float L = fmaxf(fmaxf(fabsf(lat_a), fabsf(lat_b)),
-                        fmaxf(fabsf(lat_c), fabsf(lat_d)));
-  const float c = fmaxf(cosf(pi180 * L) * (1.f - 1.f / 65536.f), 0.f);
-  const float kx = kpr * c;
-  const float gxm = kx > 0.f ? gx * kx : 0.f;
-  const float gym = gy * kpr;
-  return gxm * gxm + gym * gym;
-}
-
-// K2's form of the same bound, with fewer cosines.  The rounded products
-// pi180 * L keep the order of the |latitudes|, so the cosf at the larger
-// of the warp's and the chunk's largest |latitude| is one of the two boxes'
-// own cosf (box_cos), and their minimum is at most the cosf that
-// gap2_lower takes: metric_kx below is at most every pair's dx_dlon by the
-// argument above.  K2 takes one cosf per warp and one per staged chunk,
-// not one per warp and chunk.  An empty box (L = inf) has a NaN cosine:
-// fminf takes the other, and the empty chunk's gy = inf skips it anyway.
+// The contact searches' skips bound r2 = rx*rx + ry*ry from below, by
+// monotone rounding, over every pair of a berg in the warp's box and a
+// candidate in a chunk's box, from their gaps gx (degrees of longitude)
+// and gy and a lower bound kx of the metric's x factor.  With L the
+// largest |latitude| of both boxes, every pair has |lat_ref| <= L (its
+// rounded sum and halving are monotone), so |pi180 * lat_ref| <= pi180 * L
+// after rounding and the true cosine at the pair is at least cos(pi180 *
+// L) (cos is even and falls on [0, pi]).  cosf is within 2 ulp of the
+// true value (CUDA C Programming Guide, the single-precision accuracy
+// table), so cosf(pi180 * L) * (1 - 2^-16), clamped at 0, is at most
+// every pair's cosf; kpr times it is at most every pair's dx_dlon, and gx
+// times that is at most every |rx| (|lon1 - lon2| >= gx).  |ry| >= gy *
+// kpr likewise.  The products and the sum round monotonically, so the
+// bound is at most r2.  The rounded products pi180 * L keep the order of
+// the |latitudes|, so that cosf is the smaller of the two boxes' own
+// (box_cos): the searches take one cosf per warp and one per staged
+// chunk, not one per warp and chunk, and metric_kx forms kx from the
+// two.  An empty box (L = inf) has a NaN cosine: fminf takes the other,
+// and the empty chunk's gy = inf gives an infinite bound, which skips it;
+// a NaN bound compares false and skips nothing.  (Cartesian: gx*gx +
+// gy*gy, argued in csrc/extract_sorted.cu.)
 __device__ __forceinline__ float box_cos(float lat_lo, float lat_hi,
                                         float pi180) {
   return cosf(pi180 * fmaxf(fabsf(lat_lo), fabsf(lat_hi)));
@@ -83,8 +66,9 @@ __device__ __forceinline__ float metric_kx(float cos_w, float cos_c,
 // the bound from the gaps gx (degrees of longitude) and gy with kx from
 // metric_kx.  It holds for any sub-box of the two boxes, down to one
 // pair's two points (gaps |lon1 - lon2| and |lat1 - lat2|, where gy * kpr
-// is |ry| itself), so K2 bounds each lane's pair with a candidate of a
-// kept chunk with the chunk's kx and no cosine of its own.
+// is |ry| itself), so K2 and K5 bound each lane's pair with a candidate of
+// a kept chunk with the chunk's kx and no cosine of its own, and skip the
+// candidate when no lane of the warp may engage it (one vote).
 __device__ __forceinline__ float gap2_metric(float gx, float gy, float kx,
                                             float kpr) {
   const float gxm = kx > 0.f ? gx * kx : 0.f;

@@ -17,9 +17,10 @@
 // candidates, also in blocks flagged bad (whose window is truncated), so
 // every output equals the TPU kernel's.  Each CTA builds its own tables
 // from the block's first and last key, as the TPU wrapper does
-// (pallas_prepass.py:116-131): the strips' cell ranges, the bad flag (a
-// cell span wider than nx - (2r+1), or a strip that needs more than W rows
-// of its 8-aligned window) and the scan ranges.
+// (pallas_prepass.py:116-131; csrc/block_tables.cuh, shared with K2): the
+// strips' cell ranges, the bad flag (a cell span wider than nx - (2r+1),
+// or a strip that needs more than W rows of its 8-aligned window) and the
+// scan ranges.
 //
 // Bound: instruction issue, as K2's (csrc/extract_sorted.cu), whose
 // levers this kernel takes:
@@ -47,10 +48,17 @@
 //   the compiled shape to time the specialisation.
 //
 // - On a lat-lon grid (LL) the distance test measures the pair in metres
-//   through the metric factors at its mean latitude and the chunk skip
-//   bounds the x gap by the cosine at the largest |latitude| of the two
-//   boxes (csrc/latlon.cuh); every instantiation exists with LL false (the
-//   Cartesian code unchanged) and true.
+//   through the metric factors at its mean latitude, one cosf a test
+//   (bitwise equality with torch.cos rules out __cosf), and the skips
+//   take K2's design (csrc/extract_sorted.cu, csrc/latlon.cuh): the chunk
+//   skip bounds the x gap by the smaller of two cosines, one per warp and
+//   one per staged chunk (box_cos, kept in shared memory beside the
+//   chunk's box; metric_kx), and each candidate of a kept chunk first
+//   takes a test with no cosine, each lane's bound of its own pair
+//   against its own crit (with GROUP, outside its own conglomerate),
+//   skipped by the warp unless some lane may engage it (one vote).  Both
+//   drop only pairs that the full test rejects.  Every instantiation
+//   exists with LL false (the Cartesian code unchanged) and true.
 //
 // Build with -fmad=false: r^2 and crit^2 * slack must round as the
 // reference rounds them, or engagement flips at the boundary.
@@ -59,6 +67,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "block_tables.cuh"
 #include "latlon.cuh"
 
 namespace {
@@ -74,9 +83,11 @@ __host__ __device__ constexpr int cap_chunks(int bn, int ch) {
                                                 : MAX_CAND) / ch;
 }
 
-size_t smem_bytes(int bn, int ch) {
+// ll: the lat-lon forms, which keep each chunk's cosine
+size_t smem_bytes(int bn, int ch, bool ll) {
   const size_t cap = (size_t)cap_chunks(bn, ch);
-  return cap * ch * sizeof(float4) + cap * (sizeof(float4) + sizeof(float));
+  return cap * ch * sizeof(float4) +
+         cap * (sizeof(float4) + (ll ? 2 : 1) * sizeof(float));
 }
 
 template <int W>
@@ -111,7 +122,6 @@ prepass_sorted_kernel(const float4* __restrict__ P, int n,
                       uint8_t* __restrict__ bad_out) {
   const int bn = BN_T ? BN_T : (int)blockDim.x;
   const int ns = NS_T ? NS_T : nstrips_rt;
-  const int rad = ns / 2;
   constexpr int LPC = 32 / CH;                 // chunks a warp stages at once
   const int cap = cap_chunks(bn, CH);
   const int nwarps = bn / 32;
@@ -119,6 +129,7 @@ prepass_sorted_kernel(const float4* __restrict__ P, int n,
   float4* s_cand = sm4;                        // [cap * CH]
   float4* s_box = sm4 + cap * CH;              // [cap] lon min/max, lat min/max
   float* s_rmax = (float*)(s_box + cap);       // [cap] largest |rad|
+  float* s_ccos = s_rmax + cap;                // [cap] (LL) box_cos
   __shared__ int s_start[MAX_STRIPS], s_len[MAX_STRIPS];
   __shared__ int s_choff[MAX_STRIPS + 1];
   __shared__ float s_clo[MAX_STRIPS], s_chi[MAX_STRIPS];
@@ -141,25 +152,17 @@ prepass_sorted_kernel(const float4* __restrict__ P, int n,
     if (a1.x > 0.5f && a0.w != -1.f) lon1 = a0.x;
   }
 
-  // the block's tables (pallas_prepass.py:116-131; the tail block is
-  // padded with dead keys)
-  const int c0 = key_s[b * bn];
-  const int last = b * bn + bn - 1;
-  const int c1c = min(last < n ? key_s[last] : ncells, ncells - 1);
-  const bool span_bad = c1c - c0 > nx - ns;
+  // the block's tables (pallas_prepass.py:116-131; csrc/block_tables.cuh)
+  const BlockSpan sp = block_span(key_s, b, bn, n, ncells);
   if (t < ns) {
-    const int off = (t - rad) * nx;
-    const int clo = min(max(c0 - rad + off, 0), ncells - 1);
-    const int chi = min(max(c1c + rad + off, -1), ncells - 1);
-    const int start = cell_starts[clo];
-    const int stop = cell_starts[chi + 1];
-    const int ws8 = (start / 8) * 8;
-    s_win_bad[t] = stop - ws8 > window;
-    const int end = min(min(stop, ws8 + window), n);
-    s_start[t] = start;
-    s_len[t] = end > start ? end - start : 0;
-    s_clo[t] = (float)clo;
-    s_chi[t] = (float)chi;
+    const Strip st = block_strip(sp, t, ns, nx, ncells, cell_starts);
+    const int ws8 = (st.start / 8) * 8;
+    s_win_bad[t] = st.stop - ws8 > window;
+    const int end = min(min(st.stop, ws8 + window), n);
+    s_start[t] = st.start;
+    s_len[t] = end > st.start ? end - st.start : 0;
+    s_clo[t] = (float)st.clo;
+    s_chi[t] = (float)st.chi;
   }
   __syncthreads();
   if (t == 0) {
@@ -170,7 +173,7 @@ prepass_sorted_kernel(const float4* __restrict__ P, int n,
     }
     s_choff[ns] = acc;
   }
-  bool bad = span_bad;
+  bool bad = span_bad(sp, nx, ns);
   for (int s = 0; s < ns; ++s) bad = bad || s_win_bad[s];
   // this warp's box over the lanes that can engage (NaN lon1 ignored)
   const bool can = !isnan(lon1);
@@ -179,6 +182,7 @@ prepass_sorted_kernel(const float4* __restrict__ P, int n,
   const float wlo_y = group_min<32>(can ? lat1 : INFINITY);
   const float whi_y = group_max<32>(can ? lat1 : -INFINITY);
   const float wr = group_max<32>(can ? fabsf(R1) : 0.f);
+  const float cos_w = LL ? box_cos(wlo_y, whi_y, pi180) : 0.f;
   const bool warp_can = __any_sync(FULL, can);
   const float acd = fabsf(cd);
   const int big = 2 * n;
@@ -216,9 +220,11 @@ prepass_sorted_kernel(const float4* __restrict__ P, int n,
       const float lo_y = group_min<CH>(in ? c.y : INFINITY);
       const float hi_y = group_max<CH>(in ? c.y : -INFINITY);
       const float rm = group_max<CH>(in ? fabsf(c.z) : 0.f);
+      const float cc = LL ? box_cos(lo_y, hi_y, pi180) : 0.f;
       if (lane % CH == 0 && q < m) {
         s_box[q] = make_float4(lo_x, hi_x, lo_y, hi_y);
         s_rmax[q] = rm;
+        if (LL) s_ccos[q] = cc;
       }
     }
     __syncthreads();
@@ -228,8 +234,10 @@ prepass_sorted_kernel(const float4* __restrict__ P, int n,
         const float gx = fmaxf(fmaxf(bx.x - whi_x, wlo_x - bx.y), 0.f);
         const float gy = fmaxf(fmaxf(bx.z - whi_y, wlo_y - bx.w), 0.f);
         const float cb = fmaxf(wr + s_rmax[q], acd);
-        const float d2 = gap2_lower<LL>(gx, gy, wlo_y, whi_y, bx.z, bx.w, kpr,
-                                        pi180);
+        // the metric's x factor bound for every pair of the warp and the
+        // chunk (lat-lon only)
+        const float kx = LL ? metric_kx(cos_w, s_ccos[q], kpr) : 0.f;
+        const float d2 = LL ? gap2_metric(gx, gy, kx, kpr) : gx * gx + gy * gy;
         if (d2 > cb * cb * slack) continue;          // warp-uniform
         const int ch = ch0 + q;
         int s = 0;
@@ -239,6 +247,21 @@ prepass_sorted_kernel(const float4* __restrict__ P, int n,
 #pragma unroll 8
         for (int k = 0; k < CH; ++k) {
           const float4 c = cq[k];
+          if (LL) {
+            // K2's test, written as K2 writes it (csrc/extract_sorted.cu,
+            // which argues it).  The same test through a shared inline
+            // function ran ~7% slower here and in K2's fused3_ll, and ~5%
+            // faster in K2's part1_ll (chip_smoke.py --ab, NVIDIA H100);
+            // this form wins by launches a step (8 on 12a / 12b, 2 on 12c)
+            const float dx = lon1 - c.x, dy = lat1 - c.y;
+            const float gxm = kx > 0.f ? fabsf(dx) * kx : 0.f;
+            const float gym = dy * kpr;
+            const float critl = fmaxf(R1 + c.z, cd);
+            bool may = (dx != 0.f || dy != 0.f) &&
+                       gxm * gxm + gym * gym <= critl * critl * slack;
+            if (GROUP) may = may && c.w != g1;
+            if (!__any_sync(FULL, may)) continue;          // warp-uniform
+          }
           float rx, ry;
           pair_sep<LL>(lon1, lat1, c.x, c.y, kpr, pi180, rx, ry);
           const float r2 = rx * rx + ry * ry;
@@ -320,7 +343,8 @@ extern "C" int ib_prepass_sorted(const void* P, int n, const void* key_s,
   if (n == 0) return (int)cudaGetLastError();
   const int v = variant_of(block_n, nstrips, group, generic, latlon);
   kernel_of(v)<<<(n + block_n - 1) / block_n, block_n,
-                 smem_bytes(block_n, CH_OF[v % NV]), (cudaStream_t)stream>>>(
+                 smem_bytes(block_n, CH_OF[v % NV], v >= NV),
+                 (cudaStream_t)stream>>>(
       (const float4*)P, n, (const int32_t*)key_s,
       (const int32_t*)cell_starts, nx, ncells, nstrips, window, cd, slack,
       kpr, pi180, (int32_t*)cnt, (int32_t*)pmin, (int32_t*)pmax,
@@ -335,7 +359,7 @@ extern "C" int ib_prepass_config(int block_n, int nstrips, int group,
                                  int* smem, int* ctas_per_sm) {
   if (!valid_shape(block_n, nstrips)) return (int)cudaErrorInvalidValue;
   *variant = variant_of(block_n, nstrips, group, generic, latlon);
-  *smem = (int)smem_bytes(block_n, CH_OF[*variant % NV]);
+  *smem = (int)smem_bytes(block_n, CH_OF[*variant % NV], *variant >= NV);
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       ctas_per_sm, kernel_of(*variant), block_n, (size_t)*smem);
 }

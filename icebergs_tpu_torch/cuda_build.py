@@ -38,8 +38,8 @@ _SIGNATURES = {
     "ib_pack_rows": (_P, _P, _I, _P, _L, _P),
     "ib_gather_rows": (_P, _L, _I, _P, _P, _L, _L, _P),
     "ib_k1_config": (_I, _I, _P, _P, _P),
-    "ib_extract_sorted": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          _I, _I, _F, _F, _F, _F, _F, _P),
+    "ib_extract_sorted": (_P, _I, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I,
+                          _I, _I, _I, _F, _F, _F, _F, _F, _P),
     "ib_extract_config": (_I, _I, _I, _I, _I, _I, _P, _P, _P),
     "ib_segment_spread_sums": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _P),

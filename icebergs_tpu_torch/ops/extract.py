@@ -6,12 +6,15 @@ function is the JAX one: ``PT`` (16, N) feature rows (``PT_*``), output
 (24, N) rows (``EX_*``) and a per-row bad-block flag.
 
 The bad flags (a block's cell span wider than ``nx - (2r+1)``, or a strip
-that would not fit the TPU kernel's 128-aligned window) are computed here
-exactly as the TPU wrapper computes them (``pallas_prepass.py:663-675``),
-so the set of bergs sent to the exact fallback — and ``n_fallback`` —
-stay the reference's.  Rows of bad blocks carry the "no partner" result
-(count 0, min slot 2N, max slot -1, zero features); the caller discards
-them as the JAX package does.
+that would not fit the TPU kernel's 128-aligned window) follow the TPU
+wrapper's rule (``pallas_prepass.py:663-675``), so the set of bergs sent
+to the exact fallback — and ``n_fallback`` — stay the reference's:
+:func:`block_tables` computes the strip tables and flags in torch for the
+plain version (and the tests); the CUDA kernel builds them per block
+itself from the block's first and last key, so a call on the card is one
+launch.  Rows of bad blocks carry the "no partner" result (count 0, min
+slot 2N, max slot -1, zero features); the caller discards them as the JAX
+package does.
 
 ``exclude_same_group`` (the MTS Part-1 collision group) also drops
 candidates whose ``PT_GRP`` row (the conglomerate id) equals the berg's
@@ -302,7 +305,8 @@ def extract_sorted(PT, key_s, cell_starts, grid, cfg, *, block_n: int = 128,
     (not with ``exclude_same_group``).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (counted in ``extract_sorted.launches``)."""
+    kernel (counted in ``extract_sorted.launches``), which builds the
+    block tables itself."""
     generic = _generic(variant)
     if PT.dim() != 2 or PT.shape[0] != PT_NF or PT.dtype != torch.float32:
         raise ValueError(f"PT {tuple(PT.shape)} {PT.dtype}: need "
@@ -314,10 +318,6 @@ def extract_sorted(PT, key_s, cell_starts, grid, cfg, *, block_n: int = 128,
                          f"{tuple(cell_starts.shape)}")
     if not (PT.device == key_s.device == cell_starts.device):
         raise ValueError("PT, key_s and cell_starts on different devices")
-    c_lo, c_hi, bad = block_tables(key_s, cell_starts, grid.nx, grid.ny,
-                                   block_n, window, radius)
-    # expand, not repeat_interleave: the latter reads its size on the host
-    bad_block = bad[:, None].expand(-1, block_n).reshape(-1)[:N]
     cd = float(cfg.contact_distance)
     if epilogue and exclude_same_group:
         raise ValueError("the pair epilogue serves the legacy contact "
@@ -325,6 +325,11 @@ def extract_sorted(PT, key_s, cell_starts, grid, cfg, *, block_n: int = 128,
     spring = float(cfg.contact_spring_coef_eff) if epilogue else 0.
     rearth = float(cfg.Rearth) if cfg.grid_is_latlon else None
     if PT.device.type == "cpu":
+        c_lo, c_hi, bad = block_tables(key_s, cell_starts, grid.nx, grid.ny,
+                                       block_n, window, radius)
+        # expand, not repeat_interleave: the latter reads its size on the
+        # host
+        bad_block = bad[:, None].expand(-1, block_n).reshape(-1)[:N]
         return (extract_sorted_plain(PT, cell_starts, c_lo, c_hi, bad,
                                      block_n, cd,
                                      exclude_same_group=exclude_same_group,
@@ -336,15 +341,17 @@ def extract_sorted(PT, key_s, cell_starts, grid, cfg, *, block_n: int = 128,
     if not 32 <= block_n <= 1024 or block_n % 32 or not 0 <= radius <= 4:
         raise ValueError(f"block_n={block_n}, radius={radius}: need a "
                          f"multiple of 32 in [32, 1024] and a radius <= 4")
-    if not PT.is_contiguous() or cell_starts.dtype != torch.int32:
-        raise ValueError("PT must be contiguous, cell_starts int32")
+    if (not PT.is_contiguous() or key_s.dtype != torch.int32
+            or cell_starts.dtype != torch.int32):
+        raise ValueError("PT must be contiguous, key_s and cell_starts "
+                         "int32")
     out = torch.empty(EX_NOUT, N, dtype=torch.float32, device=PT.device)
+    bad_block = torch.empty(N, dtype=torch.bool, device=PT.device)
     lib = cuda_build.library()
-    badu8 = bad.to(torch.uint8)
     cuda_build.check(lib.ib_extract_sorted(
-        PT.data_ptr(), N, cell_starts.data_ptr(), c_lo.data_ptr(),
-        c_hi.data_ptr(), badu8.data_ptr(), out.data_ptr(), bad.shape[0],
-        block_n, c_lo.shape[1], int(exclude_same_group), generic,
+        PT.data_ptr(), N, key_s.data_ptr(), cell_starts.data_ptr(), grid.nx,
+        ncells, window_lanes(window), out.data_ptr(), bad_block.data_ptr(),
+        block_n, 2 * radius + 1, int(exclude_same_group), generic,
         int(epilogue), int(rearth is not None), cd, _SLACK, spring,
         *metric_scalars(rearth), cuda_build.stream_ptr(PT.device)),
         "extract_sorted")

@@ -22,6 +22,8 @@ from icebergs_tpu_torch.ops.fused_contact import contact_features
 from icebergs_tpu_torch.ops.interp_table import interp_cell_table
 from icebergs_tpu_torch.ops.pairs import eval_pair_ia_kernel
 
+from torch_k2_boundary import k2_boundary_counts
+
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
 
@@ -183,6 +185,120 @@ def _k2_world(dev, n=16_000, nx=40, dxy=1000., seed=0):
     key_s = torch.as_tensor(key[order].astype(np.int32)).to(dev)
     cs = srt.starts_from_sorted_key(key_s, nx * nx)
     return PT, key_s, cs, SimpleNamespace(nx=nx, ny=nx)
+
+
+def _k2_boundary_world(dev, block_n, radius, latlon, nx=64, ny=16, seed=0):
+    """The slab of :func:`k2_boundary_counts` at window width 4 *
+    ``block_n``, then a dead tail of at least 2 * ``block_n`` rows that
+    leaves N % block_n != 0 and fills an all-dead block; bergs placed at
+    random inside their cells (1 km cells, or 0.01 degree from 30 E, 60 S
+    on a lat-lon grid), radii 50-300 m, dead, fl_k == -1 rows and shared
+    conglomerate ids.  Returns (PT, key_s, cell_starts, grid, window,
+    blocks)."""
+    from types import SimpleNamespace
+    wl = 4 * block_n
+    counts, blocks = k2_boundary_counts(nx, ny, block_n, radius, wl, seed)
+    live = int(counts.sum())
+    ndead = 2 * block_n + 37
+    ndead += (live + ndead) % block_n == 0
+    n = live + ndead
+    ncells = nx * ny
+    rng = np.random.RandomState(seed)
+    key = np.concatenate([np.repeat(np.arange(ncells), counts),
+                          np.full(ndead, ncells)])
+    x = key % nx + rng.uniform(0.05, 0.95, n)
+    y = key // nx + rng.uniform(0.05, 0.95, n)
+    PT = np.zeros((extract.PT_NF, n), np.float32)
+    PT[extract.PT_LON], PT[extract.PT_LAT] = (
+        (30. + 0.01 * x, -60. + 0.01 * y) if latlon else (1e3 * x, 1e3 * y))
+    for r in (extract.PT_U, extract.PT_V, extract.PT_AREA):
+        PT[r] = rng.standard_normal(n)
+    PT[extract.PT_MASS] = rng.uniform(1e7, 1e9, n)
+    PT[extract.PT_RAD] = rng.uniform(50., 300., n)
+    PT[extract.PT_ALIVE] = (key < ncells) & (rng.uniform(size=n) > 0.03)
+    PT[extract.PT_KEY] = key
+    PT[extract.PT_GRP] = rng.randint(0, 3, n) + (np.arange(n) // 50) * 3
+    PT[extract.PT_FLK] = np.where(rng.uniform(size=n) < 0.02, -1., 0.)
+    window = wl - 200
+    assert extract.window_lanes(window) == wl
+    key_s = torch.as_tensor(key.astype(np.int32)).to(dev)
+    return (torch.as_tensor(PT).to(dev), key_s,
+            srt.starts_from_sorted_key(key_s, ncells),
+            SimpleNamespace(nx=nx, ny=ny), window, blocks)
+
+
+# K2's instantiations: (block_n, radius, group, variant, epilogue)
+_K2_FORMS = {"fused3": (128, 1, False, None, False),
+             "part1": (256, 2, True, None, False),
+             "generic": (128, 1, False, "generic", False),
+             "generic_group": (256, 2, True, "generic", False),
+             "fused3_epi": (128, 1, False, None, True),
+             "generic_epi": (128, 1, False, "generic", True)}
+
+
+@pytest.mark.parametrize("latlon", [False, True], ids=["cartesian",
+                                                      "latlon"])
+@pytest.mark.parametrize("form", list(_K2_FORMS))
+@pytest.mark.parametrize("world", ["culling", "boundary"])
+def test_extract_kernel_builds_block_tables(dev, world, form, latlon):
+    """Every K2 instantiation, Cartesian and lat-lon, builds its strips and
+    bad flags in the kernel: the bad flags it writes equal
+    ``block_tables``' and every output row the plain version's on those
+    tables, bitwise (the epilogue's spring sums on rows with at most two
+    exact pairs), one launch a call.  Worlds: ``_k2_world`` at window 288
+    (on a lat-lon grid its metres read as 1e-5 degree from 30 E, 60 S) and
+    one at each edge of the bad rule (``_k2_boundary_world``): window need
+    exactly WL and WL + 1, a span of exactly nx - (2r+1) cells and one
+    more, an all-dead block and a partial tail block."""
+    from types import SimpleNamespace
+    bn, radius, group, variant, epi = _K2_FORMS[form]
+    if world == "boundary":
+        PT, key_s, cs, grid, window, blocks = _k2_boundary_world(
+            dev, bn, radius, latlon)
+    else:
+        PT, key_s, cs, grid = _k2_world(dev)
+        window, blocks = 288, None
+        if latlon:
+            PT = PT.clone()
+            PT[extract.PT_LON] = 30. + 1e-5 * PT[extract.PT_LON]
+            PT[extract.PT_LAT] = -60. + 1e-5 * PT[extract.PT_LAT]
+    rearth = 6360000.
+    cfg = SimpleNamespace(contact_distance=0., grid_is_latlon=latlon,
+                          Rearth=rearth, contact_spring_coef_eff=1e-8)
+    before = (extract.extract_sorted.launches,
+              extract.extract_sorted.epilogue_launches)
+    out, bad_block = extract.extract_sorted(
+        PT, key_s, cs, grid, cfg, block_n=bn, window=window, radius=radius,
+        exclude_same_group=group, variant=variant, epilogue=epi)
+    assert (extract.extract_sorted.launches,
+            extract.extract_sorted.epilogue_launches) == (
+        before[0] + (not epi), before[1] + epi)
+    N = PT.shape[1]
+    c_lo, c_hi, bad = extract.block_tables(key_s, cs, grid.nx, grid.ny, bn,
+                                           window, radius)
+    assert torch.equal(bad_block,
+                       bad[:, None].expand(-1, bn).reshape(-1)[:N])
+    plain, nexact = extract.extract_sorted_plain(
+        PT, cs, c_lo, c_hi, bad, bn, 0., exclude_same_group=group,
+        epilogue=epi, spring=1e-8 if epi else 0., exact_counts=True,
+        rearth=rearth if latlon else None)
+    sums = [extract.EX_IAX, extract.EX_IAY] if epi else []
+    rest = [r for r in range(extract.EX_NOUT) if r not in sums]
+    assert torch.equal(out[rest], plain[rest])
+    if epi:
+        few = nexact <= 2
+        assert torch.equal(out[sums][:, few], plain[sums][:, few])
+    assert int((plain[extract.EX_CNT] > 0).sum()) > 100
+    assert extract.kernel_config(bn, radius, group, variant, epilogue=epi,
+                                 latlon=latlon)[0] == (
+        form + ("_ll" if latlon else ""))
+    if blocks is not None:
+        flags = bad.cpu()
+        assert [bool(flags[blocks[k]]) for k in ("wl", "wl+1", "span",
+                                                 "span+1")] == [
+            False, True, False, True]
+        ncells = grid.nx * grid.ny
+        assert N % bn and bool((key_s[::bn] == ncells).any())
 
 
 @pytest.mark.parametrize("block_n,radius,group,variant", [
@@ -1415,6 +1531,44 @@ def test_prepass_latlon_kernel_matches_plain(dev, group, n, lat):
         assert int((ref[0] > 0).sum()) > 50
     assert prepass.kernel_config(bn, radius, group, latlon=True)[0] == (
         "generic_group_ll" if group else "fused_ll")
+
+
+@pytest.mark.parametrize("lat", [-89.9, -45., 0., 61., 89.86])
+@pytest.mark.parametrize("group", [False, True], ids=["fused", "grouped"])
+def test_prepass_latlon_kernel_at_threshold(dev, group, lat):
+    """K5's lat-lon instantiations (``fused_ll``; ``generic_group_ll`` at
+    radius 2) bitwise against the plain version on pairs just inside and
+    just outside crit across a cell-row boundary (``_ll_edge_world`` from
+    ``lat``, radii by ``_edge_radii``: crit^2 * slack within 2 ulps of
+    each pair's r2), from 89.9 S to 89.9 N, with and without the group
+    filter: where the cosine-free candidate skip and the full test
+    meet."""
+    cfg, grid, st, cs = _ll_edge_world(dev, lat)
+    bn, radius = (128, 2) if group else (128, 1)
+    PT, _ = contact_features(st, grid, cfg, exclude_same_group=group)
+    P, key_s = prepass.prepass_features(st, grid, cfg, group)
+    P = P.clone()
+    P[:, prepass.F_RAD] = _edge_radii(PT, cfg)[extract.PT_RAD]
+    before = prepass.contact_prepass_sorted.launches
+    got = prepass.contact_prepass_sorted(P, key_s, cs, grid, cfg,
+                                         block_n=bn, window=512,
+                                         radius=radius,
+                                         exclude_same_group=group)
+    assert prepass.contact_prepass_sorted.launches == before + 1
+    c_lo, c_hi, bad = prepass.block_tables(key_s, cs, grid.nx, grid.ny, bn,
+                                           512, radius)
+    ref = prepass.prepass_sorted_plain(P, cs, c_lo, c_hi, bn, 512,
+                                       float(cfg.contact_distance),
+                                       exclude_same_group=group,
+                                       rearth=float(cfg.Rearth))
+    for a, b in zip(got[:3], ref):
+        assert torch.equal(a, b)
+    assert torch.equal(got[3], bad[:, None].expand(-1, bn).reshape(-1)[
+        :P.shape[0]])
+    engaged = int((ref[0] > 0).sum())
+    assert 0.2 < engaged / int(st.alive.sum()) < 0.8
+    assert int(st.jne[st.alive].min()) == 1
+    assert int(st.jne[st.alive].max()) == 2
 
 
 def _to_degrees_at(st, lat0):

@@ -6,8 +6,11 @@ interpret mode at the production block / window (128 / 160): bad-block
 flags exact everywhere, counts and min / max partner slots exact and
 partner features bit for bit on the rows of good blocks (bad blocks are
 discarded by both packages).  Worlds: sparse contacts, clustered knots
-(>= 3 partners), a cell too dense for the window, and blocks whose cell
-span is too wide.
+(>= 3 partners), a cell too dense for the window, blocks whose cell
+span is too wide, each edge of the bad rule (window need exactly WL and WL
++ 1, a span of exactly nx - 3 cells and one more; the rule the CUDA
+kernel now applies per block) and a partial tail block (N % BN != 0)
+after an all-dead one.
 """
 
 import dataclasses
@@ -29,11 +32,14 @@ import icebergs_tpu_torch as ibp
 from icebergs_tpu_torch.ops import extract
 from icebergs_tpu_torch.ops.fused_contact import (contact_features,
                                                   make_ia_fn_fused3)
+from torch_k2_boundary import k2_boundary_counts
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
 NX, NY, CAP = 64, 16, 2048
 BN, WINDOW = 128, 160
+# the "boundary" case: WL = window_lanes(300) = 512, grid rows 0-9
+BOUNDARY_WINDOW, BOUNDARY_NY = 300, 10
 
 
 def _leaves(obj):
@@ -53,13 +59,31 @@ def _setup():
     return cfg, grid
 
 
+@functools.lru_cache(maxsize=None)
+def _boundary():
+    """(per-cell counts, the edge blocks) of the "boundary" case."""
+    return k2_boundary_counts(NX, BOUNDARY_NY, BN, 1,
+                              extract.window_lanes(BOUNDARY_WINDOW))
+
+
 def _world(case, seed=3):
     """A cell-sorted JAX state for one case."""
     cfg, grid = _setup()
     rng = np.random.RandomState(seed)
-    n = 600 if case == "span" else 1900
+    n = {"span": 600, "tail": 1700}.get(case, 1900)
+    cap = CAP
     lon = rng.uniform(2e3, 62e3, n)
     lat = rng.uniform(2e3, 14e3, n)
+    if case == "tail":                 # 2000 slots: a partial last block
+        cap = 2000
+    if case == "boundary":
+        # the counts of k2_boundary_counts, each berg inside its cell
+        counts = _boundary()[0]
+        cell = np.repeat(np.arange(counts.size), counts)
+        n = cell.size
+        cap = -(-(n + BN) // BN) * BN
+        lon = (cell % NX + rng.uniform(0.05, 0.95, n)) * 1e3
+        lat = (cell // NX + rng.uniform(0.05, 0.95, n)) * 1e3
     if case == "clustered":            # 20 knots of 6 bergs within 100 m
         for k in range(20):
             c = rng.uniform([5e3, 4e3], [59e3, 12e3])
@@ -75,7 +99,7 @@ def _world(case, seed=3):
         lat[:200] = rng.uniform(15e3, 16e3, 200)
         lon[:200] = rng.uniform(2e3, 64e3, 200)
         lon[:30] = rng.uniform(63e3, 63.99e3, 30)
-    st = ibt.create_bergs(CAP, lon=lon, lat=lat,
+    st = ibt.create_bergs(cap, lon=lon, lat=lat,
                           uvel=rng.uniform(-.3, .3, n),
                           vvel=rng.uniform(-.3, .3, n),
                           mass=850. * 40. * 150. * 150., thickness=40.,
@@ -88,26 +112,27 @@ def _world(case, seed=3):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_extract():
+def _jax_extract(window=WINDOW):
     cfg, grid = _setup()
     return jax.jit(functools.partial(
         contact_extract_sorted_g, grid=grid, cfg=cfg, block_n=BN,
-        window=WINDOW, interpret=True))
+        window=window, interpret=True))
 
 
 @pytest.mark.parametrize("case", ["sparse", "clustered", "window", "span",
-                                  "edge"])
+                                  "edge", "boundary", "tail"])
 def test_extract_plain_matches_jax(case):
     cfg, grid = _setup()
     js, jcs = _world(case)
+    window = BOUNDARY_WINDOW if case == "boundary" else WINDOW
     tst = ibp.state_from_numpy(_leaves(js), device=CPU)
     tgrid = ibp.grid_from_numpy(_leaves(grid), device=CPU)
     tcfg = ibp.config_from_dict(dataclasses.asdict(cfg))
     PT, key_s = contact_features(tst, tgrid, tcfg)
     cs = torch.as_tensor(np.array(jcs))
     out, bad = extract.extract_sorted(PT, key_s, cs, tgrid, tcfg,
-                                      block_n=BN, window=WINDOW)
-    jout, jbad = _jax_extract()(jnp.asarray(PT.numpy()),
+                                      block_n=BN, window=window)
+    jout, jbad = _jax_extract(window)(jnp.asarray(PT.numpy()),
                                 jnp.asarray(key_s.numpy()),
                                 jnp.asarray(np.asarray(jcs)))
     jout, jbad = np.asarray(jout), np.asarray(jbad)
@@ -134,6 +159,18 @@ def test_extract_plain_matches_jax(case):
                                                  WINDOW)
         span = ((c_hi[:, 1] - 1) - (c_lo[:, 1] + 1)) > NX - 3
         assert bflag.any() and not span[bflag].all()
+    elif case == "boundary":
+        # the edge blocks' flags: need WL good, WL + 1 bad, span nx - 3
+        # good, nx - 2 bad (k2_boundary_counts holds their need and span)
+        blocks = _boundary()[1]
+        assert [bool(bad[blocks[k] * BN]) for k in ("wl", "wl+1", "span",
+                                                    "span+1")] == [
+            False, True, False, True]
+        assert (cnt > 0).sum() > 1000
+    elif case == "tail":
+        # the last block holds 80 dead rows, the one before only dead rows
+        assert PT.shape[1] % BN == 80
+        assert not bool(tst.alive[-80 - BN:].any())
     else:                              # every block with live rows
         assert bad[np.asarray(js.alive)].all()
 

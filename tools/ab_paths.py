@@ -1,20 +1,25 @@
-"""Time the main paths of K3's pass-through and K2's lat-lon forms, in
-another version of this package.
+"""Time the main paths of the contact searches (K2, K5) and K3's
+pass-through, in another version of this package.
 
 Runs ``chip_smoke.py``'s own phase functions, at its full sizes, for the
-paths that launch K3's pass-through (9b the fast lane with the slot
-scatter, 10a the coupled entry, 11c the coupled entry with MTS, 12b the
-coupled entry on the tripolar grid) or K2's lat-lon forms (12a the
-lat-lon fast lane, 12b, 12c the DEM world on a lat-lon grid), with the
-package found under ``--root``: this checkout by default, or an unpacked
-copy of another commit inside it.  Each path gives its wall time
-(median and windows), the profiled window's device time and kernel
-count, its checksum and the launches of K2 and K3's pass-through, one
-JSON line a path.  Run it for a parent and a change in turns (parent,
-change, change, parent) in one call, so that both are timed on one card.
-Needs one CUDA GPU:
+paths that launch K2 (5 the fast lane, 9a with K2's pair epilogue, 9b
+with the slot scatter, also K3's pass-through, 10a the coupled entry),
+K3's pass-through (9b, 10a, 11c the coupled entry with MTS, 12b), K2's
+lat-lon forms (12a the lat-lon fast lane, 12b the coupled entry on the
+tripolar grid, 12c the DEM world on a lat-lon grid) or K5's (12af the
+lat-lon persistent ``fused`` lane with K6) or the stand-alone driver (13a
+on the headline world, 13b on the DEM world, each launching K2 once a
+step), with the package found under
+``--root``: this checkout by default, or an unpacked copy of another
+commit inside it.  Each path gives its wall time (median and windows),
+the profiled window's device time and kernel count (the driver paths:
+seconds a step over the driver's own loop, no profile), its checksum and
+the launches of K2, K5 and K3's pass-through, one JSON line a path.  Run it
+for a parent and a change in turns (parent, change, change, parent) in
+one call, so that both are timed on one card.  A path may be named twice,
+the second run timed warm.  Needs one CUDA GPU:
 
-    python3 tools/ab_paths.py [--root DIR] [--paths 9b,10a,11c,12a,12b,12c]
+    python3 tools/ab_paths.py [--root DIR] [--paths 5,9a,9b,10a,12a,...]
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import subprocess
 import sys
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-PATHS = ("9b", "10a", "11c", "12a", "12b", "12c")
+PATHS = ("5", "9a", "9b", "10a", "11c", "12a", "12af", "12b", "12c", "13a",
+         "13b")
 
 
 def main() -> int:
@@ -49,7 +55,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(root))
     import icebergs_tpu_torch as ibp
+    from icebergs_tpu_torch import cuda_build
     from icebergs_tpu_torch.ops import pairs
+    # the kernels' build first, so that no path's times hold it
+    cuda_build.library()
     spec = importlib.util.spec_from_file_location("smoke",
                                                   REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -65,7 +74,8 @@ def main() -> int:
     rel = str(root.relative_to(REPO)) or "."
 
     def report(tag, res, launches):
-        wall = res.get("ms_per_step", res.get("s_per_outer_step"))
+        wall = res.get("ms_per_step", res.get("s_per_outer_step",
+                                              res.get("s_per_step")))
         print(json.dumps(dict(
             path=tag, root=rel, wall=wall,
             windows=res.get("windows_ms", res.get("windows_s")),
@@ -74,14 +84,19 @@ def main() -> int:
             kernels=res.get("kernels_per_step",
                             res.get("kernels_per_outer_step")),
             berg_chksum=res.get("berg_chksum"),
+            steps=res.get("steps", res.get("outer_steps")),
             launches={k: launches[k] for k in (
-                "extract_sorted", "segment_spread_sums/assoc")})),
+                "extract_sorted", "extract_sorted/epilogue",
+                "contact_prepass_sorted", "segment_spread_sums/assoc")})),
             flush=True)
 
     for tag in paths:
-        if tag == "9b":
+        if tag == "5":
+            res, launches, _ = smoke.phase_path(
+                ibp, torch, device, kernels, "fast_lane", profile=True)
+        elif tag in ("9a", "9b"):
             _, label, ckw, mkw, _ = next(p for p in smoke.ITEM15_PATHS
-                                         if p[0] == "9b")
+                                         if p[0] == tag)
             res, launches, _ = smoke.phase_path(
                 ibp, torch, device, kernels, label, cfg_kw=ckw,
                 multi_kw=mkw, profile=True)
@@ -95,12 +110,16 @@ def main() -> int:
             res, launches = smoke.phase_mts_coupled(ibp, torch, device,
                                                     kernels, dcfg, dem)
             del dem
-        elif tag == "12a":
+        elif tag in ("12a", "12af"):
             world = smoke.ll_world(ibp, torch, smoke.N_HEAD, smoke.LL_NX,
                                    smoke.LL_NY, device)
+            fused = tag == "12af"
             res, launches, _ = smoke.phase_path(
-                ibp, torch, device, kernels, "ll_fast_lane", world=world,
-                profile=True)
+                ibp, torch, device, kernels,
+                "ll_persistent_fused_kernel" if fused else "ll_fast_lane",
+                cfg_kw=dict(interp_mode="kernel") if fused else None,
+                multi_kw=dict(neighbor_mode="fused") if fused else None,
+                world=world, profile=True)
             del world
         elif tag == "12b":
             tw = smoke.tripolar_world(ibp, torch, smoke.TRI_NX, smoke.TRI_NY,
@@ -111,6 +130,11 @@ def main() -> int:
                 label="12b tripolar coupled", profile=True,
                 check=smoke.in_cells(torch, tw[1]))
             del tw
+        elif tag == "13a":
+            res, launches = smoke.phase13a(ibp, torch, device, kernels)
+        elif tag == "13b":
+            res, launches = smoke.phase13b(ibp, torch, device, kernels,
+                                           smoke.dem_config(ibp))
         else:
             dcfg = smoke.dem_config(ibp, **smoke.LL_CFG)
             dem = smoke.dem_world(ibp, torch, dcfg, smoke.DEM_UNITS,
