@@ -25,9 +25,10 @@ point-in-quad walk of :mod:`.geometry`).  The stand-alone driver
 (``python -m icebergs_tpu_torch.driver``) reads the reference's
 namelists and restarts and writes restarts, trajectories and the
 diagnostics' history file (:mod:`.io`, :mod:`.diagnostics`), with the
-A68 hindcast's forcing files.  Hexagonal elements and the multi-device
-layer are not ported yet: their settings and entry points raise
-``NotImplementedError`` naming the ROADMAP.md item.
+A68 hindcast's forcing files.  Hexagonal elements (the hexagon spreading
+of :mod:`.ops.hexagon`, the bond-oriented hexagons and the hexagonal DEM
+faces) run on every path.  The multi-device layer is not ported yet: its
+entry points raise ``NotImplementedError`` naming the ROADMAP.md item.
 Module names mirror the JAX package; each module names its counterpart.
 
 Importing this package imports torch and never jax.  On CPU tensors

@@ -5,8 +5,9 @@ defaults (``icebergs_tpu.config`` cannot be imported without jax), so a
 JAX config carries across as ``IcebergsConfig(**dataclasses.asdict(c))``
 (:func:`icebergs_tpu_torch.convert.config_from_dict`).
 
-:func:`check_ported` names the settings whose backend this package does
-not have yet; the step factories call it.
+:func:`check_ported` rejects the values of the string settings that name
+no backend; every setting of the JAX package is served.  The step
+factories call it.
 """
 
 from __future__ import annotations
@@ -383,26 +384,13 @@ class IcebergsConfig:
         return cfg
 
 
-# Settings whose backend this package does not have yet, each with the
-# ROADMAP.md Queue 1 item that ports it.  Values not listed are served.
-_NOT_PORTED = (
-    ("hexagonal_icebergs", True, 22, "hexagonal elements"),
-)
 _SLOT_SUM_METHODS = ("pallas", "scatter", "scatter_t", "gather",
                      "gather_raw", "gather_mm")
 
 
 def check_ported(cfg: IcebergsConfig) -> None:
-    """Raise ``NotImplementedError`` for a setting whose backend is not
-    ported, naming the ROADMAP.md item that ports it."""
-    def no(what, item):
-        raise NotImplementedError(
-            f"{what} is not ported to icebergs_tpu_torch yet "
-            f"(ROADMAP.md Queue 1 item {item})")
-
-    for name, bad, item, what in _NOT_PORTED:
-        if getattr(cfg, name) == bad:
-            no(f"{what} ({name}={bad!r})", item)
+    """Raise ``ValueError`` for a string setting whose value names no
+    backend (every setting of the JAX package is served)."""
     if cfg.interp_mode not in ("table", "kernel", "xla"):
         raise ValueError(f"interp_mode={cfg.interp_mode!r}")
     if cfg.slot_sum_method not in _SLOT_SUM_METHODS:

@@ -17,10 +17,11 @@ Counterpart of ``icebergs_tpu/model.py``'s ``StepDiags``,
    config's knobs pick), which serves the thermodynamics, the spreading
    and the next step's search;
 4. thermodynamics, its melt columns deferred to the K3 pass, or summed
-   by their own scatters for the other slot-sum methods;
+   by their own scatters for the other slot-sum methods and hexagons;
 5. the spreading segment sums (K3, or the slot sums of
-   ``slot_sum_method`` / the plain scatter of ``parallel_reprod=False``)
-   and the coupler fields.
+   ``slot_sum_method`` / the plain scatter of ``parallel_reprod=False``;
+   hexagonal elements take the slot sums, as in the JAX package) and the
+   coupler fields.
 
 One per-step (``make_step``) step keeps the slot order: the table
 interpolation where the JAX ``make_step`` takes it, else
@@ -190,13 +191,13 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
     :func:`~.ops.dem_substeps.pack_conglomerates_blocked` state runs the
     substeps in K4, otherwise they run as the scan, with the frozen pair
     list of ``mts_pair_cap`` pairs where it applies (its overflow is
-    ``StepDiags.contact_overflow``).  What is not ported raises
-    ``NotImplementedError`` naming its ROADMAP.md item."""
+    ``StepDiags.contact_overflow``)."""
     check_ported(cfg)
     table = use_interp_table(cfg)
     # the pallas spread kernel pins the sort key's pre-thermodynamics
-    # aliveness; the other reproducing methods share one (cell, id) sort
-    spread_kernel = cfg.parallel_reprod and cfg.slot_sum_method == "pallas"
+    # aliveness; the other reproducing methods (and hexagons) share one
+    # (cell, id) sort
+    spread_kernel = _spread.uses_spread_kernel(cfg)
     interactive = (cfg.interactive_icebergs_on if with_interactions is None
                    else with_interactions)
     if neighbor_mode is None:
@@ -398,7 +399,9 @@ def make_persistent_multi_step(grid: Grid, cfg: IcebergsConfig,
     else:
         def interp(st, grid, frc, cfg):
             return interp_to_bergs(st, grid, frc, cfg), None
-    spread_kernel = cfg.parallel_reprod and cfg.slot_sum_method == "pallas"
+    # K3 and the deferred melt columns, or (other slot-sum methods,
+    # hexagons) the slot sums on the presorted slab
+    spread_kernel = _spread.uses_spread_kernel(cfg)
     nx, ny = grid.nx, grid.ny
     cell_table = cell_tables(grid) if with_spread else None
 

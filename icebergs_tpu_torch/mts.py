@@ -89,10 +89,13 @@ def _slow_accel_mts(st, cfg: IcebergsConfig, ia_fn):
     hi = torch.minimum(st.hi, D)
     D_hi = (D - hi).clamp(min=0.)
     uo, vo, ui, vi, ua, va = st.uo, st.vo, st.ui, st.vi, st.ua, st.va
+    # radius-based vertical faces for hexagonal DEM elements
+    # (icebergs.F90:1378-1386)
     if cfg.dem and cfg.hexagonal_icebergs and cfg.radius_based_drag:
-        raise NotImplementedError("hexagonal DEM faces (ROADMAP.md Queue 1 "
-                                  "item 22)")
-    L2, W2 = L, W
+        L2 = 2. * torch.sqrt(L * W / (2. * torch.sqrt(M.new_full((), 3.))))
+        W2 = L2
+    else:
+        L2, W2 = L, W
 
     if cfg.h_to_init_grounding > 0.:
         groundfrac = (1.0 - tdiv(st.od - D, cfg.h_to_init_grounding)
@@ -588,7 +591,7 @@ def _substeps_scan(st, cfg: IcebergsConfig, nbr, pairs, moving,
             if cfg.use_grounding_torque:
                 gdrag = _dem.grounding_drag_coeff(
                     cfg, s.thickness, s.od, s.mass, s.length, s.width,
-                    "disk")
+                    "disk", scan=True)
             else:
                 gdrag = torch.zeros_like(s.ang_vel)
             av = (s.ang_vel + dtf * s.ang_accel) / (1. - gdrag * dtf)

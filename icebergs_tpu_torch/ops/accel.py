@@ -60,11 +60,12 @@ def divc(x, c: float):
     return torch.div(x, x.new_full((), c))
 
 
-def f32_scalar(fn, x: float) -> float:
-    """``fn`` of a Python scalar evaluated in float32 on the host (a JAX
-    weak-typed scalar op); the result is exact as a Python float, so no
-    device scalar (and no host-device copy) is made."""
-    return float(fn(torch.tensor(x, dtype=torch.float32)))
+def f32_scalar(fn, x: float, dtype=torch.float32) -> float:
+    """``fn`` of a Python scalar evaluated in float32 (or the state's
+    ``dtype``) on the host (a JAX weak-typed scalar op); the result is
+    exact as a Python float, so no device scalar (and no host-device
+    copy) is made."""
+    return float(fn(torch.tensor(x, dtype=dtype)))
 
 
 def coriolis(cfg: IcebergsConfig, lat):

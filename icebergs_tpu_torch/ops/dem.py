@@ -105,9 +105,12 @@ def segment_sum_sorted(vals, key, nseg: int):
 
 
 def grounding_drag_coeff(cfg: IcebergsConfig, thickness, od, mass, length,
-                         width, area_form: str):
+                         width, area_form: str, scan: bool = False):
     """gdrag of short-step grounding (``'rect'``) or of the grounding
-    torque (``'disk'``; icebergs.F90:6868-6893, 6986-7034)."""
+    torque (``'disk'``; icebergs.F90:6868-6893, 6986-7034).  A hexagon's
+    disk radius takes K4's product with 1/(2 sqrt 3)
+    (``icebergs_tpu/ops/dem_vmem.py:310-311``) or, for the ``scan``, the JAX
+    scan's division by 2 sqrt 3 (``icebergs_tpu/mts.py:567``)."""
     D = (cfg.rho_bergs / C.RHO_SEAWATER) * thickness
     if cfg.h_to_init_grounding > 0.:
         gf = (1.0 - tdiv(od - D, cfg.h_to_init_grounding)).clamp(0., 1.)
@@ -123,7 +126,9 @@ def grounding_drag_coeff(cfg: IcebergsConfig, thickness, od, mass, length,
     if area_form == "rect":
         AA = A0
     else:                       # disk of interaction radius
-        if cfg.hexagonal_icebergs:
+        if cfg.hexagonal_icebergs and scan:
+            R1 = torch.sqrt(A0 / (2. * torch.sqrt(A0.new_full((), 3.))))
+        elif cfg.hexagonal_icebergs:
             R1 = torch.sqrt(A0 * _HEXDENOM)
         elif cfg.iceberg_bonds_on:
             R1 = 0.5 * torch.sqrt(A0)
@@ -523,20 +528,21 @@ def break_bonds_dem(st, cfg: IcebergsConfig):
 
 def moment_radius_sq(cfg: IcebergsConfig, st):
     """R1^2 of the DEM moment of inertia (``_substep_forces``): the
-    constant interaction area's radius squared in float32 as a Python
-    float, or the elements' own."""
+    constant interaction area's radius squared in the state's dtype as a
+    Python float, or the elements' own."""
+    dt = st.lon.dtype
     if cfg.constant_interaction_LW:
         A0 = cfg.constant_length * cfg.constant_width
         if cfg.hexagonal_icebergs:
             R1 = f32_scalar(lambda a: torch.sqrt(a / (2. * torch.sqrt(
-                torch.tensor(3., dtype=torch.float32)))), A0)
+                torch.tensor(3., dtype=dt)))), A0, dt)
         else:
-            R1 = 0.5 * f32_scalar(torch.sqrt, A0)
-        return f32_scalar(lambda r: r * r, R1)
+            R1 = 0.5 * f32_scalar(torch.sqrt, A0, dt)
+        return f32_scalar(lambda r: r * r, R1, dt)
     A0 = st.length * st.width
     if cfg.hexagonal_icebergs:
         R1 = torch.sqrt(tdiv(A0, f32_scalar(
-            lambda s: 2. * torch.sqrt(s), 3.)))
+            lambda s: 2. * torch.sqrt(s), 3., dt)))
     else:
         R1 = 0.5 * torch.sqrt(A0)
     return R1 * R1

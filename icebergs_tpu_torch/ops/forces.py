@@ -41,7 +41,7 @@ import torch
 from .. import constants as C
 from ..config import IcebergsConfig
 from ..grid import pair_separation
-from .accel import IA, f32_scalar, zero_ia
+from .accel import IA, divc, f32_scalar, zero_ia
 from .pack import from_bits, permute_cols_u32, to_bits
 
 
@@ -148,7 +148,7 @@ def build_neighbor_tables(st, grid, cfg: IcebergsConfig,
 def _interaction_radius(cfg: IcebergsConfig, A):
     """Inscribed-circle radius by packing shape (Stern et al 2017 Eq 4)."""
     if cfg.hexagonal_icebergs:
-        return torch.sqrt(A / (2. * f32_scalar(torch.sqrt, 3.)))
+        return torch.sqrt(divc(A, 2. * f32_scalar(torch.sqrt, 3., A.dtype)))
     if cfg.iceberg_bonds_on:
         return 0.5 * torch.sqrt(A)
     return torch.sqrt(A / C.PI)

@@ -1,7 +1,8 @@
 """Mass spreading of bergs onto the ocean grid + derived gridded fields.
 
 Counterpart of ``icebergs_tpu/ops/spread.py`` (``berg_spread_mass``,
-``spread_weights``' rectangle branch, ``make_sort_ctx``,
+``find_orientation_using_iceberg_bonds``, ``spread_weights``' rectangle
+and hexagon branches, ``make_sort_ctx``,
 ``scatter9_slots``, ``scatter_cell_deterministic``, ``_scatter9_packed``,
 ``calculate_mass_on_ocean``, ``create_gridded_icebergs_fields``,
 ``sum_slots``, ``_gridded_epilogue``; port of ``src/icebergs.F90:
@@ -13,6 +14,8 @@ order.  The per-cell sums take one of the JAX package's associations:
 - ``slot_sum_method="pallas"`` (with ``parallel_reprod``): K3
   (:mod:`.segment_spread`) on its own payload, sequential in (cell, id)
   order, or the slot tree when a block overflows the TPU kernel's window;
+  K3 builds in the rectangle weights, so hexagonal elements take
+  ``"scatter"`` instead, as in the JAX package;
 - ``"scatter"``, and ``"scatter_t"`` on a presorted slab: the slot tree
   (ranks k < K-1 in slot k, the rest added into slot K-1 in (cell, id)
   order, a pairwise tree over K = ``reprod_max_per_cell``);
@@ -25,8 +28,10 @@ order.  The per-cell sums take one of the JAX package's associations:
   JAX package's matmul), its cell columns as ``"gather"``;
 - ``parallel_reprod=False``: one accumulating scatter, in no fixed order.
 
-Cells with at most K bergs get the same bits from every reproducing
-method.  No reproducing method uses atomics: the per-row products are
+Each berg's 9 weights are scaled by its ``I_fraction_used`` (1 for
+rectangles; for hexagons the inverse of the wet share of its footprint)
+before any sum, as the JAX package scales them.  Cells with at most K
+bergs get the same bits from every reproducing method.  No reproducing method uses atomics: the per-row products are
 PyTorch elementwise ops, the block trees and slot placements write each
 slot once, and the sequential sums run in K3 with the association fixed
 (:func:`.segment_spread.segment_sums`).
@@ -34,13 +39,18 @@ slot once, and the sequential sums run in K3 with the association fixed
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
+from .. import constants as C
 from ..config import IcebergsConfig
+from ..grid import convert_from_grid_to_meters
 from . import segment_spread as ss
 from .accel import rdiv
+from .dem import tdiv
+from .hexagon import hexagon_into_quadrants_using_triangles, slot_sum
 from .pack import from_bits, permute_cols_u32, to_bits
 from .sorted import lex_cell_id_order, starts_from_sorted_key
 from .thermo import fl_bits_dimensions
@@ -105,22 +115,56 @@ def sum_slots(out9):
     return [acc[..., f] for f in range(out9.shape[-1])]
 
 
+def find_orientation_using_iceberg_bonds(st, cfg: IcebergsConfig,
+                                         orientation):
+    """Each element's hexagon orientation from its bonds' directions
+    (find_orientation_using_iceberg_bonds, icebergs.F90:3829-3894): the
+    mean over its intact bonds to live partners (``bond_idx >= 0``, both
+    ends alive) of each bond's angle, mod pi/3.
+
+    Bug-compatible with the reference and the JAX package: the angle is
+    in radians, but the hexagon rotation takes degrees
+    (rotate_and_translate, icebergs.F90:4537)."""
+    other = st.bond_idx.clamp(min=0).long()
+    valid = (st.bond_idx >= 0) & st.alive[:, None] & st.alive[other]
+    lat1, lon1 = st.lat[:, None], st.lon[:, None]
+    lat2, lon2 = st.lat[other], st.lon[other]
+    dx_dlon, dy_dlat = convert_from_grid_to_meters(
+        0.5 * (lat1 + lat2), cfg.grid_is_latlon, cfg.Rearth)
+    rx = (lon2 - lon1) * dx_dlon
+    ry = (lat2 - lat1) * dy_dlat
+    halfpi = C.PI / 2.
+    ang = torch.where(
+        rx == 0., halfpi,
+        torch.remainder((halfpi - orientation[:, None] * (C.PI / 180.))
+                        - torch.atan(ry / torch.where(rx == 0., 1., rx)),
+                        C.PI / 3.))
+    cnt = valid.sum(dim=1).to(st.dtype)
+    avg = slot_sum(torch.where(valid, ang, 0.), 1) / cnt.clamp(min=1.)
+    return torch.where(cnt > 0., torch.remainder(avg, C.PI / 3.),
+                       torch.remainder(torch.zeros_like(avg), C.PI / 3.))
+
+
 def spread_weights(st, grid, cfg: IcebergsConfig):
-    """Per-berg 3x3 rectangle spreading weights (9, N), (dj, di) row-major
-    (icebergs.F90:3960-4001)."""
+    """Per-berg 3x3 spreading weights (9, N), (dj, di) row-major, and the
+    inverse of the footprint's wet fraction, ``I_fraction_used`` (N,):
+    the rectangle model (icebergs.F90:3960-4001; ones) or the hexagon
+    model (icebergs.F90:4003-4090)."""
     x, y = st.xi, st.yj
     I, J = (st.ine + 1).long(), (st.jne + 1).long()
     msk = grid.msk
     area_cell = grid.area[I, J]
+    Area = st.length * st.width
     m = {(di, dj): msk[I + di, J + dj]
          for dj in (-1, 0, 1) for di in (-1, 0, 1)}
+    if cfg.hexagonal_icebergs:
+        return _hexagon_weights(st, cfg, x, y, m, Area, area_cell)
     if cfg.use_old_spreading:
         xL = (0.5 - x).clamp(min=0.).clamp(max=0.5)
         xR = (x - 0.5).clamp(min=0.).clamp(max=0.5)
         yD = (0.5 - y).clamp(min=0.).clamp(max=0.5)
         yU = (y - 0.5).clamp(min=0.).clamp(max=0.5)
     else:
-        Area = st.length * st.width
         L = torch.where(area_cell > 0.,
                         torch.sqrt(Area / area_cell.clamp(min=1e-30)
                                    ).clamp(max=1.0), 1.0)
@@ -142,8 +186,52 @@ def spread_weights(st, grid, cfg: IcebergsConfig):
     yUxR = yU * xR * m[(1, 1)]
     yCxC = 1. - (((yDxL + yUxR) + (yDxR + yUxL))
                  + ((yCxL + yCxR) + (yDxC + yUxC)))
-    return torch.stack([yDxL, yDxC, yDxR, yCxL, yCxC, yCxR, yUxL, yUxC,
-                        yUxR])
+    return (torch.stack([yDxL, yDxC, yDxR, yCxL, yCxC, yCxR, yUxL, yUxC,
+                         yUxR]), torch.ones_like(x))
+
+
+def _hexagon_weights(st, cfg, x, y, m, Area, area_cell):
+    """The hexagon model: the quadrant areas of a hexagon of the berg's
+    area around the cell corner nearest to it, each quadrant's share in
+    the cell it covers (unmasked), and ``I_fraction_used`` from the wet
+    cells' shares (the centre's as ``yCxC ** msk``, as the reference and
+    the JAX package write it, so a land centre counts 1)."""
+    orientation = torch.full_like(x, cfg.initial_orientation)
+    if cfg.iceberg_bonds_on and cfg.rotate_icebergs_for_mass_spreading:
+        orientation = find_orientation_using_iceberg_bonds(st, cfg,
+                                                           orientation)
+    H = torch.where(area_cell > 0.,
+                    (torch.sqrt(tdiv(Area, 2. * math.sqrt(3.)))
+                     / torch.sqrt(area_cell.clamp(min=1e-30))).clamp(max=1.),
+                    (math.sqrt(3.) / 2.) * 0.49)
+    x0 = x - torch.where(x < 0.5, 0., 1.)
+    y0 = y - torch.where(y < 0.5, 0., 1.)
+    A_hex, Q1, Q2, Q3, Q4 = hexagon_into_quadrants_using_triangles(
+        x0, y0, H, orientation)
+    Ah = A_hex.clamp(min=1e-30)
+    Q1, Q2, Q3, Q4 = Q1 / Ah, Q2 / Ah, Q3 / Ah, Q4 / Ah
+    right, top = x >= 0.5, y >= 0.5
+    z = torch.zeros_like(x)
+    # each quadrant to the cell it covers, by the nearest corner
+    # (icebergs.F90:4043-4064)
+    yUxR = torch.where(right & top, Q1, z)
+    yUxC = torch.where(right & top, Q2, torch.where(~right & top, Q1, z))
+    yUxL = torch.where(~right & top, Q2, z)
+    yCxL = torch.where(~right & top, Q3, torch.where(~right & ~top, Q2, z))
+    yCxC = torch.where(right & top, Q3,
+                       torch.where(~right & top, Q4,
+                                   torch.where(~right & ~top, Q1, Q2)))
+    yCxR = torch.where(right & top, Q4, torch.where(right & ~top, Q1, z))
+    yDxL = torch.where(~right & ~top, Q3, z)
+    yDxC = torch.where(~right & ~top, Q4, torch.where(right & ~top, Q3, z))
+    yDxR = torch.where(right & ~top, Q4, z)
+    frac = (yDxL * m[(-1, -1)] + yDxC * m[(0, -1)] + yDxR * m[(1, -1)]
+            + yCxL * m[(-1, 0)] + yCxR * m[(1, 0)] + yUxL * m[(-1, 1)]
+            + yUxC * m[(0, 1)] + yUxR * m[(1, 1)]
+            + torch.pow(yCxC, m[(0, 0)]))
+    frac = torch.where(st.static_berg == 1., 1., frac)
+    return (torch.stack([yDxL, yDxC, yDxR, yCxL, yCxC, yCxR, yUxL, yUxC,
+                         yUxR]), rdiv(1., frac.clamp(min=1e-30)))
 
 
 def make_sort_ctx(st, grid, alive=None):
@@ -280,15 +368,16 @@ def scatter_cells(grid, I, J, cols):
 
 
 def spread_products(st, grid, frc, cfg: IcebergsConfig):
-    """``(w9, vals)``: each berg's 9 spreading weights masked by
-    aliveness, and the 4 values they spread (mass, area, the two area
-    momenta), as ``calculate_mass_on_ocean`` forms them."""
-    w = spread_weights(st, grid, cfg)
+    """``(w9, vals)``: each berg's 9 spreading weights times its
+    ``I_fraction_used`` (0 when dead), and the 4 values they spread
+    (mass, area, the two area momenta), as ``calculate_mass_on_ocean``
+    forms them."""
+    w, I_frac = spread_weights(st, grid, cfg)
     Area = st.length * st.width
     vals = [berg_spread_mass(st, grid, frc, cfg), Area * st.mass_scaling,
             st.uvel * Area * st.mass_scaling,
             st.vvel * Area * st.mass_scaling]
-    return w * torch.where(st.alive, 1., 0.)[None, :], vals
+    return w * torch.where(st.alive, I_frac, 0.)[None, :], vals
 
 
 def calculate_mass_on_ocean(st, grid, frc, cfg: IcebergsConfig,
@@ -375,12 +464,22 @@ def cell_columns(st, grid, cfg: IcebergsConfig):
     return [torch.where(alive, c, 0.) for c in cols]
 
 
+def uses_spread_kernel(cfg: IcebergsConfig) -> bool:
+    """Whether the spreading runs in K3 (:mod:`.segment_spread`): with
+    ``parallel_reprod`` and ``slot_sum_method="pallas"``, for the
+    rectangle model K3 builds in; hexagons take the slot scatter, as in
+    the JAX package (``icebergs_tpu/ops/spread.py:798-800``)."""
+    return (cfg.parallel_reprod and cfg.slot_sum_method == "pallas"
+            and not cfg.hexagonal_icebergs)
+
+
 def create_gridded_icebergs_fields(st, grid, frc, cfg: IcebergsConfig, *,
                                    key_alive=None, cell_starts=None,
                                    extra_cell_cols=None, cell_table=None,
                                    sort_ctx=None):
     """The coupler fields.  With ``parallel_reprod`` and
-    ``slot_sum_method="pallas"``: one K3 pass over the presorted slab when
+    ``slot_sum_method="pallas"`` (rectangles, :func:`uses_spread_kernel`):
+    one K3 pass over the presorted slab when
     ``cell_starts`` is given, else behind a payload sort (K1);
     ``cell_table`` is the grid's ``segment_spread.cell_tables`` (built
     here when not given; a step keeps it) and ``key_alive`` the sort
@@ -393,11 +492,8 @@ def create_gridded_icebergs_fields(st, grid, frc, cfg: IcebergsConfig, *,
     ``extra_cell_cols`` (reproducing only) are per-berg columns summed per
     owning cell in the same pass.  Returns ``SpreadDiags`` or, with extra
     columns, ``(SpreadDiags, extra_fields)``."""
-    if cfg.hexagonal_icebergs:
-        raise NotImplementedError("hexagonal spreading (ROADMAP.md Queue 1 "
-                                  "item 22)")
     nx, ny = grid.nx, grid.ny
-    if cfg.parallel_reprod and cfg.slot_sum_method == "pallas":
+    if uses_spread_kernel(cfg):
         FX = len(extra_cell_cols or [])
         S, _ = ss.spread_cell_sums(st, grid, frc, cfg, extra_cell_cols,
                                    key_alive=key_alive,

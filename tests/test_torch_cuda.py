@@ -828,16 +828,26 @@ def _bonded_world(dev, nx=32, dxy=2000., seed=5):
 @pytest.mark.parametrize("path", ["persistent", "fused3", "fused",
                                   "buckets", "persistent_fused_kernel",
                                   "sorted", "bonded_fused3",
-                                  "bonded_persistent", "footloose_fused3"]
+                                  "bonded_persistent", "footloose_fused3",
+                                  "hexagons", "bonded_hexagons"]
                          + sorted(_ITEM15))
 def test_step_on_card_matches_cpu(dev, path):
     """Two steps of each path on the card against the CPU (the plain
     versions): integers and counters exact, floats within the CPU parity
-    tolerance."""
+    tolerance.  ``hexagons``: chip_smoke.py phase 14a's flags, the fast
+    lane with hexagonal elements (the slot sums' K3 pass-through, not
+    K3); ``bonded_hexagons``: the same on bonded elements (hexagons
+    oriented by their bonds)."""
     cfg, grid, frc, st, _ = _world(dev, n=5000, nx=32)
     cfg = cfg.replace(fused_fallback_cap=8192)
     kw = {}
-    if path == "sorted":
+    if path == "hexagons":
+        cfg = cfg.replace(hexagonal_icebergs=True)
+    elif path == "bonded_hexagons":
+        cfg, grid, frc, st = _bonded_world(dev)
+        cfg = cfg.replace(fused_fallback_cap=8192, hexagonal_icebergs=True)
+        kw = dict(neighbor_mode="fused3")
+    elif path == "sorted":
         kw = dict(persistent=False, neighbor_mode="sorted", max_per_cell=24)
     elif path in ("bonded_fused3", "bonded_persistent"):
         # per-step fused3, or the default route: the persistent lane,
@@ -1004,6 +1014,33 @@ def test_dem_substeps_kernel_matches_plain(dev, variant, forced, jitter,
         assert torch.equal(getattr(out, name), getattr(ref, name)), name
 
 
+@pytest.mark.parametrize("theta", [0., 0.7, 133.])
+def test_hexagon_spreading_on_card_matches_cpu(dev, theta):
+    """The hexagon geometry on the card against the CPU at 100k
+    hexagons: bitwise at orientation 0; else within 8 ulps of (7 x extent
+    x apothem + area): the card's cos and sin round up to an ulp apart
+    from the CPU's (at 133 degrees every corner moves), and the clipping
+    carries that to 4.4 such ulps on an edge nearly parallel to an axis
+    (H100, 100k hexagons)."""
+    from icebergs_tpu_torch.ops import hexagon as hexo
+    g = torch.Generator().manual_seed(4)
+    n = 100_000
+    x0, y0 = (torch.rand(n, generator=g) * 2 - 1 for _ in range(2))
+    H = torch.rand(n, generator=g) * 0.99 + 0.01
+    th = torch.full((n,), theta)
+    cpu = hexo.hexagon_into_quadrants_using_triangles(x0, y0, H, th)
+    card = hexo.hexagon_into_quadrants_using_triangles(
+        *(t.to(dev) for t in (x0, y0, H, th)))
+    ext = torch.maximum(x0.abs(), y0.abs()).double() + 2 * H.double()
+    tol = 8 * 2 ** -23 * (7 * ext * H.double() + cpu[0].double())
+    for c, k in zip(cpu, card):
+        if theta == 0.:
+            assert torch.equal(k.cpu(), c)
+        else:
+            assert bool(((k.cpu().double() - c.double()).abs()
+                         <= tol).all())
+
+
 def test_extract_grouped_kernel_matches_plain(dev):
     """K2 with the conglomerate filter at radius 2 against its plain
     version on the sorted view of a bonded world."""
@@ -1029,13 +1066,22 @@ def test_extract_grouped_kernel_matches_plain(dev):
     assert int(own[extract.EX_CNT].sum()) > int(cnt.sum())
 
 
-def test_dem_step_on_card_matches_cpu(dev):
+@pytest.mark.parametrize("shape", ["square", "hexagons"])
+def test_dem_step_on_card_matches_cpu(dev, shape):
     """One MTS outer step (Part 1 through K1/K2, K4, K1/K3 spreading) on
     the card against the CPU: integers and the MTS counters exact,
     floats within 2e-3 of scale (an ulp where the two libraries' sin /
-    pow round differently, grown by the stiff bonds over 12 substeps)."""
-    cfg = _dem_cfg()
-    grid, frc, st, deltas = _dem_world(cfg, 8.0)
+    pow round differently, grown by the stiff bonds over 12 substeps).
+    ``hexagons``: hexagonally packed units with ``hexagonal_icebergs`` and
+    ``radius_based_drag`` (K4's ``F_HEX``; the hexagon spreading, oriented
+    by the bonds, through the slot sums)."""
+    if shape == "square":
+        cfg = _dem_cfg()
+        grid, frc, st, deltas = _dem_world(cfg, 8.0)
+    else:
+        cfg = _dem_cfg(hexagonal_icebergs=True, radius_based_drag=True)
+        grid, frc, st, deltas = _dem_world(cfg, 8.0, gap=4.5e3,
+                                           hex_units=tuple(range(6)))
     outs = []
     for d in (dev, torch.device("cpu")):
         multi = ibp.make_multi_step(grid.to(d), cfg, 1, with_stats=True,

@@ -143,19 +143,15 @@ _CFG = dict(grid_is_latlon=False, Runge_not_Verlet=False,
     dict(grid_is_regular=False), dict(hexagonal_icebergs=True)],
     ids=lambda kw: next(iter(kw)))
 def test_unported_settings_raise(kw):
-    """Lat-lon and curvilinear grids, ROADMAP item 11's, are served:
+    """The settings that once raised are served: lat-lon and curvilinear
+    grids (ROADMAP item 11) and hexagonal elements (item 22).
     ``check_ported`` passes and one step (an MTS outer step with ``mts``)
-    runs on a lat-lon grid, or on the same corners as a curvilinear
-    grid, with every live float finite.  Hexagonal elements still raise
-    and name item 22."""
+    runs on a lat-lon grid, on the same corners as a curvilinear grid,
+    or with hexagons on a Cartesian one, with every live float finite.
+    No setting of the JAX package raises any more."""
     cfg = ibp.IcebergsConfig(**_CFG)
     ibp.check_ported(cfg)
     cfg = cfg.replace(**kw)
-    if cfg.hexagonal_icebergs:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 22\\)"):
-            ibp.check_ported(cfg)
-        return
     ibp.check_ported(cfg)
     cfg = cfg.replace(Lx=360. if cfg.grid_is_latlon else -1.,
                       use_f_plane=not cfg.grid_is_latlon, lat_ref=-60.)
