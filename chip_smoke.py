@@ -145,10 +145,23 @@ Phases, one line each:
    through K4's generic instantiation with F_HEX, timed as phase 6 is,
    K4's hexagonal row bitwise against its plain version on the world's
    first outer step.
+15. ROADMAP item 13 slices 1-3, the tiled coupling step and run with
+   every tile in one process on the card: 15d the small worlds of
+   tests/test_parallel*.py (4 tiles, 2 x 2) card against CPU; 15a the
+   headline world through the tiled per-step fused3 step on 4 tiles of
+   128 columns and 15b on a 2 x 2 layout of 256 x 256 tiles, each timed
+   as phase 7 is with a profiled window, its merged owned state's
+   berg_chksum equal to the untiled per-step path's (phase 7's), every
+   exchange counter 0 and no host sync in a step; 15c make_sharded_run
+   on 4 tiles of phase 10a's world against one window of the untiled
+   IcebergsModel.run: the owned bergs by id bitwise, the budgets within
+   1e-6, bucket and footloose spawns, no overflow, no host sync.
 
 The last two lines are a JSON object with each kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without them.  Imports nothing of JAX.
+
+``--tiled`` runs phase 15 alone after the build.
 
 ``--ab DIR`` runs phase 3's K1, K2 (with its epilogue where the package
 has one), K3 (its pass-through too), K5 and K7 cases and phase 12's two
@@ -4387,6 +4400,463 @@ def phase14(ibp, torch, device, kernels, by_path, kres, profile_out=None):
     print(f"[14 phase] {time.perf_counter() - t0:.1f} s")
 
 
+# phase 15: ROADMAP item 13 slices 1-3, the tiled coupling step and run,
+# every tile in one process on device 0.  15a the headline world (1M bergs
+# on 512 x 512 cells of 2 km, halo 4) through the tiled per-step fused3
+# step on 4 tiles of 128 columns; 15b the same on a 2 x 2 layout of
+# 256 x 256 tiles; each against the untiled per-step fused3 path (phase 7)
+# on the same state: the merged owned state's berg_chksum equal, every
+# exchange counter 0, no host sync in a step.  15c make_sharded_run on 4
+# tiles of phase 10a's world against the untiled IcebergsModel.run: after
+# one window the owned bergs by id bitwise, the budgets within 1e-6.  15d
+# tests/test_parallel*.py's small worlds (4 tiles, 2 x 2) card against CPU
+TILE_CAP = 1 << 19
+# the exchange buffers' first width: a 128-column tile's edge strip holds
+# ~4 columns x 512 x 3.8 bergs, ~7.8k a direction; it doubles on overflow
+TILE_WIDTH = 16384
+TILED_BUDGET_RTOL = 1e-6
+TILED_STEP_KERNELS = K1_ROWS + ("permute_cols_u32", "extract_sorted",
+                                "segment_spread_sums")
+# 15d: test_parallel.py's colliding world (32 x 8 cells of 5 km, halo 2,
+# pairs straddling the 4-tile edges and a 4-berg cluster) and
+# test_parallel_2d.py's (16 x 16 cells of 4 km, 2 x 2)
+SMALL_CFG = dict(grid_is_latlon=False, Lx=-1.0, use_f_plane=True,
+                 lat_ref=30.0, dt=60.0, Runge_not_Verlet=False, halo=2,
+                 interactive_icebergs_on=True)
+SMALL_STEP = dict(neighbor_mode="fused3", fused_window=512,
+                  fused_fallback_strip_width=140)
+
+
+def tiled_world(ibp, torch, cfg, layout, nx, ny, dxy, device):
+    from icebergs_tpu_torch.parallel import domain as dd
+    ring = dd.Ring(layout)
+    make = (dd.make_sharded_world_2d if len(layout) == 2
+            else dd.make_sharded_world)
+    return make(cfg, ring, nx=nx, ny=ny, lon0=0., lat0=0., dlon=dxy,
+                dlat=dxy, device=device)
+
+
+def tiled_shard(world, frc, st, cap):
+    from icebergs_tpu_torch.parallel import domain as dd
+    if isinstance(world, dd.ShardedWorld2D):
+        return (dd.shard_forcing_2d(world, frc),
+                dd.shard_state_2d(world, st, cap))
+    return dd.shard_forcing(world, frc), dd.shard_state(world, st, cap)
+
+
+# steps of the profiled windows of phase 15 (the profiler's own cost
+# grows with the ~17k kernels a tiled step launches)
+TILED_PROFILE_STEPS = 2
+
+
+def tiled_window(torch, step, tiles, frcs, n=None):
+    """``n`` (INNER) tiled steps: the tiles, the largest exchange counter
+    and the largest contact overflow of any tile (device tensors)."""
+    ex, co = [], []
+    for _ in range(n or INNER):
+        tiles, _, _, ov = step(tiles, frcs)
+        ex.append(ov.max())
+        co += [d.contact_overflow for d in step.diags]
+    return tiles, torch.stack(ex).max(), torch.stack(co).max()
+
+
+def host_syncs(torch, fn):
+    """The host syncs torch's sync debug mode reports in one fn()."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        fn()
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return len(rec), sorted({f"{pathlib.Path(r.filename).name}:{r.lineno}"
+                             for r in rec})
+
+
+def phase_tiled_step(ibp, torch, device, kernels, label, layout, head, ref,
+                     profile_out=None):
+    """15a / 15b: the headline world ``head`` through the tiled per-step
+    fused3 step on ``layout``: a warm-up that doubles the exchange width
+    or grows the fallback cap until nothing overflows, 3 timed windows of
+    INNER steps from the halo-filled tiles with every kernel's launches
+    counted over the first, one step under sync debug, a profiled window;
+    the merged owned state's berg_chksum against ``ref`` (the untiled
+    per-step path's on the same state).  Returns ``(result, launches)``."""
+    from icebergs_tpu_torch.diag import berg_chksum
+    from icebergs_tpu_torch.parallel import domain as dd
+
+    t0 = time.perf_counter()
+    cfg, grid, frc, st = head
+    cfg = cfg.replace(fused_fallback_cap=ref["fallback_cap"])
+    world = tiled_world(ibp, torch, cfg, layout, NX_HEAD, NX_HEAD, DXY,
+                        device)
+    frcs, tiles0 = tiled_shard(world, frc, st, TILE_CAP)
+    t_shard = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    width = TILE_WIDTH
+    for _ in range(4):
+        filled, ov0 = dd.make_halo_fill(world, width)(tiles0)
+        step = dd.make_sharded_step(world, exchange_width=width,
+                                    neighbor_mode="fused3")
+        _, ex, co = tiled_window(torch, step, filled, frcs)
+        ex, co = max(int(ex), int(ov0.max())), int(co)
+        if not ex and not co:
+            break
+        if ex:
+            width *= 2
+            print(f"{label}: exchange overflow {ex}; width {width}")
+        if co:
+            cap = min(4 * world.cfg.fused_fallback_cap, TILE_CAP)
+            print(f"{label}: fallback cap overran ({co}); growing to {cap}")
+            world = dataclasses.replace(
+                world, cfg=world.cfg.replace(fused_fallback_cap=cap))
+    require(not ex and not co, f"{label}: exchange overflow {ex}, contact "
+            f"overflow {co}")
+    for fn in kernels.values():
+        fn.launches = 0
+    times = []
+    for w in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s, ex, co = tiled_window(torch, step, filled, frcs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3 / INNER)
+        if w == 0:
+            launches = {k: fn.launches for k, fn in kernels.items()}
+        require(int(ex) == 0 and int(co) == 0,
+                f"{label} window {w}: overflow {int(ex)} / {int(co)}")
+    nsync, kinds = host_syncs(torch, lambda: step(s, frcs))
+    require(nsync == 0, f"{label}: host syncs in a step: {kinds}")
+    merged = dd.concat_tiles(s)
+    require(all_finite(torch, merged), f"{label}: non-finite state")
+    chk, n_alive = berg_chksum(merged)
+    busy, nk = profile_window(
+        torch, lambda: tiled_window(torch, step, filled, frcs,
+                                    TILED_PROFILE_STEPS), profile_out, label)
+    res = dict(layout=list(layout), tiles=len(s), tile_capacity=TILE_CAP,
+               exchange_width=width, fallback_cap=world.cfg.fused_fallback_cap,
+               ms_per_step=statistics.median(times), windows_ms=times,
+               device_kernel_ms_per_step=busy / TILED_PROFILE_STEPS,
+               kernels_per_step=nk / TILED_PROFILE_STEPS,
+               berg_chksum=int(chk), alive=int(n_alive), untiled=ref,
+               host_syncs_per_step=nsync, exchange_overflow=0,
+               contact_overflow=0, shard_s=t_shard,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               phase_s=time.perf_counter() - t0, launches=launches)
+    require(int(chk) == ref["berg_chksum"] and int(n_alive) == ref["alive"],
+            f"{label}: berg_chksum {int(chk)} (#{int(n_alive)}) != the "
+            f"untiled per-step path's {ref['berg_chksum']} "
+            f"(#{ref['alive']})")
+    for k in TILED_STEP_KERNELS:
+        require(launches[k] > 0, f"kernel {k} was not launched by the "
+                f"{label} path")
+    return res, launches
+
+
+def untiled_perstep(ibp, torch, device, head, profile_out=None,
+                    phase7=None):
+    """The untiled per-step fused3 path (phase 7's) on ``head``: its
+    berg_chksum (15a's and 15b's reference), wall ms a step and fallback
+    cap from ``phase7``'s result, or from a window of its own grown
+    until nothing overflows; and its device ms and kernels a step from a
+    profiled window of TILED_PROFILE_STEPS."""
+    from icebergs_tpu_torch.diag import berg_chksum
+    cfg, grid, frc, st = head
+    if phase7 is not None:
+        cfg = cfg.replace(fused_fallback_cap=phase7["fallback_cap"])
+        short = ibp.make_multi_step(grid, cfg, TILED_PROFILE_STEPS,
+                                    persistent=False, neighbor_mode="fused3")
+        busy, nk = profile_window(torch, lambda: short(st, frc), profile_out,
+                                  "untiled_perstep_fused3")
+        return dict(berg_chksum=phase7["berg_chksum"],
+                    alive=phase7["alive"], ms_per_step=phase7["ms_per_step"],
+                    device_kernel_ms_per_step=busy / TILED_PROFILE_STEPS,
+                    kernels_per_step=nk / TILED_PROFILE_STEPS,
+                    fallback_cap=cfg.fused_fallback_cap, from_phase7=True)
+    for _ in range(4):
+        multi = ibp.make_multi_step(grid, cfg, INNER, with_stats=True,
+                                    persistent=False, neighbor_mode="fused3")
+        s, ov, _, _ = multi(st, frc)
+        if int(ov) == 0:
+            break
+        cfg = cfg.replace(fused_fallback_cap=min(
+            4 * cfg.fused_fallback_cap, st.capacity))
+    require(int(ov) == 0, f"untiled per-step: contact overflow {int(ov)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = multi(st, frc)[0]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / INNER
+    short = ibp.make_multi_step(grid, cfg, TILED_PROFILE_STEPS,
+                                persistent=False, neighbor_mode="fused3")
+    busy, nk = profile_window(torch, lambda: short(st, frc), profile_out,
+                              "untiled_perstep_fused3")
+    chk, n_alive = berg_chksum(s)
+    return dict(berg_chksum=int(chk), alive=int(n_alive), ms_per_step=ms,
+                device_kernel_ms_per_step=busy / TILED_PROFILE_STEPS,
+                kernels_per_step=nk / TILED_PROFILE_STEPS,
+                fallback_cap=cfg.fused_fallback_cap)
+
+
+def owned_by_id(ibp, st, fields):
+    """The owned bergs' ``fields`` in (id_cnt, id_ij) order, numpy; ties
+    broken by the fields' bits (phase 10a's world numbers its bergs 0 to
+    n - 1, so a footloose child, its parent's id_cnt + 100000, can share
+    an id with another berg)."""
+    import numpy as np
+    d = {f: getattr(st, f).cpu().numpy()
+         for f in ("alive", "halo_berg", "id_cnt", "id_ij") + fields}
+    own = d["alive"] & (d["halo_berg"] < 0.5)
+    keys = [d[f][own].view(np.int32) for f in reversed(fields)]
+    order = np.lexsort(keys + [d["id_ij"][own], d["id_cnt"][own]])
+    return {f: v[own][order] for f, v in d.items()}
+
+
+TILED_RUN_FIELDS = ("lon", "lat", "uvel", "vvel", "mass")
+
+
+def phase_tiled_run(ibp, torch, device, kernels, profile_out=None):
+    """15c: make_sharded_run on 4 tiles of phase 10a's world (buckets
+    primed, calving into the coast ring, footloose) after a halo fill,
+    against one window of the untiled IcebergsModel.run from the same
+    state; each grown until nothing overflows.  Returns ``(result,
+    launches of the tiled window)``."""
+    import numpy as np
+    from icebergs_tpu_torch.diag import berg_chksum
+    from icebergs_tpu_torch.parallel import domain as dd
+
+    t_start = time.perf_counter()
+    cfg, grid, frc, st, calving, stored = coupled_world(
+        ibp, torch, N_HEAD, NX_HEAD, COUPLED_CAP, device)
+    for _ in range(4):
+        model = ibp.IcebergsModel(grid, cfg, device=device)
+        s = coupled_state(model, st, stored)
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(INNER):
+            s, o = model.run(s, frc, calving)
+            outs.append(o)
+        torch.cuda.synchronize()
+        ms1 = (time.perf_counter() - t0) * 1e3 / INNER
+        co = max(int(o.contact_overflow) for o in outs)
+        so = max(int(o.spawn_overflow) + int(o.fl_spawn_overflow)
+                 for o in outs)
+        require(so == 0, f"15c untiled: spawn overflow {so}")
+        if not co:
+            break
+        cfg = cfg.replace(fused_fallback_cap=min(
+            4 * cfg.fused_fallback_cap, st.capacity))
+    require(co == 0, f"15c untiled: contact overflow {co}")
+    ref = owned_by_id(ibp, s.bergs, TILED_RUN_FIELDS)
+    ref_chk = int(berg_chksum(s.bergs)[0])
+    b1 = outs[-1].budgets
+    del s, outs, model
+
+    world = tiled_world(ibp, torch, cfg, (4,), NX_HEAD, NX_HEAD, DXY, device)
+    frcs, tiles = tiled_shard(world, frc, st, TILE_CAP)
+    calvs = dd.shard_calving_field(world, calving)
+    hflxs = dd.shard_calving_field(world, torch.zeros_like(calving))
+    storeds = dd.shard_calving_field(world, stored)
+    width = TILE_WIDTH
+
+    def window(run, ms0, n=None):
+        ms, outs, ex = ms0, [], []
+        for _ in range(n or INNER):
+            ms, o, _, ov = run(ms, frcs, calvs, hflxs)
+            outs.append(o)
+            ex.append(ov.max())
+        return ms, outs, int(torch.stack(ex).max())
+
+    for _ in range(4):
+        filled, ov0 = dd.make_halo_fill(world, width)(tiles)
+        ms0 = [m.replace(calving=m.calving.replace(stored_ice=si))
+               for m, si in zip(dd.init_sharded_model_state(world, filled),
+                                storeds)]
+        run = dd.make_sharded_run(world, neighbor_mode=None,
+                                  exchange_width=width)
+        ms, outs, ex = window(run, ms0)
+        ex = max(ex, int(ov0.max()))
+        co = max(int(o.contact_overflow) for o in outs)
+        if not ex and not co:
+            break
+        if ex:
+            width *= 2
+            print(f"15c: exchange overflow {ex}; width {width}")
+        if co:
+            cap = min(4 * world.cfg.fused_fallback_cap, TILE_CAP)
+            print(f"15c: fallback cap overran ({co}); growing to {cap}")
+            world = dataclasses.replace(
+                world, cfg=world.cfg.replace(fused_fallback_cap=cap))
+    require(not ex and not co, f"15c: exchange overflow {ex}, contact "
+            f"overflow {co}")
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ms, outs, ex = window(run, ms0)
+    torch.cuda.synchronize()
+    ms_tiled = (time.perf_counter() - t0) * 1e3 / INNER
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    so = max(int(o.spawn_overflow) + int(o.fl_spawn_overflow) for o in outs)
+    spawns = {f: sum(int(getattr(o, f)) for o in outs)
+              for f in ("nbergs_calved", "nbergs_calved_fl")}
+    require(ex == 0 and so == 0, f"15c: exchange overflow {ex}, spawn "
+            f"overflow {so}")
+    require(spawns["nbergs_calved"] > 0 and spawns["nbergs_calved_fl"] > 0,
+            f"15c: no bucket or no footloose spawn {spawns}")
+    nsync, kinds = host_syncs(torch, lambda: run(ms, frcs, calvs, hflxs))
+    require(nsync == 0, f"15c: host syncs in a run: {kinds}")
+    got = owned_by_id(ibp, dd.concat_tiles([m.bergs for m in ms]),
+                      TILED_RUN_FIELDS)
+    require(got["lon"].shape == ref["lon"].shape,
+            f"15c: {got['lon'].shape[0]} owned bergs, untiled "
+            f"{ref['lon'].shape[0]}")
+    for f in ("id_cnt", "id_ij") + TILED_RUN_FIELDS:
+        diff = np.nonzero(got[f].view(np.int32) != ref[f].view(np.int32))[0]
+        require(not len(diff), f"15c: {f} differs from the untiled run on "
+                f"{len(diff)} bergs, ids {ref['id_cnt'][diff[:5]].tolist()}")
+    bud = {}
+    for f in ("mass", "mass_of_bits", "heat", "stored_ice", "stored_heat"):
+        a, b = float(getattr(outs[-1].budgets, f)), float(getattr(b1, f))
+        bud[f] = abs(a - b) / max(abs(b), 1e-30)
+        require(bud[f] <= TILED_BUDGET_RTOL, f"15c: budget {f} {a} vs the "
+                f"untiled {b}")
+    chk = int(berg_chksum(dd.concat_tiles([m.bergs for m in ms]))[0])
+    busy, nk = profile_window(
+        torch, lambda: window(run, ms0, TILED_PROFILE_STEPS), profile_out,
+        "tiled_coupled_run")
+    res = dict(tiles=4, tile_capacity=TILE_CAP, exchange_width=width,
+               fallback_cap=world.cfg.fused_fallback_cap,
+               ms_per_step=ms_tiled, untiled_ms_per_step=ms1,
+               device_kernel_ms_per_step=busy / TILED_PROFILE_STEPS,
+               kernels_per_step=nk / TILED_PROFILE_STEPS,
+               phase_s=time.perf_counter() - t_start,
+               owned=int(got["lon"].shape[0]),
+               berg_chksum=chk, untiled_berg_chksum=ref_chk,
+               spawns=spawns, budget_rel_err=bud, host_syncs_per_run=nsync,
+               launches=launches)
+    require(chk == ref_chk, f"15c: berg_chksum {chk} != untiled {ref_chk}")
+    return res, launches
+
+
+def small_tiled_worlds(ibp, torch, device):
+    """15d's two worlds on ``device``: ``[(label, tiles, overflows)]``
+    after a halo fill and half the steps of tests/test_parallel.py's and
+    tests/test_parallel_2d.py's fused3 cases."""
+    import numpy as np
+    from icebergs_tpu_torch.parallel import domain as dd
+    out = []
+    for label, layout, nx, ny, dxy, frc_kw, nsteps in (
+            ("1d", (4,), 32, 8, 5000., dict(uo=0.4, sst=2.0), 6),
+            ("2x2", (2, 2), 16, 16, 4000., dict(uo=0.3, vo=0.2, sst=2.0),
+             5)):
+        cfg = ibp.IcebergsConfig(**SMALL_CFG)
+        if label == "1d":
+            lon = [8 * dxy - 10., 8 * dxy + 30., 16 * dxy - 10.,
+                   16 * dxy + 30., 24 * dxy - 10., 24 * dxy + 30., 5 * dxy,
+                   5 * dxy + 35., 5 * dxy + 17., 5 * dxy + 17.]
+            lat = [4 * dxy] * 2 + [4 * dxy + 120.] * 2 + [4 * dxy + 240.] \
+                * 2 + [3 * dxy, 3 * dxy, 3 * dxy + 30., 3 * dxy - 30.]
+        else:
+            lon = [8 * dxy - 10., 8 * dxy + 30., 3 * dxy, 3 * dxy, 5 * dxy,
+                   5 * dxy + 35., 5 * dxy + 17.]
+            lat = [4 * dxy, 4 * dxy, 8 * dxy - 10., 8 * dxy + 30., 3 * dxy,
+                   3 * dxy, 3 * dxy + 30.]
+        grid = ibp.make_uniform_grid(nx, ny, 0., 0., dxy, dxy,
+                                     grid_is_latlon=False, device=device)
+        frc = ibp.uniform_forcing(nx, ny, device=device, **frc_kw)
+        st = ibp.create_bergs(64, lon=np.array(lon), lat=np.array(lat),
+                              mass=1e8, thickness=20., width=50., length=60.,
+                              mass_scaling=1.0, device=device)
+        i, j, xi, yj = ibp.pos_to_cell(grid, st.lon, st.lat, -1.0)
+        st = st.replace(ine=i, jne=j, xi=xi, yj=yj)
+        world = tiled_world(ibp, torch, cfg, layout, nx, ny, dxy, device)
+        frcs, tiles = tiled_shard(world, frc, st, 32)
+        tiles, ov = dd.make_halo_fill(world)(tiles)
+        ovs = [ov]
+        step = dd.make_sharded_step(world, **SMALL_STEP)
+        for _ in range(nsteps):
+            tiles, _, _, ov = step(tiles, frcs)
+            ovs.append(ov)
+        out.append((label, tiles, torch.stack(ovs)))
+    return out
+
+
+def phase_tiled_cross(ibp, torch, device):
+    """15d: the small tiled worlds on the card against a CPU copy: the
+    integers (alive, halo_berg, cells, ids, bonds) and every exchange
+    counter exact, floats within the cross-check tolerance."""
+    import numpy as np
+    res = {}
+    for (label, g, govs), (_, c, covs) in zip(
+            small_tiled_worlds(ibp, torch, device),
+            small_tiled_worlds(ibp, torch, torch.device("cpu"))):
+        require(torch.equal(govs.cpu(), covs) and not covs.any(),
+                f"15d {label}: exchange counters differ or overflow")
+        worst = 0.
+        for gt, ct in zip(g, c):
+            gd, cd = ibp.to_numpy(gt), ibp.to_numpy(ct)
+            alive = cd["alive"]
+            for f, cv in cd.items():
+                gv = gd[f]
+                if f == "halo_berg" or cv.dtype.kind != "f":
+                    require(np.array_equal(gv, cv), f"15d {label}: {f} "
+                            "differs between the card and the CPU")
+                    continue
+                a, b = gv[alive].astype(np.float64), cv[alive]
+                if not b.size:
+                    continue
+                scale = max(np.abs(b).max(), 1e-30)
+                require(np.all(np.abs(a - b) <= CROSS_RTOL * np.abs(b)
+                               + CROSS_ATOL_SCALE * scale),
+                        f"15d {label}: {f} beyond tolerance")
+                worst = max(worst, float(np.abs(a - b).max() / scale))
+        res[label] = dict(tiles=len(g), alive=int(sum(int(t.alive.sum())
+                                                      for t in c)),
+                          worst_scaled_err=worst)
+    return res
+
+
+def phase15(ibp, torch, device, kernels, by_path, perstep=None,
+            profile_out=None):
+    """Phase 15, ROADMAP item 13 slices 1-3: 15d card against CPU, 15a
+    and 15b the tiled per-step step on the headline world against the
+    untiled per-step path (phase 7's result ``perstep``, or its own run
+    without it), 15c the tiled run against the untiled run; each path's
+    launches go to ``by_path``."""
+    t0 = time.perf_counter()
+    r = phase_tiled_cross(ibp, torch, device)
+    r["phase_s"] = time.perf_counter() - t0
+    print(f"[15d cross-check tiled] {json.dumps(r)}")
+    t1 = time.perf_counter()
+    head = headline_world(ibp, torch, N_HEAD, NX_HEAD, device)
+    ref = untiled_perstep(ibp, torch, device, head, profile_out, perstep)
+    ref["phase_s"] = time.perf_counter() - t1
+    for tag, label, layout in (("15a", "tiled_perstep_fused3", (4,)),
+                               ("15b", "tiled_2d_perstep_fused3", (2, 2))):
+        res, launches = phase_tiled_step(ibp, torch, device, kernels, label,
+                                         layout, head, ref, profile_out)
+        for k, n in launches.items():
+            if n:
+                by_path.setdefault(k, {})[label] = n
+        print(f"[{tag} {label}] {json.dumps(res)}")
+        torch.cuda.empty_cache()
+    del head
+    torch.cuda.empty_cache()
+    res, launches = phase_tiled_run(ibp, torch, device, kernels, profile_out)
+    for k, n in launches.items():
+        if n:
+            by_path.setdefault(k, {})["tiled_coupled_run"] = n
+    for k in ("permute_cols_u32", "extract_sorted", "segment_spread_sums"):
+        require(launches[k] > 0, f"kernel {k} was not launched by the tiled "
+                "run")
+    print(f"[15c tiled_coupled_run] {json.dumps(res)}")
+    torch.cuda.empty_cache()
+    print(f"[15 phase] {time.perf_counter() - t0:.1f} s")
+
+
 def kernel_counters():
     """Every kernel wrapper (or second count) by its row's name: the
     ``launches`` each path reads and resets."""
@@ -4410,6 +4880,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-out", default=None,
                     help="directory for a profiler table and trace")
+    ap.add_argument("--tiled", action="store_true",
+                    help="run only phase 15 (the tiled step and run) after "
+                    "the build")
     ap.add_argument("--ab", metavar="ROOT", default=None,
                     help="run only phase 3's K1, K2, K3, K5 and K7 cases "
                     "and phase 12's K2 and K5 lat-lon cases, "
@@ -4453,6 +4926,13 @@ def main(argv=None) -> int:
     print(f"[2 build] {time.perf_counter() - t0:.1f} s "
           f"({cuda_build.library_path().name}); " + " | ".join(regs))
 
+    if args.tiled:
+        by_path = {}
+        phase15(ibp, torch, device, kernel_counters(), by_path,
+                profile_out=args.profile_out)
+        print(f"[15 launches] {json.dumps(by_path)}")
+        print(smi)
+        return 0
     ab = args.ab is not None
     kres, k1 = phase_kernels(ibp, torch, device, ab)
     t_dem = time.perf_counter()
@@ -4523,12 +5003,13 @@ def main(argv=None) -> int:
     for k, n in dlaunches.items():
         if n:
             by_path.setdefault(k, {})["dem"] = n
+    perstep = {}
     for mode, names in PERSTEP_PATHS:
         kw = dict(persistent=False, neighbor_mode=mode)
         if mode == "buckets":
             kw.update(max_per_cell=MAX_PER_CELL)
-        run_path(f"7 per-step {mode}", f"perstep_{mode}", names,
-                 multi_kw=kw)
+        perstep[mode], _ = run_path(f"7 per-step {mode}", f"perstep_{mode}",
+                                    names, multi_kw=kw)
     run_path("8 persistent fused kernel-interp", "persistent_fused_kernel",
              ("contact_prepass_sorted", "interp_sorted", "permute_cols_u32",
               "segment_spread_sums"),
@@ -4613,6 +5094,8 @@ def main(argv=None) -> int:
     phase12(ibp, torch, device, kernels, by_path, kres, args.profile_out)
     phase13(ibp, torch, device, kernels, by_path)
     phase14(ibp, torch, device, kernels, by_path, kres, args.profile_out)
+    phase15(ibp, torch, device, kernels, by_path, perstep["fused3"],
+            args.profile_out)
 
     source = {"permute_cols_u32": ("permute_cols.cu",
                                    "icebergs_tpu/ops/pallas_pack.py:30"),
@@ -4683,11 +5166,12 @@ def main(argv=None) -> int:
         p: k3.pop(p) for p in list(k3)
         if p in ("dem", "bonded_fused3", "mts_scan", "mts_pairs",
                  "mts_cross_scan", "mts_cross_pairs", "ll_dem",
-                 "driver_headline", "driver_dem")
+                 "driver_headline", "driver_dem", "tiled_perstep_fused3",
+                 "tiled_2d_perstep_fused3")
         or p.startswith("perstep_")}
     by_path["segment_spread_sums/extra0"] = {
         p: k3.pop(p) for p in list(k3)
-        if p in ("coupled_run", "tripolar_coupled_run")
+        if p in ("coupled_run", "tripolar_coupled_run", "tiled_coupled_run")
         or p.startswith("mts_")}
     # K7: the launches at M = 400 are the m400 row's (the tables Part 1
     # of 11c and 11c-dense, and the same-conglomerate contact group of the

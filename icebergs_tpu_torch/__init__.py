@@ -27,8 +27,13 @@ namelists and restarts and writes restarts, trajectories and the
 diagnostics' history file (:mod:`.io`, :mod:`.diagnostics`), with the
 A68 hindcast's forcing files.  Hexagonal elements (the hexagon spreading
 of :mod:`.ops.hexagon`, the bond-oriented hexagons and the hexagonal DEM
-faces) run on every path.  The multi-device layer is not ported yet: its
-entry points raise ``NotImplementedError`` naming the ROADMAP.md item.
+faces) run on every path.  The multi-device layer (:mod:`.parallel`)
+runs the tiled coupling step and run in 1-D and 2-D layouts: tiles with
+their halos, particle migration and halo copies through a ring that
+rotates a list of tiles in one process or sends between
+``torch.distributed`` ranks; bonds, MTS and the tripolar fold across
+tiles, and the tiled restart and trajectory files, are ROADMAP.md item
+13's later slices and raise ``NotImplementedError`` naming them.
 Module names mirror the JAX package; each module names its counterpart.
 
 Importing this package imports torch and never jax.  On CPU tensors

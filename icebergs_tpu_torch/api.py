@@ -2,7 +2,9 @@
 ``icebergs_stock_pe`` / ``icebergs_incr_mass`` (``src/icebergs.F90:65-66``).
 
 Counterpart of ``icebergs_tpu/api.py`` (``ModelState``, ``RunOutputs``,
-``prepare_forcing``, ``run_coupling_sequence``, ``IcebergsModel``).
+``prepare_forcing``, ``run_coupling_sequence``, ``IcebergsModel``); the
+sequence is also a generator (:func:`coupling_sequence`) that the tiled
+run drives tile by tile.
 :class:`IcebergsModel` holds the grid, the config and what depends only
 on them; the state (bergs, calving buckets, seed, step count and clock)
 flows through :meth:`IcebergsModel.run`, one coupling step of the
@@ -49,6 +51,7 @@ from .footloose import (adjust_fl_berg_interactivity,
                         id_hash_uniforms)
 from .forcing import Forcing
 from .grid import Grid
+from .model import run_sequence
 from .mts import MtsDiags, evolve_icebergs_mts
 from .ops import forces as _forces
 from .ops import spread as _spread
@@ -200,15 +203,30 @@ def tidal_generator_uniforms(seed: int, step: int, shape, *, dtype,
 
 def run_coupling_sequence(cfg: IcebergsConfig, grid: Grid,
                           state: ModelState, frc: Forcing, calving,
-                          calving_hflx, *, nbr_radius: int,
-                          max_per_cell: int = 16,
-                          neighbor_mode: Optional[str] = None,
-                          fused_kw: Optional[dict] = None, tables=None,
-                          cell_table=None, tidal_uniforms=None,
-                          fl_uniforms: Optional[Callable] = None):
+                          calving_hflx, **kw):
     """One coupling step (icebergs.F90:5389-5679): buckets -> spawn ->
     interpolation -> evolve -> footloose -> thermodynamics -> gridded
-    fields -> coupler returns.  Returns ``(state, RunOutputs)``.
+    fields -> coupler returns.  Returns ``(state, RunOutputs)``; the
+    keywords are :func:`coupling_sequence`'s."""
+    return run_sequence(coupling_sequence(cfg, grid, state, frc, calving,
+                                          calving_hflx, **kw))
+
+
+def coupling_sequence(cfg: IcebergsConfig, grid: Grid, state: ModelState,
+                      frc: Forcing, calving, calving_hflx, *,
+                      nbr_radius: int, max_per_cell: int = 16,
+                      neighbor_mode: Optional[str] = None,
+                      fused_kw: Optional[dict] = None, tables=None,
+                      cell_table=None, tidal_uniforms=None,
+                      fl_uniforms: Optional[Callable] = None):
+    """:func:`run_coupling_sequence` as a generator that returns ``(state,
+    RunOutputs)``.  With contacts on it yields the berg state where bergs
+    were just born and their neighbours are read next (after the bucket
+    spawn; after the footloose children, before their interactivity) and
+    takes back the state to go on with: a tiled run refreshes the halo
+    copies there, so that a berg near a tile edge meets the neighbour
+    tile's newborns as the untiled run does; one tile sends it back as
+    it is.
 
     ``tables`` (:func:`.calving.class_grids`) and ``cell_table``
     (:func:`.ops.segment_spread.cell_tables`) depend on the grid and
@@ -229,6 +247,8 @@ def run_coupling_sequence(cfg: IcebergsConfig, grid: Grid,
     st, calv, calv_diag = calve_icebergs(
         st, calv, grid, frc, cfg, current_year=year, current_yearday=yday,
         tables=tables)
+    if cfg.interactive_icebergs_on:
+        st = yield st
 
     # 4. the environment on the bergs, with the tidal drift's uniforms
     if cfg.tidal_drift > 0.:
@@ -285,6 +305,7 @@ def run_coupling_sequence(cfg: IcebergsConfig, grid: Grid,
                                         current_yearday=yday)
         st, fl_deleted = delete_fully_fl_calved(st)
         if cfg.interactive_icebergs_on:
+            st = yield st
             if neighbor_mode in ("sorted", "fused", "fused3"):
                 # the fused modes too: the walk needs a candidate table,
                 # and the sorted strips are layout-invariant

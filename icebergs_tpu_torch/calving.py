@@ -164,9 +164,11 @@ def calve_icebergs(st, calv: CalvingState, grid: Grid, frc,
     cap = im * ms
     n_want = torch.floor(stored / cap.clamp(min=1e-30)).clamp(0, M).to(
         torch.int32)
-    # only interior ocean cells spawn (one device: no halo ring to skip)
+    # only interior ocean cells spawn; on a tile the ring it does not own
+    # is left out, so each global cell spawns on exactly one tile
+    hx, hy = grid.own_halo_x, grid.own_halo_y
     interior = torch.zeros((nx + 2, ny + 2), dtype=torch.bool, device=dev)
-    interior[1:nx + 1, 1:ny + 1] = True
+    interior[1 + hx:nx + 1 - hx, 1 + hy:ny + 1 - hy] = True
     n_want = torch.where((interior & (grid.msk > 0.))[:, :, None], n_want,
                          0)
 
@@ -213,10 +215,12 @@ def calve_icebergs(st, calv: CalvingState, grid: Grid, frc,
     ddt = (-cfg.dt * (2. / 17.)) * m_of.to(dtype)     # start-day stagger
     start_day = (torch.zeros_like(lon_b) + current_yearday) \
         + divc(ddt, 86400.)
-    # ids: (per-cell counter, i + 1 + nx*j) (generate_id,
-    # icebergs_framework.F90:4165-4243)
+    # ids: (per-cell counter, i + 1 + nx*j) of the GLOBAL cell (generate_id,
+    # icebergs_framework.F90:4165-4243): unique and the same on any layout
     id_cnt = calv.id_counter[Ic, Jc] + 1 + m_of * K + k_of
-    id_ij = (ci + 1) + nx * cj
+    gi = ci + grid.i_off if grid.i_off else ci
+    gj = cj + grid.j_off if grid.j_off else cj
+    id_ij = (gi + 1) + (grid.nxg or nx) * gj
 
     def put(field, value):
         return torch.where(reborn, value, field)

@@ -20,7 +20,7 @@ from .state import BergState
 
 
 def _tensors(cls, d, device):
-    return cls(**{f.name: (v if isinstance(v, int)
+    return cls(**{f.name: (v if v is None or isinstance(v, int)
                            else torch.as_tensor(np.array(v)).to(device))
                   for f in dataclasses.fields(cls)
                   for v in [d[f.name]]})
@@ -31,10 +31,19 @@ def state_from_numpy(d, *, device) -> BergState:
     return _tensors(BergState, d, device)
 
 
+_GRID_INTS = ("nx", "ny", "i_off", "j_off", "nxg", "nyg", "own_halo_x",
+              "own_halo_y")
+
+
 def grid_from_numpy(d, *, device) -> Grid:
-    """A Grid from ``{field: array}`` plus the ints ``nx``/``ny`` (the JAX
-    grid's tile metadata keys are ignored)."""
-    return _tensors(Grid, {**d, "nx": int(d["nx"]), "ny": int(d["ny"])},
+    """A Grid from ``{field: array}`` plus the ints ``nx``/``ny`` and the
+    tile metadata (``i_off``, ``j_off`` as 0-dim arrays or None for 0,
+    ``nxg``, ``nyg``, ``own_halo_x/y``, the port's ``lon0g``/``lat0g``;
+    absent keys keep the defaults)."""
+    ints = {k: int(0 if d[k] is None else np.asarray(d[k]))
+            for k in _GRID_INTS if k in d}
+    return _tensors(Grid, {**dict.fromkeys(_GRID_INTS[2:], 0),
+                           "lon0g": None, "lat0g": None, **d, **ints},
                     device)
 
 

@@ -171,10 +171,29 @@ def debug_write_and_stop(st, cfg, path: str = "debug_state.nc",
 
 
 def dump_halo_state(st, label: str = "", device: int = -1, file=None):
-    """The halo_debugging listing (icebergs_framework.F90:1828-1838) is
-    about the multi-device halo."""
-    raise NotImplementedError("dump_halo_state lists the multi-device "
-                              "halo (ROADMAP.md Queue 1 item 13)")
+    """``halo_debugging``'s listing (icebergs_framework.F90:1828-1838):
+    one 'A id pe halo_berg i j' line per alive berg with its bond count,
+    to read replication before and after a halo exchange, line for line
+    ``icebergs_tpu.diag.dump_halo_state``'s.
+
+    ``st`` is a state or a tiled state (a list of the tiles' states, ``pe``
+    the tile's place in it); ``device`` >= 0 lists that tile only.  Reads
+    the card on the host."""
+    out = file or sys.stderr
+    tiles = list(st) if isinstance(st, (list, tuple)) else [st]
+    if label:
+        print(f"halo_debugging [{label}]", file=out)
+    for d, s in enumerate(tiles):
+        if device >= 0 and d != device:
+            continue
+        f = {k: getattr(s, k).detach().cpu().numpy() for k in (
+            "alive", "id_cnt", "id_ij", "halo_berg", "ine", "jne",
+            "n_bonds")}
+        for k in np.nonzero(f["alive"])[0]:
+            print(f"A {int(f['id_cnt'][k])}:{int(f['id_ij'][k])} pe={d} "
+                  f"halo={int(f['halo_berg'][k])} i={int(f['ine'][k])} "
+                  f"j={int(f['jne'][k])} bonds={int(f['n_bonds'][k])}",
+                  file=out)
 
 
 class Budgets(NamedTuple):

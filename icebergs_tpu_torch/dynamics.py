@@ -45,10 +45,22 @@ def _lx(cfg: IcebergsConfig) -> float:
 def _frac_coords(grid: Grid, lon, lat, Lx: float = -1.):
     """Global fractional cell coordinates on a regular grid (with ``Lx``
     > 0, longitudes brought within half a period of the grid's
-    middle)."""
+    middle); on a tile, from the global origin."""
     cx = lon if Lx <= 0. else apply_modulo_around_point(
         lon, grid.lon0 + 0.5 * grid.dlon * grid.nx, Lx)
-    return (cx - grid.lon0) / grid.dlon, (lat - grid.lat0) / grid.dlat
+    frame = _global_frame(grid)[0]
+    return (cx - frame.lon0) / grid.dlon, (lat - frame.lat0) / grid.dlat
+
+
+def _global_frame(grid: Grid):
+    """``(grid, i_off, j_off)``: on a tile (``grid.lon0g`` set) the grid
+    seen from the global origin, whose cells are the tile's shifted by
+    the offsets; an untiled grid as it is, with 0 and 0.  The walk runs
+    in this frame, so a tile's ``fx - i`` has the untiled grid's bits."""
+    if grid.lon0g is None:
+        return grid, 0, 0
+    return (grid.replace(lon0=grid.lon0g, lat0=grid.lat0g), grid.i_off,
+            grid.j_off)
 
 
 def _cell_to_pos_curvilinear(grid: Grid, cfg: IcebergsConfig, i, j, xi,
@@ -152,11 +164,13 @@ def _msk81_rows(msk):
     return torch.stack(rows)
 
 
-def _walk4(grid: Grid, lon, lat, i, j, fx, fy, m81_pre):
+def _walk4(grid: Grid, lon, lat, i, j, fx, fy, m81_pre, i_lo=0, j_lo=0):
     """The 4-iteration masked land-bounce walk of
     ``adjust_index_and_ground`` (icebergs.F90:7941-8057) reading the land
-    mask from the berg's 9x9 anchor rows ``m81_pre`` (9, N).  Returns
-    ``(lon, lat, i, j, fx, fy, bounced)``."""
+    mask from the berg's 9x9 anchor rows ``m81_pre`` (9, N), the cells
+    held within ``[i_lo, i_lo + nx)`` x ``[j_lo, j_lo + ny)`` (a tile's
+    in the global frame).  Returns ``(lon, lat, i, j, fx, fy,
+    bounced)``."""
     dtype = lon.dtype
     bounced = torch.zeros(lon.shape, dtype=torch.bool, device=lon.device)
 
@@ -176,7 +190,7 @@ def _walk4(grid: Grid, lon, lat, i, j, fx, fy, m81_pre):
         move_w = xi < 0.
         move_e = xi >= 1.
         ti = (i - move_w.to(torch.int32) + move_e.to(torch.int32)).clamp(
-            0, grid.nx - 1)
+            i_lo, i_lo + grid.nx - 1)
         dix = ti - i
         ocean_x = ocean(oi + dix, oj)
         stepped_x = (~in_cell) & (move_w | move_e)
@@ -188,7 +202,7 @@ def _walk4(grid: Grid, lon, lat, i, j, fx, fy, m81_pre):
         move_s = yj < 0.
         move_n = yj >= 1.
         tj = (j - move_s.to(torch.int32) + move_n.to(torch.int32)).clamp(
-            0, grid.ny - 1)
+            j_lo, j_lo + grid.ny - 1)
         djy = tj - j
         ocean_y = ocean(oi, oj + djy)
         stepped_y = (~in_cell) & (move_s | move_n)
@@ -264,20 +278,28 @@ def adjust_index_and_ground(grid: Grid, cfg: IcebergsConfig, lon, lat,
         m81_pre = _msk81_rows(grid.msk)[:, (i + 5).long(), (j + 5).long()]
     dtype = lon.dtype
     fx, fy = _frac_coords(grid, lon, lat, _lx(cfg))
-    walk = _walk4_compact if lon.shape[0] >= WALK_COMPACT_MIN_N else _walk4
-    lon, lat, i, j, fx, fy, bounced = walk(grid, lon, lat, i, j, fx, fy,
-                                           m81_pre)
+    frame, io, jo = _global_frame(grid)
+    if io or jo:
+        i, j = i + io, j + jo
+    if io or jo or lon.shape[0] < WALK_COMPACT_MIN_N:
+        lon, lat, i, j, fx, fy, bounced = _walk4(
+            frame, lon, lat, i, j, fx, fy, m81_pre, io, jo)
+    else:
+        lon, lat, i, j, fx, fy, bounced = _walk4_compact(
+            grid, lon, lat, i, j, fx, fy, m81_pre)
     # final safety clamp (icebergs.F90:8058-8066)
     xi = fx - i.to(dtype)
     yj = fy - j.to(dtype)
     bad = (xi < 0.) | (xi >= 1.) | (yj <= 0.) | (yj > 1.)
     xi_c = xi.clamp(POSN_EPS, 1. - POSN_EPS)
     yj_c = yj.clamp(POSN_EPS, 1. - POSN_EPS)
-    clon, clat = cell_to_pos(grid, i, j, xi_c, yj_c)
+    clon, clat = cell_to_pos(frame, i, j, xi_c, yj_c)
     lon = torch.where(bad, clon, lon)
     lat = torch.where(bad, clat, lat)
     xi = torch.where(bad, xi_c, xi)
     yj = torch.where(bad, yj_c, yj)
+    if io or jo:
+        i, j = i - io, j - jo
     return lon, lat, i, j, xi, yj, bounced
 
 

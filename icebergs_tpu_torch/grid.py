@@ -14,6 +14,7 @@ package's do, so the corners are the JAX grid's bit for bit.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,6 +41,22 @@ class Grid:
     lat0: torch.Tensor
     dlon: torch.Tensor           # corner spacing (deg or m)
     dlat: torch.Tensor
+    # tile metadata (``icebergs_tpu/grid.py:57-69``): the global cell of
+    # local cell (0, 0), for globally unique spawn ids; the global extent
+    # (0: this grid's own); the width of the ring of cells this tile does
+    # not own, where nothing spawns.  The defaults are an untiled grid
+    i_off: int = 0
+    j_off: int = 0
+    nxg: int = 0
+    nyg: int = 0
+    own_halo_x: int = 0
+    own_halo_y: int = 0
+    # a tile's global origin (0-dim, the untiled grid's lon0 / lat0): the
+    # walk measures a berg's place in its cell from it, in global cells,
+    # so that a tile rounds it as the untiled grid does (the JAX package
+    # measures from the tile's own corner, an ulp apart).  None untiled
+    lon0g: Optional[torch.Tensor] = None
+    lat0g: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "Grid":
         return dataclasses.replace(self, **kw)

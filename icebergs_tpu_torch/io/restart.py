@@ -17,8 +17,9 @@ and the bathymetry of ``topog.nc``.  Files are NETCDF3 through
 types, so that for the same state the two packages write the same bytes
 and each reads the other's files.  The bond records are formed and
 matched by id with numpy over whole arrays (the JAX package loops in
-Python), in the same order.  The tiled (one file per device) readers and
-writers belong to the multi-device layer (ROADMAP.md Queue 1 item 13).
+Python), in the same order.  The tiled (one file per tile) readers and
+writers are the multi-device layer's next slice (ROADMAP.md Queue 1
+item 13, the tiled I/O).
 """
 
 from __future__ import annotations

@@ -9,8 +9,9 @@ step writes one row by a masked copy (no host read: the next row is
 counted on the host), and :func:`write_trajectories` drains the valid
 entries to an append-style ``iceberg_trajectories.nc`` with the
 reference's schema (short / footloose / full), variable for variable
-the JAX package's file.  The per-tile buffers and files belong to the
-multi-device layer (ROADMAP.md Queue 1 item 13).
+the JAX package's file.  The per-tile buffers and files are the
+multi-device layer's next slice (ROADMAP.md Queue 1 item 13, the tiled
+I/O).
 """
 
 from __future__ import annotations

@@ -136,6 +136,18 @@ class StepDiags(NamedTuple):
     net_melt_heat: Optional[torch.Tensor] = None
 
 
+def run_sequence(seq):
+    """Drive a step generator (``make_step``'s ``sequence``,
+    :func:`.api.coupling_sequence`) to its end on one tile: every state
+    it yields goes back as it is.  Returns the generator's value."""
+    try:
+        st = next(seq)
+        while True:
+            st = seq.send(st)
+    except StopIteration as done:
+        return done.value
+
+
 def step_dynamics(st, grid: Grid, frc, cfg: IcebergsConfig, ia_fn=None):
     """Interpolation and evolve only, the minimum end-to-end slice
     (``icebergs_tpu.model.step_dynamics``): :func:`interp_to_bergs` then
@@ -238,8 +250,16 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
         ia_fn = _forces.make_ia_fn(st, nbr, cfg, contact_cap=contact_cap)
         return ia_fn, None, ia_fn.overflow
 
-    def step(st, frc, *, fl_uniforms=None, current_year=0,
-             current_yearday=0.):
+    def step(st, frc, **kw):
+        return run_sequence(sequence(st, frc, **kw))
+
+    def sequence(st, frc, *, fl_uniforms=None, current_year=0,
+                 current_yearday=0.):
+        """The step as a generator returning ``(state, StepDiags)``; with
+        footloose and contacts on it yields the state after the children
+        are born, before their interactivity reads their neighbours, and
+        goes on with the state sent back (a tiled step refreshes the halo
+        copies there)."""
         zero = torch.zeros((), dtype=torch.int32, device=st.device)
         cell_starts = None
         if sorted_mode:
@@ -282,6 +302,7 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
                 current_yearday=current_yearday)
             st, fl_deleted = delete_fully_fl_calved(st)
             if interactive:
+                st = yield st
                 nbr2 = _forces.build_neighbor_tables(
                     st, grid, cfg, ncells_radius=radius,
                     max_per_cell=max_per_cell)
@@ -347,6 +368,7 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
                 inner_conv_iters=mts_d.inner_conv_iters)
         return st, diags
 
+    step.sequence = sequence
     return step
 
 

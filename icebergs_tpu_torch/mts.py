@@ -29,7 +29,7 @@ iteration (``MtsDiags.conv_iters``), and the implicit inner substeps'
 (``MtsDiags.inner_conv_iters``, summed over substeps); nothing else
 reads the card.  The per-substep broken-bond counts stay on the device.
 ``substep_sync`` (the multi-device ring hook) is ROADMAP.md Queue 1
-item 13.
+item 13's slice 5 (MTS across tiles).
 """
 
 from __future__ import annotations

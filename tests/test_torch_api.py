@@ -413,10 +413,10 @@ def test_check_state_ids_and_dates():
 
 
 def test_unported_entry_points_raise(tmp_path):
-    """What the entry cannot serve yet names its ROADMAP.md item: the
-    halo dump (item 13).  Restarts, icebergs_end and the debug dump
-    (item 12) and MTS (item 16) are served: the files are written, the
-    dump stops the run."""
+    """What the entry once could not serve: restarts, icebergs_end and
+    the debug dump (item 12), MTS (item 16) and the halo dump of a tiled
+    state (item 13) are served: the files are written, the dump stops the
+    run, the halo listing is the JAX package's."""
     cfg, grid, frc, st, _, _ = _world("new_bergs")
     tgrid = ibp.grid_from_numpy(_leaves(grid), device=CPU)
     tcfg = ibp.config_from_dict(dataclasses.asdict(cfg))
@@ -430,8 +430,18 @@ def test_unported_entry_points_raise(tmp_path):
         tdiag.debug_write_and_stop(ts.bergs, tcfg,
                                    path=str(tmp_path / "debug.nc"))
     assert (tmp_path / "debug.nc").exists()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tdiag.dump_halo_state(ts.bergs)
+    # the halo dump (item 13's first slices, served): a tiled state's
+    # listing is the JAX package's text for the same stacked slabs
+    h = st.capacity // 2
+    tiles = [ibp.BergState(**{f: getattr(ts.bergs, f)[k * h:(k + 1) * h]
+                              for f in _leaves(ts.bergs)}) for k in (0, 1)]
+    stacked = jax.tree.map(lambda x: x[:2 * h].reshape((2, h) + x.shape[1:]),
+                           st)
+    jo, to = io.StringIO(), io.StringIO()
+    jdiag.dump_halo_state(stacked, "tiles", file=jo)
+    tdiag.dump_halo_state(tiles, "tiles", file=to)
+    assert to.getvalue() == jo.getvalue()
+    assert to.getvalue().count("\nA ") == int(ts.bergs.count()) > 0
     # MTS (item 16, served): an outer step runs through the entry
     mts = tcfg.replace(mts=True, dem=True, iceberg_bonds_on=True,
                        interactive_icebergs_on=True, footloose=False)

@@ -26,10 +26,18 @@ CPU = torch.device("cpu")
 
 def _same_grid(t, j):
     """Every field of the port's grid equals the JAX grid's bit for bit
-    (both round float64 numpy once to float32)."""
+    (both round float64 numpy once to float32); the tile metadata is an
+    untiled grid's in both (the JAX offsets None, the port's 0; the
+    port's global origin None)."""
     assert (t.nx, t.ny) == (j.nx, j.ny)
     for f in dataclasses.fields(t):
         if f.name in ("nx", "ny"):
+            continue
+        if f.name in ("lon0g", "lat0g"):
+            assert getattr(t, f.name) is None
+            continue
+        if isinstance(getattr(t, f.name), int):
+            assert getattr(t, f.name) == (getattr(j, f.name) or 0), f.name
             continue
         np.testing.assert_array_equal(getattr(t, f.name).numpy(),
                                       np.asarray(getattr(j, f.name)),
