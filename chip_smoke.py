@@ -156,12 +156,28 @@ Phases, one line each:
    on 4 tiles of phase 10a's world against one window of the untiled
    IcebergsModel.run: the owned bergs by id bitwise, the budgets within
    1e-6, bucket and footloose spawns, no overflow, no host sync.
+16. ROADMAP item 13's last slices, every tile in one process on the card:
+   16c the small worlds of tests/test_parallel_bonds.py and
+   tests/test_parallel_fold.py (tests/torch_parallel_worlds.py's) card
+   against CPU, integers and counters exact; 16a phase 6's DEM world in 4
+   tiles of 128 columns through the tiled MTS step (the scan, the ring
+   ghost refresh of 2 hops, Part 1 through K2 grouped) for 2 outer steps
+   against the untiled scan from the same state: every counter 0 (the
+   widths doubled on overflow), the owned elements by id bitwise, the
+   convergence iterations and host syncs the untiled path's; wall and
+   device time and kernels an outer step beside the untiled scan's, the
+   ring bytes a substep; the tiled restart at io_layout 1 and 2 read back
+   into one state bitwise, the tiled trajectory equal to the untiled
+   one; 16b the headline world with a tripolar north edge, 2,000 of its
+   bergs moved next to the edge heading north, the tiled per-step fused3 step on 2 x 2 and
+   4 x 2 tiles for 8 steps: the layouts bitwise, the count kept, bergs
+   across the fold, every counter 0 and no host sync in a step.
 
 The last two lines are a JSON object with each kernel's numbers and
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 without them.  Imports nothing of JAX.
 
-``--tiled`` runs phase 15 alone after the build.
+``--tiled`` runs phases 15 and 16 alone after the build.
 
 ``--ab DIR`` runs phase 3's K1, K2 (with its epilogue where the package
 has one), K3 (its pass-through too), K5 and K7 cases and phase 12's two
@@ -2073,14 +2089,17 @@ def phase_dem_cross(ibp, torch, device):
     return dict(elements=n, **r)
 
 
-def profile_window(torch, fn, profile_out, stem):
+def profile_window(torch, fn, profile_out, stem, cuda_only=False):
     """Profile fn() once: writes the kernel table and trace under
     profile_out (when given); returns device kernel time (ms) and kernel
-    count."""
+    count.  ``cuda_only``: the device's activity alone (the profiler's own
+    cost grows with the host operations it records: phase 16's ~130k
+    kernels an outer step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] if cuda_only else [
+        ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     if profile_out:
@@ -4857,6 +4876,493 @@ def phase15(ibp, torch, device, kernels, by_path, perstep=None,
     print(f"[15 phase] {time.perf_counter() - t0:.1f} s")
 
 
+
+# phase 16: ROADMAP item 13's last slices, all tiles in one process on the
+# card.  16a phase 6's DEM world (999,944 bonded elements, 2,066
+# conglomerates on 512 x 512 cells of 7 km) in 4 tiles of 128 columns
+# through the tiled MTS step (the scan, the ring ghost refresh of 2 hops,
+# Part 1 through K2 grouped, thermodynamics and spreading) for
+# TILED_DEM_STEPS outer steps against the untiled scan (phase 11a's path)
+# from the same state; then the tiled restart (io_layout 1 and 2) read
+# back into one state, and the tiled trajectory against the untiled one.
+# 16b the headline world with its north edge a tripolar fold and a band of
+# bergs heading for it, the tiled per-step fused3 step on 2 x 2 and 4 x 2
+# tiles.  16c the small worlds of tests/test_parallel_bonds.py and
+# tests/test_parallel_fold.py card against CPU
+TILED_DEM_STEPS = 2
+# the widths' first values for 16a's tiles (~250k owned elements, ~45k
+# conglomerate replicas, ~640 conglomerates on an extended tile of 132
+# columns); each doubles on overflow
+TILED_DEM_WIDTHS = dict(exchange_width=1 << 16, ghost_width=1 << 19,
+                        ghost_slots=1 << 16, conglom_id_cap=1024)
+# the tiles' Part-1 fallback: the replicas far from a tile clamp into its
+# outermost halo column, ~30-60 to a cell, whose blocks K2 cannot window
+# and whose fallback strips outgrow the default 64 candidates (~30,000
+# rows a tile truncated at 64, whatever the cap); the cap grows when the
+# rows outnumber it, else the strip width
+TILED_DEM_FALLBACK_CAP = 1 << 17
+TILED_DEM_STRIP = 256
+TILED_DEM_KERNELS = ("permute_cols_u32", "extract_sorted",
+                     "segment_spread_sums")
+FOLD_STEPS = 8
+# bergs moved within 2 km of the fold (the top row of cells: ~3.9 more to
+# a cell, about the world's density; at 20,000, ~39 a cell, the fused3
+# fallback overflows at any cap)
+FOLD_BAND = 2000
+FOLD_LAYOUTS = ((2, 2), (4, 2))
+SMALL_MTS_KW = dict(pair_cap=512, contact_cap=256, ghost_width=16,
+                    ghost_slots=16)
+# 16c floats, card against CPU: the bonded and fold worlds within phase
+# 4's tolerance; the MTS chain's 12 stiff substeps an outer step amplify an
+# ulp (phase 4b), so its floats are held to 1e-3 of scale
+SMALL_MTS_ATOL_SCALE = 1e-3
+
+
+def _tiles_global(dd, world, tiles):
+    """The merged tiles with their cells in the global frame and each
+    bond's partner id stamped on its tile."""
+    from icebergs_tpu_torch.ops.forces import stamp_bond_ids
+    return dd.concat_tiles([stamp_bond_ids(t).replace(ine=t.ine + g.i_off,
+                                                      jne=t.jne + g.j_off)
+                            for t, g in zip(tiles, world.grids)])
+
+
+def _by_id(ibp, st, stamp=False):
+    """Every field of the owned live elements in (id_cnt, id_ij) order
+    (numpy) but the partner slots, whose partners' ids are stamped
+    (``stamp``: here, on an untiled state)."""
+    import numpy as np
+    from icebergs_tpu_torch.ops.forces import stamp_bond_ids
+    d = ibp.to_numpy(stamp_bond_ids(st) if stamp else st)
+    own = d["alive"] & (d["halo_berg"] < 0.5)
+    order = np.lexsort((d["id_ij"][own], d["id_cnt"][own]))
+    return {k: v[own][order] for k, v in d.items()
+            if isinstance(v, np.ndarray) and k != "bond_idx"}
+
+
+def _differ(a, b, fields=None):
+    """The fields of two ``_by_id`` dicts that differ in any bit, with
+    their largest difference against the field's scale."""
+    import numpy as np
+    out = {}
+    for f in fields or b:
+        x, y = a[f], b[f]
+        if x.shape != y.shape:
+            out[f] = "shape"
+            continue
+        if x.dtype.kind == "f":
+            if not np.array_equal(x.view(np.int32), y.view(np.int32)):
+                scale = max(float(np.abs(y).max()), 1e-30)
+                out[f] = float(np.abs(x.astype(np.float64) - y).max()
+                               / scale)
+        elif not np.array_equal(x, y):
+            out[f] = "int"
+    return out
+
+
+def _mts_overflow(ov):
+    """16a's counters (tiles, passes, 2) by what they size: the exchange
+    passes, then the replication's (ov1, ov2), its id list's (ov_ids, 0),
+    the ghost ship and slots (ov_ship, ov_rep) and the replicas found
+    nowhere (not found, 0)."""
+    m = ov.amax(dim=0).cpu()
+    return dict(exchange=int(m[:-3, 0].max()), slots=int(m[:-2, 1].max()),
+                ids=int(m[-3, 0]), ship=int(m[-2, 0]), rep=int(m[-2, 1]),
+                not_found=int(m[-1, 0]))
+
+
+def phase_tiled_dem(ibp, torch, device, kernels, dcfg, profile_out=None):
+    """16a.  Returns ``(result, launches of the tiled window)``."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from icebergs_tpu_torch.io import restart as rio
+    from icebergs_tpu_torch.io import trajectory as tio
+    from icebergs_tpu_torch.parallel import domain as dd
+
+    t_start = time.perf_counter()
+    clock = {}
+
+    def lap(name):
+        torch.cuda.synchronize()
+        clock[name] = time.perf_counter() - t_start - sum(clock.values())
+    grid, frc, st, _, n = dem_world(ibp, torch, dcfg, DEM_UNITS, NX_DEM,
+                                    device)
+    lap("world")
+    tcfg = dcfg.replace(save_short_traj=True)      # the trajectory's schema
+    cfg = dcfg
+
+    def untiled(step, nsteps, record=None):
+        s, diags = st, []
+        for k in range(nsteps):
+            s, d = step(s, frc)
+            diags.append(d)
+            if record is not None:
+                record = tio.record_posn(record, s, tcfg, day=k + 1., year=0)
+        return s, diags, record
+
+    for _ in range(4):
+        step1 = ibp.make_step(grid, cfg, mts_substep_kernel="scan")
+        ubuf = tio.init_traj_buffer(st.capacity, TILED_DEM_STEPS, tcfg,
+                                    device=device)
+        s1, d1, ubuf = untiled(step1, TILED_DEM_STEPS, ubuf)
+        p1 = max(int(d.p1_overflow) for d in d1)
+        if not p1:
+            break
+        cfg = cfg.replace(fused_fallback_cap=min(4 * cfg.fused_fallback_cap,
+                                                 st.capacity))
+        print(f"16a untiled: Part-1 fallback cap overran ({p1}); growing "
+              f"to {cfg.fused_fallback_cap}")
+    require(p1 == 0, f"16a untiled: p1_overflow {p1}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    untiled(step1, TILED_DEM_STEPS)
+    torch.cuda.synchronize()
+    un_s = (time.perf_counter() - t0) / TILED_DEM_STEPS
+    un_busy, un_nk = profile_window(torch, lambda: step1(st, frc),
+                                    profile_out, "untiled_mts_scan", True)
+    ref = _by_id(ibp, s1, stamp=True)
+    ref_iters = [d.conv_iters for d in d1]
+    del s1
+    lap("untiled")
+
+    world = dd.make_sharded_world(
+        cfg.replace(fused_fallback_cap=max(cfg.fused_fallback_cap,
+                                           TILED_DEM_FALLBACK_CAP)),
+        dd.Ring((4,)), nx=NX_DEM, ny=NX_DEM, lon0=0., lat0=0., dlon=DXY_DEM,
+        dlat=DXY_DEM, device=device)
+    frcs = dd.shard_forcing(world, frc)
+    tiles0 = dd.shard_state(world, st, TILE_CAP)
+    lap("shard")
+    widths = dict(TILED_DEM_WIDTHS)
+
+    def tiled(step, record=None):
+        ts, ovs, diags = tiles0, [], []
+        for k in range(TILED_DEM_STEPS):
+            ts, nb, _, ov = step(ts, frcs)
+            ovs.append(ov)
+            diags.append(step.diags)
+            if record is not None:
+                record[:] = tio.record_posn_tiled(record, ts, tcfg,
+                                                  day=k + 1., year=0)
+        return ts, nb, torch.stack(ovs).amax(dim=0), diags
+
+    strip = TILED_DEM_STRIP
+    for _ in range(5):
+        step = dd.make_sharded_mts_step(
+            world, ghost_sync="ring", ghost_hops=2, mts_neighbor_mode=None,
+            with_thermo=True, with_spread=True,
+            fused_fallback_strip_width=strip, **widths)
+        bufs = tio.init_traj_buffer_tiled(world.ring, TILE_CAP,
+                                          TILED_DEM_STEPS, tcfg,
+                                          device=device)
+        ts, nb, ov, diags = tiled(step, bufs)
+        o = _mts_overflow(ov)
+        p1 = max(int(d.p1_overflow) for ds in diags for d in ds)
+        fb = max(int(d.p1_fallback) for ds in diags for d in ds)
+        grow = [k for k, key in (("exchange_width", "exchange"),
+                                 ("ghost_width", "ship"),
+                                 ("ghost_slots", "rep"),
+                                 ("conglom_id_cap", "ids")) if o[key]]
+        if not grow and not p1:
+            break
+        for k in grow:
+            widths[k] *= 2
+        if p1 and fb > world.cfg.fused_fallback_cap:
+            world = dataclasses.replace(world, cfg=world.cfg.replace(
+                fused_fallback_cap=min(4 * world.cfg.fused_fallback_cap,
+                                       TILE_CAP)))
+        elif p1:
+            strip *= 4
+        print(f"16a: overflow {o}, p1 {p1} ({fb} fallback rows); widths "
+              f"{widths}, tile fallback cap {world.cfg.fused_fallback_cap}, "
+              f"strip {strip}")
+        require(not o["slots"] and not o["not_found"],
+                f"16a: tile slots or the ring's hops overran: {o}")
+    require(not grow and not p1 and not any(o.values()),
+            f"16a: overflow {o}, p1 {p1}")
+    got = _by_id(ibp, _tiles_global(dd, world, ts))
+    iters = [ds[0].conv_iters for ds in diags]
+    require(all(d.conv_iters == it for ds, it in zip(diags, iters)
+                for d in ds), "16a: tiles ran different iteration counts")
+    require(int(nb) == ref["lon"].shape[0] == got["lon"].shape[0],
+            f"16a: {int(nb)} owned elements, untiled {ref['lon'].shape[0]}")
+    differ = _differ(got, ref)
+    ints = {f: v for f, v in differ.items() if not isinstance(v, float)}
+    require(not ints, f"16a: integers differ from the untiled scan: {ints}")
+    require(not differ, f"16a: floats differ from the untiled scan: "
+            f"{differ}")
+    require(iters == ref_iters, f"16a: convergence iterations {iters} != "
+            f"the untiled {ref_iters}")
+    broken = int(((got["bond_broken"] == 1)
+                  & ((got["bond_id_cnt"] != 0) | (got["bond_id_ij"] != 0))
+                  ).sum())
+    lap("tiled_warmup_and_compare")
+
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts2, _, _, _ = tiled(step)
+    torch.cuda.synchronize()
+    tiled_s = (time.perf_counter() - t0) / TILED_DEM_STEPS
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    for k in TILED_DEM_KERNELS:
+        require(launches[k] > 0, f"kernel {k} was not launched by the tiled "
+                "MTS step")
+    require(not _differ(_by_id(ibp, _tiles_global(dd, world, ts2)), got),
+            "16a: a second run differs from the first")
+    del ts2
+    nsync, kinds = host_syncs(torch, lambda: step(tiles0, frcs))
+    require(nsync == step.diags[0].conv_iters,
+            f"16a: {nsync} host syncs in an outer step of "
+            f"{step.diags[0].conv_iters} iterations: {kinds}")
+    ghost_b = step.ghost_bytes / (cfg.n_sub_steps * len(world.ring.tiles))
+    lap("tiled_timed_and_syncs")
+    busy, nk = profile_window(torch, lambda: step(tiles0, frcs), profile_out,
+                              "tiled_dem_mts", True)
+    lap("tiled_profile")
+
+    # the tiled restart, read back into one state
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="tiled_restart_"))
+    try:
+        backs = []
+        for layout in (1, 2):
+            base = str(tmp / f"l{layout}" / "icebergs.res.nc")
+            pathlib.Path(base).parent.mkdir()
+            paths = rio.write_restart_bergs_tiled(base, ts, cfg,
+                                                  io_layout=layout)
+            require(len(paths) == 4 // layout, f"16a: {len(paths)} files at "
+                    f"io_layout {layout}")
+            back = rio.read_restart_bergs_tiled(base, st.capacity, grid, cfg,
+                                                device=device)
+            backs.append(rio.read_restart_bonds_tiled(base, back, cfg))
+        require(not _differ(_by_id(ibp, backs[0], True),
+                            _by_id(ibp, backs[1], True)),
+                "16a: io_layout 1 and 2 read back differently")
+        back = _by_id(ibp, backs[0], True)
+        del backs
+        fields = [f for _, f, _ in restart_fields(cfg)] + [
+            f for _, f in rio.BOND_VARS] + ["bond_id_cnt", "bond_id_ij",
+                                            "n_bonds"]
+        bad = _differ(back, got, fields)
+        require(not bad, f"16a: the tiled restart read back differs: {bad}")
+        # the reader labels the conglomerates anew: the same partition
+        pairs = np.unique(np.stack([back["conglom_id"], got["conglom_id"]]),
+                          axis=1).shape[1]
+        require(pairs == np.unique(got["conglom_id"]).size
+                == np.unique(back["conglom_id"]).size,
+                "16a: the restart's conglomerates differ from the tiles'")
+        lap("restart")
+
+        # the trajectory: the union of the tiles' files against the
+        # untiled recording of the same states
+        total, _ = tio.write_trajectories_tiled(str(tmp / "traj.nc"), bufs,
+                                                tcfg)
+        n1, _ = tio.write_trajectories(str(tmp / "ref.nc"), ubuf, tcfg)
+        require(total == n1 == TILED_DEM_STEPS * n, f"16a: trajectory "
+                f"entries {total} tiled, {n1} untiled")
+        from scipy.io import netcdf_file
+
+        def rows(paths):
+            cols = {}
+            for p in paths:
+                with netcdf_file(str(p), "r", mmap=False) as f:
+                    for k, v in f.variables.items():
+                        cols.setdefault(k, []).append(np.asarray(v[:]))
+            cols = {k: np.concatenate(v) for k, v in cols.items()}
+            o = np.lexsort((cols["day"], cols["id_ij"], cols["id_cnt"]))
+            return {k: v[o] for k, v in cols.items()}
+        a = rows(sorted(tmp.glob("traj.nc.[0-9]*")))
+        b = rows([tmp / "ref.nc"])
+        require(set(a) == set(b) and all(np.array_equal(a[k], b[k])
+                                         for k in b),
+                "16a: the tiled trajectory differs from the untiled one")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lap("trajectory")
+    res = dict(
+        tiles=4, elements=n, owned=int(nb), tile_capacity=TILE_CAP,
+        widths=widths, fallback_cap=cfg.fused_fallback_cap,
+        tile_fallback_cap=world.cfg.fused_fallback_cap,
+        tile_fallback_strip=strip, tile_p1_fallback=fb,
+        s_per_outer_step=tiled_s, untiled_s_per_outer_step=un_s,
+        device_kernel_ms_per_outer_step=busy, kernels_per_outer_step=nk,
+        untiled_device_kernel_ms_per_outer_step=un_busy,
+        untiled_kernels_per_outer_step=un_nk,
+        ghost_ring_bytes_per_substep_per_tile=ghost_b,
+        conv_iters=iters, host_syncs_per_outer_step=nsync,
+        broken_owned_bonds=broken, bitwise_to_untiled=True,
+        trajectory_entries=total, seconds=clock,
+        phase_s=time.perf_counter() - t_start,
+        launches=launches)
+    return res, launches
+
+
+def fold_head(ibp, torch, device, seed=7):
+    """16b's world: the headline world with FOLD_BAND bergs moved into the
+    top row of cells, heading north at 0.5 m/s."""
+    import numpy as np
+    cfg, grid, frc, st = headline_world(ibp, torch, N_HEAD, NX_HEAD, device)
+    rng = np.random.RandomState(seed)
+    top = NX_HEAD * DXY
+    lat = st.lat.cpu().numpy().copy()
+    vvel = st.vvel.cpu().numpy().copy()
+    lat[:FOLD_BAND] = top - rng.uniform(50., 1950., FOLD_BAND)
+    vvel[:FOLD_BAND] = 0.5
+    lat_t = torch.as_tensor(lat, device=device)
+    v_t = torch.as_tensor(vvel, device=device)
+    st = st.replace(lat=lat_t, lat_old=lat_t, vvel=v_t, vvel_old=v_t)
+    i, j, xi, yj = ibp.pos_to_cell(grid, st.lon, st.lat, -1.0)
+    return cfg, grid, frc, st.replace(ine=i, jne=j, xi=xi, yj=yj)
+
+
+def phase_fold(ibp, torch, device, kernels, head):
+    """16b: the folded headline world ``head`` on each FOLD_LAYOUTS
+    layout.  Returns ``({label: result}, {label: launches})``."""
+    from icebergs_tpu_torch.parallel import domain as dd
+    cfg0, grid, frc, st = head
+    results, launches_by, owned = {}, {}, {}
+    for layout in FOLD_LAYOUTS:
+        label = f"tiled_fold_{layout[0]}x{layout[1]}"
+        t0 = time.perf_counter()
+        world = dd.make_sharded_world_2d(
+            cfg0, dd.Ring(layout), nx=NX_HEAD, ny=NX_HEAD, lon0=0., lat0=0.,
+            dlon=DXY, dlat=DXY, folded_north=True, device=device)
+        frcs = dd.shard_forcing_2d(world, frc)
+        tiles0 = dd.shard_state_2d(world, st, TILE_CAP)
+        width = TILE_WIDTH
+        for _ in range(4):
+            filled, ov0 = dd.make_halo_fill(world, width)(tiles0)
+            step = dd.make_sharded_step(world, exchange_width=width,
+                                        neighbor_mode="fused3",
+                                        with_thermo=False)
+            s, ex, co = tiled_window(torch, step, filled, frcs, FOLD_STEPS)
+            ex, co = max(int(ex), int(ov0.max())), int(co)
+            if not ex and not co:
+                break
+            if ex:
+                width *= 2
+            if co:
+                world = dataclasses.replace(world, cfg=world.cfg.replace(
+                    fused_fallback_cap=min(4 * world.cfg.fused_fallback_cap,
+                                           TILE_CAP)))
+            print(f"16b {label}: overflow {ex} / {co}; width {width}, "
+                  f"fallback cap {world.cfg.fused_fallback_cap}")
+        require(not ex and not co, f"16b {label}: exchange overflow {ex}, "
+                f"contact overflow {co}")
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s2, ex2, co2 = tiled_window(torch, step, filled, frcs, FOLD_STEPS)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3 / FOLD_STEPS
+        launches_by[label] = {k: fn.launches for k, fn in kernels.items()}
+        require(int(ex2) == 0 and int(co2) == 0, f"16b {label}: overflow")
+        for k in TILED_STEP_KERNELS:
+            require(launches_by[label][k] > 0, f"kernel {k} was not launched "
+                    f"by the {label} path")
+        nsync, kinds = host_syncs(torch, lambda: step(s2, frcs))
+        require(nsync == 0, f"16b {label}: host syncs in a step: {kinds}")
+        owned[label] = _by_id(ibp, _tiles_global(dd, world, s))
+        require(not _differ(_by_id(ibp, _tiles_global(dd, world, s2)),
+                            owned[label]),
+                f"16b {label}: a second window differs from the first")
+        nb = owned[label]["lon"].shape[0]
+        crossed = int((owned[label]["rot"] != 0).sum())
+        require(nb == int(st.alive.sum()), f"16b {label}: {nb} owned bergs "
+                f"of {int(st.alive.sum())}")
+        require(crossed > 0, f"16b {label}: no berg crossed the fold")
+        busy, nk = profile_window(
+            torch, lambda: tiled_window(torch, step, filled, frcs, 1), None,
+            label, True)
+        results[label] = dict(
+            layout=list(layout), exchange_width=width,
+            fallback_cap=world.cfg.fused_fallback_cap, ms_per_step=ms,
+            device_kernel_ms_per_step=busy, kernels_per_step=nk, owned=nb,
+            fold_crossings=crossed, host_syncs_per_step=nsync,
+            exchange_overflow=0, contact_overflow=0,
+            phase_s=time.perf_counter() - t0)
+        del s, s2, filled, tiles0
+        torch.cuda.empty_cache()
+    a, b = (owned[f"tiled_fold_{x}x{y}"] for x, y in FOLD_LAYOUTS)
+    bad = _differ(a, b)
+    require(not bad, f"16b: the two layouts differ: {bad}")
+    return results, launches_by
+
+
+def phase_small_bonds(ibp, torch, device):
+    """16c: the small bond, MTS-chain and fold worlds on the card against
+    the CPU: every integer and counter exact, floats within tolerance."""
+    import numpy as np
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_parallel_worlds as W
+    cases = (("edge_1d", W.edge_pair, (2,), 6, dict(with_thermo=False)),
+             ("corner_2x2", W.corner_pair, (2, 2), 6,
+              dict(with_thermo=False)),
+             ("mts_chain_ring", W.mts_chain_world, (2,), 2,
+              dict(mts=True, **SMALL_MTS_KW)),
+             ("fold_crossing", W.fold_crossing, (2, 2), 8,
+              dict(folded=True, cap=32, width=64, with_thermo=False)))
+    res = {}
+    for label, fn, layout, nsteps, kw in cases:
+        out = {}
+        for dev in (device, torch.device("cpu")):
+            ts, nb, ovs, _ = W.tiled_bond_run(fn, layout, nsteps, device=dev,
+                                              **kw)
+            out[dev.type] = (ts, int(nb), torch.stack(ovs).cpu())
+        (g, gn, gov), (c, cn, cov) = out["cuda"], out["cpu"]
+        require(gn == cn and torch.equal(gov, cov) and not cov.any(),
+                f"16c {label}: counts or counters differ or overflow")
+        atol = SMALL_MTS_ATOL_SCALE if kw.get("mts") else CROSS_ATOL_SCALE
+        worst = 0.
+        for gt, ct in zip(g, c):
+            gd, cd = ibp.to_numpy(gt), ibp.to_numpy(ct)
+            alive = cd["alive"]
+            for f, cv in cd.items():
+                gv = gd[f]
+                if f == "halo_berg" or cv.dtype.kind != "f":
+                    require(np.array_equal(gv, cv), f"16c {label}: {f} "
+                            "differs between the card and the CPU")
+                    continue
+                x, y = gv[alive].astype(np.float64), cv[alive]
+                if not y.size:
+                    continue
+                scale = max(np.abs(y).max(), 1e-30)
+                require(np.all(np.isfinite(x)) and np.all(
+                    np.abs(x - y) <= CROSS_RTOL * np.abs(y) + atol * scale),
+                    f"16c {label}: {f} beyond tolerance")
+                worst = max(worst, float(np.abs(x - y).max() / scale))
+        res[label] = dict(tiles=len(g), owned=cn, worst_scaled_err=worst)
+    return res
+
+
+def phase16(ibp, torch, device, kernels, by_path, profile_out=None):
+    """Phase 16, ROADMAP item 13's last slices: 16c, 16a and 16b; each
+    path's launches go to ``by_path``."""
+    t0 = time.perf_counter()
+    r = phase_small_bonds(ibp, torch, device)
+    r["phase_s"] = time.perf_counter() - t0
+    print(f"[16c cross-check tiled bonds mts fold] {json.dumps(r)}")
+    res, launches = phase_tiled_dem(ibp, torch, device, kernels,
+                                    dem_config(ibp), profile_out)
+    for k, n in launches.items():
+        if n:
+            by_path.setdefault(k, {})["tiled_dem_mts"] = n
+    print(f"[16a tiled_dem_mts] {json.dumps(res)}")
+    torch.cuda.empty_cache()
+    head = fold_head(ibp, torch, device)
+    res, launches_by = phase_fold(ibp, torch, device, kernels, head)
+    del head
+    for label, launches in launches_by.items():
+        for k, n in launches.items():
+            if n:
+                by_path.setdefault(k, {})[label] = n
+        print(f"[16b {label}] {json.dumps(res[label])}")
+    torch.cuda.empty_cache()
+    print(f"[16 phase] {time.perf_counter() - t0:.1f} s")
+
 def kernel_counters():
     """Every kernel wrapper (or second count) by its row's name: the
     ``launches`` each path reads and resets."""
@@ -4881,8 +5387,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-out", default=None,
                     help="directory for a profiler table and trace")
     ap.add_argument("--tiled", action="store_true",
-                    help="run only phase 15 (the tiled step and run) after "
-                    "the build")
+                    help="run only phases 15 and 16 (the tiled step and run, "
+                    "bonds, MTS and the fold across tiles) after the build")
     ap.add_argument("--ab", metavar="ROOT", default=None,
                     help="run only phase 3's K1, K2, K3, K5 and K7 cases "
                     "and phase 12's K2 and K5 lat-lon cases, "
@@ -4930,7 +5436,9 @@ def main(argv=None) -> int:
         by_path = {}
         phase15(ibp, torch, device, kernel_counters(), by_path,
                 profile_out=args.profile_out)
-        print(f"[15 launches] {json.dumps(by_path)}")
+        phase16(ibp, torch, device, kernel_counters(), by_path,
+                args.profile_out)
+        print(f"[15-16 launches] {json.dumps(by_path)}")
         print(smi)
         return 0
     ab = args.ab is not None
@@ -5096,6 +5604,7 @@ def main(argv=None) -> int:
     phase14(ibp, torch, device, kernels, by_path, kres, args.profile_out)
     phase15(ibp, torch, device, kernels, by_path, perstep["fused3"],
             args.profile_out)
+    phase16(ibp, torch, device, kernels, by_path, args.profile_out)
 
     source = {"permute_cols_u32": ("permute_cols.cu",
                                    "icebergs_tpu/ops/pallas_pack.py:30"),
@@ -5160,14 +5669,15 @@ def main(argv=None) -> int:
     k2 = by_path.get("extract_sorted", {})
     by_path["extract_sorted/grouped"] = {
         p: k2.pop(p) for p in list(k2)
-        if p in ("dem", "driver_dem", "hex_dem") or p.startswith("mts_")}
+        if p in ("dem", "driver_dem", "hex_dem", "tiled_dem_mts")
+        or p.startswith("mts_")}
     k3 = by_path.get("segment_spread_sums", {})
     by_path["segment_spread_sums/extra14"] = {
         p: k3.pop(p) for p in list(k3)
         if p in ("dem", "bonded_fused3", "mts_scan", "mts_pairs",
                  "mts_cross_scan", "mts_cross_pairs", "ll_dem",
                  "driver_headline", "driver_dem", "tiled_perstep_fused3",
-                 "tiled_2d_perstep_fused3")
+                 "tiled_2d_perstep_fused3", "tiled_dem_mts")
         or p.startswith("perstep_")}
     by_path["segment_spread_sums/extra0"] = {
         p: k3.pop(p) for p in list(k3)

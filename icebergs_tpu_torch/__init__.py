@@ -28,12 +28,13 @@ diagnostics' history file (:mod:`.io`, :mod:`.diagnostics`), with the
 A68 hindcast's forcing files.  Hexagonal elements (the hexagon spreading
 of :mod:`.ops.hexagon`, the bond-oriented hexagons and the hexagonal DEM
 faces) run on every path.  The multi-device layer (:mod:`.parallel`)
-runs the tiled coupling step and run in 1-D and 2-D layouts: tiles with
-their halos, particle migration and halo copies through a ring that
-rotates a list of tiles in one process or sends between
-``torch.distributed`` ranks; bonds, MTS and the tripolar fold across
-tiles, and the tiled restart and trajectory files, are ROADMAP.md item
-13's later slices and raise ``NotImplementedError`` naming them.
+runs the tiled coupling step and run and the tiled MTS step in 1-D and
+2-D layouts: tiles with their halos, particle migration and halo copies
+through a ring that rotates a list of tiles in one process or sends
+between ``torch.distributed`` ranks, conglomerates replicated to every
+tile they overlap, the replicas' state refreshed at every substep, and
+the tripolar fold; the tiled restart and trajectory files are
+:mod:`.io`'s.
 Module names mirror the JAX package; each module names its counterpart.
 
 Importing this package imports torch and never jax.  On CPU tensors

@@ -17,9 +17,12 @@ and the bathymetry of ``topog.nc``.  Files are NETCDF3 through
 types, so that for the same state the two packages write the same bytes
 and each reads the other's files.  The bond records are formed and
 matched by id with numpy over whole arrays (the JAX package loops in
-Python), in the same order.  The tiled (one file per tile) readers and
-writers are the multi-device layer's next slice (ROADMAP.md Queue 1
-item 13, the tiled I/O).
+Python), in the same order.
+
+The distributed (io_layout) restarts of ``restart.py:366-521``: one
+``<name>.NNNN`` file (and ``bonds_<name>.NNNN`` with bonds) per tile or
+per group of ``io_layout`` consecutive tiles, written from a list of
+tile states, and read back into one untiled state.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from scipy.io import netcdf_file
 
 from ..config import IcebergsConfig, NCLASSES
 from ..grid import Grid, pos_to_cell
-from ..state import BergState, empty_state
+from ..state import ALL_FIELDS, BergState, empty_state
 
 # (netcdf name, state field, dtype char)
 BERG_VARS = [
@@ -118,12 +121,19 @@ def read_restart_bergs(path: str, capacity: int, grid: Grid,
     icebergs_fms2io.F90:662-1188).  Positions outside the grid are
     clamped to the nearest cell with a warning on stderr (the reference
     stops there; usually a grid / namelist mismatch)."""
-    device = grid.device if device is None else device
     with netcdf_file(path, "r", mmap=False) as f:
         data = {name: np.asarray(v[:]) for name, v in f.variables.items()}
+    return _state_from_records(data, capacity, grid, cfg, dtype, device)
+
+
+def _state_from_records(data: dict, capacity: int, grid: Grid,
+                        cfg: IcebergsConfig, dtype, device) -> BergState:
+    """A state of ``capacity`` slots from restart records: the records in
+    order in the first slots, re-localised on ``grid``."""
+    device = grid.device if device is None else device
     n = len(data["lon"])
     if n > capacity:
-        raise ValueError(f"restart holds {n} bergs > capacity {capacity}")
+        raise ValueError(f"restarts hold {n} bergs > capacity {capacity}")
     st = empty_state(capacity, max_bonds=cfg.max_bonds, dtype=dtype,
                      device=device)
     known = {name: field for name, field, _ in
@@ -343,3 +353,98 @@ def read_ocean_depth(path: str, grid: Grid) -> Grid:
     od = grid.ocean_depth
     return grid.replace(ocean_depth=torch.as_tensor(
         _native(np.pad(depth, 1))).to(od.device, od.dtype))
+
+
+# --------------------------------------------------------------------------
+# distributed (io_layout) restarts: one file per tile
+# --------------------------------------------------------------------------
+
+def write_restart_bergs_tiled(basepath: str, tiles, cfg: IcebergsConfig,
+                              io_layout: int = 1, *, ring=None):
+    """Per-tile restart files ``<basepath>.NNNN`` from the local tiles'
+    states (the reference's io_layout-decomposed restart writes,
+    icebergs_fms2io.F90:124-633, mpp_define_io_domain at
+    framework:921).  Each tile writes its owned bergs only, so the union
+    of the files is the global state.  ``ring`` names the tiles' global
+    numbers (the rank form: each rank writes its own tiles,
+    :func:`..parallel.multihost.local_tile_range`); without it the list
+    is every tile from 0.
+
+    ``io_layout`` > 1 puts that many consecutive tiles in one file (the
+    io-tile root's gather, icebergs_fms2io.F90:91-122): file NNNN holds
+    the bergs of tiles [NNNN io_layout, (NNNN + 1) io_layout), and only
+    groups held whole by this process are written.  With bonds on,
+    ``bonds_<name>.NNNN`` holds each group's bond records.  Returns the
+    paths written."""
+    ids = list(ring.tiles) if ring is not None else list(range(len(tiles)))
+    local = dict(zip(ids, tiles))
+    groups = {}
+    for d in ids:
+        groups.setdefault(d // io_layout, []).append(d)
+    paths = []
+    for g in sorted(groups):
+        members = groups[g]
+        if len(members) != io_layout:
+            continue
+        parts = [local[d] for d in members]
+        stl = BergState(**{f: torch.cat([getattr(p, f) for p in parts])
+                           for f in ALL_FIELDS})
+        if io_layout > 1 and cfg.iceberg_bonds_on:
+            # each member's local bond slots shift by the capacities
+            # before it
+            caps = np.cumsum([0] + [p.capacity for p in parts[:-1]])
+            off = torch.as_tensor(np.repeat(caps, [p.capacity
+                                                   for p in parts]),
+                                  dtype=torch.int32,
+                                  device=stl.device)[:, None]
+            stl = stl.replace(bond_idx=torch.where(
+                stl.bond_idx >= 0, stl.bond_idx + off, -1).to(torch.int32))
+        p = f"{basepath}.{g:04d}"
+        write_restart_bergs(p, stl, cfg)
+        paths.append(p)
+        if cfg.iceberg_bonds_on:
+            write_restart_bonds(_bond_tile_path(basepath, g), stl, cfg)
+    return paths
+
+
+def _bond_tile_path(basepath: str, d: int) -> str:
+    head, tail = os.path.split(basepath)
+    return os.path.join(head, f"bonds_{tail}.{d:04d}")
+
+
+def _read_merged(pattern: str, what: str) -> dict:
+    """Every variable of the files ``pattern`` matches, in file-name
+    order, concatenated."""
+    import glob
+    files = sorted(glob.glob(pattern))
+    if not files:
+        raise FileNotFoundError(what)
+    datas = []
+    for p in files:
+        with netcdf_file(p, "r", mmap=False) as f:
+            datas.append({k: np.asarray(v[:]) for k, v in
+                          f.variables.items()})
+    return {k: np.concatenate([d[k] for d in datas]) for k in datas[0]}
+
+
+def read_restart_bonds_tiled(basepath: str, st: BergState,
+                             cfg: IcebergsConfig) -> BergState:
+    """The bond records of every ``bonds_<name>.NNNN`` file re-matched by
+    id onto a merged state (the counterpart of
+    :func:`read_restart_bergs_tiled` for bonded and DEM runs)."""
+    head, tail = os.path.split(basepath)
+    data = _read_merged(
+        os.path.join(head, f"bonds_{tail}") + ".[0-9][0-9][0-9][0-9]",
+        f"no tiled bond restarts bonds_{tail}.NNNN next to {basepath}")
+    return _apply_bond_records(st, data, cfg)
+
+
+def read_restart_bergs_tiled(basepath: str, capacity: int, grid: Grid,
+                             cfg: IcebergsConfig, dtype=torch.float32, *,
+                             device=None) -> BergState:
+    """One untiled state of ``capacity`` slots from the ``<basepath>.NNNN``
+    tile files (fms2_io's domain reads reassemble them), each berg
+    re-localised on ``grid``."""
+    data = _read_merged(basepath + ".[0-9][0-9][0-9][0-9]",
+                        f"no tiled restarts at {basepath}.NNNN")
+    return _state_from_records(data, capacity, grid, cfg, dtype, device)

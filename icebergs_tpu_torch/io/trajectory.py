@@ -9,9 +9,10 @@ step writes one row by a masked copy (no host read: the next row is
 counted on the host), and :func:`write_trajectories` drains the valid
 entries to an append-style ``iceberg_trajectories.nc`` with the
 reference's schema (short / footloose / full), variable for variable
-the JAX package's file.  The per-tile buffers and files are the
-multi-device layer's next slice (ROADMAP.md Queue 1 item 13, the tiled
-I/O).
+the JAX package's file.  The tiled recording (``trajectory.py:213-258``)
+keeps one buffer per local tile and drains each to its own file
+``path.NNNN`` (the reference's io_layout suffixes,
+icebergs_fms2io.F90:1663-1738).
 """
 
 from __future__ import annotations
@@ -194,3 +195,44 @@ def write_trajectories(path: str, buf: TrajBuffer, cfg: IcebergsConfig):
         data={k: torch.zeros_like(v) for k, v in buf.data.items()},
         valid=torch.zeros_like(buf.valid), cursor=0)
     return len(rows), cleared
+
+
+# ---------------------------------------------------------------------------
+# tiled recording: one buffer per tile, one file per tile
+# ---------------------------------------------------------------------------
+
+def init_traj_buffer_tiled(tiles, capacity: int, nsamples: int,
+                           cfg: IcebergsConfig, dtype=torch.float32, *,
+                           device):
+    """One buffer per local tile: ``tiles`` is a
+    :class:`..parallel.domain.Ring` (its local tiles) or a layout tuple
+    (every tile)."""
+    n = (len(tiles.tiles) if hasattr(tiles, "tiles")
+         else int(np.prod(tiles)))
+    return [init_traj_buffer(capacity, nsamples, cfg, dtype, device=device)
+            for _ in range(n)]
+
+
+def record_posn_tiled(bufs, tiles, cfg: IcebergsConfig, day, year):
+    """:func:`record_posn` on every local tile: halo copies are not
+    recorded, so each berg is recorded once, by its owner."""
+    return [record_posn(b, s, cfg, day=day, year=year)
+            for b, s in zip(bufs, tiles)]
+
+
+def write_trajectories_tiled(path: str, bufs, cfg: IcebergsConfig, *,
+                             ring=None):
+    """Drain each local tile's buffer to ``path.NNNN``, NNNN the tile's
+    global number (from ``ring``; without it the buffers are every tile
+    from 0), the variables in name order as the JAX package's tiled
+    files have them (its tiled buffers pass through pytree maps, which
+    sort a dict's keys).  Returns the entries written and the cleared
+    buffers."""
+    ids = list(ring.tiles) if ring is not None else range(len(bufs))
+    total, cleared = 0, []
+    for k, b in zip(ids, bufs):
+        b = b._replace(data={n: b.data[n] for n in sorted(b.data)})
+        n, b = write_trajectories(f"{path}.{k:04d}", b, cfg)
+        total += n
+        cleared.append(b)
+    return total, cleared

@@ -57,7 +57,7 @@ from .dynamics import evolve_icebergs
 from .footloose import (adjust_fl_berg_interactivity,
                         delete_fully_fl_calved, footloose_calving)
 from .grid import Grid
-from .mts import evolve_icebergs_mts
+from .mts import drive_mts, evolve_icebergs_mts_sequence
 from .ops import forces as _forces
 from .ops import spread as _spread
 from .ops import thermo as _thermo
@@ -173,7 +173,8 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
               mts_pair_cap: Optional[int] = None,
               mts_neighbor_mode: Optional[str] = None,
               mts_substep_kernel: str = "scan", mts_vmem_deltas=None,
-              mts_vmem_block_n: int = 512, fused_block_n: int = 128,
+              mts_vmem_block_n: int = 512, mts_lockstep: bool = False,
+              fused_block_n: int = 128,
               fused_window: Optional[int] = None,
               fused_fallback_cap: Optional[int] = None,
               fused_fallback_strip_width: int = 64):
@@ -203,7 +204,10 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
     :func:`~.ops.dem_substeps.pack_conglomerates_blocked` state runs the
     substeps in K4, otherwise they run as the scan, with the frozen pair
     list of ``mts_pair_cap`` pairs where it applies (its overflow is
-    ``StepDiags.contact_overflow``)."""
+    ``StepDiags.contact_overflow``).  ``mts_lockstep``: the step's
+    ``sequence`` also yields the MTS cycle's events
+    (:class:`.mts.MtsEvent`, a sync at every substep's top), which the
+    tiled MTS step answers for all its tiles at once."""
     check_ported(cfg)
     table = use_interp_table(cfg)
     # the pallas spread kernel pins the sort key's pre-thermodynamics
@@ -274,14 +278,19 @@ def make_step(grid: Grid, cfg: IcebergsConfig, *, with_thermo: bool = True,
             st = interp_to_bergs(st, grid, frc, cfg)
         fstats = mts_d = cap_ov = None
         if cfg.mts:
-            st, mts_d = evolve_icebergs_mts(
+            mseq = evolve_icebergs_mts_sequence(
                 st, grid, frc, cfg, pair_cap=mts_pair_cap,
                 contact_cap=contact_cap, max_per_cell=max_per_cell,
-                ncells_radius=mts_radius,
+                ncells_radius=mts_radius, sync=mts_lockstep,
                 neighbor_mode=mts_neighbor_mode or "fused",
-                fused_kw={"fallback_cap": cap},
+                fused_kw={"fallback_cap": cap,
+                          "fallback_strip_width": fused_fallback_strip_width},
                 substep_kernel=mts_substep_kernel,
                 vmem_deltas=mts_vmem_deltas, vmem_block_n=mts_vmem_block_n)
+            if mts_lockstep:
+                st, mts_d = yield from mseq
+            else:
+                st, mts_d = drive_mts(mseq)
             tickets = bounced = zero
             cap_ov = mts_d.pair_overflow
         else:

@@ -28,8 +28,17 @@ iteration (``MtsDiags.conv_iters``), and the implicit inner substeps'
 ``force_convergence`` loop once per iteration
 (``MtsDiags.inner_conv_iters``, summed over substeps); nothing else
 reads the card.  The per-substep broken-bond counts stay on the device.
-``substep_sync`` (the multi-device ring hook) is ROADMAP.md Queue 1
-item 13's slice 5 (MTS across tiles).
+
+``substep_sync`` (state -> state) runs at the top of every substep: the
+ring ghost-state refresh of the tiled MTS step
+(:func:`.parallel.domain.make_sharded_mts_step`); a given sync routes
+the substeps to the scan, never to K4, as in the JAX package.  The cycle
+itself is the generator :func:`evolve_icebergs_mts_sequence`, which
+yields an :class:`MtsEvent` where it reads the card (each convergence
+test, with its norms over the owned moving elements) and, with
+``sync``, at the top of every substep; :func:`evolve_icebergs_mts`
+answers the events for one state, the tiled step for all its tiles in
+lockstep (one decision for all, from the norms summed over the tiles).
 """
 
 from __future__ import annotations
@@ -50,6 +59,45 @@ from .ops.dem import tdiv
 from .ops.dem_substeps import part3_substeps_vmem, supports_vmem_substeps
 from .ops.forces import compact_rows
 from .ops.fused_contact import make_ia_fn_fused_mts1
+
+
+class MtsEvent:
+    """A point where the MTS cycle waits for its driver: ``kind``
+    ``"conv"`` with ``value`` ``(usum, usum1, usum2, had_collision or
+    None, tolerance)``, answered by whether the iteration has converged
+    (:func:`converged`); ``"sync"`` with the substep's state, answered by
+    the state to go on with."""
+    __slots__ = ("kind", "value")
+
+    def __init__(self, kind: str, value):
+        self.kind, self.value = kind, value
+
+
+def converged(usum, usum1, usum2, had_collision, tol) -> bool:
+    """The convergence test of icebergs.F90:6663-6743 on the velocity
+    norms (one host read): the relative change below ``tol``, or no
+    collision (Part 1; ``had_collision`` None for the inner loop)."""
+    denom = torch.sqrt(usum) + torch.sqrt(usum1)
+    nc = torch.where(denom > 0., 2. * torch.sqrt(usum2) / denom, 0.)
+    done = nc < tol
+    if had_collision is not None:
+        done = (~had_collision) | done
+    return bool(done)
+
+
+def drive_mts(seq, substep_sync=None):
+    """Run an :func:`evolve_icebergs_mts_sequence` for one state: each
+    convergence test decided on its own norms, each substep's state
+    through ``substep_sync``.  Returns the sequence's ``(state,
+    MtsDiags)``."""
+    sent = None
+    while True:
+        try:
+            ev = seq.send(sent)
+        except StopIteration as done:
+            return done.value
+        sent = (substep_sync(ev.value) if ev.kind == "sync"
+                else converged(*ev.value))
 
 
 class MtsDiags(NamedTuple):
@@ -483,10 +531,13 @@ def _msum(moving, x):
 
 
 def _substeps_scan(st, cfg: IcebergsConfig, nbr, pairs, moving,
-                   broken_total):
+                   broken_total, sync: bool = False):
     """All ``n_sub_steps`` fast substeps as a Python loop (the JAX
-    package's ``lax.scan``).  Returns ``(state, broken_total,
-    inner_conv_iters)``."""
+    package's ``lax.scan``), a generator of :class:`MtsEvent`: with
+    ``sync`` each substep starts from the state its driver sends back.
+    Returns ``(state, broken_total, inner_conv_iters)``."""
+    counted = moving & (st.halo_berg < 0.5)
+
     def sel(new, old):
         return torch.where(moving, new, old)
 
@@ -499,6 +550,8 @@ def _substeps_scan(st, cfg: IcebergsConfig, nbr, pairs, moving,
     inner_iters = 0
     s = st
     for _ in range(cfg.n_sub_steps):
+        if sync:
+            s = yield MtsEvent("sync", s)
         # drift (icebergs.F90:6790-6831)
         uvel2 = s.uvel + dtf_2 * (s.axn_fast + s.bxn_fast)
         vvel2 = s.vvel + dtf_2 * (s.ayn_fast + s.byn_fast)
@@ -552,16 +605,14 @@ def _substeps_scan(st, cfg: IcebergsConfig, nbr, pairs, moving,
                     sv = sv.replace(uvel_old=sel(uveln, sv.uvel_old),
                                     vvel_old=sel(vveln, sv.vvel_old))
                     un2, vn2, axn, ayn, bxn, byn = kick(sv)
-                    usum = _msum(moving, uveln * uveln + vveln * vveln)
-                    usum1 = _msum(moving, un2 * un2 + vn2 * vn2)
+                    usum = _msum(counted, uveln * uveln + vveln * vveln)
+                    usum1 = _msum(counted, un2 * un2 + vn2 * vn2)
                     d1, d2 = un2 - uveln, vn2 - vveln
-                    usum2 = _msum(moving, d1 * d1 + d2 * d2)
-                    den = torch.sqrt(usum) + torch.sqrt(usum1)
-                    nc = torch.where(den > 0., 2. * torch.sqrt(usum2) / den,
-                                     0.)
+                    usum2 = _msum(counted, d1 * d1 + d2 * d2)
                     uveln, vveln = un2, vn2
                     it += 1
-                    done = bool(nc < cfg.convergence_tolerance)
+                    done = yield MtsEvent("conv", (
+                        usum, usum1, usum2, None, cfg.convergence_tolerance))
                 inner_iters += it
         s = s.replace(
             axn_fast=sel(axn, s.axn_fast), ayn_fast=sel(ayn, s.ayn_fast),
@@ -613,6 +664,7 @@ def _substeps_scan(st, cfg: IcebergsConfig, nbr, pairs, moving,
 def evolve_icebergs_mts(st, grid: Grid, frc, cfg: IcebergsConfig, *,
                         pair_cap: Optional[int] = None,
                         contact_cap: Optional[int] = None,
+                        substep_sync=None,
                         ncells_radius: Optional[int] = None,
                         max_per_cell: int = 16,
                         neighbor_mode: str = "tables",
@@ -621,7 +673,32 @@ def evolve_icebergs_mts(st, grid: Grid, frc, cfg: IcebergsConfig, *,
                         vmem_deltas=None, vmem_block_n: int = 512):
     """Full MTS cycle: Part 1 slow solve, Part 2 half-kick, Part 3
     substeps, then re-localization on the grid.  Returns ``(state,
-    MtsDiags)``.
+    MtsDiags)``.  ``substep_sync`` (state -> state), if given, runs at
+    the top of every substep, and the substeps run as the scan.  The
+    other keywords are :func:`evolve_icebergs_mts_sequence`'s."""
+    return drive_mts(evolve_icebergs_mts_sequence(
+        st, grid, frc, cfg, pair_cap=pair_cap, contact_cap=contact_cap,
+        sync=substep_sync is not None, ncells_radius=ncells_radius,
+        max_per_cell=max_per_cell, neighbor_mode=neighbor_mode,
+        fused_kw=fused_kw, substep_kernel=substep_kernel,
+        vmem_deltas=vmem_deltas, vmem_block_n=vmem_block_n), substep_sync)
+
+
+def evolve_icebergs_mts_sequence(st, grid: Grid, frc, cfg: IcebergsConfig,
+                                 *, pair_cap: Optional[int] = None,
+                                 contact_cap: Optional[int] = None,
+                                 sync: bool = False,
+                                 ncells_radius: Optional[int] = None,
+                                 max_per_cell: int = 16,
+                                 neighbor_mode: str = "tables",
+                                 fused_kw: Optional[dict] = None,
+                                 substep_kernel: str = "scan",
+                                 vmem_deltas=None, vmem_block_n: int = 512):
+    """The MTS cycle as a generator of :class:`MtsEvent` (see
+    :func:`drive_mts`), returning ``(state, MtsDiags)``.  The convergence
+    norms count the owned moving elements (a tile's halo copies and
+    replicas are not its own); with ``sync`` every substep yields its
+    state first and the substeps run as the scan.
 
     ``neighbor_mode="fused"`` searches Part 1's collision group with K2;
     any other mode builds the candidate tables (``max_per_cell``,
@@ -637,6 +714,7 @@ def evolve_icebergs_mts(st, grid: Grid, frc, cfg: IcebergsConfig, *,
     dt = cfg.dt
     dt_2 = 0.5 * dt
     moving = st.alive & (st.static_berg < 0.5)
+    counted = moving & (st.halo_berg < 0.5)
     radius = (ncells_radius if ncells_radius is not None
               else _forces.neighbor_radius(grid, cfg))
 
@@ -681,24 +759,22 @@ def evolve_icebergs_mts(st, grid: Grid, frc, cfg: IcebergsConfig, *,
                 ax, ay, axn, ayn, bxn, byn, fdc = part1_once(st)
                 up = sel(st.uvel + dt * ax, st.uvel_prev)
                 vp = sel(st.vvel + dt * ay, st.vvel_prev)
-                usum = _msum(moving, st.uvel_old * st.uvel_old
+                usum = _msum(counted, st.uvel_old * st.uvel_old
                              + st.vvel_old * st.vvel_old)
-                usum1 = _msum(moving, up * up + vp * vp)
+                usum1 = _msum(counted, up * up + vp * vp)
                 du, dv = up - st.uvel_old, vp - st.vvel_old
-                usum2 = _msum(moving, du * du + dv * dv)
-                denom = torch.sqrt(usum) + torch.sqrt(usum1)
-                normchange = torch.where(
-                    denom > 0., 2. * torch.sqrt(usum2) / denom, 0.)
-                had_collision = (moving & (fdc != 0.)).any()
-                done_t = (~had_collision) | (normchange
-                                             < cfg.convergence_tolerance)
+                usum2 = _msum(counted, du * du + dv * dv)
+                had_collision = (counted & (fdc != 0.)).any()
                 st = st.replace(axn=sel(axn, st.axn), ayn=sel(ayn, st.ayn),
                                 bxn=sel(bxn, st.bxn), byn=sel(byn, st.byn),
                                 uvel_prev=up, vvel_prev=vp,
                                 uvel_old=sel(up, st.uvel_old),
                                 vvel_old=sel(vp, st.vvel_old))
                 conv_iters += 1
-                done = bool(done_t)          # the loop's one host sync
+                # the loop's one host sync
+                done = yield MtsEvent("conv", (
+                    usum, usum1, usum2, had_collision,
+                    cfg.convergence_tolerance))
         else:
             ax, ay, axn, ayn, bxn, byn, _ = part1_once(st)
             st = st.replace(
@@ -730,7 +806,7 @@ def evolve_icebergs_mts(st, grid: Grid, frc, cfg: IcebergsConfig, *,
     skin_dropped = torch.zeros((), dtype=torch.int32, device=st.device)
     pair_overflow = None
     inner_iters = 0
-    if substep_kernel == "vmem" and cfg.n_sub_steps > 0:
+    if substep_kernel == "vmem" and not sync and cfg.n_sub_steps > 0:
         if not supports_vmem_substeps(cfg):
             raise ValueError("substep kernel: unsupported flag set")
         if vmem_deltas is None:
@@ -746,8 +822,8 @@ def evolve_icebergs_mts(st, grid: Grid, frc, cfg: IcebergsConfig, *,
             me, ot, pv, pair_overflow, skin_dropped = compact_conglom_pairs(
                 st, nbr, pair_cap, cfg=cfg, dt=cfg.dt)
             pairs = (me, ot, pv)
-        st, broken_total, inner_iters = _substeps_scan(
-            st, cfg, nbr, pairs, moving, broken_total)
+        st, broken_total, inner_iters = yield from _substeps_scan(
+            st, cfg, nbr, pairs, moving, broken_total, sync)
 
     # finalize: re-localize on the grid (icebergs.F90:7056-7075)
     st = st.replace(uvel_old=sel(st.uvel, st.uvel_old),

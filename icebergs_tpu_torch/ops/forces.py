@@ -22,7 +22,8 @@ groups, their MTS parts and the Part-1 velocity refresh
 ``set_constant_interaction_length_and_width``; and
 ``initialize_bonds_host``, ``compute_conglom_ids_host`` (numpy, or the
 native library of :mod:`..native` above 512 elements) and
-``count_bonds``.
+``count_bonds``; and the bond id stamps that carry bonds across tiles,
+``stamp_bond_ids`` and ``connect_bonds_by_id`` (``forces.py:912-967``).
 
 ``*_T`` functions hold pair slabs as (M, N) with the partner axis first
 (the fused search's two partners); the plain ones as (N, M) (the exact
@@ -730,3 +731,41 @@ def count_bonds(st):
     icebergs_framework.F90:4860)."""
     dem_alive = (st.bond_idx >= 0) & (st.bond_broken != 1)
     return st.replace(n_bonds=dem_alive.sum(dim=1).to(st.dtype))
+
+
+def stamp_bond_ids(st):
+    """Fill (bond_id_cnt, bond_id_ij) from the current partner slots, so
+    that bonds survive a redistribution (the pack side of the
+    reference's bond serialization, icebergs_framework.F90:3250-3381).
+    A slot with ``bond_idx < 0`` keeps its stamp: a cleared index means
+    "partner not connected here", not "no bond"."""
+    other = st.bond_idx.clamp(min=0).long()
+    hasb = st.bond_idx >= 0
+    return st.replace(
+        bond_id_cnt=torch.where(hasb, st.id_cnt[other], st.bond_id_cnt),
+        bond_id_ij=torch.where(hasb, st.id_ij[other], st.bond_id_ij))
+
+
+def _lex_key(cnt, ij):
+    """int64 keys ordered as (cnt, ij) lexicographically, both signed."""
+    return cnt.to(torch.int64) * (1 << 32) + (ij.to(torch.int64) + (1 << 31))
+
+
+def connect_bonds_by_id(st):
+    """Re-match the bond partner slots from the (bond_id_cnt, bond_id_ij)
+    stamps against every live slot (``connect_all_bonds``,
+    icebergs_framework.F90:4713-...): after bergs moved between tiles the
+    slot indices are stale.  The JAX package's two stable argsorts (by
+    id_ij, then id_cnt; dead slots last) and binary search: a stamp
+    names the first live slot of its id in that order, the lowest."""
+    N, B = st.bond_idx.shape
+    has = ((st.bond_id_cnt != 0) | (st.bond_id_ij != 0)) & st.alive[:, None]
+    dead = torch.full_like(st.id_cnt, 2147483647)
+    key = _lex_key(torch.where(st.alive, st.id_cnt, dead), st.id_ij)
+    ks, order = torch.sort(key, stable=True)
+    q = _lex_key(st.bond_id_cnt, st.bond_id_ij)
+    pos = torch.searchsorted(ks, q.reshape(-1)).reshape(N, B).clamp(max=N - 1)
+    found = ks[pos] == q
+    slot = order[pos].to(torch.int32)
+    return st.replace(bond_idx=torch.where(has & found, slot, -1).to(
+        torch.int32))

@@ -46,20 +46,40 @@ class Env(NamedTuple):
     od: torch.Tensor
 
 
+def global_offsets(grid: Grid):
+    """``(i_off, j_off, lon0, lat0)`` of the global frame: a tile's
+    (``lon0g`` set, as :func:`..dynamics._global_frame` reads it), or an
+    untiled grid's own (0, 0, lon0, lat0)."""
+    if grid.lon0g is None:
+        return 0, 0, grid.lon0, grid.lat0
+    return grid.i_off, grid.j_off, grid.lon0g, grid.lat0g
+
+
+def stencil_lo(i, frac, n: int, off: int, ng: int, mind: int):
+    """The low cell of the quadratic stencil's 3-node window along one
+    axis: staggered by the parity of the 1-based global cell index
+    ``i + off + 1`` and clamped to the global grid's [-1, ng - 2] (``ng``
+    0: this grid's ``n``) and to the tile's [-1, n - 2].  On a tile the
+    global frame picks the untiled grid's window (the JAX package's
+    tiles take the tile-local parity); untiled, ``off`` is 0."""
+    par = (i + off + 1) % 2
+    lo = torch.where(par == mind, torch.where(frac >= 0.5, i, i - 2), i - 1)
+    return lo.clamp(max(-1, -1 - off), min(n - 2, (ng or n) - 2 - off))
+
+
 def quad_interp_from_agrid(grid: Grid, fld, lon, lat, i, j, xi, yj,
                            cfg: IcebergsConfig):
     """Bi-quadratic Lagrange interpolation of a halo-padded A-grid field
     on a regular grid, the 3x3 node window staggered by the parity of the
-    1-based cell index (``mind`` / ``rev_mind``)."""
+    1-based cell index (``mind`` / ``rev_mind``), both taken in the global
+    frame on a tile (:func:`stencil_lo`; the window placed from the
+    global origin ``lon0g`` / ``lat0g``)."""
     mind = 0 if cfg.rev_mind else 1
-    par_i = (i + 1) % 2
-    par_j = (j + 1) % 2
-    is_lo = torch.where(par_i == mind, torch.where(xi >= 0.5, i, i - 2),
-                        i - 1).clamp(-1, grid.nx - 2)
-    js_lo = torch.where(par_j == mind, torch.where(yj >= 0.5, j, j - 2),
-                        j - 1).clamp(-1, grid.ny - 2)
-    x_mid = grid.lon0 + (is_lo.to(xi.dtype) + 1.5) * grid.dlon
-    y_mid = grid.lat0 + (js_lo.to(yj.dtype) + 1.5) * grid.dlat
+    io, jo, x0, y0 = global_offsets(grid)
+    is_lo = stencil_lo(i, xi, grid.nx, io, grid.nxg, mind)
+    js_lo = stencil_lo(j, yj, grid.ny, jo, grid.nyg, mind)
+    x_mid = x0 + ((is_lo + io).to(xi.dtype) + 1.5) * grid.dlon
+    y_mid = y0 + ((js_lo + jo).to(yj.dtype) + 1.5) * grid.dlat
     xloc = (lon - x_mid) / (2. * grid.dlon) + 0.5
     yloc = (lat - y_mid) / (2. * grid.dlat) + 0.5
     xloc = xloc * 2. - 1.

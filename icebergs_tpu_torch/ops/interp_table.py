@@ -19,6 +19,7 @@ import torch
 
 from ..config import IcebergsConfig
 from ..grid import Grid
+from .interp import global_offsets, stencil_lo
 from .pack import permute_cols_u32, to_bits
 
 # slot-row layout (pallas_interp.py:48-66)
@@ -150,12 +151,10 @@ def _quad_od_from_rows(read, key, xi, yj, grid: Grid, cfg: IcebergsConfig):
     i = key % nx
     j = torch.div(key, nx, rounding_mode="floor")
     mind = 0 if cfg.rev_mind else 1
-    par_i = (i + 1) % 2
-    par_j = (j + 1) % 2
-    is_lo = torch.where(par_i == mind, torch.where(xi >= 0.5, i, i - 2),
-                        i - 1).clamp(-1, nx - 2)
-    js_lo = torch.where(par_j == mind, torch.where(yj >= 0.5, j, j - 2),
-                        j - 1).clamp(-1, ny - 2)
+    # the window by the global cell's parity (:func:`.interp.stencil_lo`)
+    io, jo, _, _ = global_offsets(grid)
+    is_lo = stencil_lo(i, xi, nx, io, grid.nxg, mind)
+    js_lo = stencil_lo(j, yj, ny, jo, grid.nyg, mind)
     dxo = is_lo - i
     dyo = js_lo - j
     xloc = (i - is_lo).to(xi.dtype) + xi - 1.5

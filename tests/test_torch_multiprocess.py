@@ -11,8 +11,12 @@ Compared: every field of every slot of each rank's tile after a halo
 fill and 8 ``fused3`` steps of the colliding world, the owned count and
 mass and every exchange counter; then after 12 steps of the tiled run on
 the calving world, the tile, the budgets, the spawn counts and the
-interval scalars.  The test joins the ranks with its own 120 s limit,
-then terminates them and fails.
+interval scalars.  Each rank writes the restart file of its own tile
+after the steps (``write_restart_bergs_tiled`` with the rank's ring, the
+file half of ``tests/test_multiprocess.py``): the two ranks' files are
+byte for byte the one-process files and read back into the whole state.
+The test joins the ranks with its own 120 s limit, then terminates them
+and fails.
 """
 
 import os
@@ -36,15 +40,21 @@ def _free_port():
     return port
 
 
-def _scenario():
+def _scenario(restart_dir):
     """The step and the run on this process's tiles: per local tile its
-    fields, and the sums and counters as numpy."""
+    fields, and the sums and counters as numpy; the step's tiles' restart
+    files written into ``restart_dir``."""
+    from icebergs_tpu_torch.io import restart as rio
+    from icebergs_tpu_torch.parallel import domain as dd
     cfg, grid, frc = W.world(W.INTERACTIVE, dict(uo=0.4, sst=2.0))
     st = W.bergs(grid, *W.pair_positions())
     tiles, nb, tm, ovs = W.tiled_steps(cfg, frc, st, (2,), STEPS,
                                        **W.FUSED3_STEP)
     out = dict(step_tiles=W.tile_fields(tiles), nbergs=int(nb),
-               total_mass=tm.numpy(), step_overflow=[o.numpy() for o in ovs])
+               total_mass=tm.numpy(), step_overflow=[o.numpy() for o in ovs],
+               restarts=rio.write_restart_bergs_tiled(
+                   os.path.join(restart_dir, "icebergs.res.nc"), tiles, cfg,
+                   ring=dd.Ring((2,))))
     cfg, grid, frc = W.world(W.CALVING, dict(uo=0.2, sst=1.0))
     import icebergs_tpu_torch as ibp
     ms, outs, ovs = W.tiled_run(cfg, frc, ibp.empty_state(96, device=W.CPU),
@@ -72,7 +82,8 @@ def _rank(rank, port, out_dir):
         ring = mh.make_global_mesh()
         assert ring.tiles == [rank] and mh.local_tile_range(ring) == (
             rank, rank + 1)
-        torch.save(_scenario(), os.path.join(out_dir, f"rank{rank}.pt"))
+        torch.save(_scenario(os.path.join(out_dir, "ranks")),
+                   os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
@@ -80,6 +91,8 @@ def _rank(rank, port, out_dir):
 def test_two_gloo_ranks_match_one_process(tmp_path):
     ctx = torch.multiprocessing.get_context("spawn")
     port = _free_port()
+    (tmp_path / "ranks").mkdir()
+    (tmp_path / "one").mkdir()
     procs = [ctx.Process(target=_rank, args=(r, port, str(tmp_path)))
              for r in range(2)]
     for p in procs:
@@ -97,7 +110,7 @@ def test_two_gloo_ranks_match_one_process(tmp_path):
     assert [p.exitcode for p in procs] == [0, 0]
 
     torch.set_num_threads(1)
-    one = _scenario()
+    one = _scenario(str(tmp_path / "one"))
     ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
              for r in range(2)]
     for r, got in enumerate(ranks):
@@ -117,3 +130,16 @@ def test_two_gloo_ranks_match_one_process(tmp_path):
         for a, b in zip(got["spread_mass"], one["spread_mass"]):
             assert np.array_equal(a[0], b[r])
     assert sum(int(s["nbergs_calved"]) for s in one["run_scalars"]) > 0
+    # each rank wrote its own tile's file; their union is the state
+    names = [[os.path.basename(p) for p in r["restarts"]] for r in ranks]
+    assert names == [["icebergs.res.nc.0000"], ["icebergs.res.nc.0001"]]
+    assert [os.path.basename(p) for p in one["restarts"]] == sum(names, [])
+    for name in sum(names, []):
+        assert ((tmp_path / "ranks" / name).read_bytes()
+                == (tmp_path / "one" / name).read_bytes()), name
+    from icebergs_tpu_torch.io import restart as rio
+    cfg, grid, _ = W.world(W.INTERACTIVE, {})
+    back = rio.read_restart_bergs_tiled(
+        str(tmp_path / "ranks" / "icebergs.res.nc"), 64, grid, cfg,
+        device=W.CPU)
+    assert int(back.alive.sum()) == one["nbergs"] == 10

@@ -384,7 +384,9 @@ def test_dump_halo_state_matches_jax(jax_edge_fills):
 
 def test_multihost_single_process_and_unported_slices():
     """One process: no group, the ring holds every tile; bonds, MTS and
-    the fold name their later slices of ROADMAP.md item 13."""
+    the fold, ROADMAP.md item 13's last slices, build: a bonded state
+    shards with its partners' ids stamped, the bonded step and the MTS
+    run build, and a folded 2-D world carries its fold sums."""
     assert mh.initialize_multihost() == 1
     ring = mh.make_global_mesh(4)
     assert ring.tiles == [0, 1, 2, 3] and mh.local_tile_range(ring) == (0, 4)
@@ -395,15 +397,18 @@ def test_multihost_single_process_and_unported_slices():
     cfg, grid, frc = W.world(dict(W.DRIFT, iceberg_bonds_on=True), {})
     w = W.tiled_world(cfg, (2,), W.NX, W.NY, W.DXY)
     st = W.bergs(grid, *W.drift_positions(3))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        dd.shard_state(w, st, 16)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        dd.make_sharded_step(w)
+    bi = st.bond_idx.clone()
+    bi[0, 0], bi[1, 0] = 1, 0
+    ts = dd.shard_state(w, st.replace(bond_idx=bi), 16)
+    stamped = torch.cat([t.bond_id_cnt[t.alive] for t in ts])
+    assert sorted(stamped[:, 0].tolist())[-2:] == [
+        int(st.id_cnt[0]), int(st.id_cnt[1])]
+    assert callable(dd.make_sharded_step(w))
     mts = W.tiled_world(cfg.replace(iceberg_bonds_on=False, mts=True),
                         (2,), W.NX, W.NY, W.DXY)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        dd.make_sharded_run(mts)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        dd.make_sharded_world_2d(cfg, dd.Ring((2, 2)), nx=16, ny=16,
-                                 lon0=0., lat0=0., dlon=1., dlat=1.,
-                                 folded_north=True, device=W.CPU)
+    assert callable(dd.make_sharded_run(mts))
+    fw = dd.make_sharded_world_2d(cfg, dd.Ring((2, 2)), nx=16, ny=16,
+                                  lon0=0., lat0=0., dlon=1., dlat=1.,
+                                  folded_north=True, device=W.CPU)
+    assert fw.folded_north and (fw.fold_lon_sum, fw.fold_lat_sum) == (16.,
+                                                                       32.)

@@ -106,14 +106,14 @@ def bergs(grid, lon, lat, capacity=64, **kw):
     return st.replace(ine=i, jne=j, xi=xi, yj=yj)
 
 
-def tiled_world(cfg, layout, nx, ny, dxy):
+def tiled_world(cfg, layout, nx, ny, dxy, device=CPU, **kw):
     ring = dd.Ring(layout)
     if len(ring.layout) == 2:
         return dd.make_sharded_world_2d(cfg, ring, nx=nx, ny=ny, lon0=0.,
                                         lat0=0., dlon=dxy, dlat=dxy,
-                                        device=CPU)
+                                        device=device, **kw)
     return dd.make_sharded_world(cfg, ring, nx=nx, ny=ny, lon0=0., lat0=0.,
-                                 dlon=dxy, dlat=dxy, device=CPU)
+                                 dlon=dxy, dlat=dxy, device=device, **kw)
 
 
 def shard(w, frc, st, cap):
@@ -267,3 +267,158 @@ def coupled_world(n=12000, nx=32, seed=0):
                         dtype=torch.float32)
     stored = torch.where(coast[:, :, None], tb["mass"] * tb["scal"] * u, 0.)
     return cfg, grid, frc, st, calving, stored
+
+
+# --------------------------------------------------------------------------
+# bonds, MTS and the fold across tiles: the worlds of
+# tests/test_parallel_bonds.py and tests/test_parallel_fold.py
+# --------------------------------------------------------------------------
+
+BNX, BNY, BDXY = 16, 8, 1000.0         # test_parallel_bonds.py
+BONDED = dict(grid_is_latlon=False, Lx=-1.0, use_f_plane=True, lat_ref=0.,
+              dt=60.0, Runge_not_Verlet=False, interactive_icebergs_on=True,
+              iceberg_bonds_on=True, spring_coef=1.e-5,
+              use_new_predictive_corrective=True, halo=2, max_bonds=4)
+BOND_BERG = dict(mass=850. * 100 * 200 * 200, thickness=100., width=200.,
+                 length=200., mass_scaling=1.)
+# the iKID / A68 parameter set of the MTS ghost-sync tests
+MTS_R, MTS_DXY = 1500.0, 7000.0
+MTS_STABLE = dict(
+    grid_is_latlon=False, Lx=-1.0, use_f_plane=True, lat_ref=-55.0,
+    dt=120.0, Runge_not_Verlet=False, mts=True, mts_sub_steps=12,
+    explicit_inner_mts=True, dem=True, dem_spring_coef=5.e6,
+    dem_damping_coef=1.0, poisson=0.3, interactive_icebergs_on=True,
+    iceberg_bonds_on=True, spring_coef=0.00065359477124183,
+    contact_spring_coef=1.e-7, contact_distance=4.e3,
+    use_broken_bonds_for_substep_contact=True,
+    break_bonds_on_sub_steps=True, fracture_criterion="stress",
+    frac_thres_scaling=1., frac_thres_n=18.e3, frac_thres_t=100.e3,
+    constant_interaction_LW=True, constant_length=2 * MTS_R,
+    constant_width=2 * MTS_R, manually_initialize_bonds=True,
+    manually_initialize_bonds_from_radii=True,
+    allow_bergs_to_roll=False, max_bonds=6,
+    set_melt_rates_to_zero=True, halo=2)
+MTS_FORCING = dict(uo=0.25, vo=0.05, ua=5.0, sst=-2.)
+FNX = FNY = 16                         # test_parallel_fold.py
+FDXY = 4000.0
+FOLD = dict(grid_is_latlon=False, Lx=-1.0, use_f_plane=True, lat_ref=0.0,
+            dt=600.0, Runge_not_Verlet=True, halo=2)
+FOLD_BERG = dict(mass=1e8, thickness=20., width=50., length=60.,
+                 mass_scaling=1.0)
+
+
+def mts_config(**kw):
+    return ibp.IcebergsConfig(**{**MTS_STABLE, **kw}).normalized(warn=False)
+
+
+def bonded_bergs(grid, lon, lat, capacity=32, bond_length=None, **kw):
+    """Bergs at (lon, lat), ids 1.. / 10.., bonded where closer than
+    ``bond_length`` (``initialize_bonds_host``) and labelled."""
+    from icebergs_tpu_torch.ops import forces
+    n = len(lon)
+    st = bergs(grid, lon, lat, capacity=capacity,
+               **{**BOND_BERG, "id_cnt": np.arange(n) + 1,
+                  "id_ij": np.arange(n) + 10, "max_bonds": 4, **kw})
+    cfg = ibp.IcebergsConfig(**BONDED)
+    st = forces.initialize_bonds_host(st, cfg.replace(
+        length_for_manually_initialize_bonds=bond_length))
+    return forces.compute_conglom_ids_host(st)
+
+
+def mts_chain(grid, cfg, x0, y0, ux=1.0, uy=0.0, n=6, capacity=32):
+    """test_parallel_bonds.py's ``mts_chain_state``: n elements along (ux,
+    uy) centred on (x0, y0), velocities from RandomState(5), bonded and
+    labelled."""
+    from icebergs_tpu_torch.ops import forces
+    t = (np.arange(n) - (n - 1) / 2.) * 2 * MTS_R
+    rng = np.random.RandomState(5)
+    st = bergs(grid, x0 + t * ux, y0 + t * uy, capacity=capacity,
+               uvel=rng.uniform(-0.1, 0.1, n), vvel=rng.uniform(-0.1, 0.1, n),
+               mass=850. * 200. * (2 * MTS_R) ** 2, thickness=200.,
+               width=2 * MTS_R, length=2 * MTS_R, mass_scaling=1.,
+               id_cnt=np.arange(n) + 1, max_bonds=6)
+    st = forces.initialize_bonds_host(st, cfg)
+    return forces.compute_conglom_ids_host(st)
+
+
+def folded_world(cfg, layout, nx=FNX, ny=FNY, dxy=FDXY, device=CPU):
+    return dd.make_sharded_world_2d(cfg, dd.Ring(layout), nx=nx, ny=ny,
+                                    lon0=0., lat0=0., dlon=dxy, dlat=dxy,
+                                    folded_north=True, device=device)
+
+
+def edge_pair(nx=BNX):
+    """``(cfg, grid, forcing, state)``: test_parallel_bonds.py's bonded
+    pair straddling the tile edge at x = 8 km (2 tiles of 16 x 8 cells of
+    1 km; 4 tiles with nx 32)."""
+    cfg = ibp.IcebergsConfig(**BONDED)
+    grid = ibp.make_uniform_grid(nx, BNY, 0., 0., BDXY, BDXY,
+                                 grid_is_latlon=False, device=CPU)
+    frc = ibp.uniform_forcing(nx, BNY, uo=0.2, sst=-2., device=CPU)
+    return cfg, grid, frc, bonded_bergs(grid, [7800., 8200.], [4500., 4500.],
+                                        capacity=64 if nx > BNX else 32,
+                                        bond_length=500.)
+
+
+def corner_pair():
+    """The bonded pair diagonal across the 2 x 2 corner at (8, 8) km."""
+    cfg = ibp.IcebergsConfig(**BONDED)
+    grid = ibp.make_uniform_grid(16, 16, 0., 0., BDXY, BDXY,
+                                 grid_is_latlon=False, device=CPU)
+    frc = ibp.uniform_forcing(16, 16, uo=0.2, vo=0.1, sst=-2., device=CPU)
+    return cfg, grid, frc, bonded_bergs(grid, [7800., 8200.], [7800., 8200.],
+                                        bond_length=800.)
+
+
+def mts_chain_world(layout=(2,), **cfg_kw):
+    """test_parallel_bonds.py's MTS chain of 6 elements straddling the
+    edge at 8 cells (16 x 8 cells of 7 km), or on a 2 x 2 layout the
+    diagonal chain through the corner (16 x 16)."""
+    cfg = mts_config(**cfg_kw)
+    ny = 16 if len(layout) == 2 else 8
+    grid = ibp.make_uniform_grid(16, ny, 0., 0., MTS_DXY, MTS_DXY,
+                                 grid_is_latlon=False, device=CPU)
+    frc = ibp.uniform_forcing(16, ny, device=CPU, **MTS_FORCING)
+    if len(layout) == 2:
+        s2 = 1.0 / np.sqrt(2.)
+        st = mts_chain(grid, cfg, 8 * MTS_DXY, 8 * MTS_DXY, ux=s2, uy=s2)
+    else:
+        st = mts_chain(grid, cfg, 8 * MTS_DXY, 4.3 * MTS_DXY)
+    return cfg, grid, frc, st
+
+
+def fold_crossing():
+    """test_parallel_fold.py's berg heading north 100 m below the folded
+    edge of 16 x 16 cells of 4 km."""
+    cfg = ibp.IcebergsConfig(**FOLD)
+    grid = ibp.make_uniform_grid(FNX, FNY, 0., 0., FDXY, FDXY,
+                                 grid_is_latlon=False, device=CPU)
+    frc = ibp.uniform_forcing(FNX, FNY, sst=2.0, device=CPU)
+    st = bergs(grid, [12123.0], [FNY * FDXY - 100.], vvel=[1.0],
+               id_cnt=[7], **FOLD_BERG)
+    return cfg, grid, frc, st
+
+
+def tiled_bond_run(world_fn, layout, nsteps, *, device=CPU, cap=16,
+                   width=16, mts=False, folded=False, **step_kw):
+    """``nsteps`` of the tiled step (``mts``: the tiled MTS step) on the
+    world ``world_fn()`` builds: a halo fill first but for MTS (whose
+    step exchanges first).  Returns ``(tiles, owned count, overflow of
+    the fill and of every step, the step)``."""
+    cfg, grid, frc, st = world_fn()
+    w = tiled_world(cfg, layout, grid.nx, grid.ny, float(grid.dlon),
+                    device=device, **(dict(folded_north=True) if folded
+                                      else {}))
+    fs, ts = shard(w, frc, st, cap)
+    ovs = []
+    if mts:
+        step = dd.make_sharded_mts_step(w, **step_kw)
+    else:
+        ts, ov = dd.make_halo_fill(w, width)(ts)
+        ovs.append(ov)
+        step = dd.make_sharded_step(w, exchange_width=width, **step_kw)
+    nb = None
+    for _ in range(nsteps):
+        ts, nb, _, ov = step(ts, fs)
+        ovs.append(ov)
+    return ts, nb, ovs, step
