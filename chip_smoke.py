@@ -35,9 +35,11 @@ Phases, one line each:
    spills, shared memory and CTAs per SM) at the shapes the headline
    world gives them, and K2 with the conglomerate filter (radius 2,
    block 256, window 512) and K4 (the DEM substep loop, 60 substeps;
-   both instantiations bitwise and timed, the generic one also with
-   constant_interaction_LW off, with each instantiation's registers,
-   spills, shared memory and CTAs per SM) at the shapes of the 1M-element DEM
+   the compiled ``dem`` instantiation and the generic one bitwise and
+   timed in turns, the generic one also with constant_interaction_LW
+   off, with each instantiation's registers, spills, shared memory, CTAs
+   per SM and SASS instructions a slot and an element, and the
+   issue-limited time they give) at the shapes of the 1M-element DEM
    world, each against its plain PyTorch version on the card.  Each
    kernel's ``ms`` is the device time of one wrapper call with the
    host's enqueueing hidden (``device_ms``), the call's time with the
@@ -111,8 +113,9 @@ Phases, one line each:
    lat-lon) on a 0.25-degree lat-lon grid of 1440 x 160 cells with 1M
    bergs; 12b ``IcebergsModel.run`` on the 1440 x 1080 tripolar grid
    (OM4's), every live berg inside its cell after the last window; 12c
-   phase 6's world on a lat-lon grid through K4's lat-lon form (grouped
-   K2 lat-lon in Part 1) and one outer step of the scan against K4; the
+   phase 6's world on a lat-lon grid through K4's lat-lon form (``dem_ll``,
+   timed in turns with the generic instantiation; grouped K2 lat-lon in
+   Part 1) and one outer step of the scan against K4; the
    lat-lon forms of K2, K5 and K4 each against its plain version (bit
    for bit); 12d card against CPU on small worlds of each (the tripolar
    and DEM ones on one-ulp yardsticks, cells flipped only across an
@@ -142,9 +145,12 @@ Phases, one line each:
    no time), timed as phase 5 is, with the hexagon geometry's kernels
    and device time at 1M bergs, and 14b phase 6's world hexagonally
    packed (touching hexagons of apothem 1.5 km, six bonds an element)
-   through K4's generic instantiation with F_HEX, timed as phase 6 is,
+   through K4's hexagonal form (``dem_hex``), timed as phase 6 is,
    K4's hexagonal row bitwise against its plain version on the world's
-   first outer step.
+   first outer step and timed in turns with the generic instantiation,
+   and the walk's final clamp counted at full width (elements at the
+   clamp; elements clamped on one side only of the same outer step from
+   every velocity one ulp faster).
 15. ROADMAP item 13 slices 1-3, the tiled coupling step and run with
    every tile in one process on the card: 15d the small worlds of
    tests/test_parallel*.py (4 tiles, 2 x 2) card against CPU; 15a the
@@ -197,6 +203,7 @@ import dataclasses
 import functools
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -1744,37 +1751,14 @@ def phase_kernels_dem(ibp, torch, device, cfg, world, ab=False):
         return res, k1
 
     s4 = k4_state(torch, st, device)
-    out4, nb4, err, worst, ms = k4_run(torch, k4, s4, cfg, deltas)
-    mv = s4.alive & (s4.static_berg < 0.5)
-    variant = k4.instantiation(cfg, s4.max_bonds)
-    res_k4 = k4_resources(k4, s4.max_bonds, DEM_BLOCK)
-    # the generic instantiation, which serves every other flag set, on the
-    # same inputs: the DEM flag set and the same world with
-    # constant_interaction_LW off (its elements' length and width are the
-    # constant ones)
+    # the generic instantiation also with constant_interaction_LW off (its
+    # elements' length and width are the constant ones)
     cfg_lw = dem_config(ibp, constant_interaction_LW=False)
-    gen = [k4_run(torch, k4, s4, c, deltas, "generic")
-           for c in (cfg, cfg_lw)]
-    gen_note = (f"generic on these inputs {gen[0][4]:.3f} ms, with "
-                f"constant_interaction_LW off {gen[1][4]:.3f} ms (nbroken "
-                f"{int(gen[1][1])}), both bitwise")
-    res["dem_substeps"] = dict(
-        err=err, ms=ms,
-        plain_ms=cuda_ms(torch, lambda: k4.part3_substeps_plain(
-            s4, cfg, deltas, DEM_BLOCK), reps=1),
-        library_ms=None,
-        bound=bound(nbytes(*(getattr(s4, f) for f in (
-            "alive", "static_berg", "thickness", "mass", "od", "fl_k",
-            "length", "width", "bond_idx", "bond_broken")
-            + k4._CAR_FIELDS + k4._BOND_FIELDS))
-            + nbytes(*(getattr(out4, f) for f in ("bond_broken",)
-                       + k4._CAR_FIELDS + k4._BOND_FIELDS)),
-            k4_flops(torch, s4, cfg)),
-        note=(f"N={s4.capacity} block {DEM_BLOCK} deltas {deltas} "
-              f"substeps {cfg.n_sub_steps} moving={int(mv.sum())} "
-              f"nbroken={int(nb4)} bitwise=True worst_scaled_err="
-              f"{worst:.3e}; launched {variant}; {gen_note}; {res_k4}; "
-              f"{K4_BOUND_NOTE}"))
+    gen = k4_run(torch, k4, s4, cfg_lw, deltas, "generic")
+    res["dem_substeps"] = k4_row(
+        torch, k4, s4, cfg, deltas, "dem", "",
+        f"generic with constant_interaction_LW off {gen[4]:.3f} ms "
+        f"(nbroken {int(gen[1])}), bitwise")
     return res, k1
 
 
@@ -1819,6 +1803,168 @@ def k4_run(torch, k4, s, cfg, deltas, variant=None):
                 f"version by {e} ({worst:.3e} of scale)")
     del ref
     return out, nb, err, worst, device_ms(torch, run, reps=5)
+
+
+def k4_row(torch, k4, s4, cfg, deltas, variant, what, more=""):
+    """K4's kernel row on the input ``s4``: the instantiation the
+    configuration takes (required to be ``variant``) and the forced
+    generic one, each held bitwise to the plain version (:func:`k4_run`),
+    then timed in turns (generic, own, own, generic) on the same input;
+    the note gives the turns, every instantiation's resources, and the
+    issue-limited time beside the operation bound (:func:`k4_issue`).
+    ``what`` opens the note, ``more`` closes it."""
+    require(k4.instantiation(cfg, s4.max_bonds) == variant,
+            f"K4 took {k4.instantiation(cfg, s4.max_bonds)!r}, not "
+            f"{variant!r}, on this flag set")
+    out4, nb4, err, worst, ms = k4_run(torch, k4, s4, cfg, deltas)
+    k4_run(torch, k4, s4, cfg, deltas, "generic")
+    runs = {v: functools.partial(k4.part3_substeps_vmem, s4, cfg, deltas,
+                                 DEM_BLOCK, variant=v)
+            for v in ("generic", variant)}
+    turns = [(v, device_ms(torch, runs[v], reps=5))
+             for v in ("generic", variant, variant, "generic")]
+    mv = s4.alive & (s4.static_berg < 0.5)
+    b = bound(nbytes(*(getattr(s4, f) for f in (
+        "alive", "static_berg", "thickness", "mass", "od", "fl_k",
+        "length", "width", "bond_idx", "bond_broken")
+        + k4._CAR_FIELDS + k4._BOND_FIELDS))
+        + nbytes(*(getattr(out4, f) for f in ("bond_broken",)
+                   + k4._CAR_FIELDS + k4._BOND_FIELDS)),
+        k4_flops(torch, s4, cfg))
+    return dict(
+        err=err, ms=ms,
+        plain_ms=cuda_ms(torch, lambda: k4.part3_substeps_plain(
+            s4, cfg, deltas, DEM_BLOCK), reps=1),
+        library_ms=None, bound=b,
+        note=(f"{what}N={s4.capacity} block {DEM_BLOCK} deltas {deltas} "
+              f"substeps {cfg.n_sub_steps} moving={int(mv.sum())} "
+              f"nbroken={int(nb4)} bitwise=True worst_scaled_err="
+              f"{worst:.3e}; launched {variant}; in turns on this input "
+              + ", ".join(f"{v} {t:.4f}" for v, t in turns)
+              + f" ms, generic bitwise; "
+              f"{k4_resources(k4, s4.max_bonds, DEM_BLOCK)}; "
+              f"{k4_issue(torch, k4, s4, cfg, variant, b[0])}; "
+              f"{K4_BOUND_NOTE}" + (f"; {more}" if more else "")))
+
+
+def sass_functions(text):
+    """``{mangled name: [(address, instruction)]}`` of a ``cuobjdump
+    -sass`` listing."""
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = re.match(r"\s+Function : (\S+)", ln)
+        if m:
+            cur = out.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def _bra_target(ins):
+    m = re.search(r"\bBRA\b(?:.*,)?\s*(0x[0-9a-f]+)$", ins)
+    return int(m.group(1), 16) if m else None
+
+
+def k4_sass_counts(ins):
+    """The instructions a warp issues in one substep of a K4
+    instantiation, counted in its SASS (``ins``: address, instruction):
+    ``slot``, one intact-bond slot (the slot's partner reads, geometry and
+    bond part, and the contact part's vote and skip); ``contact``, what a
+    slot with a broken bond adds; ``element``, the rest of the substep
+    (drift, barriers, assembly, kick, empty slots' skips).  The substep
+    loop is the backward branch that spans the barriers, the slot loop
+    the one inside it that holds the votes (has, valid, broken: the
+    contact part runs from the third to the loop's end).  The fast
+    path only: the spans a forward branch jumps over that call a
+    subroutine (the IEEE division's and sqrtf's slow paths), touch local
+    memory or loop (sinf's and cosf's reduction of large angles) are
+    left out, but no warp-skip span (the branch after each vote)."""
+    addr = [a for a, _ in ins]
+    txt = [t for _, t in ins]
+    pos = {a: k for k, a in enumerate(addr)}
+    bars = [k for k, t in enumerate(txt) if t.startswith("BAR.SYNC")]
+    loops = [(pos[tg], k) for k, tg in enumerate(map(_bra_target, txt))
+             if tg is not None and tg <= addr[k]]
+    lo, hi = max(loops, key=lambda lp: (
+        sum(lp[0] <= b <= lp[1] for b in bars), lp[1] - lp[0]))
+    votes = [k for k in range(lo, hi + 1) if txt[k].startswith("VOTE")]
+    guards = {next(k for k in range(v + 1, hi) if txt[k].startswith("@")
+                   and _bra_target(txt[k]) is not None) for v in votes}
+    slow = re.compile(r"CALL|\bSTL\b|\bLDL\b")
+    skip = set()
+    for k in range(lo, hi + 1):
+        tg = _bra_target(txt[k])
+        if (tg is None or tg <= addr[k] or k in guards
+                or not txt[k].startswith("@")):
+            continue
+        span = range(k + 1, pos[tg])
+        if any(txt[j].startswith(("VOTE", "BAR")) for j in span):
+            continue
+        if any(slow.search(txt[j]) or (_bra_target(txt[j]) or 1 << 62)
+               <= addr[j] for j in span):
+            skip.update(span)
+
+    def n(a, b):
+        return sum(1 for j in range(a, b) if j not in skip)
+    # the slot loop: the loop inside that holds the votes
+    a, b = next(lp for lp in loops if lo < lp[0] and lp[1] < hi
+                and any(lp[0] <= v <= lp[1] for v in votes))
+    bm = [v for v in votes if a <= v <= b][2]
+    region, contact = n(a, b + 1), n(bm, b + 1)
+    return dict(slot=region - contact + 2, contact=contact - 2,
+                element=n(lo, hi + 1) - region)
+
+
+@functools.lru_cache(maxsize=None)
+def k4_sass(path):
+    """:func:`k4_sass_counts` of every K4 instantiation in the library at
+    ``path`` (``cuobjdump -sass``), by variant name; empty without
+    ``cuobjdump``."""
+    import shutil
+    from icebergs_tpu_torch.ops import dem_substeps as k4
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not pathlib.Path(tool).exists():
+        return {}
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    return {k4.kernel_name(f): k4_sass_counts(ins)
+            for f, ins in sass_functions(text).items()
+            if k4.kernel_name(f)}
+
+
+def k4_issue(torch, k4, s4, cfg, variant, bound_ms):
+    """The issue-limited time of K4 on ``s4`` in ``variant`` and in the
+    generic instantiation, as a note: the warp-instructions of one call
+    (:func:`k4_sass` counts: every bonded slot of a moving element as an
+    intact bond, every moving element, each substep; 32 lanes a warp)
+    over 4 issued a clock on each SM at the SM clock ``nvidia-smi`` reads
+    as ``clocks.max.sm``, beside the operation bound."""
+    from icebergs_tpu_torch import cuda_build
+    counts = k4_sass(str(cuda_build.library_path()))
+    if not counts:
+        return "issue-limited time not measured (no cuobjdump)"
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mv = s4.alive & (s4.static_berg < 0.5)
+    slots = int(((s4.bond_idx >= 0) & mv[:, None]).sum())
+    out = []
+    for v in (variant, "generic"):
+        c = counts[v]
+        warp = cfg.n_sub_steps * (slots * c["slot"]
+                                  + int(mv.sum()) * c["element"]) / 32
+        out.append(f"{v} {warp / (sms * 4 * mhz * 1e6) * 1e3:.4f} ms "
+                   f"({c['slot']} instructions an intact-bond slot, "
+                   f"{c['contact']} more a broken one's contact, "
+                   f"{c['element']} an element, a substep)")
+    return (f"issue-limited (SASS fast path, {slots} bonded slots, "
+            f"warp-instructions / ({sms} SMs x 4 x {mhz:.0f} MHz)): "
+            + ", ".join(out) + f", beside the operation bound "
+            f"{bound_ms:.4f} ms")
 
 
 def k4_resources(k4, nslots, block_n):
@@ -3384,30 +3530,9 @@ def phase12(ibp, torch, device, kernels, by_path, kres, profile_out=None):
     kres["extract_sorted/grouped_latlon"] = k2_grouped_latlon_row(
         torch, dem, dcfg, radius, False)
     s4 = k4_state(torch, st, device, latlon=True)
-    out4, nb4, err, worst, ms = k4_run(torch, k4, s4, dcfg, deltas)
-    require(k4.instantiation(dcfg, s4.max_bonds) == "generic",
-            "12c: K4's lat-lon flag set did not take the generic "
-            "instantiation")
-    mv = s4.alive & (s4.static_berg < 0.5)
-    kres["dem_substeps/latlon"] = dict(
-        err=err, ms=ms,
-        plain_ms=cuda_ms(torch, lambda: k4.part3_substeps_plain(
-            s4, dcfg, deltas, DEM_BLOCK), reps=1),
-        library_ms=None,
-        bound=bound(nbytes(*(getattr(s4, f) for f in (
-            "alive", "static_berg", "thickness", "mass", "od", "fl_k",
-            "length", "width", "bond_idx", "bond_broken")
-            + k4._CAR_FIELDS + k4._BOND_FIELDS))
-            + nbytes(*(getattr(out4, f) for f in ("bond_broken",)
-                       + k4._CAR_FIELDS + k4._BOND_FIELDS)),
-            k4_flops(torch, s4, dcfg)),
-        note=(f"N={s4.capacity} block {DEM_BLOCK} deltas {deltas} "
-              f"substeps {dcfg.n_sub_steps} moving={int(mv.sum())} "
-              f"nbroken={int(nb4)} bitwise=True worst_scaled_err="
-              f"{worst:.3e}; launched generic (F_LATLON); "
-              f"{k4_resources(k4, s4.max_bonds, DEM_BLOCK)}; "
-              f"{K4_BOUND_NOTE}"))
-    del s4, out4
+    kres["dem_substeps/latlon"] = k4_row(torch, k4, s4, dcfg, deltas,
+                                         "dem_ll", "")
+    del s4
     for name in ("extract_sorted/grouped_latlon", "dem_substeps/latlon"):
         kernel_line(name)
     res, launches = phase_dem_slice(
@@ -4169,7 +4294,7 @@ def phase13(ibp, torch, device, kernels, by_path):
 # 3.75 km bonds six neighbours, the units' gaps stay beyond 4 km; hexagons
 # of the square world's 9 km^2 would overlap by 224 m, and every bond
 # would break in the first outer step) with the radius-based faces, K4's
-# generic instantiation with F_HEX; 14c card against CPU: 14a's flags on
+# hexagonal form (dem_hex); 14c card against CPU: 14a's flags on
 # the phase-4 world, 14b's on 20 units (as 4b), and the driver on
 # input_MTS_KID.nml (tests/test_torch_io.py's MTS_KID_NML, 4 hours with
 # restarts and hourly trajectories) on two seven-element hexagonal rafts
@@ -4277,6 +4402,8 @@ def phase14(ibp, torch, device, kernels, by_path, kres, profile_out=None):
     row bitwise against its plain version on the world's first outer
     step; each path's launches go to ``by_path``."""
     import shutil
+    import numpy as np
+    from icebergs_tpu_torch import dynamics as dyn
     from icebergs_tpu_torch import mts as mts_mod
     from icebergs_tpu_torch.ops import dem_substeps as k4
     from icebergs_tpu_torch.ops import spread as sp
@@ -4352,9 +4479,6 @@ def phase14(ibp, torch, device, kernels, by_path, kres, profile_out=None):
           f"with 6 bonds {int((nb == 6).sum())}, built in "
           f"{time.perf_counter() - t1:.1f} s")
     require(int(nb.max()) == 6, "14b: no element bonds six neighbours")
-    require(k4.instantiation(dcfg, st.max_bonds) == "generic",
-            "14b: K4's hexagonal flag set did not take the generic "
-            "instantiation")
     # K4's input on the world's first outer step, caught at its call
     caught = []
     orig = mts_mod.part3_substeps_vmem
@@ -4364,40 +4488,36 @@ def phase14(ibp, torch, device, kernels, by_path, kres, profile_out=None):
         return orig(s4, *a, **kw)
     mts_mod.part3_substeps_vmem = catch
     try:
-        dem_multi(ibp, grid, dcfg, 1, deltas)(st, frc)
+        first = dem_multi(ibp, grid, dcfg, 1, deltas)(st, frc)[0]
+        # the walk's final clamp at full width: the same outer step from
+        # every velocity one ulp faster, on the card
+        up = torch.nextafter(st.uvel, torch.full_like(st.uvel, float("inf")))
+        nudged = dem_multi(ibp, grid, dcfg, 1, deltas)(
+            st.replace(uvel=up, uvel_old=up), frc)[0]
     finally:
         mts_mod.part3_substeps_vmem = orig
-    require(len(caught) == 1, f"14b: K4 called {len(caught)} times in an "
-            "outer step")
+    require(len(caught) == 2, f"14b: K4 called {len(caught)} times in two "
+            "outer steps")
     s4 = caught[0][0]
-    del caught
+    del caught, up
+    g, c = ibp.to_numpy(first), ibp.to_numpy(nudged)
+    at = np.float32([dyn.POSN_EPS, 1. - dyn.POSN_EPS])
+    clamps = dict(
+        at_the_clamp=int((g["alive"] & (np.isin(g["xi"], at)
+                                        | np.isin(g["yj"], at))).sum()),
+        clamped_at_an_edge_vs_one_ulp=int(edge_clamps(g, c).sum()))
+    del first, nudged, g, c
     # phase 3's input too (each element moved by up to 8 m): fracture
     sm = k4_state(torch, st, device)
-    _, nbm, _, worstm, msm = k4_run(torch, k4, sm, dcfg, deltas)
+    _, nbm, _, _, msm = k4_run(torch, k4, sm, dcfg, deltas)
+    gm = k4_run(torch, k4, sm, dcfg, deltas, "generic")[4]
     del sm
-    out4, nb4, err, worst, ms = k4_run(torch, k4, s4, dcfg, deltas)
-    mv = s4.alive & (s4.static_berg < 0.5)
-    kres["dem_substeps/hex"] = dict(
-        err=err, ms=ms,
-        plain_ms=cuda_ms(torch, lambda: k4.part3_substeps_plain(
-            s4, dcfg, deltas, DEM_BLOCK), reps=1),
-        library_ms=None,
-        bound=bound(nbytes(*(getattr(s4, f) for f in (
-            "alive", "static_berg", "thickness", "mass", "od", "fl_k",
-            "length", "width", "bond_idx", "bond_broken")
-            + k4._CAR_FIELDS + k4._BOND_FIELDS))
-            + nbytes(*(getattr(out4, f) for f in ("bond_broken",)
-                       + k4._CAR_FIELDS + k4._BOND_FIELDS)),
-            k4_flops(torch, s4, dcfg)),
-        note=(f"the first outer step's input, N={s4.capacity} block "
-              f"{DEM_BLOCK} deltas {deltas} substeps {dcfg.n_sub_steps} "
-              f"moving={int(mv.sum())} nbroken={int(nb4)} bitwise=True "
-              f"worst_scaled_err={worst:.3e}; launched generic (F_HEX); "
-              f"on phase 3's input moved by up to 8 m {msm:.3f} ms, "
-              f"nbroken={int(nbm)}, bitwise; "
-              f"{k4_resources(k4, s4.max_bonds, DEM_BLOCK)}; "
-              f"{K4_BOUND_NOTE}"))
-    del s4, out4
+    kres["dem_substeps/hex"] = k4_row(
+        torch, k4, s4, dcfg, deltas, "dem_hex",
+        "the first outer step's input, ",
+        f"on phase 3's input moved by up to 8 m {msm:.3f} ms (generic "
+        f"{gm:.3f}), nbroken={int(nbm)}, bitwise")
+    del s4
     r = kres["dem_substeps/hex"]
     print(f"[14 kernel] dem_substeps/hex: kernel {r['ms']:.4f} ms, plain "
           f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
@@ -4412,7 +4532,7 @@ def phase14(ibp, torch, device, kernels, by_path, kres, profile_out=None):
             "hexagons")
     ms, nk = hex_geometry_profile(torch, sp, st, grid, dcfg)
     res.update(hex_geometry_device_ms=ms, hex_geometry_kernels=nk,
-               bonds=int(nb.sum()))
+               bonds=int(nb.sum()), **clamps)
     print(f"[14b hex dem] {json.dumps(res)}")
     del dem, grid, frc, st
     torch.cuda.empty_cache()

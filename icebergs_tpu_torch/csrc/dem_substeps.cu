@@ -23,16 +23,22 @@
 // Bound: instruction throughput and latency.  ~185 operations per bonded slot
 // per substep, of them ~15 IEEE divisions, 3-4 sqrtf and one sinf, each a
 // sequence of several instructions, in long dependent chains; the state
-// (~510 bytes per element) is read and written once.  Such chains are hidden
-// only by many resident warps, so both instantiations are compiled for two
+// (~510 bytes per element) is read and written once.  A warp issues ~330
+// (compiled) to ~450 (generic) SASS instructions on an intact-bond slot's
+// fast path; at 4 a clock an SM, that is 38-61% of the kernel's time on an
+// H100 (chip_smoke.py's K4 rows), the rest stalls.  Such chains are hidden
+// only by many resident warps, so every instantiation is compiled for two
 // 512-thread CTAs per SM (64 registers, 32 warps; one CTA with more
 // registers ran 1.4x slower):
-// - the flag set is a template parameter.  The DEM world's set (DEM_FLAGS)
-//   has its own instantiation, in which only its branches exist and, under
-//   constant_interaction_LW, the partner radii, l0 and contact radius are
-//   the kernel's scalars (no spills; 5% faster than the generic code on
-//   the same inputs); one generic instantiation reads the flags (and the
-//   slot count) at run time for every other set;
+// - the flag set is a template parameter.  Three sets have their own
+//   instantiation at 6 slots: the DEM world's (DEM_FLAGS), the same on a
+//   lat-lon grid (LL_FLAGS) and with hexagonal elements (HEX_FLAGS).  In
+//   each only its branches exist, the setup's and write-out's slot loops
+//   unroll, and under constant_interaction_LW the partner radii, l0 and
+//   contact radius are the kernel's scalars, and L is one (see the bond);
+//   no spills, 13-18% faster than the generic code on the same inputs
+//   (H100).  One generic instantiation reads the flags (and the slot
+//   count) at run time for every other set;
 // - per-slot state lives in shared memory laid out [slot][thread] (a warp
 //   reads 32 consecutive words: no bank conflicts): one packed topology
 //   word (partner lane, has, vstat, bond_broken == 1), the carried tangd1,
@@ -52,8 +58,8 @@
 //   an empty slot, the bond part of a slot with no intact bond and
 //   the contact part of a slot with no broken bond.
 //
-// On a lat-lon grid (F_LATLON, read at run time by the generic
-// instantiation only) the drift moves positions in degrees, lon by
+// On a lat-lon grid (F_LATLON: LL_FLAGS' instantiation, or the generic
+// one) the drift moves positions in degrees, lon by
 // dt u / (kpr cos(pi180 lat)) (an IEEE division) and lat by dt v inv_kpr,
 // and every bond and contact measures rx, ry in metres through the metric
 // factors at the pair's mean latitude (dem_vmem.py:240-246, 422-428,
@@ -85,10 +91,13 @@ enum : int {
   F_SHORT_GROUND = 16, F_GROUND_TORQUE = 32, F_ORIG_MOI = 64,
   F_IGNORE_TANG = 128, F_PMAG = 256, F_LATLON = 512
 };
-// the flag set of tools/bench_dem_1m.py's configuration
+// the flag set of tools/bench_dem_1m.py's configuration, and the same on a
+// lat-lon grid and with hexagonal elements
 constexpr int DEM_FLAGS = F_CONST_LW | F_BONDS | F_BREAK_SUB | F_PMAG;
+constexpr int LL_FLAGS = DEM_FLAGS | F_LATLON;
+constexpr int HEX_FLAGS = DEM_FLAGS | F_HEX;
 constexpr int GENERIC = -1;   // flags read at run time
-enum : int { V_GENERIC = 0, V_DEM = 1 };
+enum : int { V_GENERIC = 0, V_DEM = 1, V_DEM_LL = 2, V_DEM_HEX = 3 };
 
 // carried field order (dem_vmem._CAR_FIELDS)
 enum : int {
@@ -153,6 +162,13 @@ __device__ __forceinline__ bool on(int rt, int f) {
 template <int FL>
 __host__ __device__ constexpr bool partner_statics() {
   return FL == GENERIC || !(FL & F_CONST_LW);
+}
+
+// whether FL's radii are the kernel's scalars, one value for every
+// element: R1b == R2b (see the bond's L)
+template <int FL>
+__host__ __device__ constexpr bool const_radii() {
+  return FL != GENERIC && (FL & F_CONST_LW) != 0;
 }
 
 template <int FL>
@@ -366,7 +382,10 @@ dem_substeps_kernel(const __grid_constant__ DemArgs a) {
 
     float F_x = 0.f, F_y = 0.f, T = 0.f, Fd_x = 0.f, Fd_y = 0.f, T_d = 0.f;
     float cIA_x = 0.f, cIA_y = 0.f, cIAd_x = 0.f, cIAd_y = 0.f;
-#pragma unroll
+    // The slot loop stays rolled in every instantiation: unrolled at 6
+    // slots its body (~480 instructions a slot) overflows the instruction
+    // cache, and the compiled forms ran 4-13% slower.
+#pragma unroll 1
     for (int b = 0; b < ns; ++b) {
       const int o = b * SS + t;
       const uint32_t c = s_code[o];
@@ -435,11 +454,22 @@ dem_substeps_kernel(const __grid_constant__ DemArgs a) {
         const float n2 = ry / lsafe;
         const float half_delta = 0.5f * (l0b - blength);
         const float RR1 = R1b - half_delta;
-        const float RR2 = R2b - half_delta;
+        const float RR2 = const_radii<FL>() ? RR1 : R2b - half_delta;
         const float RR1x = RR1 * n1, RR1y = RR1 * n2;
         const float RR2x = RR2 * n1, RR2y = RR2 * n2;
-        const float L = 2.0f * (Rminb + (Rminb - half_delta) *
-                                            fabsf(R1b - R2b) / lsafe);
+        // With const_radii R1b and R2b are one finite scalar R0c >= 0, so
+        // fabsf(R1b - R2b) is +0.  For a finite blength (a finite state:
+        // |rx|, |ry| below 1.8e19 m; a masked lane reads zeros, so its
+        // rx, ry are its own finite position) Rminb - half_delta is
+        // finite, its product with +0 is +-0, so is that over lsafe >= 1e-45,
+        // and Rminb + +-0 is Rminb (for Rminb = +0 too: +0 + -0 = +0).  So
+        // L is 2 Rminb bit for bit: one IEEE division and three operations
+        // less a slot, and L, L^3 are scalars.  A non-finite blength would
+        // give the plain version's NaN instead.
+        const float L = const_radii<FL>()
+                            ? 2.0f * Rminb
+                            : 2.0f * (Rminb + (Rminb - half_delta) *
+                                                  fabsf(R1b - R2b) / lsafe);
         const float dT = fabsf(thick - th2);
         const float Thick = TRminb + (Rminb - half_delta) * dT / lsafe;
         const float Fn_mag = a.kspring * Thick * 2.f * half_delta * L / l0b;
@@ -659,13 +689,45 @@ cudaError_t prepare(int nslots, size_t* smem) {
   return e;
 }
 
+// One instantiation's launch (nblocks > 0) or, with ctas non-null, its
+// dynamic shared memory and resident CTAs per SM at block_n threads.
 template <int NB, int FL>
-int launch(const DemArgs& a, int nblocks, int block_n, cudaStream_t st) {
+int run(const DemArgs* a, int nslots, int nblocks, int block_n,
+        cudaStream_t st, int* smem_bytes, int* ctas) {
   size_t smem;
-  const cudaError_t e = prepare<NB, FL>(a.nslots, &smem);
+  cudaError_t e = prepare<NB, FL>(nslots, &smem);
+  if (ctas) {
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          ctas, dem_substeps_kernel<NB, FL>, block_n, smem);
+    *smem_bytes = (int)smem;
+    return (int)e;
+  }
   if (e != cudaSuccess) return (int)e;
-  dem_substeps_kernel<NB, FL><<<nblocks, block_n, smem, st>>>(a);
+  dem_substeps_kernel<NB, FL><<<nblocks, block_n, smem, st>>>(*a);
   return (int)cudaGetLastError();
+}
+
+// A variant's instantiation: the compiled ones take exactly their flag set
+// and 6 slots (flags < 0: not checked), the generic one any.
+int dispatch(int variant, int flags, const DemArgs* a, int nslots,
+             int nblocks, int block_n, cudaStream_t st, int* smem_bytes,
+             int* ctas) {
+  static const int compiled[] = {0, DEM_FLAGS, LL_FLAGS, HEX_FLAGS};
+  if (variant == V_GENERIC)
+    return run<0, GENERIC>(a, nslots, nblocks, block_n, st, smem_bytes,
+                           ctas);
+  if (variant < V_DEM || variant > V_DEM_HEX || nslots != 6 ||
+      (flags >= 0 && flags != compiled[variant]))
+    return (int)cudaErrorInvalidValue;
+  switch (variant) {
+    case V_DEM:
+      return run<6, DEM_FLAGS>(a, 6, nblocks, block_n, st, smem_bytes, ctas);
+    case V_DEM_LL:
+      return run<6, LL_FLAGS>(a, 6, nblocks, block_n, st, smem_bytes, ctas);
+    default:
+      return run<6, HEX_FLAGS>(a, 6, nblocks, block_n, st, smem_bytes, ctas);
+  }
 }
 
 }  // namespace
@@ -674,8 +736,8 @@ int launch(const DemArgs& a, int nblocks, int block_n, cudaStream_t st) {
 extern "C" int ib_dem_args_size() { return (int)sizeof(DemArgs); }
 
 // Launch: one CTA of block_n threads per block of the packed slab.
-// variant V_DEM is the DEM world's flag set with 6 slots, V_GENERIC any
-// flag set with 1..8 slots.
+// Variants V_DEM, V_DEM_LL and V_DEM_HEX take their flag set with 6 slots
+// and refuse any other; V_GENERIC takes any flag set with 1..8 slots.
 extern "C" int ib_dem_substeps(const void* args, int nblocks, int block_n,
                                int variant, void* stream) {
   const DemArgs* a = (const DemArgs*)args;
@@ -683,36 +745,14 @@ extern "C" int ib_dem_substeps(const void* args, int nblocks, int block_n,
   if (block_n > MAX_BLOCK || a->nd > MAXD || a->nslots < 1 ||
       a->nslots > MAX_SLOTS)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (variant == V_DEM) {
-    if (a->flags != DEM_FLAGS || a->nslots != 6)
-      return (int)cudaErrorInvalidValue;
-    return launch<6, DEM_FLAGS>(*a, nblocks, block_n, st);
-  }
-  if (variant == V_GENERIC)
-    return launch<0, GENERIC>(*a, nblocks, block_n, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(variant, a->flags, a, a->nslots, nblocks, block_n,
+                  (cudaStream_t)stream, nullptr, nullptr);
 }
 
 // A variant's dynamic shared memory (bytes) and resident CTAs per SM at
 // block_n threads.
 extern "C" int ib_dem_config(int variant, int nslots, int block_n,
                              int* smem_bytes, int* ctas_per_sm) {
-  size_t smem;
-  cudaError_t e;
-  if (variant == V_DEM) {
-    e = prepare<6, DEM_FLAGS>(nslots, &smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          ctas_per_sm, dem_substeps_kernel<6, DEM_FLAGS>, block_n, smem);
-  } else if (variant == V_GENERIC) {
-    e = prepare<0, GENERIC>(nslots, &smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          ctas_per_sm, dem_substeps_kernel<0, GENERIC>, block_n, smem);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  *smem_bytes = (int)smem;
-  return (int)e;
+  return dispatch(variant, -1, nullptr, nslots, 0, block_n, nullptr,
+                  smem_bytes, ctas_per_sm);
 }

@@ -10,15 +10,15 @@ stress fracture of 1140-1199) and broken-bond contact (806-956 via
 :func:`pack_conglomerates_blocked` layout no conglomerate straddles a
 block of ``block_n`` slots, so all ``n_sub_steps`` substeps run per block
 in one launch of ``csrc/dem_substeps.cu``: one CTA per block, one thread
-per element, partners read from shared memory.  The kernel has two
-instantiations (:func:`instantiation`): one compiled for the flag set of
-``tools/bench_dem_1m.py`` with 6 bond slots, and a generic one that reads
-the flags and the slot count at run time, both built for two 512-thread
-CTAs per SM.  On a lat-lon grid (the flag ``F_LATLON``, which only the
-generic instantiation takes) the substep drift moves positions in
-degrees and each bond and contact is measured through the metric
-factors at the pair's mean latitude (``dem_vmem.py:240-246, 422-428,
-474-476``).
+per element, partners read from shared memory.  The kernel has four
+instantiations (:func:`instantiation`): three compiled for 6 bond slots
+and one flag set each (``tools/bench_dem_1m.py``'s, :data:`DEM_FLAGS`;
+the same on a lat-lon grid; the same with hexagonal elements), and a
+generic one that reads the flags and the slot count at run time, all
+built for two 512-thread CTAs per SM.  On a lat-lon grid (the flag
+``F_LATLON``) the substep drift moves positions in degrees and each bond
+and contact is measured through the metric factors at the pair's mean
+latitude (``dem_vmem.py:240-246, 422-428, 474-476``).
 
 :func:`part3_substeps_plain` is the same function in plain PyTorch
 (partners gathered by index, a Python loop over substeps); CPU tensors
@@ -176,9 +176,13 @@ def supports_vmem_substeps(cfg: IcebergsConfig) -> bool:
 _F_CONST_LW, _F_HEX, _F_BONDS, _F_BREAK_SUB = 1, 2, 4, 8
 _F_SHORT_GROUND, _F_GROUND_TORQUE, _F_ORIG_MOI = 16, 32, 64
 _F_IGNORE_TANG, _F_PMAG, _F_LATLON = 128, 256, 512
-# the flag set of tools/bench_dem_1m.py, which has its own instantiation
+# the flag set of tools/bench_dem_1m.py; it, the same on a lat-lon grid
+# and the same with hexagonal elements have instantiations of their own
 DEM_FLAGS = _F_CONST_LW | _F_BONDS | _F_BREAK_SUB | _F_PMAG
-_VARIANTS = {"generic": 0, "dem": 1}
+COMPILED_FLAGS = {"dem": DEM_FLAGS, "dem_ll": DEM_FLAGS | _F_LATLON,
+                  "dem_hex": DEM_FLAGS | _F_HEX}
+COMPILED_SLOTS = 6
+_VARIANTS = {"generic": 0, "dem": 1, "dem_ll": 2, "dem_hex": 3}
 
 
 def _params(cfg: IcebergsConfig):
@@ -589,11 +593,14 @@ class _DemArgs(ctypes.Structure):
 
 
 def instantiation(cfg: IcebergsConfig, max_bonds: int) -> str:
-    """The kernel instantiation a launch takes: ``"dem"`` (compiled for
-    :data:`DEM_FLAGS` and 6 bond slots) or ``"generic"``.  Decided on the
-    host from the configuration alone."""
-    return ("dem" if _flags(cfg) == DEM_FLAGS and max_bonds == 6
-            else "generic")
+    """The kernel instantiation a launch takes: ``"dem"``, ``"dem_ll"`` or
+    ``"dem_hex"`` (each compiled for its flag set in
+    :data:`COMPILED_FLAGS` and 6 bond slots) where the configuration's
+    flag set is exactly one of those and ``max_bonds`` is 6, else
+    ``"generic"``.  Decided on the host from the configuration alone."""
+    fl = _flags(cfg) if max_bonds == COMPILED_SLOTS else None
+    return next((k for k, v in COMPILED_FLAGS.items() if v == fl),
+                "generic")
 
 
 def kernel_config(variant: str, nslots: int, block_n: int):
@@ -607,14 +614,27 @@ def kernel_config(variant: str, nslots: int, block_n: int):
     return smem.value, ctas.value
 
 
+def kernel_name(mangled: str):
+    """The variant name of a K4 instantiation's mangled name (``None``
+    for any other function)."""
+    m = re.search(r"dem_substeps_kernelILi\d+ELi(n?)(\d+)E", mangled)
+    if not m:
+        return None
+    if m.group(1):
+        return "generic"
+    return next((k for k, v in COMPILED_FLAGS.items()
+                 if v == int(m.group(2))), None)
+
+
 def kernel_resources() -> dict:
     """Registers, stack frame and spill bytes of each K4 instantiation
-    (``"dem"``, ``"generic"``), from the library's ``-Xptxas -v`` report."""
+    (the names of ``_VARIANTS``), from the library's ``-Xptxas -v``
+    report."""
     out = {}
     for name, r in cuda_build.resource_report().items():
-        m = re.search(r"dem_substeps_kernelILi\d+ELi(n?)\d+E", name)
-        if m and "registers" in r:
-            out["generic" if m.group(1) else "dem"] = r
+        v = kernel_name(name)
+        if v and "registers" in r:
+            out[v] = r
     return out
 
 
@@ -628,12 +648,14 @@ def part3_substeps_vmem(st, cfg: IcebergsConfig, deltas,
     a CUDA state launches K4 (counted in ``part3_substeps_vmem.launches``)
     in the instantiation :func:`instantiation` picks, or in ``variant``
     (``"generic"`` serves every flag set; the card tests and
-    ``chip_smoke.py`` hold it to the plain version on the DEM world too).
+    ``chip_smoke.py`` hold it to the plain version on the compiled
+    instantiations' worlds too).  A compiled ``variant`` whose flag set
+    or slot count is not this configuration's raises ``ValueError``, on
+    any device: nothing falls back to another instantiation.
     """
     _check(st, cfg, deltas, block_n)
     variant = variant or instantiation(cfg, st.max_bonds)
-    if variant not in _VARIANTS or (variant == "dem" and instantiation(
-            cfg, st.max_bonds) != "dem"):
+    if variant not in ("generic", instantiation(cfg, st.max_bonds)):
         raise ValueError(f"K4 instantiation {variant!r} cannot run this "
                          "configuration")
     if st.device.type == "cpu":

@@ -966,10 +966,21 @@ def _dem_world(cfg, jitter, units=6, side=5, gap=3.85e3, seed=3,
     return grid, frc, st, deltas
 
 
+_LLK = dict(grid_is_latlon=True, Lx=360., use_f_plane=False)
+_HEXK = {"hexagonal_icebergs": True}
+# hexagonally packed units: six bonds an interior element; the hexagonal
+# bonding radius (4.03 km) reaches across 3.85 km gaps, so 4.5 km
+_HEXW = {"gap": 4.5e3, "hex_units": tuple(range(6))}
+_ELASTIC = {"frac_thres_n": 1.8e5}
+
 # (instantiation, forced, jitter (m), config changes, world changes): the
 # DEM world's flag set at both block sizes and with slots 4-5 used in some
 # warps only, the generic instantiation forced onto that flag set, then
-# each flag the generic instantiation reads, and other slot counts
+# each flag the generic instantiation reads, and other slot counts; then
+# the lat-lon form (the world in degrees from latitude "lat": mid-latitude
+# and near 80 S) and the hexagonal one, each at both block sizes, with
+# bonds breaking (40 m) and without (2 m), and the generic instantiation
+# forced onto both flag sets
 _K4_CASES = [
     ("dem", False, 40.0, {}, {}),
     ("dem", False, 40.0, {}, {"block_n": 512}),
@@ -980,24 +991,47 @@ _K4_CASES = [
                              "use_grounding_torque": True,
                              "frac_thres_n": 1.8e5}, {}),
     # the hexagonal bonding radius (4.03 km) reaches across 3.85 km gaps
-    ("generic", False, 40.0, {"hexagonal_icebergs": True}, {"gap": 4.5e3}),
+    ("dem_hex", False, 40.0, {"hexagonal_icebergs": True}, {"gap": 4.5e3}),
     ("generic", False, 40.0, {"orig_dem_moment_of_inertia": True}, {}),
     ("generic", False, 40.0, {"ignore_tangential_force": True}, {}),
     ("generic", False, 40.0, {"scale_damping_by_pmag": False}, {}),
     ("generic", False, 40.0, {"constant_interaction_LW": False}, {}),
     ("generic", False, 40.0, {}, {"max_bonds": 4}),
     ("generic", False, 40.0, {}, {"max_bonds": 8, "hex_units": (2,)}),
+    ("dem_ll", False, 40.0, _LLK, {"lat": -60.0}),
+    ("dem_ll", False, 40.0, _LLK, {"lat": -60.0, "block_n": 512}),
+    ("dem_ll", False, 40.0, _LLK, {"lat": -79.5}),
+    ("dem_ll", False, 40.0, _LLK, {"lat": -79.5, "block_n": 512,
+                                   "hex_units": (1,)}),
+    ("dem_ll", False, 2.0, dict(_LLK, **_ELASTIC), {"lat": -60.0}),
+    ("dem_ll", False, 2.0, dict(_LLK, **_ELASTIC), {"lat": -79.5,
+                                                    "block_n": 512}),
+    ("generic", True, 40.0, _LLK, {"lat": -79.5, "block_n": 512}),
+    ("dem_hex", False, 40.0, _HEXK, _HEXW),
+    ("dem_hex", False, 40.0, _HEXK, dict(_HEXW, block_n=512)),
+    ("dem_hex", False, 2.0, dict(_HEXK, **_ELASTIC), _HEXW),
+    ("dem_hex", False, 2.0, dict(_HEXK, **_ELASTIC),
+     dict(_HEXW, block_n=512)),
+    ("generic", True, 40.0, _HEXK, dict(_HEXW, block_n=512)),
 ]
 
 
 @pytest.mark.parametrize("variant,forced,jitter,flags,world", _K4_CASES)
 def test_dem_substeps_kernel_matches_plain(dev, variant, forced, jitter,
                                            flags, world):
-    """K4 against its plain version on the card, in both instantiations:
+    """K4 against its plain version on the card, in every instantiation:
     integers exact, floats bitwise (both round every operation
-    separately: -fmad=false, IEEE sqrtf / sinf / division)."""
+    separately: -fmad=false, IEEE sqrtf / sinf / cosf / division).  A
+    lat-lon case builds its bonds in metres and moves the world to
+    degrees."""
+    world = dict(world)
+    lat = world.pop("lat", None)
     cfg = _dem_cfg(**flags)
-    _, _, st, deltas = _dem_world(cfg, jitter, **world)
+    bond_cfg = cfg if lat is None else _dem_cfg(**{
+        k: v for k, v in flags.items() if k not in _LLK})
+    _, _, st, deltas = _dem_world(bond_cfg, jitter, **world)
+    if lat is not None:
+        st = _to_degrees_at(st, lat)
     block_n = world.get("block_n", 128)
     assert (k4.instantiation(cfg, st.max_bonds) == variant) != forced
     st = st.to(dev)
@@ -1640,16 +1674,18 @@ def _to_degrees_at(st, lat0):
     (2.0, {"short_step_mts_grounding": True, "use_grounding_torque": True,
            "frac_thres_n": 1.8e5})], ids=["fracturing", "elastic"])
 def test_dem_substeps_latlon_kernel_matches_plain(dev, lat, jitter, flags):
-    """K4's lat-lon form (the generic instantiation with F_LATLON: the
-    drift in degrees, the bond and contact metric at each pair's mean
-    latitude) bitwise against the plain version, the DEM world placed
-    mid-latitude and reaching 89.9 degrees at either pole."""
+    """K4's lat-lon form (``dem_ll`` on the DEM flag set, the generic
+    instantiation with F_LATLON on the other: the drift in degrees, the
+    bond and contact metric at each pair's mean latitude) bitwise against
+    the plain version, the DEM world placed mid-latitude and reaching
+    89.9 degrees at either pole."""
     cfg = _dem_cfg(grid_is_latlon=True, Lx=360., use_f_plane=False,
                    **flags)
     _, _, st, deltas = _dem_world(_dem_cfg(**flags), jitter)
     st = _to_degrees_at(st, lat).to(dev)
     assert abs(float(st.lat[st.alive].abs().max())) < 89.95
-    assert k4.instantiation(cfg, st.max_bonds) == "generic"
+    assert k4.instantiation(cfg, st.max_bonds) == (
+        "generic" if flags else "dem_ll")
     before = k4.part3_substeps_vmem.launches
     out, nb = k4.part3_substeps_vmem(st, cfg, deltas, block_n=128)
     assert k4.part3_substeps_vmem.launches == before + 1

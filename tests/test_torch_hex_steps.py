@@ -274,7 +274,7 @@ def test_k4_plain_hexagons_matches_jax():
         s, cfg, deltas, block_n=128, interpret=True))(st)
     tst, tnb = tk4.part3_substeps_vmem(tstate(st), tcfg, deltas,
                                        block_n=128)
-    assert tk4.instantiation(tcfg, tst.max_bonds) == "generic"
+    assert tk4.instantiation(tcfg, tst.max_bonds) == "dem_hex"
     assert int(tnb) == int(jnb) > 0
     J, T = leaves(jst), ibp.to_numpy(tst)
     for name in ("bond_broken", "n_bonds", "alive", "bond_idx"):

@@ -241,7 +241,8 @@ def test_k4_latlon_plain_matches_jax(jitter, flags):
     st = _dem_world(jitter)
     deltas = jvmem.analyze_bond_deltas(st.bond_idx, 128)
     assert st.capacity == 256 and deltas
-    assert tdem.instantiation(tcfg, st.max_bonds) == "generic"
+    assert tdem.instantiation(tcfg, st.max_bonds) == (
+        "generic" if flags else "dem_ll")
     jst, jnb = jax.jit(lambda s: jvmem.part3_substeps_vmem(
         s, cfg, deltas, block_n=128, interpret=True))(st)
     tst, tnb = tdem.part3_substeps_vmem(

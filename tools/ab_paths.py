@@ -7,7 +7,8 @@ with the slot scatter, also K3's pass-through, 10a the coupled entry),
 K3's pass-through (9b, 10a, 11c the coupled entry with MTS, 12b), K2's
 lat-lon forms (12a the lat-lon fast lane, 12b the coupled entry on the
 tripolar grid, 12c the DEM world on a lat-lon grid) or K5's (12af the
-lat-lon persistent ``fused`` lane with K6) or the stand-alone driver (13a
+lat-lon persistent ``fused`` lane with K6), K4's forms (6 the DEM world,
+12c, 14b the DEM world packed hexagonally) or the stand-alone driver (13a
 on the headline world, 13b on the DEM world, each launching K2 once a
 step), with the package found under
 ``--root``: this checkout by default, or an unpacked copy of another
@@ -19,7 +20,7 @@ for a parent and a change in turns (parent, change, change, parent) in
 one call, so that both are timed on one card.  A path may be named twice,
 the second run timed warm.  Needs one CUDA GPU:
 
-    python3 tools/ab_paths.py [--root DIR] [--paths 5,9a,9b,10a,12a,...]
+    python3 tools/ab_paths.py [--root DIR] [--paths 5,6,9a,9b,10a,12a,...]
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ import subprocess
 import sys
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-PATHS = ("5", "9a", "9b", "10a", "11c", "12a", "12af", "12b", "12c", "13a",
-         "13b")
+PATHS = ("5", "6", "9a", "9b", "10a", "11c", "12a", "12af", "12b", "12c",
+         "13a", "13b", "14b")
 
 
 def main() -> int:
@@ -87,7 +88,8 @@ def main() -> int:
             steps=res.get("steps", res.get("outer_steps")),
             launches={k: launches[k] for k in (
                 "extract_sorted", "extract_sorted/epilogue",
-                "contact_prepass_sorted", "segment_spread_sums/assoc")})),
+                "contact_prepass_sorted", "segment_spread_sums/assoc",
+                "dem_substeps")})),
             flush=True)
 
     for tag in paths:
@@ -135,15 +137,19 @@ def main() -> int:
         elif tag == "13b":
             res, launches = smoke.phase13b(ibp, torch, device, kernels,
                                            smoke.dem_config(ibp))
-        else:
-            dcfg = smoke.dem_config(ibp, **smoke.LL_CFG)
+        else:                           # the DEM worlds: 6, 12c, 14b
+            kw, wkw, k3 = {"6": ({}, {}, "segment_spread_sums"),
+                           "12c": (smoke.LL_CFG, {"latlon": True},
+                                   "segment_spread_sums"),
+                           "14b": (smoke.HEX_DEM_KW, {"hexagonal": True},
+                                   "segment_spread_sums/assoc")}[tag]
+            dcfg = smoke.dem_config(ibp, **kw)
             dem = smoke.dem_world(ibp, torch, dcfg, smoke.DEM_UNITS,
-                                  smoke.NX_DEM, device, latlon=True)
+                                  smoke.NX_DEM, device, **wkw)
             res, launches = smoke.phase_dem_slice(
                 ibp, torch, device, kernels,
-                ("permute_cols_u32", "extract_sorted",
-                 "segment_spread_sums", "dem_substeps"), dcfg, dem,
-                label="12c dem latlon", profile=True)
+                ("permute_cols_u32", "extract_sorted", k3, "dem_substeps"),
+                dcfg, dem, label=f"{tag} dem", profile=True)
             del dem
         report(tag, res, launches)
         torch.cuda.empty_cache()
