@@ -1,0 +1,5 @@
+"""Worlds, one module per world a configuration names.  Each
+``inputs(conf, seed, device)`` makes every input of a run from the seed
+as plain tensors, which the reference takes as they are, and
+``build(kid, conf, seed, device)`` puts the same inputs into the port's
+(``kid``'s) containers."""
