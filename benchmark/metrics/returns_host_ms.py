@@ -1,0 +1,9 @@
+"""The melt options, the coupler returns and the budgets: the host ms a
+coupling step of the program's span ``kid.returns``, its mean over the
+window's steps (the enqueue, with no sync)."""
+
+from benchmark import spans
+
+
+def read(ctx):
+    return spans.phase_ms(ctx, "kid.returns")

@@ -40,6 +40,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from . import constants as C
+from . import trace
 from .calving import (CalvingState, accumulate_calving, calve_icebergs,
                       class_grids, get_running_mean_calving,
                       init_calving_state)
@@ -239,146 +240,157 @@ def coupling_sequence(cfg: IcebergsConfig, grid: Grid, state: ModelState,
                          if cfg.interactive_icebergs_on else "buckets")
     year, yday = state.current_year, state.current_yearday
 
+    # each phase is a span (:mod:`.trace`), closed before every yield
     # 2-3. the buckets, then the spawn from full buckets
-    calv, calving, calving_hflx = get_running_mean_calving(
-        calv, calving, calving_hflx, cfg)
-    calv, calving_res, hflx_res, used_kg, used_J = accumulate_calving(
-        calv, grid, calving, calving_hflx, cfg, tables=tables)
-    st, calv, calv_diag = calve_icebergs(
-        st, calv, grid, frc, cfg, current_year=year, current_yearday=yday,
-        tables=tables)
+    with trace.span("kid.calving"):
+        calv, calving, calving_hflx = get_running_mean_calving(
+            calv, calving, calving_hflx, cfg)
+        calv, calving_res, hflx_res, used_kg, used_J = accumulate_calving(
+            calv, grid, calving, calving_hflx, cfg, tables=tables)
+        st, calv, calv_diag = calve_icebergs(
+            st, calv, grid, frc, cfg, current_year=year,
+            current_yearday=yday, tables=tables)
     if cfg.interactive_icebergs_on:
         st = yield st
 
     # 4. the environment on the bergs, with the tidal drift's uniforms
-    if cfg.tidal_drift > 0.:
-        r = tidal_uniforms
-        if r is None:
-            r = tidal_generator_uniforms(state.seed, state.step,
-                                         (2, st.capacity), dtype=st.dtype,
-                                         device=st.device)
-        st = interp_to_bergs(st, grid, frc, cfg, rx=r[0], ry=r[1])
-    else:
-        st = interp_to_bergs(st, grid, frc, cfg)
+    with trace.span("kid.interp"):
+        if cfg.tidal_drift > 0.:
+            r = tidal_uniforms
+            if r is None:
+                r = tidal_generator_uniforms(
+                    state.seed, state.step, (2, st.capacity),
+                    dtype=st.dtype, device=st.device)
+            st = interp_to_bergs(st, grid, frc, cfg, rx=r[0], ry=r[1])
+        else:
+            st = interp_to_bergs(st, grid, frc, cfg)
 
     # 5. evolve
-    zi = torch.zeros((), dtype=torch.int32, device=st.device)
-    fstats = mts_d = None
-    ia_fn = None
-    if cfg.interactive_icebergs_on and not cfg.mts:
-        if neighbor_mode in ("fused", "fused3"):
-            kw = dict(block_n=128, window=cfg.fused_window,
-                      fallback_cap=cfg.fused_fallback_cap,
-                      fallback_strip_width=64)
-            kw.update(fused_kw or {})
-            if neighbor_mode == "fused3":
-                ia_fn, fstats = make_ia_fn_fused3(st, grid, cfg,
-                                                  presorted=False, **kw)
+    with trace.span("kid.contacts"):
+        zi = torch.zeros((), dtype=torch.int32, device=st.device)
+        fstats = mts_d = None
+        ia_fn = None
+        if cfg.interactive_icebergs_on and not cfg.mts:
+            if neighbor_mode in ("fused", "fused3"):
+                kw = dict(block_n=128, window=cfg.fused_window,
+                          fallback_cap=cfg.fused_fallback_cap,
+                          fallback_strip_width=64)
+                kw.update(fused_kw or {})
+                if neighbor_mode == "fused3":
+                    ia_fn, fstats = make_ia_fn_fused3(st, grid, cfg,
+                                                      presorted=False, **kw)
+                else:
+                    ia_fn, fstats = make_ia_fn_fused2(st, grid, cfg, **kw)
             else:
-                ia_fn, fstats = make_ia_fn_fused2(st, grid, cfg, **kw)
-        else:
-            if neighbor_mode == "sorted":
-                # a (cell, id)-sorted slab: layout-invariant pair sums
-                st, cs = sort_state_by_cell(st, grid, **sort_kw(cfg))
-                nbr = strip_neighbor_tables(st, grid, cfg, cs,
+                if neighbor_mode == "sorted":
+                    # a (cell, id)-sorted slab: layout-invariant pair sums
+                    st, cs = sort_state_by_cell(st, grid, **sort_kw(cfg))
+                    nbr = strip_neighbor_tables(st, grid, cfg, cs,
+                                                ncells_radius=nbr_radius)
+                else:
+                    nbr = _forces.build_neighbor_tables(
+                        st, grid, cfg, ncells_radius=nbr_radius,
+                        max_per_cell=max_per_cell)
+                ia_fn = _forces.make_ia_fn(st, nbr, cfg)
+    with trace.span("kid.evolve"):
+        if cfg.mts:
+            st, mts_d = evolve_icebergs_mts(st, grid, frc, cfg,
                                             ncells_radius=nbr_radius)
-            else:
-                nbr = _forces.build_neighbor_tables(
-                    st, grid, cfg, ncells_radius=nbr_radius,
-                    max_per_cell=max_per_cell)
-            ia_fn = _forces.make_ia_fn(st, nbr, cfg)
-    if cfg.mts:
-        st, mts_d = evolve_icebergs_mts(st, grid, frc, cfg,
-                                        ncells_radius=nbr_radius)
-        out = EvolveOut(st, zi, zi)
-    else:
-        out = evolve_icebergs(st, grid, frc, cfg, ia_fn=ia_fn)
+            out = EvolveOut(st, zi, zi)
+        else:
+            out = evolve_icebergs(st, grid, frc, cfg, ia_fn=ia_fn)
     st = out.state
 
     # 6. footloose calving and the children's interactivity
     fl_diag = fl_deleted = None
     if cfg.footloose:
-        if fl_uniforms is None:
-            fl_uniforms = id_hash_uniforms(state.seed, state.step)
-        st, fl_diag = footloose_calving(st, grid, cfg, uniforms=fl_uniforms,
-                                        current_year=year,
-                                        current_yearday=yday)
-        st, fl_deleted = delete_fully_fl_calved(st)
+        with trace.span("kid.footloose"):
+            if fl_uniforms is None:
+                fl_uniforms = id_hash_uniforms(state.seed, state.step)
+            st, fl_diag = footloose_calving(
+                st, grid, cfg, uniforms=fl_uniforms, current_year=year,
+                current_yearday=yday)
+            st, fl_deleted = delete_fully_fl_calved(st)
         if cfg.interactive_icebergs_on:
             st = yield st
-            if neighbor_mode in ("sorted", "fused", "fused3"):
-                # the fused modes too: the walk needs a candidate table,
-                # and the sorted strips are layout-invariant
-                st, cs2 = sort_state_by_cell(st, grid, **sort_kw(cfg))
-                nbr2 = strip_neighbor_tables(st, grid, cfg, cs2,
-                                             ncells_radius=nbr_radius)
-            else:
-                nbr2 = _forces.build_neighbor_tables(
-                    st, grid, cfg, ncells_radius=nbr_radius,
-                    max_per_cell=max_per_cell)
-            st = adjust_fl_berg_interactivity(st, nbr2, cfg)
+            with trace.span("kid.footloose"):
+                if neighbor_mode in ("sorted", "fused", "fused3"):
+                    # the fused modes too: the walk needs a candidate
+                    # table, and the sorted strips are layout-invariant
+                    st, cs2 = sort_state_by_cell(st, grid, **sort_kw(cfg))
+                    nbr2 = strip_neighbor_tables(st, grid, cfg, cs2,
+                                                 ncells_radius=nbr_radius)
+                else:
+                    nbr2 = _forces.build_neighbor_tables(
+                        st, grid, cfg, ncells_radius=nbr_radius,
+                        max_per_cell=max_per_cell)
+                st = adjust_fl_berg_interactivity(st, nbr2, cfg)
 
     # 7. thermodynamics
-    st, melt = _thermo.thermodynamics(st, grid, frc, cfg,
-                                      defer_cell_cols=False)
+    with trace.span("kid.thermo"):
+        st, melt = _thermo.thermodynamics(st, grid, frc, cfg,
+                                          defer_cell_cols=False)
 
     # 8. the gridded fields
-    sp = _spread.create_gridded_icebergs_fields(st, grid, frc, cfg,
-                                                cell_table=cell_table)
-    floating_melt, hflx_melt = melt.floating_melt, melt.calving_hflx
-    if cfg.find_melt_using_spread_mass:
-        # find_melt_using_spread_mass (icebergs.F90:3424-3440)
-        floating_melt = torch.where(
-            grid.area > 0., divc(state.spread_mass_old - sp.spread_mass,
-                                 cfg.dt).clamp(min=0.), 0.)
-        hflx_melt = floating_melt * C.HLF
-    if cfg.apply_thickness_cutoff_to_gridded_melt and cfg.melt_cutoff >= 0.:
-        # apply_thickness_cutoff_to_gridded_melt (icebergs.F90:3471-3483)
-        ave_thick = sp.spread_mass / (sp.spread_area
-                                      * cfg.rho_bergs).clamp(min=1e-30)
-        ave_draft = ave_thick * (cfg.rho_bergs / C.RHO_SEAWATER)
-        thin = (sp.spread_area > 0.) & (
-            (grid.ocean_depth - ave_draft) < cfg.melt_cutoff)
-        floating_melt = torch.where(thin, 0., floating_melt)
-        hflx_melt = torch.where(thin, 0., hflx_melt)
+    with trace.span("kid.spread"):
+        sp = _spread.create_gridded_icebergs_fields(st, grid, frc, cfg,
+                                                    cell_table=cell_table)
+    with trace.span("kid.returns"):
+        floating_melt, hflx_melt = melt.floating_melt, melt.calving_hflx
+        if cfg.find_melt_using_spread_mass:
+            # find_melt_using_spread_mass (icebergs.F90:3424-3440)
+            floating_melt = torch.where(
+                grid.area > 0., divc(state.spread_mass_old - sp.spread_mass,
+                                     cfg.dt).clamp(min=0.), 0.)
+            hflx_melt = floating_melt * C.HLF
+        if (cfg.apply_thickness_cutoff_to_gridded_melt
+                and cfg.melt_cutoff >= 0.):
+            # apply_thickness_cutoff_to_gridded_melt (icebergs.F90:3471-3483)
+            ave_thick = sp.spread_mass / (sp.spread_area
+                                          * cfg.rho_bergs).clamp(min=1e-30)
+            ave_draft = ave_thick * (cfg.rho_bergs / C.RHO_SEAWATER)
+            thin = (sp.spread_area > 0.) & (
+                (grid.ocean_depth - ave_draft) < cfg.melt_cutoff)
+            floating_melt = torch.where(thin, 0., floating_melt)
+            hflx_melt = torch.where(thin, 0., hflx_melt)
 
-    # 9. the coupler returns: residual calving and the melt
-    calving_out = calving_res + floating_melt * (grid.msk > 0.)
-    hflx_out = hflx_res + hflx_melt
-    outputs = RunOutputs(
-        calving=calving_out, calving_hflx=hflx_out,
-        floating_melt=floating_melt, berg_melt=melt.berg_melt,
-        spread_mass=sp.spread_mass, spread_area=sp.spread_area,
-        spread_uvel=sp.spread_uvel, spread_vvel=sp.spread_vvel,
-        ustar_iceberg=sp.ustar_iceberg, mass_on_ocean=sp.mass_on_ocean,
-        nbergs=st.count(), budgets=compute_budgets(st, calv),
-        contact_overflow=fstats.overflow if fstats is not None else zi,
-        contact_fallback=fstats.n_fallback if fstats is not None else zi,
-        spawn_overflow=calv_diag["spawn_overflow"],
-        fl_spawn_overflow=(fl_diag.spawn_overflow if fl_diag is not None
-                           else zi),
-        tickets=out.tickets, nbergs_calved=calv_diag["nbergs_calved"],
-        nbergs_calved_fl=(fl_diag.nbergs_calved_fl if fl_diag is not None
-                          else None),
-        nbergs_melted=melt.nbergs_melted, nbergs_deleted_fl=fl_deleted,
-        net_calving_used=used_kg, heat_used=used_J,
-        calving_to_bergs=calv_diag["calving_to_bergs"],
-        heat_to_bergs=calv_diag["heat_to_bergs"],
-        net_melt_heat=melt.net_heat, net_melt_kg=melt.net_melt_kg,
-        berg_melt_kg=melt.berg_melt_kg, bergy_src_kg=melt.bergy_src_kg,
-        bergy_melt_kg=melt.bergy_melt_kg,
-        fl_bits_melt_kg=melt.fl_bits_melt_kg,
-        flb_bergy_melt_kg=melt.flb_bergy_melt_kg,
-        flb_internal_eros_kg=melt.flb_internal_eros_kg,
-        fl_bits_src=fl_diag.fl_bits_src if fl_diag is not None else None,
-        fl_to_berg_kg=(fl_diag.fl_to_berg_kg if fl_diag is not None
-                       else None),
-        flb_to_bergy_kg=(fl_diag.flb_to_bergy_kg if fl_diag is not None
-                         else None), mts=mts_d)
-    state = state.replace(bergs=st, calving=calv, step=state.step + 1,
-                          current_yearday=yday + cfg.dt / 86400.,
-                          spread_mass_old=sp.spread_mass)
-    return state, outputs
+        # 9. the coupler returns: residual calving and the melt
+        calving_out = calving_res + floating_melt * (grid.msk > 0.)
+        hflx_out = hflx_res + hflx_melt
+        outputs = RunOutputs(
+            calving=calving_out, calving_hflx=hflx_out,
+            floating_melt=floating_melt, berg_melt=melt.berg_melt,
+            spread_mass=sp.spread_mass, spread_area=sp.spread_area,
+            spread_uvel=sp.spread_uvel, spread_vvel=sp.spread_vvel,
+            ustar_iceberg=sp.ustar_iceberg, mass_on_ocean=sp.mass_on_ocean,
+            nbergs=st.count(), budgets=compute_budgets(st, calv),
+            contact_overflow=fstats.overflow if fstats is not None else zi,
+            contact_fallback=fstats.n_fallback if fstats is not None else zi,
+            spawn_overflow=calv_diag["spawn_overflow"],
+            fl_spawn_overflow=(fl_diag.spawn_overflow if fl_diag is not None
+                               else zi),
+            tickets=out.tickets, nbergs_calved=calv_diag["nbergs_calved"],
+            nbergs_calved_fl=(fl_diag.nbergs_calved_fl if fl_diag is not None
+                              else None),
+            nbergs_melted=melt.nbergs_melted, nbergs_deleted_fl=fl_deleted,
+            net_calving_used=used_kg, heat_used=used_J,
+            calving_to_bergs=calv_diag["calving_to_bergs"],
+            heat_to_bergs=calv_diag["heat_to_bergs"],
+            net_melt_heat=melt.net_heat, net_melt_kg=melt.net_melt_kg,
+            berg_melt_kg=melt.berg_melt_kg, bergy_src_kg=melt.bergy_src_kg,
+            bergy_melt_kg=melt.bergy_melt_kg,
+            fl_bits_melt_kg=melt.fl_bits_melt_kg,
+            flb_bergy_melt_kg=melt.flb_bergy_melt_kg,
+            flb_internal_eros_kg=melt.flb_internal_eros_kg,
+            fl_bits_src=fl_diag.fl_bits_src if fl_diag is not None else None,
+            fl_to_berg_kg=(fl_diag.fl_to_berg_kg if fl_diag is not None
+                           else None),
+            flb_to_bergy_kg=(fl_diag.flb_to_bergy_kg if fl_diag is not None
+                             else None), mts=mts_d)
+        state = state.replace(bergs=st, calving=calv, step=state.step + 1,
+                              current_yearday=yday + cfg.dt / 86400.,
+                              spread_mass_old=sp.spread_mass)
+        return state, outputs
 
 
 class IcebergsModel:
@@ -393,47 +405,54 @@ class IcebergsModel:
                  fused_kw: Optional[dict] = None, device=None):
         check_ported(cfg)
         self.device = torch.device("cuda" if device is None else device)
-        self.grid = grid.to(self.device)
         self.cfg = cfg
         self.max_per_cell = max_per_cell
         self.neighbor_mode = neighbor_mode
         self.fused_kw = fused_kw
-        self._nbr_radius = _forces.neighbor_radius(self.grid, cfg)
-        self._tables = class_grids(self.grid, cfg)
-        self._cell_table = cell_tables(self.grid)
+        with trace.span("kid.model_init"):
+            self.grid = grid.to(self.device)
+            self._nbr_radius = _forces.neighbor_radius(self.grid, cfg)
+            self._tables = class_grids(self.grid, cfg)
+            self._cell_table = cell_tables(self.grid)
 
     # -- lifecycle ---------------------------------------------------------
 
     def init_state(self, bergs: BergState, seed: int = 0, year: int = 0,
                    yearday: float = 0.) -> ModelState:
-        bergs = bergs.to(self.device)
         dev = self.device
-        return ModelState(
-            bergs=bergs, calving=init_calving_state(self.grid, bergs.dtype),
-            seed=int(seed), step=0,
-            current_year=torch.full((), year, dtype=torch.int32, device=dev),
-            current_yearday=torch.full((), yearday, dtype=bergs.dtype,
-                                       device=dev),
-            spread_mass_old=torch.zeros(self.grid.nx + 2, self.grid.ny + 2,
-                                        dtype=bergs.dtype, device=dev))
+        with trace.span("kid.init_state"):
+            bergs = bergs.to(dev)
+            return ModelState(
+                bergs=bergs,
+                calving=init_calving_state(self.grid, bergs.dtype),
+                seed=int(seed), step=0,
+                current_year=torch.full((), year, dtype=torch.int32,
+                                        device=dev),
+                current_yearday=torch.full((), yearday, dtype=bergs.dtype,
+                                           device=dev),
+                spread_mass_old=torch.zeros(
+                    self.grid.nx + 2, self.grid.ny + 2, dtype=bergs.dtype,
+                    device=dev))
 
     def run(self, state: ModelState, frc: Forcing, calving=None,
             calving_hflx=None, *, tidal_uniforms=None, fl_uniforms=None):
         """One coupling step; returns ``(state, RunOutputs)``.
         ``calving`` (kg/s per cell) and ``calving_hflx`` (W/m2) are
-        halo-padded center fields, zeros when not given."""
-        shape = (self.grid.nx + 2, self.grid.ny + 2)
-        dt, dev = state.bergs.dtype, state.bergs.device
-        if calving is None:
-            calving = torch.zeros(shape, dtype=dt, device=dev)
-        if calving_hflx is None:
-            calving_hflx = torch.zeros(shape, dtype=dt, device=dev)
-        return run_coupling_sequence(
-            self.cfg, self.grid, state, frc, calving, calving_hflx,
-            nbr_radius=self._nbr_radius, max_per_cell=self.max_per_cell,
-            neighbor_mode=self.neighbor_mode, fused_kw=self.fused_kw,
-            tables=self._tables, cell_table=self._cell_table,
-            tidal_uniforms=tidal_uniforms, fl_uniforms=fl_uniforms)
+        halo-padded center fields, zeros when not given.  The step is the
+        span ``kid.run``, its phases the spans inside it (:mod:`.trace`)."""
+        with trace.span("kid.run", step=True):
+            shape = (self.grid.nx + 2, self.grid.ny + 2)
+            dt, dev = state.bergs.dtype, state.bergs.device
+            if calving is None:
+                calving = torch.zeros(shape, dtype=dt, device=dev)
+            if calving_hflx is None:
+                calving_hflx = torch.zeros(shape, dtype=dt, device=dev)
+            return run_coupling_sequence(
+                self.cfg, self.grid, state, frc, calving, calving_hflx,
+                nbr_radius=self._nbr_radius, max_per_cell=self.max_per_cell,
+                neighbor_mode=self.neighbor_mode, fused_kw=self.fused_kw,
+                tables=self._tables, cell_table=self._cell_table,
+                tidal_uniforms=tidal_uniforms, fl_uniforms=fl_uniforms)
 
     # -- coupler queries ---------------------------------------------------
 

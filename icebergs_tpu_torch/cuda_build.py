@@ -23,6 +23,8 @@ import re
 import shutil
 import subprocess
 
+from . import trace
+
 _PKG = pathlib.Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -84,10 +86,16 @@ def library_path() -> pathlib.Path:
 def build() -> pathlib.Path:
     """Compile the kernels unless the current sources are already built:
     one ``nvcc -c`` per source, run in parallel, then one link.  The
-    compiler's resource report goes to ``<library>.log``."""
+    compiler's resource report goes to ``<library>.log``.  A build that
+    compiles is the span ``kid.kernels_build``."""
     out = library_path()
     if out.exists():
         return out
+    with trace.span("kid.kernels_build"):
+        return _compile(out)
+
+
+def _compile(out: pathlib.Path) -> pathlib.Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
     cus = [p for p in _sources() if p.suffix == ".cu"]
@@ -122,12 +130,15 @@ def build() -> pathlib.Path:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+    """The loaded kernel library, built first if needed; the load and
+    the signatures are the span ``kid.kernels_load``."""
+    path = build()
+    with trace.span("kid.kernels_load"):
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
     return lib
 
 

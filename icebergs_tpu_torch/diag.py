@@ -4,7 +4,7 @@ PyTorch counterpart of ``icebergs_tpu/diag.py`` (``berg_chksum``,
 ``bergs_per_cell``, ``list_chksum_per_cell``, ``grd_chksum2``,
 ``grd_chksum3``, ``calving_chksum``, ``check_state``, ``Budgets``,
 ``compute_budgets``, ``report_budget``, ``IntervalBudget``,
-``report_full_budget``, ``PhaseClocks``; port of
+``report_full_budget``; port of
 ``src/icebergs_framework.F90:6606-7070`` and the budget tables of
 ``src/icebergs.F90:5683-5995``).  The hashes are order-invariant sums of
 bit patterns modulo 2^32, bit for bit the JAX package's uint32 values
@@ -18,8 +18,6 @@ package's does.  ``debug_write_and_stop`` writes a restart file;
 from __future__ import annotations
 
 import sys
-import time
-from contextlib import contextmanager
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -408,44 +406,3 @@ def report_full_budget(tag: str, b0: Budgets, b1: Budgets,
         p(f"speeding tickets issued = {int(acc.nspeeding_tickets):4d}")
     return errs
 
-
-class PhaseClocks:
-    """Per-phase wall-clock totals (the reference's ``mpp_clock``
-    sub-timers, icebergs_framework.F90:896-908).  CUDA launches return
-    before the work is done, so a phase that launches device work passes
-    ``sync=`` (any value; the phase then waits for the card with
-    ``torch.cuda.synchronize``) and measures device time too."""
-
-    def __init__(self):
-        self._tot, self._max, self._n, self._t0 = {}, {}, {}, {}
-
-    def begin(self, name: str):
-        self._t0[name] = time.perf_counter()
-
-    def end(self, name: str, sync=None):
-        if sync is not None and torch.cuda.is_available():
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - self._t0.pop(name)
-        self._tot[name] = self._tot.get(name, 0.0) + dt
-        self._max[name] = max(self._max.get(name, 0.0), dt)
-        self._n[name] = self._n.get(name, 0) + 1
-        return dt
-
-    @contextmanager
-    def __call__(self, name: str, sync_fn=None):
-        self.begin(name)
-        try:
-            yield
-        finally:
-            self.end(name, sync=sync_fn() if sync_fn is not None else None)
-
-    def report(self, tag: str = "clocks"):
-        """Print the clock table (the mpp_clock summary)."""
-        if not self._tot:
-            return
-        print(f"{tag} | {'phase':<24} | {'calls':>7} | {'total s':>10} | "
-              f"{'mean ms':>9} | {'max ms':>9}")
-        for name, tot in sorted(self._tot.items(), key=lambda kv: -kv[1]):
-            n = self._n[name]
-            print(f"{tag} | {name:<24} | {n:>7} | {tot:>10.3f} | "
-                  f"{1e3 * tot / n:>9.3f} | {1e3 * self._max[name]:>9.3f}")

@@ -33,6 +33,8 @@ import time
 import numpy as np
 import torch
 
+from . import trace
+
 
 def build_grid_and_forcing(cfg, drv, dtype=torch.float32, *, device):
     """Synthetic grid and forcing from icebergs_driver_nml
@@ -318,34 +320,34 @@ def run(nml_path: str, input_dir: str = ".", output_dir: str = ".",
     melt_total = melt_interval = 0.0      # kg, accumulated on the device
     reads = 0                             # host reads in the loop
     t_wall = time.time()
-    # the mpp_clock analog (icebergs_framework.F90:896-908): per-phase wall
-    # clocks; the step phase waits for the card, so it measures device
-    # time too (only with --clocks: the wait serialises the pipeline)
-    ck = diag.PhaseClocks() if clocks else None
+    # the mpp_clock analog (icebergs_framework.F90:896-908): the loop's
+    # phases are spans of the tracer; with ``clocks`` each also takes the
+    # device's time from CUDA events, read as they complete (nothing in
+    # the loop waits for the card), and the table is printed at the end
+    if clocks:
+        trace.reset()
+        traced = trace.configure(enabled=True, device=device.type == "cuda")
     # the interval sources and sinks of the category budget tables
     acc = diag.IntervalBudget()
     for n in range(nsteps):
-        if ck:
-            ck.begin("Icebergs-interface")
-        if a68_data is not None:
-            # the hourly frames (driver:368-385): ns2 advances by dt/3600
-            # a step; half-hour steps blend the velocities of two frames,
-            # SSH takes the floor frame
-            ns2 = 1.0 + n * cfg.dt / 3600.0
-            if cfg.dt == 3600.0 or float(ns2).is_integer():
-                frc = a68io.forcing_at_hour(a68_data,
-                                            start_ind + int(ns2) - 2)
-            else:
-                fnew = a68io.forcing_at_hour(
-                    a68_data, start_ind + math.ceil(ns2) - 2)
-                frc = frc.replace(
-                    ua=0.5 * (frc.ua + fnew.ua), va=0.5 * (frc.va + fnew.va),
-                    uo=0.5 * (frc.uo + fnew.uo), vo=0.5 * (frc.vo + fnew.vo),
-                    ssh=a68io.forcing_at_hour(
-                        a68_data, start_ind + int(ns2) - 2).ssh)
-        if ck:
-            ck.end("Icebergs-interface")
-            ck.begin("Icebergs-step")
+        with trace.span("Icebergs-interface"):
+            if a68_data is not None:
+                # the hourly frames (driver:368-385): ns2 advances by
+                # dt/3600 a step; half-hour steps blend the velocities of
+                # two frames, SSH takes the floor frame
+                ns2 = 1.0 + n * cfg.dt / 3600.0
+                if cfg.dt == 3600.0 or float(ns2).is_integer():
+                    frc = a68io.forcing_at_hour(a68_data,
+                                                start_ind + int(ns2) - 2)
+                else:
+                    fnew = a68io.forcing_at_hour(
+                        a68_data, start_ind + math.ceil(ns2) - 2)
+                    frc = frc.replace(
+                        ua=0.5 * (frc.ua + fnew.ua),
+                        va=0.5 * (frc.va + fnew.va),
+                        uo=0.5 * (frc.uo + fnew.uo),
+                        vo=0.5 * (frc.vo + fnew.vo), ssh=a68io.forcing_at_hour(
+                            a68_data, start_ind + int(ns2) - 2).ssh)
 
         def call_step(s):
             if cfg.footloose:
@@ -357,81 +359,78 @@ def run(nml_path: str, input_dir: str = ".", output_dir: str = ".",
                                 device=device))
             return step(s, frc)
 
-        st_prev = st
-        st, diags = call_step(st)
-        # the increase_ibuffer analog (icebergs_framework.F90:3710-3747):
-        # when a spawn found no free slot, the frozen MTS pair list or the
-        # contact search's fallback overflowed, grow what ran out, rebuild
-        # the step and re-run it from the pre-step state: an overflow is
-        # corrected, never only counted
-        for _ in range(3):
-            ov = _overflows(diags, cfg, mts_pair_cap is not None)
-            if ov is None:
-                break
-            fl_ov, pair_ov, fused_ov, p1_ov = ov.tolist()
-            reads += 1
-            fused_ov += p1_ov
-            if fl_ov == 0 and pair_ov == 0 and fused_ov == 0:
-                break
-            if fl_ov > 0:
-                newcap = max(2 * st_prev.capacity,
-                             st_prev.capacity + 4 * fl_ov)
-                print(f"KID-TPU driver: slot pool exhausted at step "
-                      f"{n + 1} ({fl_ov} spawns denied) — growing "
-                      f"capacity {st_prev.capacity} -> {newcap}",
-                      flush=True)
-                st_prev = grow_capacity(st_prev, newcap)
-                buf = tio.grow_traj_buffer(buf, newcap)
-                if bond_buf is not None:
-                    bond_buf = tio.grow_traj_buffer(
-                        bond_buf, newcap * cfg.max_bonds)
-            if pair_ov > 0:
-                mts_pair_cap = 2 * mts_pair_cap
-                print(f"KID-TPU driver: MTS pair list overflowed at "
-                      f"step {n + 1} ({pair_ov} pairs) — growing "
-                      f"pair cap to {mts_pair_cap}", flush=True)
-            if fused_ov > 0:
-                # the exact-search contract: dropped candidates grow the
-                # fallback compaction cap and the step re-runs
-                fused_fb_cap = min(4 * fused_fb_cap, st_prev.capacity)
-                print(f"KID-TPU driver: contact fallback cap overran "
-                      f"at step {n + 1} ({fused_ov} dropped) — growing "
-                      f"to {fused_fb_cap}", flush=True)
-            step = build_step(mts_pair_cap, fused_fb_cap)
-            st, diags = call_step(st_prev)
-        if ck:
-            ck.end("Icebergs-step", sync=st.lon)
-            ck.begin("Icebergs-diagnostics")
-        if cfg.debug_iceberg_with_id > 0:
-            # monitor_a_berg (icebergs_framework.F90:4245-4269)
-            from .diagnostics import monitor_a_berg
-            monitor_a_berg(st, cfg.debug_iceberg_with_id,
-                           label=f"step {n + 1}")
-            reads += 1
-        if diags.floating_melt is not None:
-            m = (diags.floating_melt * grid.area).sum().double() * cfg.dt
-            melt_total = melt_total + m
-            melt_interval = melt_interval + m
-        if ffields_frc is not frc:        # recomputed on a forcing swap
-            ffields = collect_forcing_fields(frc, grid)
-            ffields_frc = frc
-        dstate = dmgr.send_data(dstate, collect_step_fields(
-            diags, st=st, cfg=cfg, grid=grid, forcing_fields=ffields,
-            extra={"stored_ice": calv.stored_ice,
-                   "stored_heat": calv.stored_heat,
-                   "running_mean_calving": calv.rmean_calving,
-                   "running_mean_calving_hflx": calv.rmean_calving_hflx}))
-        if ck:
-            ck.end("Icebergs-diagnostics")
+        with trace.span("Icebergs-step"):
+            st_prev = st
+            st, diags = call_step(st)
+            # the increase_ibuffer analog
+            # (icebergs_framework.F90:3710-3747): when a spawn found no free
+            # slot, the frozen MTS pair list or the contact search's
+            # fallback overflowed, grow what ran out, rebuild the step and
+            # re-run it from the pre-step state: an overflow is corrected,
+            # never only counted
+            for _ in range(3):
+                ov = _overflows(diags, cfg, mts_pair_cap is not None)
+                if ov is None:
+                    break
+                fl_ov, pair_ov, fused_ov, p1_ov = ov.tolist()
+                reads += 1
+                fused_ov += p1_ov
+                if fl_ov == 0 and pair_ov == 0 and fused_ov == 0:
+                    break
+                if fl_ov > 0:
+                    newcap = max(2 * st_prev.capacity,
+                                 st_prev.capacity + 4 * fl_ov)
+                    print(f"KID-TPU driver: slot pool exhausted at step "
+                          f"{n + 1} ({fl_ov} spawns denied) — growing "
+                          f"capacity {st_prev.capacity} -> {newcap}",
+                          flush=True)
+                    st_prev = grow_capacity(st_prev, newcap)
+                    buf = tio.grow_traj_buffer(buf, newcap)
+                    if bond_buf is not None:
+                        bond_buf = tio.grow_traj_buffer(
+                            bond_buf, newcap * cfg.max_bonds)
+                if pair_ov > 0:
+                    mts_pair_cap = 2 * mts_pair_cap
+                    print(f"KID-TPU driver: MTS pair list overflowed at "
+                          f"step {n + 1} ({pair_ov} pairs) — growing "
+                          f"pair cap to {mts_pair_cap}", flush=True)
+                if fused_ov > 0:
+                    # the exact-search contract: dropped candidates grow
+                    # the fallback compaction cap and the step re-runs
+                    fused_fb_cap = min(4 * fused_fb_cap, st_prev.capacity)
+                    print(f"KID-TPU driver: contact fallback cap overran "
+                          f"at step {n + 1} ({fused_ov} dropped) — growing "
+                          f"to {fused_fb_cap}", flush=True)
+                step = build_step(mts_pair_cap, fused_fb_cap)
+                st, diags = call_step(st_prev)
+        with trace.span("Icebergs-diagnostics"):
+            if cfg.debug_iceberg_with_id > 0:
+                # monitor_a_berg (icebergs_framework.F90:4245-4269)
+                from .diagnostics import monitor_a_berg
+                monitor_a_berg(st, cfg.debug_iceberg_with_id,
+                               label=f"step {n + 1}")
+                reads += 1
+            if diags.floating_melt is not None:
+                m = ((diags.floating_melt * grid.area).sum().double()
+                     * cfg.dt)
+                melt_total = melt_total + m
+                melt_interval = melt_interval + m
+            if ffields_frc is not frc:        # recomputed on a forcing swap
+                ffields = collect_forcing_fields(frc, grid)
+                ffields_frc = frc
+            dstate = dmgr.send_data(dstate, collect_step_fields(
+                diags, st=st, cfg=cfg, grid=grid, forcing_fields=ffields,
+                extra={"stored_ice": calv.stored_ice,
+                       "stored_heat": calv.stored_heat,
+                       "running_mean_calving": calv.rmean_calving,
+                       "running_mean_calving_hflx":
+                           calv.rmean_calving_hflx}))
         if (n + 1) % traj_every == 0 and not cfg.ignore_traj:
-            if ck:
-                ck.begin("Icebergs-traj record")
-            day = (n + 1) * ibdt / 86400.0
-            buf = tio.record_posn(buf, st, cfg, day=day, year=0)
-            if cfg.save_bond_traj:
-                bond_buf = tio.record_bonds(bond_buf, st, cfg, day=day)
-            if ck:
-                ck.end("Icebergs-traj record")
+            with trace.span("Icebergs-traj record"):
+                day = (n + 1) * ibdt / 86400.0
+                buf = tio.record_posn(buf, st, cfg, day=day, year=0)
+                if cfg.save_bond_traj:
+                    bond_buf = tio.record_bonds(bond_buf, st, cfg, day=day)
         acc.add_step(diags, grid, ibdt)
         if verbose and (n + 1) % verbose_every == 0:
             b_now = diag.compute_budgets(st, calv)
@@ -466,34 +465,33 @@ def run(nml_path: str, input_dir: str = ".", output_dir: str = ".",
 
     os.makedirs(output_dir, exist_ok=True)
     t_io = time.time()
-    if ck:
-        ck.begin("Icebergs-I/O write")
-    written = []
-    if drv.get("saverestart", False):
-        written.append("icebergs.res.nc")
-        rio.write_restart_bergs(os.path.join(output_dir, written[-1]),
-                                st, cfg)
-        if cfg.iceberg_bonds_on:
-            written.append("bonds_iceberg.res.nc")
-            rio.write_restart_bonds(os.path.join(output_dir, written[-1]),
+    with trace.span("Icebergs-I/O write"):
+        written = []
+        if drv.get("saverestart", False):
+            written.append("icebergs.res.nc")
+            rio.write_restart_bergs(os.path.join(output_dir, written[-1]),
                                     st, cfg)
-        written.append("calving.res.nc")
-        rio.write_restart_calving(os.path.join(output_dir, written[-1]),
-                                  calv, grid)
-    if not cfg.ignore_traj:
-        written.append(cfg.traj_name)
-        tio.write_trajectories(os.path.join(output_dir, cfg.traj_name),
-                               buf, cfg)
-    if cfg.save_bond_traj:
-        written.append(cfg.bond_traj_name)
-        tio.write_trajectories(os.path.join(output_dir, cfg.bond_traj_name),
-                               bond_buf, cfg)
-    written.append("icebergs_history.nc")
-    dmgr.flush(dstate, os.path.join(output_dir, written[-1]),
-               time_value=nsteps * ibdt / 86400.)
-    if ck:
-        ck.end("Icebergs-I/O write")
-        ck.report()
+            if cfg.iceberg_bonds_on:
+                written.append("bonds_iceberg.res.nc")
+                rio.write_restart_bonds(os.path.join(output_dir, written[-1]),
+                                        st, cfg)
+            written.append("calving.res.nc")
+            rio.write_restart_calving(os.path.join(output_dir, written[-1]),
+                                      calv, grid)
+        if not cfg.ignore_traj:
+            written.append(cfg.traj_name)
+            tio.write_trajectories(os.path.join(output_dir, cfg.traj_name),
+                                   buf, cfg)
+        if cfg.save_bond_traj:
+            written.append(cfg.bond_traj_name)
+            tio.write_trajectories(
+                os.path.join(output_dir, cfg.bond_traj_name), bond_buf, cfg)
+        written.append("icebergs_history.nc")
+        dmgr.flush(dstate, os.path.join(output_dir, written[-1]),
+                   time_value=nsteps * ibdt / 86400.)
+    if clocks:
+        trace.report()
+        trace.configure(**traced)
     t_io = time.time() - t_io
     secs = time.time() - t_wall
     sim_days = nsteps * ibdt / 86400.
@@ -536,9 +534,8 @@ def main(argv=None):
                         "otherwise; vmem = K4 (its plain version on the "
                         "CPU)")
     p.add_argument("--clocks", action="store_true",
-                   help="per-phase wall-clock table at the end of the "
-                        "run (mpp_clock analog; waits for the device each "
-                        "step)")
+                   help="per-phase clock table at the end of the run "
+                        "(mpp_clock analog): host and device ms a phase")
     a = p.parse_args(argv)
     run(a.nml, a.input_dir, a.output_dir, a.capacity,
         neighbor_window=a.neighbor_window, mts_pair_cap=a.mts_pair_cap,

@@ -59,6 +59,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..api import ModelState, coupling_sequence
 from ..calving import class_grids, init_calving_state
 from ..config import IcebergsConfig
@@ -1234,7 +1235,10 @@ def make_sharded_run(world, *, neighbor_mode: str = "buckets",
     are summed over all tiles (the melt scalars count the halo copies'
     melt too, as the JAX package's do) and whose contact counters take
     their maximum; ``overflow`` the refreshes' passes, then the
-    exchange's.  Accepts 1-D and 2-D worlds."""
+    exchange's.  Accepts 1-D and 2-D worlds.  A call is the span
+    ``kid.run`` (:mod:`..trace`), each exchange the span ``kid.exchange``;
+    the tiles' phase spans alternate inside it, none open across a
+    yield."""
     cfg, ring = world.cfg, world.ring
     per_tile = [dict(nbr_radius=neighbor_radius(g, cfg),
                      tables=class_grids(g, cfg), cell_table=cell_tables(g))
@@ -1242,32 +1246,39 @@ def make_sharded_run(world, *, neighbor_mode: str = "buckets",
 
     exchange = _exchanger(world, exchange_width)
 
+    def exchange_span(tiles, **kw):
+        with trace.span("kid.exchange"):
+            return exchange(tiles, **kw)
+
     def run(states, forcings, calvings, calving_hflxs):
-        seqs = [coupling_sequence(
-            cfg, g, s, f, c, h, max_per_cell=max_per_cell,
-            neighbor_mode=neighbor_mode, fused_kw=fused_kw, **kw)
-            for g, s, f, c, h, kw in zip(world.grids, states, forcings,
-                                         calvings, calving_hflxs, per_tile)]
-        res, counters = _lockstep(
-            seqs, lambda ts: exchange(ts, migrate=False))
-        tiles, overflow = exchange([s.bergs for s, _ in res])
-        overflow = torch.cat(counters + [overflow], dim=1)
-        states = [s.replace(bergs=t) for (s, _), t in zip(res, tiles)]
-        outs = [o for _, o in res]
-        nbergs, _ = _owned_sums(ring, tiles)
-        budgets = Budgets(*[
-            None if v is None else ring.sum([o.budgets[i] for o in outs])
-            for i, v in enumerate(outs[0].budgets)])
-        kw = {f: ring.sum([getattr(o, f) for o in outs])
-              for f in _SUM_SCALARS if getattr(outs[0], f) is not None}
-        kw.update({f: torch.stack([getattr(o, f) for o in outs])
-                   for f in _GRIDDED if getattr(outs[0], f) is not None})
-        outputs = outs[0]._replace(
-            budgets=budgets, nbergs=nbergs,
-            contact_overflow=ring.max([o.contact_overflow for o in outs]),
-            contact_fallback=ring.max([o.contact_fallback for o in outs]),
-            **kw)
-        return states, outputs, nbergs, overflow
+        with trace.span("kid.run", step=True):
+            seqs = [coupling_sequence(
+                cfg, g, s, f, c, h, max_per_cell=max_per_cell,
+                neighbor_mode=neighbor_mode, fused_kw=fused_kw, **kw)
+                for g, s, f, c, h, kw in zip(world.grids, states,
+                                             forcings, calvings,
+                                             calving_hflxs, per_tile)]
+            res, counters = _lockstep(
+                seqs, lambda ts: exchange_span(ts, migrate=False))
+            tiles, overflow = exchange_span([s.bergs for s, _ in res])
+            overflow = torch.cat(counters + [overflow], dim=1)
+            states = [s.replace(bergs=t) for (s, _), t in zip(res, tiles)]
+            outs = [o for _, o in res]
+            nbergs, _ = _owned_sums(ring, tiles)
+            budgets = Budgets(*[
+                None if v is None else ring.sum([o.budgets[i] for o in outs])
+                for i, v in enumerate(outs[0].budgets)])
+            kw = {f: ring.sum([getattr(o, f) for o in outs])
+                  for f in _SUM_SCALARS if getattr(outs[0], f) is not None}
+            kw.update({f: torch.stack([getattr(o, f) for o in outs])
+                       for f in _GRIDDED if getattr(outs[0], f) is not None})
+            outputs = outs[0]._replace(
+                budgets=budgets, nbergs=nbergs,
+                contact_overflow=ring.max([o.contact_overflow for o in outs]),
+                contact_fallback=ring.max([o.contact_fallback for o in outs]),
+                **kw)
+            return states, outputs, nbergs, overflow
+
     return run
 
 

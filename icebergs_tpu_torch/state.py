@@ -12,6 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import trace
+
 FLOAT_FIELDS = (
     "lon", "lat", "uvel", "vvel",
     "mass", "thickness", "width", "length",
@@ -167,45 +169,46 @@ def create_bergs(capacity: int, *, lon, lat, uvel=None, vvel=None,
 
     Values go through float64 numpy and are rounded once to ``dtype``,
     as ``icebergs_tpu.state.create_bergs`` rounds them."""
-    lon = np.asarray(lon, dtype=np.float64)
-    n = lon.shape[0]
-    if n > capacity:
-        raise ValueError(f"{n} bergs > capacity {capacity}")
-    st = empty_state(capacity, max_bonds=max_bonds, dtype=dtype,
-                     device=device)
+    with trace.span("kid.create_bergs"):
+        lon = np.asarray(lon, dtype=np.float64)
+        n = lon.shape[0]
+        if n > capacity:
+            raise ValueError(f"{n} bergs > capacity {capacity}")
+        st = empty_state(capacity, max_bonds=max_bonds, dtype=dtype,
+                         device=device)
 
-    def fill(val, default=0.0, integer=False):
-        if val is None:
-            val = np.full((n,), default)
-        val = np.asarray(val)
-        if val.ndim == 0:
-            val = np.full((n,), float(val))
-        tgt = np.zeros((capacity,), np.int32 if integer else np.float64)
-        tgt[:n] = val
-        return torch.as_tensor(tgt).to(
-            device=device, dtype=torch.int32 if integer else dtype)
+        def fill(val, default=0.0, integer=False):
+            if val is None:
+                val = np.full((n,), default)
+            val = np.asarray(val)
+            if val.ndim == 0:
+                val = np.full((n,), float(val))
+            tgt = np.zeros((capacity,), np.int32 if integer else np.float64)
+            tgt[:n] = val
+            return torch.as_tensor(tgt).to(
+                device=device, dtype=torch.int32 if integer else dtype)
 
-    kw = dict(
-        alive=torch.arange(capacity, device=device) < n,
-        lon=fill(lon), lat=fill(lat), uvel=fill(uvel), vvel=fill(vvel),
-        mass=fill(mass, 1e9), thickness=fill(thickness, 100.),
-        width=fill(width, 100.), length=fill(length, 100.),
-        mass_scaling=fill(mass_scaling, 1.0),
-        start_year=fill(start_year, 0, integer=True),
-        start_day=fill(start_day, 0.),
-        start_lon=fill(lon), start_lat=fill(lat),
-        static_berg=fill(static_berg, 0.),
-        id_cnt=fill(id_cnt if id_cnt is not None else np.arange(n),
-                    integer=True),
-        id_ij=fill(id_ij, 0, integer=True),
-        start_mass=fill(extra.pop("start_mass", None)),
-        heat_density=fill(extra.pop("heat_density", None)),
-    )
-    kw["lon_old"], kw["lat_old"] = kw["lon"], kw["lat"]
-    kw["uvel_old"], kw["vvel_old"] = kw["uvel"], kw["vvel"]
-    for name, val in extra.items():
-        kw[name] = fill(val, integer=name in INT_FIELDS)
-    return st.replace(**kw)
+        kw = dict(
+            alive=torch.arange(capacity, device=device) < n,
+            lon=fill(lon), lat=fill(lat), uvel=fill(uvel), vvel=fill(vvel),
+            mass=fill(mass, 1e9), thickness=fill(thickness, 100.),
+            width=fill(width, 100.), length=fill(length, 100.),
+            mass_scaling=fill(mass_scaling, 1.0),
+            start_year=fill(start_year, 0, integer=True),
+            start_day=fill(start_day, 0.),
+            start_lon=fill(lon), start_lat=fill(lat),
+            static_berg=fill(static_berg, 0.),
+            id_cnt=fill(id_cnt if id_cnt is not None else np.arange(n),
+                        integer=True),
+            id_ij=fill(id_ij, 0, integer=True),
+            start_mass=fill(extra.pop("start_mass", None)),
+            heat_density=fill(extra.pop("heat_density", None)),
+        )
+        kw["lon_old"], kw["lat_old"] = kw["lon"], kw["lat"]
+        kw["uvel_old"], kw["vvel_old"] = kw["uvel"], kw["vvel"]
+        for name, val in extra.items():
+            kw[name] = fill(val, integer=name in INT_FIELDS)
+        return st.replace(**kw)
 
 
 def allocate_slots(alive, want):

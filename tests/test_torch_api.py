@@ -41,6 +41,7 @@ from icebergs_tpu_torch import calving as tcalving
 from icebergs_tpu_torch import diag as tdiag
 from icebergs_tpu_torch import ids as tids
 from icebergs_tpu_torch import timeutils
+from icebergs_tpu_torch import trace
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -337,7 +338,7 @@ def test_checksums_match_jax_bit_for_bit():
 
 def test_report_budget_and_clocks(capsys):
     """report_budget's closure error against the JAX function's on the
-    same stocks; PhaseClocks counts and prints its phases."""
+    same stocks; the tracer's clock table counts and prints its phases."""
     cfg, grid, frc, st, calving, hflx = _world("fl_bits")
     jm = japi.IcebergsModel(grid, cfg)
     js0 = jm.init_state(st)
@@ -358,16 +359,17 @@ def test_report_budget_and_clocks(capsys):
     jerr = jdiag.report_budget("one step", *jb, cfg.dt, **kw)
     assert "budget [one step]" in capsys.readouterr().out
     assert abs(terr - jerr) <= 1e-5 * float(tb[1].mass)
-    clocks = tdiag.PhaseClocks()
+    clocks = trace.Tracer()
     for _ in range(3):
-        with clocks("calving"):
+        with clocks.span("calving"):
             pass
-    with clocks("thermo", sync_fn=lambda: tb[1].mass):
+    with clocks.span("thermo"):
         pass
-    assert clocks._n == {"calving": 3, "thermo": 1}
+    assert {n: t["calls"] for n, t in clocks.totals().items()} == {
+        "calving": 3, "thermo": 1}
     clocks.report("run")
     out = capsys.readouterr().out
-    assert "calving" in out and "thermo" in out
+    assert "calving" in out and "thermo" in out and "device ms" in out
 
 
 def test_check_state_ids_and_dates():

@@ -1177,6 +1177,42 @@ def test_coupled_run_on_card_matches_cpu(dev, style):
                                    atol=2e-5 * np.abs(b).max())
 
 
+def test_tracer_device_clock_without_sync(dev, monkeypatch):
+    """``trace.configure(device=True)``: every span of three
+    ``IcebergsModel.run`` steps gets its device ms from CUDA events, read
+    as they complete or at ``report``, and no ``torch.cuda.synchronize``
+    runs during the steps."""
+    from icebergs_tpu_torch import trace
+    cfg, grid, frc, st, _ = _world(dev, n=5000, nx=32)
+    m = ibp.IcebergsModel(grid, cfg, device=dev)
+    s, _ = m.run(m.init_state(st, seed=4), frc)   # loads the kernels
+    torch.cuda.synchronize()
+    syncs, real = [], torch.cuda.synchronize
+
+    def counted(*a, **k):
+        syncs.append(1)
+        return real(*a, **k)
+    prev = trace.configure(device=True)
+    try:
+        trace.reset()
+        monkeypatch.setattr(torch.cuda, "synchronize", counted)
+        for _ in range(3):
+            s, _ = m.run(s, frc)
+        assert not syncs
+        monkeypatch.undo()
+        trace.report("card")
+        recs = trace.records()
+    finally:
+        trace.configure(**prev)
+    runs = [r for r in recs if r.name == "kid.run"]
+    assert len(runs) == 3 and all(r.device_ms > 0 for r in runs)
+    assert all(r.device_ms is not None for r in recs)
+    assert {r.name for r in recs} >= {"kid.calving", "kid.contacts",
+                                      "kid.evolve", "kid.spread"}
+    tot = trace.totals()["kid.evolve"]
+    assert tot["device_calls"] == tot["calls"] == 3
+
+
 # --------------------------------------------------------------------------
 # the MTS scan substep path (ROADMAP item 16)
 # --------------------------------------------------------------------------
