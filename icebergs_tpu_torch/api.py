@@ -29,7 +29,8 @@ candidate tables (K7), the scan substeps; its diagnostics come back in
 ``RunOutputs.mts``.  :meth:`IcebergsModel.save_restart` writes the
 restart triplet and :meth:`IcebergsModel.end` the trajectories
 (:mod:`.io`).  A step makes no host sync but the MTS force-convergence
-reads (one a Part-1 iteration).
+reads (one a Part-1 iteration).  On a CUDA device :meth:`IcebergsModel.run`
+replays the step from CUDA graphs where it can (:mod:`.graphs`).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from .footloose import (adjust_fl_berg_interactivity,
                         delete_fully_fl_calved, footloose_calving,
                         id_hash_uniforms)
 from .forcing import Forcing
+from .graphs import StepGraphs
 from .grid import Grid
 from .model import run_sequence
 from .mts import MtsDiags, evolve_icebergs_mts
@@ -414,6 +416,7 @@ class IcebergsModel:
             self._nbr_radius = _forces.neighbor_radius(self.grid, cfg)
             self._tables = class_grids(self.grid, cfg)
             self._cell_table = cell_tables(self.grid)
+        self._graphs = StepGraphs(self)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -439,20 +442,29 @@ class IcebergsModel:
         """One coupling step; returns ``(state, RunOutputs)``.
         ``calving`` (kg/s per cell) and ``calving_hflx`` (W/m2) are
         halo-padded center fields, zeros when not given.  The step is the
-        span ``kid.run``, its phases the spans inside it (:mod:`.trace`)."""
+        span ``kid.run``, its phases the spans inside it (:mod:`.trace`).
+        On a CUDA device the step replays from captured graphs where
+        nothing it reads on the host changes from step to step
+        (:mod:`.graphs`); the results are the eager step's bits."""
         with trace.span("kid.run", step=True):
-            shape = (self.grid.nx + 2, self.grid.ny + 2)
-            dt, dev = state.bergs.dtype, state.bergs.device
-            if calving is None:
-                calving = torch.zeros(shape, dtype=dt, device=dev)
-            if calving_hflx is None:
-                calving_hflx = torch.zeros(shape, dtype=dt, device=dev)
-            return run_coupling_sequence(
-                self.cfg, self.grid, state, frc, calving, calving_hflx,
-                nbr_radius=self._nbr_radius, max_per_cell=self.max_per_cell,
-                neighbor_mode=self.neighbor_mode, fused_kw=self.fused_kw,
-                tables=self._tables, cell_table=self._cell_table,
-                tidal_uniforms=tidal_uniforms, fl_uniforms=fl_uniforms)
+            return self._graphs.run(state, frc, calving, calving_hflx,
+                                    tidal_uniforms, fl_uniforms)
+
+    def _sequence(self, state, frc, calving, calving_hflx, tidal_uniforms,
+                  fl_uniforms):
+        """The eager step: what :mod:`.graphs` captures."""
+        shape = (self.grid.nx + 2, self.grid.ny + 2)
+        dt, dev = state.bergs.dtype, state.bergs.device
+        if calving is None:
+            calving = torch.zeros(shape, dtype=dt, device=dev)
+        if calving_hflx is None:
+            calving_hflx = torch.zeros(shape, dtype=dt, device=dev)
+        return run_coupling_sequence(
+            self.cfg, self.grid, state, frc, calving, calving_hflx,
+            nbr_radius=self._nbr_radius, max_per_cell=self.max_per_cell,
+            neighbor_mode=self.neighbor_mode, fused_kw=self.fused_kw,
+            tables=self._tables, cell_table=self._cell_table,
+            tidal_uniforms=tidal_uniforms, fl_uniforms=fl_uniforms)
 
     # -- coupler queries ---------------------------------------------------
 

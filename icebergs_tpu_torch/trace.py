@@ -88,6 +88,8 @@ class _Span:
         stack = tr._stack
         self.parent = stack[-1] if stack else None
         stack.append(self.name)
+        if tr.on_open is not None:
+            tr.on_open(self.name, self.parent)
         self.profiled = _profiler._is_profiler_enabled
         self.rf = _RecordFunctionFast(self.name)
         self.rf.__enter__()
@@ -123,6 +125,9 @@ class Tracer:
         self._pending = collections.deque()  # (record, events) to read
         self._pool = []             # free CUDA event pairs
         self._noop = contextlib.nullcontext()
+        # called as ``on_open(name, parent)`` when a span opens (the step's
+        # graphs cut their capture there: :mod:`.graphs`)
+        self.on_open = None
 
     def configure(self, enabled: bool = True, device: bool = False) -> dict:
         """Turn spans on or off and the device's clock on or off (where

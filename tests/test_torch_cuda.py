@@ -6,6 +6,8 @@ and skip without a GPU.  On a machine with one:
 (the conftest configures jax, which such a machine need not have).
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -1177,15 +1179,98 @@ def test_coupled_run_on_card_matches_cpu(dev, style):
                                    atol=2e-5 * np.abs(b).max())
 
 
+def _tripolar_world(dev):
+    """The benchmark's coupled world (``om4_coupled``) at the small size of
+    its CPU tests, with a discharge that spawns bergs every step: a
+    tripolar grid, contacts near the coast, spawns, melt, spreading."""
+    from benchmark import harness
+    from benchmark.worlds import tripolar_coupled
+    conf = harness.merge(
+        harness.load_json(harness.BENCH / "configs" / "om4_coupled.json"),
+        {"grid": {"nx": 360, "ny": 240, "seed_north_of": -68.0},
+         "bergs": {"n": 12000, "capacity": 16384},
+         "calving": {"discharge_kg_per_year": 1e17}})
+    return tripolar_coupled.build(ibp, conf, 2**31 + 11, dev)
+
+
+def _leaves(tree):
+    from icebergs_tpu_torch import graphs
+    out = []
+    spec = graphs.flatten(tree, out)
+    return spec, out
+
+
+def _bits(t):
+    return t.reshape(-1).contiguous().view(torch.uint8)
+
+
+@pytest.mark.parametrize("footloose", [False, True],
+                         ids=["graphed", "footloose"])
+def test_graphed_run_is_the_eager_run_bitwise(dev, footloose):
+    """Two 8-step episodes of ``IcebergsModel.run`` from the same first
+    state on the benchmark's tripolar world, graphed (the first step
+    eager, the second captured, the rest replayed) against the eager step:
+    every state field and every output bitwise the same after every step,
+    and each step's returns unchanged by the next step.  A footloose
+    config stays eager (its uniforms hash seed and step on the host) and
+    gives the eager bits too."""
+    from icebergs_tpu_torch import trace
+    w = _tripolar_world(dev)
+    cfg = w.cfg
+    if footloose:
+        cfg = cfg.replace(footloose=True, fl_style="new_bergs",
+                          fl_youngs=1.e8)
+    graphed = ibp.IcebergsModel(w.grid, cfg, device=dev)
+    eager = ibp.IcebergsModel(w.grid, cfg, device=dev)
+    eager._graphs = types.SimpleNamespace(run=eager._sequence)
+
+    def start(m):
+        s = m.init_state(w.bergs, seed=5)
+        return s.replace(calving=s.calving.replace(stored_ice=w.stored))
+    prev = trace.configure()
+    trace.reset()
+    spawned = 0
+    try:
+        for _ in range(2):
+            sg, se, held = start(graphed), start(eager), None
+            for _ in range(8):
+                sg, og = graphed.run(sg, w.frc, w.calving)
+                se, oe = eager.run(se, w.frc, w.calving)
+                spec_g, lg = _leaves((sg, og))
+                spec_e, le = _leaves((se, oe))
+                assert len(lg) == len(le)
+                assert sg.step == se.step and sg.seed == se.seed
+                for a, b in zip(lg, le):
+                    assert a.dtype == b.dtype and a.shape == b.shape
+                    assert torch.equal(_bits(a), _bits(b))
+                if held is not None:
+                    assert all(torch.equal(_bits(a), b) for a, b in held)
+                held = [(t, _bits(t).clone()) for t in lg]
+                spawned += int(og.nbergs_calved)
+        tot = trace.totals()
+    finally:
+        trace.configure(**prev)
+    assert spawned > 0
+    if footloose:
+        assert "kid.capture" not in tot and "kid.replay" not in tot
+    else:
+        assert tot["kid.capture"]["calls"] == 1
+        assert tot["kid.replay"]["calls"] == 14
+        # each of the 32 steps, and the capture
+        assert tot["kid.evolve"]["calls"] == 2 * 16 + 1
+
+
 def test_tracer_device_clock_without_sync(dev, monkeypatch):
     """``trace.configure(device=True)``: every span of three
     ``IcebergsModel.run`` steps gets its device ms from CUDA events, read
     as they complete or at ``report``, and no ``torch.cuda.synchronize``
-    runs during the steps."""
+    runs during the steps (replays of the step's graphs, captured before
+    the device's clock is on: a capture queries no event)."""
     from icebergs_tpu_torch import trace
     cfg, grid, frc, st, _ = _world(dev, n=5000, nx=32)
     m = ibp.IcebergsModel(grid, cfg, device=dev)
     s, _ = m.run(m.init_state(st, seed=4), frc)   # loads the kernels
+    s, _ = m.run(s, frc)                          # captures the graphs
     torch.cuda.synchronize()
     syncs, real = [], torch.cuda.synchronize
 
