@@ -23,7 +23,6 @@ if __name__ == "__main__":
     sys.path[0] = str(pathlib.Path(__file__).resolve().parent.parent)
 
 from benchmark import harness, reference  # noqa: E402
-from benchmark.reference import compare  # noqa: E402
 
 
 def program_answer(cell, conf, seed, device):
@@ -61,7 +60,7 @@ def readings(cell, seed, device, overrides=None, control=True):
     ref = reference.run(entry, cell.world, conf, seed, device, steps,
                         judged=prog)
     t2 = time.perf_counter()
-    nums, worst = compare.numbers(prog, ref)
+    nums, worst = reference.numbers(entry, prog, ref)
     out = dict(seed=seed, program=nums, program_worst=worst,
                program_s=t1 - t0, reference_s=t2 - t1)
     if control:
@@ -69,7 +68,8 @@ def readings(cell, seed, device, overrides=None, control=True):
                             lower=True)["own"]
         ref = reference.run(entry, cell.world, conf, seed, device, steps,
                             judged=low)
-        out["control"], out["control_worst"] = compare.numbers(low, ref)
+        nums, worst = reference.numbers(entry, low, ref)
+        out.update(control=nums, control_worst=worst)
     return out
 
 

@@ -165,7 +165,6 @@ def run_cell(cell, seed, seconds, trace, device, t0, overrides=None,
     import torch
 
     from . import profiled, reference
-    from .reference import compare
 
     program = importlib.import_module(PROGRAM)
     conf = merge(cell.config, overrides)
@@ -203,9 +202,10 @@ def run_cell(cell, seed, seconds, trace, device, t0, overrides=None,
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    ref = reference.run(cell.traffic["entry"], cell.world, conf, seed, device,
-                        steps, judged=prog)
-    nums, worst = compare.numbers(prog, ref)
+    entry = cell.traffic["entry"]
+    ref = reference.run(entry, cell.world, conf, seed, device, steps,
+                        judged=prog)
+    nums, worst = reference.numbers(entry, prog, ref)
     missing = set(cell.limits) ^ set(nums)
     if missing:
         raise SystemExit(f"{cell.name}: numbers and limits differ: "
@@ -214,9 +214,10 @@ def run_cell(cell, seed, seconds, trace, device, t0, overrides=None,
 
     # what the metric readers read: the window's steps, their times and
     # the program's counters; the traced stretch; the configuration and
-    # the contacts of the reference's episode, a step
+    # what the entry's reference hands them (``readers``, which it may
+    # leave out)
     ctx = types.SimpleNamespace(trace=traced, counters=counters, conf=conf,
-                                contacts=ref["contacts"], **rec)
+                                **ref.get("readers", {}), **rec)
     wanted = cell.per_layer if trace else cell.end_to_end
     metrics = {}
     for m in wanted:

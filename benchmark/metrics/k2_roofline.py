@@ -11,12 +11,13 @@ KERNEL = "extract_sorted_kernel"
 
 def read(ctx):
     us = readings.kernel_calls_us(ctx, KERNEL)
-    if not us or len(ctx.contacts) < len(us):
+    contacts = getattr(ctx, "contacts", ())
+    if not us or len(contacts) < len(us):
         return None
     n = ctx.conf["bergs"]["capacity"]
     ncells = ctx.conf["grid"]["nx"] * ctx.conf["grid"]["ny"]
     shares = []
-    for d, c in zip(us, ctx.contacts):
+    for d, c in zip(us, contacts):
         ms, _ = roofline.bound_ms(*roofline.k2_work(
             n, ncells, -(-n // roofline.K2_BLOCK_ROWS), c["partners"],
             c["engaged"], latlon=True))

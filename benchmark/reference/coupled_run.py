@@ -22,11 +22,15 @@ order (Martin and Adcroft 2010; Stern et al. 2017 for the contacts):
 6. the mass, area and momentum spread over each berg's 3 x 3 cells; the
    coupler's fields and the budgets.
 
+With ``interactive_icebergs_on`` off (KID's default) step 3 has no
+pairs: no search is made and every contact term is a sum over none.
+
 It covers the configuration the benchmark runs (a lat-lon grid whose
 bergs stay in the rows below the tripolar cap; no sea ice, a flat sea
 surface; no bergy bits, rolling, footloose or grounding) and refuses any
 other.  ``lower=True`` stores every float of the berg state but the
-positions in bfloat16 after each step: the lower-precision control.
+positions in bfloat16 after each step: the lower-precision control.  The
+comparison that decides ``correct`` is ``compare.numbers``.
 """
 
 import math
@@ -35,6 +39,7 @@ import types
 import torch
 
 from ..entries.answers import ROW_FIELDS
+from .compare import numbers  # noqa: F401  (this entry's comparison)
 
 # KID's constants (src/icebergs.F90:68-80)
 RHO_SW, RHO_AIR, GRAVITY = 1025., 1.1, 9.8
@@ -48,9 +53,11 @@ F64 = torch.float64
 # the configuration this reference covers: each key, the value it needs
 COVERS = dict(grid_is_latlon=True, use_f_plane=False, grid_is_regular=False,
               Runge_not_Verlet=False, use_new_predictive_corrective=True,
-              interactive_icebergs_on=True, allow_bergs_to_roll=False,
-              footloose=False, mts=False, old_bug_bilin=True, LoW_ratio=1.5)
-DEFAULTS = dict(rho_bergs=850., Rearth=6360000., spring_coef=1e-8,
+              allow_bergs_to_roll=False, footloose=False, mts=False,
+              old_bug_bilin=True, LoW_ratio=1.5)
+# KID's defaults of the settings it reads (contacts: off)
+DEFAULTS = dict(interactive_icebergs_on=False, rho_bergs=850.,
+                Rearth=6360000., spring_coef=1e-8,
                 contact_distance=0., contact_spring_coef=0.,
                 bergy_bit_erosion_fraction=0., tidal_drift=0.,
                 coastal_drift=0., cdrag_grounding=0., speed_limit=0.,
@@ -210,6 +217,16 @@ def pair_geometry(grid, b, s):
                          ).index_add_(0, a, spring * ry / r),
         P11=rx * rx / (r * r), P12=rx * ry / (r * r), P22=ry * ry / (r * r),
         crad=radial * mm, ctan=radial / 4. * mm)
+
+
+def no_pairs(b):
+    """The pair terms with no pairs (contacts off)."""
+    n, dev = b.lon.shape[0], b.lon.device
+    e = torch.zeros(0, dtype=F64, device=dev)
+    ei = torch.zeros(0, dtype=torch.long, device=dev)
+    z = torch.zeros(n, dtype=F64, device=dev)
+    return types.SimpleNamespace(a=ei, b=ei, n=n, IA_x=z, IA_y=z.clone(),
+                                 P11=e, P12=e, P22=e, crad=e, ctan=e)
 
 
 def separation(b, a, c, s):
@@ -469,7 +486,8 @@ class Model:
         if b.lon.shape[0] > self.capacity:
             raise ValueError("more bergs than slots")
         environment(g, frc, b)
-        pg = pair_geometry(g, b, s)
+        pg = (pair_geometry(g, b, s) if s.interactive_icebergs_on
+              else no_pairs(b))
         ax, ay, axn, ayn, bxn, byn = accel(b, pg, s, dt)
         u = (b.uvel + dt / 2. * b.axn) + dt * ax
         v = (b.vvel + dt / 2. * b.ayn) + dt * ay
@@ -569,8 +587,9 @@ def _key(id_ij, id_cnt):
 
 def run(x, conf, world, steps, device, lower=False, judged=None):
     """The reference's episode of ``steps`` coupling steps from the
-    inputs ``x``: its counts a step, its last budgets and its contacts a
-    step (and, with ``lower``, its own answer, as a judged side's); and,
+    inputs ``x``: its counts a step, its last budgets and, for the
+    metric readers, its contacts a step where contacts are on (and, with
+    ``lower``, its own answer, as a judged side's); and,
     given the ``judged`` side's answer, the reference's step from the
     state that side's last step started from (``step``, and that state
     as ``step0``)."""
@@ -582,9 +601,12 @@ def run(x, conf, world, steps, device, lower=False, judged=None):
         out, c, last, pg = model.step(lower=lower)
         for name, v in c.items():
             counts.setdefault(name, []).append(v)
-        contacts.append(dict(engaged=int(pg.a.numel()),
-                             partners=int(torch.unique(pg.b).numel())))
-    ans = dict(counts=counts, budgets=model.budgets(), contacts=contacts)
+        if model.s.interactive_icebergs_on:
+            contacts.append(dict(engaged=int(pg.a.numel()),
+                                 partners=int(torch.unique(pg.b).numel())))
+    ans = dict(counts=counts, budgets=model.budgets())
+    if model.s.interactive_icebergs_on:
+        ans["readers"] = dict(contacts=contacts)
     if lower:
         ans["own"] = dict(bergs=model.answer_bergs(), counts=counts,
                           budgets=model.budgets(), overflow=0,

@@ -6,14 +6,6 @@ import pytest
 # the checkout's root, for ``benchmark`` and the port
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
 
-# small sizes of each configuration for runs on the CPU: a coarse grid
-# and its bergs crowded into the two degrees off the coast, so that
-# contacts, spawns and bounces all happen
-TINY = {
-    "om4_coupled": {"grid": {"nx": 360, "ny": 240, "seed_north_of": -68.0},
-                    "bergs": {"n": 12000, "capacity": 16384}},
-}
-
 
 @pytest.fixture
 def cuda():

@@ -51,13 +51,19 @@ def test_keys_and_forms():
 
 @pytest.mark.parametrize("w", SPEC["workloads"], ids=lambda w: w["name"])
 def test_cell_resolves(w):
-    """Each cell finds its configuration, traffic, limits, entry, world,
-    reference and a reader for every metric it reports; each per-layer
-    metric moves an end-to-end metric its cells report."""
-    from benchmark import harness
+    """Each cell finds its configuration, traffic, limits, entry, world
+    (with its small sizes for the CPU), reference (with its comparison)
+    and a reader for every metric it reports; each per-layer metric moves
+    an end-to-end metric its cells report."""
+    from benchmark import harness, reference
     cell = harness.Cell(w["name"], root=ROOT)
-    assert (BENCH / "entries" / f"{cell.traffic['entry']}.py").exists()
+    entry = cell.traffic["entry"]
+    assert (BENCH / "entries" / f"{entry}.py").exists()
     assert (BENCH / "worlds" / f"{cell.config['world']}.py").exists()
+    assert isinstance(cell.world.TINY, dict)
+    assert isinstance(cell.world.VARIANTS, dict) and cell.world.VARIANTS
+    ref = reference.module(entry)
+    assert callable(ref.run) and callable(ref.numbers)
     e2e = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2 and cell.per_layer
     for m in cell.end_to_end + cell.per_layer:
@@ -66,6 +72,28 @@ def test_cell_resolves(w):
     for m in SPEC["per_layer"]:
         if w["name"] in m.get("workloads", ()):
             assert m["moves"] in e2e, m["name"]
+
+
+def _leaves(d, at=()):
+    for k, v in d.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, at + (k,))
+        else:
+            yield at + (k,), v
+
+
+@pytest.mark.parametrize("w", SPEC["workloads"], ids=lambda w: w["name"])
+def test_small_size_keeps_the_configuration(w):
+    """The CPU tests' small sizes change only what they set: every other
+    setting of the configuration (such as contacts off) stays."""
+    from benchmark import harness
+    cell = harness.Cell(w["name"], root=ROOT)
+    for v in cell.world.VARIANTS.values():
+        small = harness.merge(cell.world.TINY, v)
+        sets = dict(_leaves(small))
+        got = dict(_leaves(harness.merge(cell.config, small)))
+        for k, val in _leaves(cell.config):
+            assert got[k] == sets.get(k, val), k
 
 
 def test_config_files():

@@ -1,8 +1,9 @@
-"""Each cell run on the CPU at a small size through the harness (its look
+"""Each cell run on the CPU at the small size its world gives
+(``TINY``, and each of its ``VARIANTS``) through the harness (its look
 for a card skipped): a contract line with ``correct`` true; the same run
 with the timed path broken underneath, and the lower-precision control,
-with ``correct`` false; no JAX and, in the reference, nothing of the
-port loaded.  On a card, one short run of ``run.py``."""
+with ``correct`` false; for each entry, no JAX and, in the reference,
+nothing of the port loaded.  On a card, one short run of ``run.py``."""
 
 import json
 import pathlib
@@ -19,29 +20,34 @@ ROOT = pathlib.Path(__file__).resolve().parents[2]
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in SPEC["workloads"]]
 CPU = torch.device("cpu")
+FOUND = {name: harness.Cell(name, root=ROOT) for name in CELLS}
+# each cell with each variant of its world's small size
+VARIANTS = [(name, v) for name, cell in FOUND.items()
+            for v in cell.world.VARIANTS]
+# the first cell of each entry
+ENTRIES = {}
+for name, cell in FOUND.items():
+    ENTRIES.setdefault(cell.traffic["entry"], name)
 
 
-SPEC_CONFIG = {w["name"]: w["config"] for w in SPEC["workloads"]}
-# a discharge that spawns a few bergs every step at the small size
-HEAVY = {"calving": {"discharge_kg_per_year": 1e17}}
-
-
-def small(name, steps=2):
-    from conftest import TINY
+def small(name, steps=2, variant=None):
+    """The cell with short episodes, and its world's small size (with
+    ``variant`` written over it)."""
     cell = harness.Cell(name, root=ROOT)
     cell.traffic = dict(cell.traffic, episode_steps=steps, trace_steps=1)
-    return cell, TINY[SPEC_CONFIG[name]]
+    tiny = cell.world.TINY
+    if variant is not None:
+        tiny = harness.merge(tiny, cell.world.VARIANTS[variant])
+    return cell, tiny
 
 
-@pytest.mark.parametrize("calving", ("observed", "heavy"))
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name,calving", VARIANTS,
+                         ids=["-".join(v) for v in VARIANTS])
 def test_cpu_run_prints_a_correct_line(name, calving):
-    """A small run through the harness is correct, with the observed
-    discharge and with one that spawns bergs every step (the spawns'
-    ids, places and sizes then compared too)."""
-    cell, tiny = small(name, steps=3)
-    if calving == "heavy":
-        tiny = harness.merge(tiny, HEAVY)
+    """A small run through the harness is correct under each variant of
+    the world's small size (such as a discharge that spawns bergs every
+    step, the spawns' ids, places and sizes then compared too)."""
+    cell, tiny = small(name, steps=3, variant=calving)
     line, _ = harness.run_cell(cell, 2**31 + 11, 0.1, 0, CPU,
                                time.perf_counter(), overrides=tiny)
     text = json.dumps(line, allow_nan=False)
@@ -73,20 +79,19 @@ def test_lower_precision_control_is_not_correct(name):
     assert any(v > cell.limits[k] for k, v in r["control"].items())
 
 
-def test_no_jax_and_a_reference_free_of_the_port():
-    """A whole small run in a fresh process: no JAX module once the
-    window has closed; the reference's episode alone loads nothing of
-    the port."""
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_no_jax_and_a_reference_free_of_the_port(entry):
+    """A whole small run of a cell of the entry in a fresh process: no
+    JAX module once the window has closed; the entry's reference's
+    episode alone loads nothing of the port."""
     code = f"""
 import sys, time
 sys.path.insert(0, {str(ROOT)!r})
-sys.path.insert(0, {str(ROOT / "benchmark" / "tests")!r})
 import torch
-from conftest import TINY
 from benchmark import harness, reference
-cell = harness.Cell({CELLS[0]!r})
+cell = harness.Cell({ENTRIES[entry]!r})
 cell.traffic = dict(cell.traffic, episode_steps=1)
-small = TINY[{SPEC_CONFIG[CELLS[0]]!r}]
+small = cell.world.TINY
 conf = harness.merge(cell.config, small)
 reference.run(cell.traffic["entry"], cell.world, conf, 3,
               torch.device("cpu"), 1)

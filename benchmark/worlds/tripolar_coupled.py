@@ -1,4 +1,4 @@
-"""The coupled world on a tripolar grid (configuration ``om4_coupled``).
+"""The coupled world on a tripolar grid.
 
 The benchmark plays the ocean model and the coupler: it makes every
 input of the coupled step itself, from the configuration and the seed,
@@ -49,6 +49,16 @@ CLASS_THICKNESS = (40., 67., 133., 175., 250., 250., 250., 250., 250.,
 LOW_RATIO = 1.5                       # length over width of a new berg
 REARTH = 6360000.0
 SECONDS_PER_YEAR = 365. * 86400.
+
+# the small size for runs on the CPU, written over a configuration: a
+# coarse grid and its bergs crowded into the two degrees off the coast,
+# so that spawns, bounces and, where they are on, contacts all happen
+TINY = {"grid": {"nx": 360, "ny": 240, "seed_north_of": -68.0},
+        "bergs": {"n": 12000, "capacity": 16384}}
+# the CPU runs' variants of the small size: the configuration's
+# discharge, and one that spawns a few bergs every step
+VARIANTS = {"observed": {},
+            "heavy": {"calving": {"discharge_kg_per_year": 1e17}}}
 
 
 def class_dims(rho):
